@@ -1,0 +1,723 @@
+"""Continuous-batching serving engine over the paged-KV cache, in PyTorch.
+
+Port of paddle_tpu/inference/serving.py (the core of its engine): N
+concurrent requests share one decoder; each engine step packs a mixed
+batch of prefill chunks and decode tokens, attends against paged KV blocks
+addressed by per-request block tables, and requests join and leave the
+batch at any step. The host side (``ServingEngine``) is a scheduler: page
+allocator, request queue, chunked prefill and preemption. Sampling runs on
+the device under schedule-independent salts, so paged generations equal
+the dense reference path token for token. Padding tokens go to a reserved
+trash page, so a step's fixed token budget never touches live pages.
+
+On a CUDA device the step runs through the port's hand-written kernels:
+RMSNorm 2L + 1 times a step and, on fresh-prefill steps, the varlen
+flash-attention forward once per layer.
+
+Not ported yet (ROADMAP.md): the prefix cache, speculative decoding,
+weight streaming and publishing, chaos fault sites, metrics and tracing,
+disk artifacts, the backend handle and the int8 KV cache.
+"""
+from __future__ import annotations
+
+import copy
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..incubate.nn import functional as IF
+from ..nn import Embedding, Linear, RMSNorm
+from ..ops.kernels import resolve_device
+
+__all__ = ["PagedServingConfig", "PagedCausalLM", "ServingEngine",
+           "SamplingParams", "sampling_salt", "sample_logits",
+           "EngineOverloadedError"]
+
+
+class EngineOverloadedError(RuntimeError):
+    """Admission rejected: the engine already holds cfg.max_queue live
+    requests; the front-end should shed or retry elsewhere."""
+
+
+class PagedServingConfig:
+    """Engine and model dims for the paged-KV serving path
+    (serving.py:126-204). ``cache_quant="int8"`` is not ported yet."""
+
+    def __init__(self, vocab_size=256, hidden_size=64, num_layers=2,
+                 num_heads=4, ffn_size=128, block_size=16, num_blocks=64,
+                 max_batch=4, max_blocks_per_seq=8, token_budget=64,
+                 num_kv_heads=None, dtype="float32", cache_quant=None,
+                 max_queue=None):
+        if dtype not in ("float32", "bfloat16"):
+            raise ValueError("dtype must be 'float32' or 'bfloat16'")
+        if cache_quant is not None:
+            raise NotImplementedError(
+                "cache_quant='int8' is not ported yet (ROADMAP.md)")
+        self.vocab_size = vocab_size
+        self.hidden_size = hidden_size
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.num_kv_heads = num_kv_heads or num_heads
+        self.head_dim = hidden_size // num_heads
+        self.ffn_size = ffn_size
+        self.block_size = block_size
+        self.num_blocks = num_blocks          # page pool (page 0 = trash)
+        self.max_batch = max_batch
+        self.max_blocks_per_seq = max_blocks_per_seq
+        self.token_budget = token_budget
+        self.dtype = dtype
+        self.cache_quant = cache_quant
+        # load shedding: admission raises EngineOverloadedError once this
+        # many requests are live; None admits everything
+        self.max_queue = max_queue
+        self.max_seq = max_blocks_per_seq * block_size
+
+    @property
+    def torch_dtype(self):
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    @classmethod
+    def llama_1b(cls, **over):
+        """Flagship serving dims: the ~0.9B llama (hidden 2048, 16 layers),
+        GQA 16q/8kv, bf16 cache."""
+        base = dict(vocab_size=32000, hidden_size=2048, num_layers=16,
+                    num_heads=16, num_kv_heads=8, ffn_size=5632,
+                    block_size=32, num_blocks=64, max_batch=8,
+                    max_blocks_per_seq=6, token_budget=256,
+                    dtype="bfloat16")
+        base.update(over)
+        return cls(**base)
+
+
+class SamplingParams:
+    """Per-request decode sampling. temperature<=0 means greedy (argmax);
+    top_k<=0 and top_p>=1 disable those filters."""
+
+    def __init__(self, temperature=0.0, top_k=0, top_p=1.0):
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+
+
+GREEDY = SamplingParams()
+
+
+def sampling_salt(seed, rid, n_generated):
+    """Schedule-independent salt for one sampled token: depends only on
+    (engine seed, request id, index of the token being sampled), so
+    chunked prefill, preemption, batch order and the dense reference path
+    all draw the same noise."""
+    return (seed * 1000003 + rid * 65537 + n_generated) & 0x7FFFFFFF
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x, c):
+    """(x * c) mod 2**32 for int64 x in [0, 2**32) without int64 overflow."""
+    lo = x * (c & 0xFFFF)
+    hi = ((x * (c >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _M32
+
+
+def _gumbel(salts, tokens):
+    """Gumbel noise as a pure function of (salt, token id): the lowbias32
+    mixer of ops/pallas/flash_attention.py:80-92 in int64 masked to 32
+    bits, turned into a uniform in (0, 1) from 23 of them (exact in f32),
+    then -log(-log(u)). The same bits on the CPU and the card. ``salts`` and
+    ``tokens`` broadcast against each other."""
+    h = (_mul32(tokens.long() & _M32, 0x9E3779B1)
+         + _mul32(salts.long() & _M32, 0x85EBCA77)) & _M32
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x7FEB352D)
+    h = h ^ (h >> 15)
+    h = _mul32(h, 0x846CA68B)
+    h = h ^ (h >> 16)
+    u = ((h >> 9).float() + 0.5) * (2.0 ** -23)
+    return -torch.log(-torch.log(u))
+
+
+def _sample_core(logits, temps, topks, topps, salts):
+    """Batched sampling: greedy where temp<=0, else gumbel-argmax over the
+    temperature-scaled logits restricted to the top-k/top-p support. The
+    noise is indexed by TOKEN ID (not sorted rank), so near-tie order
+    differences between two close logit sources cannot change the draw."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    dev = logits.device
+    greedy = logits.argmax(dim=-1)
+    lt = logits / temps.float().clamp_min(1e-6)[:, None]
+    sl, order = torch.sort(lt, dim=-1, descending=True, stable=True)
+    ranks = torch.arange(V, device=dev)[None, :]
+    k = topks.long()[:, None]
+    keep = torch.where(k > 0, ranks < k, torch.ones_like(ranks, dtype=bool))
+    pr = torch.softmax(sl.masked_fill(~keep, float("-inf")), dim=-1)
+    keep = keep & ((pr.cumsum(dim=-1) - pr) < topps.float()[:, None])
+    keep_tok = torch.zeros_like(keep).scatter(1, order, keep)
+    g = _gumbel(salts[:, None], torch.arange(V, device=dev)[None, :])
+    sampled = (lt.masked_fill(~keep_tok, float("-inf")) + g).argmax(dim=-1)
+    return torch.where(temps <= 0, greedy, sampled).to(torch.int32)
+
+
+_TOPK_FAST_C = 128
+
+
+def _sample_topk_core(logits, temps, topks, topps, salts):
+    """Sampler for rows with 0 < top_k <= _TOPK_FAST_C: top-C candidates
+    replace the full-vocab sort. Exact against ``_sample_core``: top-p
+    applies inside the top-k support and the noise is keyed by token id,
+    so the winner is the same token."""
+    logits = logits.float()
+    V = logits.shape[-1]
+    C = min(_TOPK_FAST_C, V)
+    greedy = logits.argmax(dim=-1)
+    lt = logits / temps.float().clamp_min(1e-6)[:, None]
+    vals, idx = torch.topk(lt, C, dim=-1)
+    keep = torch.arange(C, device=logits.device)[None, :] \
+        < topks.long()[:, None]
+    pr = torch.softmax(vals.masked_fill(~keep, float("-inf")), dim=-1)
+    keep = keep & ((pr.cumsum(dim=-1) - pr) < topps.float()[:, None])
+    g = _gumbel(salts[:, None], idx)
+    win = (vals.masked_fill(~keep, float("-inf")) + g).argmax(dim=-1)
+    sampled = idx.gather(1, win[:, None])[:, 0]
+    return torch.where(temps <= 0, greedy, sampled).to(torch.int32)
+
+
+def _topk_fast_ok(temps, topks):
+    """True when every sampling row is within the exact top-k fast path."""
+    sampling = temps > 0
+    return bool(np.all(~sampling | ((topks > 0)
+                                    & (topks <= _TOPK_FAST_C))))
+
+
+def _next_pow2(n):
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << (int(n) - 1).bit_length()
+
+
+def sample_logits(logits, sampling: SamplingParams, salt: int) -> int:
+    """Sample one token from a single logits vector with the engine's
+    sampler — the reference-path helper for parity checks."""
+    lg = torch.as_tensor(logits)
+    dev = lg.device
+    out = _sample_core(
+        lg.reshape(1, -1),
+        torch.tensor([sampling.temperature], device=dev),
+        torch.tensor([sampling.top_k], device=dev),
+        torch.tensor([sampling.top_p], device=dev),
+        torch.tensor([salt], device=dev))
+    return int(out[0])
+
+
+def _sample(logits, mode, temps, topks, topps, salts):
+    if mode == "greedy":
+        return logits.argmax(dim=-1).to(torch.int32)
+    core = _sample_topk_core if mode == "topk" else _sample_core
+    return core(logits, temps, topks, topps, salts)
+
+
+def _sample_mode(temps, topks):
+    if not np.any(temps > 0):
+        return "greedy"
+    return "topk" if _topk_fast_ok(temps, topks) else "full"
+
+
+class PagedCausalLM(nn.Module):
+    """A llama-architecture causal LM (RMSNorm -> GQA attention -> swiglu
+    MLP, untied LM head, no biases) whose serving forward runs on paged KV
+    caches through ``block_multihead_attention``. ``forward`` is the
+    engine's step; ``forward_dense`` the stateless reference path over the
+    same weights. Weights are random from ``seed`` on ``device`` (None
+    means "cuda"), in f32; ``load_paddle_tpu_params`` carries the TPU
+    package's weights in."""
+
+    def __init__(self, cfg: PagedServingConfig, device=None, seed=0):
+        super().__init__()
+        dev = resolve_device(device)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        self.cfg = cfg
+        h, f, D = cfg.hidden_size, cfg.ffn_size, cfg.head_dim
+        kvw = cfg.num_kv_heads * D
+        L = cfg.num_layers
+
+        def lin(i, o):
+            return Linear(i, o, device=dev, generator=gen)
+
+        self.embed = Embedding(cfg.vocab_size, h, device=dev, generator=gen)
+        self.ln1 = nn.ModuleList([RMSNorm(h, device=dev) for _ in range(L)])
+        self.qkv = nn.ModuleList([lin(h, h + 2 * kvw) for _ in range(L)])
+        self.proj = nn.ModuleList([lin(h, h) for _ in range(L)])
+        self.ln2 = nn.ModuleList([RMSNorm(h, device=dev) for _ in range(L)])
+        self.gate_up = nn.ModuleList([lin(h, 2 * f) for _ in range(L)])
+        self.down = nn.ModuleList([lin(f, h) for _ in range(L)])
+        self.ln_f = RMSNorm(h, device=dev)
+        self.head = lin(h, cfg.vocab_size)
+
+    def load_paddle_tpu_params(self, named):
+        """Load the TPU package's parameters: ``named`` maps its parameter
+        names (``current_params``) to numpy arrays; see
+        utils.convert.params_from_paddle_tpu."""
+        from ..utils.convert import params_from_paddle_tpu
+
+        params = params_from_paddle_tpu(named)
+        own = dict(self.named_parameters())
+        if set(params) != set(own):
+            raise KeyError(
+                f"parameter names differ: missing "
+                f"{sorted(set(own) - set(params))}, unexpected "
+                f"{sorted(set(params) - set(own))}")
+        with torch.no_grad():
+            for name, p in own.items():
+                src = params[name]
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {tuple(src.shape)} "
+                                     f"!= {tuple(p.shape)}")
+                p.copy_(src)
+        return self
+
+    def _mlp(self, li, h):
+        gu = self.gate_up[li](h)
+        half = self.cfg.ffn_size
+        return self.down[li](IF.swiglu(gu[..., :half], gu[..., half:]))
+
+    def _rope_table(self, positions):
+        """(cos, sin) [..., head_dim//2] at absolute positions, in f32."""
+        half = self.cfg.head_dim // 2
+        inv = 1.0 / (10000.0 ** (
+            torch.arange(half, dtype=torch.float32,
+                         device=positions.device) * 2.0
+            / self.cfg.head_dim))
+        ang = positions[..., None].float() * inv
+        return torch.cos(ang), torch.sin(ang)
+
+    def forward(self, tokens, seq_lens_encoder, seq_lens_decoder,
+                seq_lens_this_time, cu_seqlens_q, block_tables,
+                key_caches, value_caches, fresh_prefill=False):
+        """One engine step (serving.py:392-491).
+
+        tokens [T] packed (row b contributes seq_lens_this_time[b] tokens
+        starting at cache position seq_lens_decoder[b]; padding goes to
+        the trash row); seq_lens_* [B+1] (the last row is the padding
+        row); cu_seqlens_q [B+2]; block_tables [B+1, max_blocks];
+        key/value_caches [L, num_blocks, HKV, bs, D], updated in place.
+        fresh_prefill=True when every scheduled row starts at position 0.
+        Returns (last-token logits [B+1, V], key_caches, value_caches).
+        """
+        cfg = self.cfg
+        x = self.embed(tokens)
+        B1 = int(seq_lens_encoder.shape[0])
+        max_seq = int(block_tables.shape[1]) * cfg.block_size
+        cos, sin = self._rope_table(
+            torch.arange(max_seq, device=x.device))          # [S, D/2]
+        rope = torch.stack([cos, sin])[:, None, None] \
+            .expand(2, B1, 1, max_seq, cfg.head_dim // 2)
+        for li in range(cfg.num_layers):
+            h = self.ln1[li](x)
+            qkv = self.qkv[li](h)
+            out, _, key_caches, value_caches = \
+                IF.block_multihead_attention(
+                    qkv, key_caches, value_caches, seq_lens_encoder,
+                    seq_lens_decoder, seq_lens_this_time, cu_seqlens_q,
+                    block_tables, rope, layer_idx=li,
+                    fresh_prefill=fresh_prefill)
+            x = x + self.proj[li](out)
+            h = self.ln2[li](x)
+            x = x + self._mlp(li, h)
+        x = self.ln_f(x)
+        # last token of each row: cu_q[i+1]-1 (rows with 0 tokens this
+        # step read their previous row's last token — masked host-side)
+        idx = (cu_seqlens_q[1:].long() - 1).clamp(min=0)
+        logits = self.head(x[idx])                           # [B+1, V]
+        return logits, key_caches, value_caches
+
+    def _attn_dense(self, qkv):
+        cfg = self.cfg
+        T = qkv.shape[0]
+        HQ, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = qkv[:, :HQ * D].reshape(T, HQ, D)
+        k = qkv[:, HQ * D:(HQ + HKV) * D].reshape(T, HKV, D)
+        v = qkv[:, (HQ + HKV) * D:].reshape(T, HKV, D)
+        cos, sin = self._rope_table(torch.arange(T, device=qkv.device))
+        cos_h, sin_h = cos[:, None, :], sin[:, None, :]
+        q = IF._rope(q, cos_h, sin_h).to(q.dtype)
+        k = IF._rope(k, cos_h, sin_h).to(k.dtype)
+        if HQ != HKV:
+            k = k.repeat_interleave(HQ // HKV, dim=1)
+            v = v.repeat_interleave(HQ // HKV, dim=1)
+        logits = torch.einsum("thd,shd->ths", q.float(), k.float()) \
+            / math.sqrt(D)
+        causal = torch.arange(T, device=qkv.device)[:, None] \
+            >= torch.arange(T, device=qkv.device)[None, :]
+        logits = logits.masked_fill(~causal[:, None, :], float("-inf"))
+        probs = torch.softmax(logits, dim=-1)
+        out = torch.einsum("ths,shd->thd", probs, v.float()).to(qkv.dtype)
+        return out.reshape(T, HQ * D)
+
+    def forward_dense(self, input_ids):
+        """input_ids [1, S] -> logits [1, S, V] with standard causal GQA
+        attention; the numerical reference for the paged path."""
+        cfg = self.cfg
+        ids = input_ids.reshape(-1)
+        S = ids.shape[0]
+        x = self.embed(ids)
+        for li in range(cfg.num_layers):
+            h = self.ln1[li](x)
+            out = self._attn_dense(self.qkv[li](h))
+            x = x + self.proj[li](out)
+            h = self.ln2[li](x)
+            x = x + self._mlp(li, h)
+        x = self.ln_f(x)
+        return self.head(x).reshape(1, S, cfg.vocab_size)
+
+
+def _serving_copy(model, cfg, device):
+    """The model with floating params cast to cfg.dtype on ``device``,
+    made once and shared by every engine over the same model, dtype and
+    device (weights are snapshotted at the first call)."""
+    key = (cfg.dtype, str(device))
+    cached = getattr(model, "_serving_shared", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    model.__dict__.pop("_serving_shared", None)
+    served = copy.deepcopy(model).to(device=device, dtype=cfg.torch_dtype)
+    served.eval()
+    model.__dict__["_serving_shared"] = (key, served)
+    return served
+
+
+class _Request:
+    __slots__ = ("rid", "prompt", "generated", "max_new", "pages",
+                 "cached", "done", "sampling", "eos_token_id")
+
+    def __init__(self, rid, prompt, max_new, sampling, eos_token_id):
+        self.rid = rid
+        self.prompt = list(int(t) for t in prompt)
+        self.generated = []
+        self.max_new = max_new
+        self.pages = []
+        self.cached = 0        # tokens whose KV currently lives in pages
+        self.done = False
+        self.sampling = sampling or GREEDY
+        self.eos_token_id = eos_token_id
+
+    @property
+    def length(self):
+        return len(self.prompt) + len(self.generated)
+
+
+class ServingEngine:
+    """Continuous-batching scheduler over a PagedCausalLM step.
+
+    engine = ServingEngine.from_model(model, cfg, device="cuda")
+    rid = engine.add_request([tokens...], max_new_tokens=8,
+                             sampling=SamplingParams(temperature=0.8,
+                                                     top_k=50, top_p=0.9))
+    engine.step()                # one mixed prefill/decode batch step
+    engine.decode_run(16)        # 16 decode steps, ONE host sync
+    engine.run_to_completion() -> {rid: [generated tokens]}
+    """
+
+    def __init__(self, cfg: PagedServingConfig, device=None, seed=0):
+        self.cfg = cfg
+        self.seed = seed
+        self.device = resolve_device(device)
+        self._model = None          # set by from_model
+        self._cache_dt = cfg.torch_dtype
+        shape = (cfg.num_layers, cfg.num_blocks, cfg.num_kv_heads,
+                 cfg.block_size, cfg.head_dim)
+        self._kc = torch.zeros(shape, dtype=self._cache_dt,
+                               device=self.device)
+        self._vc = torch.zeros(shape, dtype=self._cache_dt,
+                               device=self.device)
+        # page 0 is the trash page for padding tokens
+        self._free_pages = list(range(1, cfg.num_blocks))
+        self._requests = {}
+        self._next_rid = 0
+        # logits [B+1, V] of the last step() (for parity checks)
+        self.last_logits = None
+
+    @classmethod
+    def from_model(cls, model: PagedCausalLM, cfg: PagedServingConfig,
+                   seed=0, device=None):
+        """An engine over a live model, with floating params cast to
+        cfg.dtype on ``device`` (None means "cuda"); engines over one
+        model share the cast copy. Fresh-prefill steps take the varlen
+        flash-attention route."""
+        eng = cls(cfg, device=device, seed=seed)
+        eng._model = _serving_copy(model, cfg, eng.device)
+        return eng
+
+    # -- scheduling ------------------------------------------------------
+    def add_request(self, prompt_tokens, max_new_tokens=8, sampling=None,
+                    eos_token_id=None):
+        """Admit one request. Raises EngineOverloadedError when
+        cfg.max_queue live requests already exist."""
+        if len(prompt_tokens) == 0:
+            raise ValueError("prompt must contain at least one token "
+                             "(an empty row would read another request's "
+                             "logits)")
+        if len(prompt_tokens) + max_new_tokens > self.cfg.max_seq:
+            raise ValueError("prompt + max_new_tokens exceeds max_seq")
+        if self.cfg.max_queue is not None \
+                and len(self.pending()) >= self.cfg.max_queue:
+            raise EngineOverloadedError(
+                f"engine saturated: {len(self.pending())} live requests "
+                f">= max_queue={self.cfg.max_queue}; shed this request "
+                f"(retry later or on another replica)")
+        rid = self._next_rid
+        self._next_rid += 1
+        self._requests[rid] = _Request(rid, prompt_tokens, max_new_tokens,
+                                       sampling, eos_token_id)
+        return rid
+
+    def pending(self):
+        return [r for r in self._requests.values() if not r.done]
+
+    def _salt(self, r, n_generated):
+        return sampling_salt(self.seed, r.rid, n_generated)
+
+    def _take_free_page(self):
+        if not self._free_pages:
+            raise RuntimeError("KV page pool exhausted")
+        return self._free_pages.pop()
+
+    def _ensure_pages(self, req, upto_len):
+        need = math.ceil(upto_len / self.cfg.block_size)
+        while len(req.pages) < need:
+            req.pages.append(self._take_free_page())
+
+    def _release(self, req):
+        self._free_pages.extend(req.pages)
+        req.pages = []
+
+    def _schedule(self):
+        """Pick <= max_batch rows and a chunk size for each within the
+        token budget (chunked prefill: a request needing more tokens than
+        fit this step takes the next chunk of prompt+generated)."""
+        cfg = self.cfg
+        rows = []
+        budget = cfg.token_budget
+        avail = len(self._free_pages)
+        for r in self.pending():
+            if len(rows) == cfg.max_batch or budget == 0:
+                break
+            chunk = min(r.length - r.cached, budget)
+            cap = (len(r.pages) + avail) * cfg.block_size  # page-limited
+            chunk = min(chunk, cap - r.cached)
+            if chunk <= 0:
+                continue  # defer: rerun once budget/pages free up
+            pages_needed = max(
+                math.ceil((r.cached + chunk) / cfg.block_size)
+                - len(r.pages), 0)
+            budget -= chunk
+            avail -= pages_needed
+            rows.append((r, chunk))
+        return rows
+
+    def _tensors(self, *arrays):
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device, torch.int64) for a in arrays]
+
+    def _run(self, tokens, enc, dec, this, cu, bt, fresh=False):
+        """One forward step over the engine's caches (updated in place)."""
+        ins = self._tensors(tokens, enc, dec, this, cu, bt)
+        with torch.inference_mode():
+            logits, _, _ = self._model(*ins, self._kc, self._vc,
+                                       fresh_prefill=fresh)
+        return logits
+
+    def step(self):
+        """One engine iteration: schedule <= max_batch live requests
+        (prefill chunks and decode mixed) within the token budget, run the
+        step once, sample one token for each request at its sequence tip.
+        Returns the produced (rid, token) pairs."""
+        cfg = self.cfg
+        rows = self._schedule()
+        while not rows and self.pending():
+            # pool deadlock: in-flight requests hold pages but none can
+            # grow — preempt the NEWEST holder (the oldest always makes
+            # progress); the victim re-prefills prompt+generated later
+            holders = [r for r in self.pending() if r.pages]
+            if not holders:
+                raise RuntimeError(
+                    "KV page pool exhausted: no pending request fits in "
+                    f"{len(self._free_pages)} free pages — raise "
+                    "num_blocks or lower concurrency")
+            victim = max(holders, key=lambda r: r.rid)
+            self._release(victim)
+            victim.cached = 0
+            rows = self._schedule()
+        if not rows:
+            return []
+
+        B1 = cfg.max_batch + 1
+        enc = np.zeros(B1, np.int64)
+        dec = np.zeros(B1, np.int64)
+        this = np.zeros(B1, np.int64)
+        bt = np.zeros((B1, cfg.max_blocks_per_seq), np.int64)  # 0 = trash
+        packed = []
+        for i, (r, chunk) in enumerate(rows):
+            seq = r.prompt + r.generated
+            dec[i] = r.cached                # chunk starts at this pos
+            this[i] = chunk
+            self._ensure_pages(r, r.cached + chunk)
+            bt[i, :len(r.pages)] = r.pages
+            packed.extend(seq[r.cached:r.cached + chunk])
+        # padding tokens -> trash row (index B1-1, block table all page 0)
+        n_pad = cfg.token_budget - len(packed)
+        this[B1 - 1] = n_pad
+        enc[B1 - 1] = n_pad
+        tokens = np.asarray(packed + [0] * n_pad, np.int64)
+        cu = np.zeros(B1 + 1, np.int64)
+        cu[1:] = np.cumsum(this)
+        # fresh-prefill steps (every scheduled row starts at position 0)
+        # run block-diagonal varlen flash over the packed tokens
+        fresh = all(r.cached == 0 for r, _ in rows)
+        logits = self._run(tokens, enc, dec, this, cu, bt, fresh)
+        self.last_logits = logits
+
+        temps = np.zeros(B1, np.float32)
+        topks = np.zeros(B1, np.int64)
+        topps = np.ones(B1, np.float32)
+        salts = np.zeros(B1, np.int64)
+        tip = [False] * len(rows)
+        for i, (r, chunk) in enumerate(rows):
+            if r.cached + chunk == r.length:
+                tip[i] = True
+                sp = r.sampling
+                temps[i] = sp.temperature
+                topks[i] = sp.top_k
+                topps[i] = sp.top_p
+                salts[i] = self._salt(r, len(r.generated))
+        if not any(tip):
+            # pure prefill-chunk step: nothing to sample, no host sync
+            for r, chunk in rows:
+                r.cached += chunk
+            return []
+        with torch.inference_mode():
+            sampled = _sample(logits, _sample_mode(temps, topks),
+                              *self._sampling_tensors(temps, topks, topps),
+                              *self._tensors(salts))
+        sampled = sampled.cpu().numpy()                       # host sync
+
+        produced = []
+        for i, (r, chunk) in enumerate(rows):
+            r.cached += chunk
+            if not tip[i]:
+                continue
+            nxt = int(sampled[i])
+            r.generated.append(nxt)
+            produced.append((r.rid, nxt))
+            if len(r.generated) >= r.max_new \
+                    or (r.eos_token_id is not None
+                        and nxt == r.eos_token_id):
+                r.done = True
+                self._release(r)
+        return produced
+
+    def _sampling_tensors(self, temps, topks, topps):
+        return [torch.from_numpy(a).to(self.device)
+                for a in (temps, topks, topps)]
+
+    # -- multi-step decode (one host sync per window) --------------------
+    def decode_run(self, n_steps):
+        """Run up to ``n_steps`` decode iterations over the current decode
+        batch with ONE host sync: each step's sampled tokens feed the next
+        step's inputs on the device. Requests must be at their decode tip;
+        pages for the whole window are reserved up front so block tables
+        stay fixed. Returns the produced (rid, token) list in step order."""
+        cfg = self.cfg
+        rows = [r for r in self.pending()
+                if r.length - r.cached == 1][:cfg.max_batch]
+        if not rows:
+            return []
+        n = min([n_steps] + [r.max_new - len(r.generated) for r in rows])
+        # clamp the window to what the free page pool can hold; callers
+        # fall back to step() (which can preempt) when not one step fits
+        free = len(self._free_pages)
+        while n > 0 and sum(
+                max(math.ceil((r.cached + n) / cfg.block_size)
+                    - len(r.pages), 0) for r in rows) > free:
+            n -= 1
+        if n <= 0:
+            return []
+        if n < n_steps:
+            # tail windows round down to a power of two, as the reference
+            # bounds its compiled window shapes
+            n = 1 << (n.bit_length() - 1)
+        B = len(rows)
+        B1 = cfg.max_batch + 1
+        for r in rows:
+            self._ensure_pages(r, r.cached + n)
+        # the row count is bucketed to a power of two (the reference's
+        # executable-reuse rule); the bucket's spare slots are padding
+        # routed to the trash row like any other
+        Bb = min(_next_pow2(B), cfg.max_batch)
+        enc = np.zeros(B1, np.int64)
+        this = np.zeros(B1, np.int64)
+        this[:B] = 1
+        n_pad = Bb - B
+        this[B1 - 1] = n_pad
+        enc[B1 - 1] = n_pad
+        cu = np.zeros(B1 + 1, np.int64)
+        cu[1:] = np.cumsum(this)
+        bt = np.zeros((B1, cfg.max_blocks_per_seq), np.int64)
+        for i, r in enumerate(rows):
+            bt[i, :len(r.pages)] = r.pages
+        dec = np.zeros(B1, np.int64)
+        dec[:B] = [r.cached for r in rows]
+        ngen0 = [len(r.generated) for r in rows]
+        tokens = np.asarray([(r.prompt + r.generated)[-1] for r in rows]
+                            + [0] * n_pad, np.int64)
+        temps = np.zeros(B1, np.float32)
+        topks = np.zeros(B1, np.int64)
+        topps = np.ones(B1, np.float32)
+        for i, r in enumerate(rows):
+            temps[i] = r.sampling.temperature
+            topks[i] = r.sampling.top_k
+            topps[i] = r.sampling.top_p
+        mode = _sample_mode(temps, topks)
+        salts = np.zeros((n, B1), np.int64)
+        for j in range(n):
+            for i, r in enumerate(rows):
+                salts[j, i] = self._salt(r, ngen0[i] + j)
+
+        tok_d, enc_d, dec_d, this_d, cu_d, bt_d, salts_d = self._tensors(
+            tokens, enc, dec, this, cu, bt, salts)
+        t_d, k_d, p_d = self._sampling_tensors(temps, topks, topps)
+        live = (torch.arange(B1, device=self.device) < Bb).long()
+        samples = []
+        with torch.inference_mode():
+            for j in range(n):
+                logits, _, _ = self._model(tok_d, enc_d, dec_d, this_d,
+                                           cu_d, bt_d, self._kc, self._vc)
+                sampled = _sample(logits, mode, t_d, k_d, p_d, salts_d[j])
+                samples.append(sampled)
+                tok_d = sampled[:Bb].long()
+                dec_d = dec_d + live
+            fetched = torch.stack(samples).cpu().numpy()      # host sync
+        produced = []
+        for j in range(n):
+            for i, r in enumerate(rows):
+                if r.done:
+                    continue
+                nxt = int(fetched[j, i])
+                r.generated.append(nxt)
+                r.cached += 1
+                produced.append((r.rid, nxt))
+                if len(r.generated) >= r.max_new \
+                        or (r.eos_token_id is not None
+                            and nxt == r.eos_token_id):
+                    r.done = True
+                    self._release(r)
+        return produced
+
+    def run_to_completion(self, max_steps=1000):
+        for _ in range(max_steps):
+            if not self.pending():
+                break
+            self.step()
+        return {rid: list(r.generated)
+                for rid, r in self._requests.items()}

@@ -1,0 +1,54 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain versions.
+
+Counterpart of paddle_tpu/ops/pallas/: every Pallas kernel on a ported path
+becomes a CUDA C++ kernel under ``csrc/``, built by ``_build.py`` into one
+shared library at first use and bound with ctypes. Each kernel module keeps
+a plain PyTorch version of the same function beside the wrapper. The
+wrapper takes the plain version only for a tensor that lies on the CPU; for
+a CUDA tensor it launches the kernel or raises.
+
+Each kernel module counts its launches in a module-level integer
+``launches``; ``launch_counts()`` reads them all and
+``reset_launch_counts()`` sets them to 0.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device", "launch_counts", "reset_launch_counts"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on. ``None`` means ``"cuda"``; a
+    CUDA device with no CUDA runtime raises instead of dropping to the
+    CPU. Pass ``device="cpu"`` to run the plain PyTorch versions."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "paddle_tpu_torch: device=%r needs CUDA, but "
+                "torch.cuda.is_available() is False (device=None means "
+                "'cuda'); pass device='cpu' to run the plain PyTorch path"
+                % (device,))
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"paddle_tpu_torch runs on 'cuda' or 'cpu', "
+                         f"not {dev.type!r}")
+    return dev
+
+
+def _kernel_modules():
+    from . import rms_norm, varlen_attention
+
+    return {"rms_norm": rms_norm, "varlen_attention_fwd": varlen_attention}
+
+
+def launch_counts() -> dict:
+    """{kernel name: kernel launches since the last reset}."""
+    return {name: mod.launches for name, mod in _kernel_modules().items()}
+
+
+def reset_launch_counts():
+    for mod in _kernel_modules().values():
+        mod.launches = 0

@@ -1,0 +1,119 @@
+"""Build the port's CUDA sources into one shared library and load it.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
+together, for ``sm_90a``; the objects are linked into one ``.so`` with a
+plain C interface, loaded with ctypes. The library lands in
+``paddle_tpu_torch/build/`` under a name that hashes the sources and flags,
+so an edited source is rebuilt and an unchanged one is loaded as is. Nothing
+is compiled when a module is imported: the first kernel launch builds.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("paddle_tpu_torch: nvcc not found on PATH, in "
+                       "$CUDA_HOME/bin or /usr/local/cuda/bin; the CUDA "
+                       "kernels are built from csrc/ at first use")
+
+
+def _sources():
+    srcs = sorted(_CSRC.glob("*.cu"))
+    headers = sorted(_CSRC.glob("*.cuh"))
+    return srcs, headers
+
+
+def library_path() -> Path:
+    srcs, headers = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in srcs + headers:
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libpaddle_tpu_torch_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile csrc/ into the shared library unless it is already built."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    srcs, _ = _sources()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=BUILD_DIR, prefix="tmp-"))
+    try:
+        procs = []
+        for src in srcs:
+            obj = tmp / (src.stem + ".o")
+            cmd = [nvcc] + NVCC_FLAGS + ["-c", str(src), "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            if p.returncode != 0:
+                failed.append(f"{src.name} (exit {p.returncode}):\n{out}")
+        if failed:
+            raise RuntimeError("paddle_tpu_torch: nvcc failed for "
+                               + "\n".join(failed))
+        out_so = tmp / so.name
+        link = subprocess.run(
+            [nvcc] + ARCH_FLAGS + ["-shared", "-o", str(out_so)]
+            + [str(obj) for _, obj, _ in procs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError("paddle_tpu_torch: linking the kernel "
+                               f"library failed:\n{link.stdout}")
+        os.replace(out_so, so)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return so
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        _lib = ctypes.CDLL(str(build()))
+    return _lib
+
+
+def entry(name: str, argtypes):
+    """A C entry point of the library with its argument types set. Every
+    entry returns the cudaError_t of its launch as an int."""
+    fn = getattr(library(), name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check(err: int, name: str):
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if err != 0:
+        describe = library().pt_error_string
+        describe.argtypes = [ctypes.c_int]
+        describe.restype = ctypes.c_char_p
+        raise RuntimeError(f"paddle_tpu_torch: {name} launch failed with "
+                           f"cudaError_t {err} "
+                           f"({describe(err).decode()})")

@@ -1,0 +1,39 @@
+"""Carry the TPU package's weights into the port.
+
+The TPU package names parameters by ``jit/functional.py:84-85``
+(``current_params``: ``named_parameters`` of the layer). The serving model
+has the same module tree in both packages, so the names carry over as
+they are, and Linear weights keep the [in, out] layout of ``x @ w``: no
+transpose.
+"""
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+__all__ = ["params_from_paddle_tpu"]
+
+# parameter names of PagedCausalLM in both packages
+_SERVING_NAMES = re.compile(
+    r"(embed|ln_f|head)\.weight"
+    r"|(ln1|qkv|proj|ln2|gate_up|down)\.\d+\.weight")
+
+
+def params_from_paddle_tpu(named) -> dict:
+    """{name: numpy array} from the TPU package (e.g.
+    ``{k: np.asarray(v) for k, v in current_params(model).items()}``) ->
+    {name: torch.Tensor} on the CPU, dtype kept (bf16 goes through f32)."""
+    out = {}
+    for name, arr in named.items():
+        if not _SERVING_NAMES.fullmatch(name):
+            raise KeyError(f"{name!r} is not a parameter name of the "
+                           f"serving model")
+        a = np.asarray(arr)
+        if a.dtype.name == "bfloat16":
+            out[name] = torch.from_numpy(
+                a.astype(np.float32)).to(torch.bfloat16)
+        else:
+            out[name] = torch.from_numpy(np.array(a, copy=True))
+    return out

@@ -1,0 +1,74 @@
+"""The port stands alone: paddle_tpu_torch and its scripts (chip_smoke.py,
+tools/torch_*.py) import neither jax nor paddle_tpu, and its entry points
+default to CUDA and raise where there is none instead of running on the
+CPU quietly."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from paddle_tpu_torch.inference import (PagedCausalLM, PagedServingConfig,
+                                        ServingEngine)
+from paddle_tpu_torch.ops.kernels import resolve_device
+
+torch.set_num_threads(2)
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
+    files += sorted((ROOT / "tools").glob("torch_*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_sources_import_no_jax_or_reference():
+    files = _port_files()
+    assert len(files) > 10 and files[-1].exists()
+    bad = [(str(f.relative_to(ROOT)), name) for f in files
+           for name in _imports(f)
+           if name.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_import_leaves_jax_unloaded():
+    code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference; "
+            "import paddle_tpu_torch.utils.convert; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    cfg = PagedServingConfig()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        PagedCausalLM(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resolve_device(None)
+    model = PagedCausalLM(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine.from_model(model, cfg)
+    assert resolve_device("cpu") == torch.device("cpu")

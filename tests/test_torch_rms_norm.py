@@ -1,0 +1,87 @@
+"""The port's RMSNorm (paddle_tpu_torch.ops.kernels.rms_norm) against the
+JAX reference: paddle_tpu.ops.pallas.rms_norm._rms_norm_ref and
+paddle_tpu.nn.functional.rms_norm, on the CPU, where the wrapper takes the
+plain version. The CUDA kernel itself is held against the plain version on
+the card by tests/test_torch_kernels_gpu.py and chip_smoke.py.
+
+Tolerances: f32 1e-6 relative (the same f32 arithmetic, summed in another
+order); bf16 one bf16 ulp, 2**-7 relative (both round the same f32 value,
+which may differ in its last bits and so round to the neighbour).
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import paddle_tpu as paddle
+from paddle_tpu.ops.pallas import rms_norm as JR
+
+from paddle_tpu_torch import launch_counts, reset_launch_counts
+from paddle_tpu_torch.nn import RMSNorm
+from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.ops.kernels import rms_norm as TR
+
+torch.set_num_threads(2)
+
+SHAPES = [(7, 64), (2, 3, 128), (256, 2048), (5, 96)]
+
+
+def _inputs(shape, seed):
+    rng = np.random.RandomState(seed)
+    x = (rng.randn(*shape) * 3).astype(np.float32)
+    w = rng.randn(shape[-1]).astype(np.float32)
+    return x, w
+
+
+@pytest.mark.parametrize("with_weight", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_f32_matches_jax(shape, with_weight):
+    x, w = _inputs(shape, 0)
+    wj = jnp.asarray(w) if with_weight else None
+    ref = np.asarray(JR._rms_norm_ref(jnp.asarray(x), wj, 1e-6))
+    got = TR.rms_norm(torch.tensor(x),
+                      torch.tensor(w) if with_weight else None, 1e-6)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    # the public functional of the TPU package, which wraps _rms_norm
+    args = [paddle.to_tensor(x)] + ([paddle.to_tensor(w)]
+                                    if with_weight else [])
+    pub = paddle.nn.functional.rms_norm(*args, epsilon=1e-6).numpy()
+    np.testing.assert_allclose(got.numpy(), pub, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("with_weight", [True, False])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_matches_jax(shape, with_weight):
+    x, w = _inputs(shape, 1)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    wj = jnp.asarray(w, jnp.bfloat16) if with_weight else None
+    ref = np.asarray(JR._rms_norm_ref(xj, wj, 1e-6).astype(jnp.float32))
+    xt = torch.tensor(x).to(torch.bfloat16)
+    wt = torch.tensor(w).to(torch.bfloat16) if with_weight else None
+    got = TR.rms_norm(xt, wt, 1e-6)
+    assert got.dtype == torch.bfloat16 and got.shape == xt.shape
+    err = np.abs(got.float().numpy() - ref)
+    assert np.all(err <= 2.0 ** -7 * np.abs(ref) + 1e-30), err.max()
+
+
+def test_layer_and_functional_route_to_wrapper():
+    x, w = _inputs((4, 64), 2)
+    layer = RMSNorm(64, device="cpu")
+    with torch.no_grad():
+        layer.weight.copy_(torch.tensor(w))
+    a = layer(torch.tensor(x))
+    b = TF.rms_norm(torch.tensor(x), torch.tensor(w), 1e-6)
+    ref = JR._rms_norm_ref(jnp.asarray(x), jnp.asarray(w), 1e-6)
+    np.testing.assert_allclose(a.detach().numpy(), np.asarray(ref),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(a, b)
+
+
+def test_cpu_path_launches_no_kernel():
+    reset_launch_counts()
+    x, w = _inputs((3, 64), 3)
+    TR.rms_norm(torch.tensor(x), torch.tensor(w))
+    TR.rms_norm(torch.tensor(x))
+    assert launch_counts()["rms_norm"] == 0
+
