@@ -5,19 +5,27 @@
 Phases, each of which fails the run with a non-zero exit:
   1. device and build: the card's name and power limit, then the CUDA
      kernels built from paddle_tpu_torch/ops/kernels/csrc with nvcc;
-  2. kernels: each kernel against its plain PyTorch version at the serving
-     path's shapes, then timed (CUDA events around 50 back-to-back
-     calls, median of 7 such runs, after warm-up) beside its plain version
-     and one PyTorch library call;
+  2. kernels: each kernel against its plain PyTorch version at its path's
+     shapes, then timed (CUDA events around back-to-back calls, median of
+     several such runs, after warm-up) beside its plain version and one
+     PyTorch library call;
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run; the
-     kernels' launch counters must rise during that run;
+     serving kernels' launch counters must rise during that run;
   4. parity: a 2-layer full-width f32 engine's greedy streams equal its
      forward_dense greedy decode, and the bf16 16-layer engine's first-step
      logits are close to forward_dense;
-  5. profile, last: each kernel's device time and the device time of a
-     fresh-prefill step and of a decode window, by torch.profiler.
+  5. training: the flagship Llama row (vocab 32000, hidden 2048, ffn 5632,
+     16 layers, 16 heads, bf16, recompute; batch 4, seq 4096) takes one
+     warm-up and 3 timed HybridTrainer steps; every step must launch the
+     flash-attention forward 32 times, its dK/dV and dQ kernels 16 times
+     each and RMSNorm 65 times; then a 2-layer full-width f32 model's loss
+     and every gradient on the card are held against the same weights on
+     the CPU (plain versions);
+  6. profile, last: each kernel's device time and the device time of a
+     fresh-prefill step, a decode window and a training step, by
+     torch.profiler.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
@@ -38,6 +46,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
+# the training path's shape: the flagship row's batch and sequence
+TRAIN_BATCH, TRAIN_SEQ = 4, 4096
+# the kernels each path must launch
+SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd")
+TRAINING_KERNELS = ("rms_norm", "flash_attention_fwd",
+                    "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 
 
 def log(*a):
@@ -95,6 +109,11 @@ def kernel_device_ms(fn, kernel_symbol, calls=50):
         if kernel_symbol in key and n:
             return us / n / 1e3
     return None
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
 
 
 def bound(nbytes, ops, ops_per_s):
@@ -155,6 +174,30 @@ def phase_kernels(dev):
                 raise AssertionError("rms_norm kernel disagrees with its "
                                      "plain version")
             rms_err = max(rms_err, float(d.max()))
+    # the training path's case: x [B*S, h] bf16 with an f32 weight
+    xt = (torch.randn(TRAIN_BATCH * TRAIN_SEQ, h, device=dev,
+                      generator=gen) * 3).to(torch.bfloat16)
+    wt = torch.randn(h, device=dev, generator=gen)
+    got = RN.rms_norm(xt, wt)
+    ref = RN._rms_norm_ref(xt, wt, 1e-6)
+    torch.cuda.synchronize()
+    d = (got.float() - ref.float()).abs()
+    ok = got.dtype == torch.bfloat16 \
+        and bool((d <= 2.0 ** -7 * ref.float().abs()).all())
+    log(f"rms_norm [{xt.shape[0]}, {h}] bf16 x, f32 weight: max_abs_err "
+        f"{float(d.max()):.3e} (tol 2**-7 * |ref|) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("rms_norm kernel (f32 weight) disagrees with "
+                             "its plain version")
+    rms_err = max(rms_err, float(d.max()))
+    bt, byt = bound(2 * xt.numel() * 2 + h * 4, 4 * xt.numel(),
+                    F32_OPS_PER_S)
+    training_shape = dict(
+        shape=f"x [{xt.shape[0]}, {h}] bf16, weight [{h}] f32",
+        ms=time_ms(lambda: RN.rms_norm(xt, wt), calls=20, windows=5),
+        plain_ms=time_ms(lambda: RN._rms_norm_ref(xt, wt, 1e-6), calls=20,
+                         windows=5),
+        bound_ms=bt, bound_by=byt, library_ms=None)
     x = (torch.randn(256, h, device=dev, generator=gen) * 3) \
         .to(torch.bfloat16)
     w = torch.randn(h, device=dev, generator=gen).to(torch.bfloat16)
@@ -170,12 +213,15 @@ def phase_kernels(dev):
         bound_ms=b, bound_by=by,
         library_ms=(time_ms(lambda: lib(x, (h,), w, 1e-6))
                     if lib is not None else None),
-        shape="x [256, 2048] bf16, weight [2048]")
+        shape="x [256, 2048] bf16, weight [2048]",
+        at_training_shape=training_shape)
 
     # -- varlen attention: the fresh-prefill shape, GQA 16q/8kv, D=128;
-    # bf16 O within 2e-2 (P is rounded to bf16 before PV in the kernel, as
-    # in the TPU kernel, not in the dense plain version; |O| <~ 3), LSE
-    # within 1e-3 (f32 online vs dense logsumexp of bf16-valued logits)
+    # bf16 O element by element within 2**-6 * (|ref| + row RMS) + 1e-5
+    # (_worst_of_tol: P is rounded to bf16 before PV in the kernel, as in
+    # the TPU kernel, not in the dense plain version; both round O to
+    # bf16), LSE within 1e-3 (f32 online vs dense logsumexp of bf16-valued
+    # logits); the typical sizes are printed beside the errors
     HQ, HKV, D = 16, 8, 128
 
     def varlen_case(lens, total):
@@ -199,10 +245,13 @@ def phase_kernels(dev):
         o2, lse2 = VA._varlen_ref(q, k, v, seg, seg, True)
         torch.cuda.synchronize()
         eo, el = _max_err(o, o2), _max_err(lse, lse2)
-        ok = eo <= 2e-2 and el <= 1e-3 \
+        ro = _worst_of_tol(o, o2, 2.0 ** -6, 1e-5)
+        ok = ro <= 1.0 and el <= 1e-3 \
             and bool(torch.isfinite(o.float()).all())
         log(f"varlen_attention {label} causal bf16: O max_abs_err "
-            f"{eo:.3e} (tol 2e-2), LSE max_abs_err {el:.3e} (tol 1e-3) "
+            f"{eo:.3e}, worst error / tol {ro:.3f} (tol 2**-6 * (|ref| + "
+            f"row RMS) + 1e-5; RMS of O {_rms(o2):.3e}), LSE max_abs_err "
+            f"{el:.3e} (tol 1e-3; RMS of LSE {_rms(lse2):.3e}) "
             f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("varlen attention kernel disagrees with "
@@ -237,13 +286,322 @@ def phase_kernels(dev):
         log(f"{r['name']}: {r['ms']:.4f} ms a call, {r['plain_ms']:.4f} ms "
             f"plain, library {r['library_ms']} ms, bound "
             f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
-    # device-time probes, run under the profiler after the serving phase
+    # device-time probes, run under the profiler after the other phases:
+    # name -> (call, kernel symbol, calls, the dict that gets device_ms)
     probes = {
-        "rms_norm": (lambda: RN.rms_norm(x, w), "rms_norm_kernel"),
+        "rms_norm": (lambda: RN.rms_norm(x, w), "rms_norm_kernel", 50,
+                     results["rms_norm"]),
+        "rms_norm at the training shape": (
+            lambda: RN.rms_norm(xt, wt), "rms_norm_kernel", 20,
+            training_shape),
         "varlen_attention_fwd": (lambda: VA.varlen_flash_attention_packed(
-            q, k, v, seg, seg, True), "varlen_fwd_kernel"),
+            q, k, v, seg, seg, True), "varlen_fwd_kernel", 50,
+            results["varlen_attention_fwd"]),
     }
     return results, probes
+
+
+def _worst_of_tol(got, ref, rtol, floor):
+    """Element by element, |got - ref| over rtol * (|ref| + the RMS of
+    ref's row along the last axis) + floor; the worst ratio, at most 1 to
+    pass. The row's RMS sets the scale where ref crosses zero, so each row
+    is held to its own size, not to the largest value of the tensor."""
+    got, ref = got.float(), ref.float()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    return float(((got - ref).abs()
+                  / (rtol * (ref.abs() + rms) + floor)).max())
+
+
+def _rms(t):
+    """RMS of t's entries, leaving out the -1e30 of fully padded rows."""
+    t = t.float()
+    return float(t[t.abs() < 1e20].square().mean().sqrt())
+
+
+def phase_flash_kernels(dev, results, probes):
+    """The flash-attention kernels against their plain versions at the
+    training shape's heads (B=1, H=16, S=4096, D=128, bf16, causal) and at
+    a smaller shape with a key-padding bias and dropout 0.1, then timed at
+    the training shape (B=4)."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    H, S, D = 16, TRAIN_SEQ, 128
+
+    def inputs(b, h, s, bias):
+        q, k, v, do = [torch.randn(b, h, s, D, device=dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4)]
+        kmask = None
+        if bias:
+            kmask = torch.zeros(b, s, device=dev)
+            kmask[0, s // 3:] = -1e30
+            kmask[-1, :] = -1e30          # a sequence whose keys are all pad
+        return q, k, v, do, kmask
+
+    # bf16 tolerances, element by element (_worst_of_tol): O, dQ, dK and dV
+    # within 2**-6 * (|ref| + the RMS of ref's row over D) + 1e-5. Both
+    # sides round to bf16 at the end (one bf16 ulp is up to 2**-7 |ref|),
+    # and the kernels round P (forward) and p_used, dS (backward) to bf16
+    # before their products, as the TPU kernels do, which moves a row by
+    # about 2**-9 of its RMS; the dense plain versions keep them in f32.
+    # LSE within 1e-3 absolute (both f32; its RMS is printed). The
+    # fully padded sequence (every key -1e30: LSE rounds to -1e30, so the
+    # backward's P is 1 on every key and its dV sums dO) is checked apart.
+    RTOL, FLOOR = 2.0 ** -6, 1e-5
+    errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd_dkv": 0.0,
+            "flash_attention_bwd_dq": 0.0}
+    small = min(S, 1024)
+    cases = {f"B=1 H={H} S={S} D={D} bf16 causal":
+             (inputs(1, H, S, False), True, 0.0, 0),
+             f"B=2 H=4 S={small} D={D} bf16 key padding + dropout 0.1":
+             (inputs(2, 4, small, True), False, 0.1, -20240917)}
+    for label, ((q, k, v, do, kmask), causal, p, seed) in cases.items():
+        o, lse = FA.forward_with_lse(q, k, v, kmask, seed, causal, p)
+        dq, dk, dv = FA.backward(q, k, v, kmask, seed, o, lse, do, causal, p)
+        o2, lse2 = FA._forward_ref(q, k, v, kmask, seed, causal, p)
+        dq2, dk2, dv2 = FA._backward_ref(q, k, v, kmask, seed, o, lse, do,
+                                         causal, p)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (o, dq, dk, dv))
+        el = _max_err(lse, lse2)
+        # batches checked apart: the live ones, then the fully padded one
+        parts = {"live": slice(0, q.shape[0] - 1 if kmask is not None
+                               else q.shape[0])}
+        if kmask is not None:
+            parts["fully padded"] = slice(q.shape[0] - 1, q.shape[0])
+        worst = 0.0
+        for part, sl in parts.items():
+            ratios = {n: _worst_of_tol(a[sl], b[sl], RTOL, FLOOR)
+                      for n, (a, b) in (("O", (o, o2)), ("dQ", (dq, dq2)),
+                                        ("dK", (dk, dk2)),
+                                        ("dV", (dv, dv2)))}
+            rms = {n: _rms(b[sl]) for n, b in (("O", o2), ("dQ", dq2),
+                                               ("dK", dk2), ("dV", dv2))}
+            worst = max(worst, max(ratios.values()))
+            log(f"flash attention {label}, {part} batches: worst error / "
+                f"tol " + ", ".join(f"{n} {ratios[n]:.3f} (RMS {rms[n]:.3e})"
+                                    for n in ratios)
+                + f"; tol 2**-6 * (|ref| + row RMS) + 1e-5")
+        ok = finite and el <= 1e-3 and worst <= 1.0
+        log(f"flash attention {label}: LSE max_abs_err {el:.3e} (tol 1e-3; "
+            f"RMS of LSE {_rms(lse2):.3e}), O max_abs_err "
+            f"{_max_err(o, o2):.3e}, worst ratio {worst:.3f} (tol 1) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("flash attention kernels disagree with "
+                                 "their plain versions")
+        errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
+                                          _max_err(o, o2))
+        errs["flash_attention_bwd_dkv"] = max(
+            errs["flash_attention_bwd_dkv"], _max_err(dk, dk2),
+            _max_err(dv, dv2))
+        errs["flash_attention_bwd_dq"] = max(
+            errs["flash_attention_bwd_dq"], _max_err(dq, dq2))
+        del o2, dq2, dk2, dv2
+    del cases
+
+    # times at the training shape: B=4, H=16, S=4096, D=128 bf16 causal
+    B = TRAIN_BATCH
+    q, k, v, do, _ = inputs(B, H, S, False)
+    o, lse = FA.forward_with_lse(q, k, v, None, 0, True, 0.0)
+    _, _, _, _, _, _, delta = FA._bwd_inputs(q, k, v, None, o, lse, do,
+                                             True)
+    pairs = B * H * S * (S + 1) // 2            # causal (q, k) pairs
+    fwd = lambda: FA.forward_with_lse(q, k, v, None, 0, True, 0.0)  # noqa
+    dkv = lambda: FA._launch_bwd_dkv(q, k, v, None, 0, do, lse, delta,  # noqa
+                                     True, 0.0)
+    dqk = lambda: FA._launch_bwd_dq(q, k, v, None, 0, do, lse, delta,  # noqa
+                                    True, 0.0)
+    big = dict(calls=3, windows=3, warmup=1)
+    plain_fwd_ms = time_ms(lambda: FA._forward_ref(q, k, v, None, 0, True,
+                                                   0.0), **big)
+    plain_bwd_ms = time_ms(lambda: FA._backward_ref(
+        q, k, v, None, 0, o, lse, do, True, 0.0), **big)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qg, kg, vg, is_causal=True)
+    lib_fwd_ms = time_ms(lambda: sdpa(q, k, v, is_causal=True), calls=10,
+                         windows=5, warmup=2)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), calls=10, windows=5,
+        warmup=2)
+    shape = f"q/k/v [{B}, {H}, {S}, {D}] bf16 causal, {pairs} pairs"
+    lse_b, d_b = nbytes(lse), nbytes(delta)
+    rows = {
+        "flash_attention_fwd": dict(
+            source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:135",
+            fn=fwd, ops=4 * D * pairs,
+            nbytes=nbytes(q, k, v, o) + lse_b, plain_ms=plain_fwd_ms,
+            library_ms=lib_fwd_ms, library="SDPA is_causal forward",
+            symbol="flash_fwd_kernel"),
+        "flash_attention_bwd_dkv": dict(
+            source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:315",
+            fn=dkv, ops=8 * D * pairs,
+            nbytes=nbytes(q, k, v, do, k, v) + lse_b + d_b,
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+            library="SDPA backward (dQ, dK, dV together)",
+            symbol="flash_bwd_dkv_kernel"),
+        "flash_attention_bwd_dq": dict(
+            source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:389",
+            fn=dqk, ops=6 * D * pairs,
+            nbytes=nbytes(q, k, v, do, q) + lse_b + d_b,
+            plain_ms=plain_bwd_ms, library_ms=lib_bwd_ms,
+            library="SDPA backward (dQ, dK, dV together)",
+            symbol="flash_bwd_dq_kernel"),
+    }
+    for name, r in rows.items():
+        b, by = bound(r["nbytes"], r["ops"], BF16_OPS_PER_S)
+        results[name] = dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], max_abs_err=errs[name],
+            ms=time_ms(r["fn"], calls=5, windows=5, warmup=2),
+            plain_ms=r["plain_ms"], bound_ms=b, bound_by=by,
+            library_ms=r["library_ms"], library=r["library"], shape=shape,
+            plain_note="one dense f32 backward computes dQ, dK and dV"
+            if "bwd" in name else "dense f32 forward")
+        probes[name] = (r["fn"], r["symbol"], 5, results[name])
+        log(f"{name}: {results[name]['ms']:.3f} ms a call, "
+            f"{r['plain_ms']:.3f} ms plain, library {r['library_ms']:.3f} "
+            f"ms ({r['library']}), bound {b:.4f} ms ({by})")
+
+
+def _flagship_config():
+    from paddle_tpu_torch.models.llama import LlamaConfig
+
+    # bench.py:1966-1971, the TPU package's flagship training row
+    return LlamaConfig(vocab_size=32000, hidden_size=2048,
+                       intermediate_size=5632, num_hidden_layers=16,
+                       num_attention_heads=16, num_key_value_heads=16,
+                       max_position_embeddings=4096, dtype="bfloat16",
+                       recompute=True)
+
+
+def model_flops_per_token(cfg, n_params, seq):
+    """6N + 12 * L * h * s a token (bench.py:116-120, PaLM appendix B)."""
+    return 6 * n_params + 12 * cfg.num_hidden_layers * cfg.hidden_size * seq
+
+
+def phase_training(dev):
+    """The flagship row through HybridTrainer.step: one warm-up step, then
+    3 timed steps with the launch counters read per step."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.models.llama import num_params
+
+    cfg = _flagship_config()
+    batch, seq, steps = TRAIN_BATCH, TRAIN_SEQ, 3
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    trainer = HybridTrainer(cfg, learning_rate=3e-4, seed=1234, device=dev)
+    torch.cuda.synchronize()
+    n_params = num_params(trainer.params)
+    log(f"training: flagship {n_params / 1e9:.3f}B params, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq)).astype(np.int64)
+    labels = np.roll(ids, -1, axis=1)
+    ids_t = torch.tensor(ids, device=dev)
+    labels_t = torch.tensor(labels, device=dev)
+    t = time.perf_counter()
+    warm = float(trainer.step(ids_t, labels_t))
+    torch.cuda.synchronize()
+    log(f"training warm-up step: {time.perf_counter() - t:.2f} s, loss "
+        f"{warm:.4f}")
+    expect = {"rms_norm": 4 * cfg.num_hidden_layers + 1,
+              "flash_attention_fwd": 2 * cfg.num_hidden_layers,
+              "flash_attention_bwd_dkv": cfg.num_hidden_layers,
+              "flash_attention_bwd_dq": cfg.num_hidden_layers}
+    losses, step_ms, per_step = [], [], []
+    reset_launch_counts()
+    for _ in range(steps):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = trainer.step(ids_t, labels_t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        per_step.append(per)
+        for name, n in expect.items():
+            if per[name] != n:
+                raise AssertionError(f"training step launched {name} "
+                                     f"{per[name]} times, not {n}")
+        if per["varlen_attention_fwd"]:
+            raise AssertionError("the training step launched the varlen "
+                                 "kernel")
+    counts = launch_counts()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"training losses not finite: {losses}")
+    ms = statistics.median(step_ms)
+    tps = batch * seq / (ms / 1e3)
+    fpt = model_flops_per_token(cfg, n_params, seq)
+    metrics = {
+        "batch": batch, "seq": seq, "steps": steps,
+        "step_ms": step_ms, "step_ms_median": ms, "tokens_per_s": tps,
+        "losses": losses, "warmup_loss": warm,
+        "model_flops_per_token": fpt,
+        "share_of_989_tflops": tps * fpt / BF16_OPS_PER_S,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        # as counted in the last step (each step was held to `expect`)
+        "launches_per_step": per_step[-1],
+    }
+    log(json.dumps({"training": metrics}))
+    return dict(metrics=metrics, counts=counts, trainer=trainer,
+                ids=ids_t, labels=labels_t)
+
+
+def phase_training_parity(dev):
+    """A 2-layer full-width f32 model at B=1, S=512: the loss and every
+    gradient leaf on the card (kernels) against the same weights on the
+    CPU (plain versions). Tolerance: loss 1e-4 relative, each gradient
+    element within 1e-3 * (|ref| + its row's RMS) + 1e-12 (f32 sums over
+    2048-5632 terms in other orders on the two devices)."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import llama as TL
+
+    base = _flagship_config()
+    cfg = TL.LlamaConfig(**{**vars(base), "num_hidden_layers": 2,
+                            "dtype": "float32"})
+    params = TL.init_stacked_params(cfg, seed=7, device=dev)
+    rng = np.random.RandomState(3)
+    ids = torch.tensor(rng.randint(0, cfg.vocab_size,
+                                   (1, min(512, TRAIN_SEQ))))
+    labels = torch.roll(ids, -1, dims=1)
+    out = []
+    for where in (dev, torch.device("cpu")):
+        p = {k: ({kk: vv.detach().to(where).requires_grad_(True)
+                  for kk, vv in v.items()} if isinstance(v, dict)
+                 else v.detach().to(where).requires_grad_(True))
+             for k, v in params.items()}
+        reset_launch_counts()
+        loss = TL.loss_fn_stacked(p, (ids.to(where), labels.to(where)), cfg)
+        loss.backward()
+        if where.type == "cuda":
+            torch.cuda.synchronize()
+            c = launch_counts()
+            if min(c[n] for n in TRAINING_KERNELS) <= 0:
+                raise AssertionError(f"parity run missed a kernel: {c}")
+        out.append((float(loss.detach()), {k: t.grad.detach().cpu()
+                                  for k, t in TL.leaves(p).items()}))
+    (lc, gc), (lp, gp) = out
+    ratios = {k: _worst_of_tol(gc[k], gp[k], 1e-3, 1e-12) for k in gp}
+    worst_leaf = max(ratios, key=ratios.get)
+    worst = ratios[worst_leaf]
+    rel = abs(lc - lp) / abs(lp)
+    ok = rel <= 1e-4 and worst <= 1.0 and len(gp) == 12
+    log(f"training parity f32 2-layer full width B=1 S={ids.shape[1]}: "
+        f"loss card "
+        f"{lc:.6f} cpu {lp:.6f} (rel {rel:.2e}, tol 1e-4); every gradient "
+        f"element within 1e-3 * (|ref| + row RMS) + 1e-12: worst ratio "
+        f"{worst:.3e} ({worst_leaf}, RMS {_rms(gp[worst_leaf]):.3e}) over "
+        f"{len(gp)} leaves {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("training on the card disagrees with the CPU")
 
 
 def _prompts(rng, lens, vocab):
@@ -259,6 +617,7 @@ def phase_serving(dev):
                                             SamplingParams, ServingEngine)
 
     cfg = PagedServingConfig.llama_1b()
+    torch.cuda.reset_peak_memory_stats(dev)   # not the kernel phases' peak
     t0 = time.perf_counter()
     model = PagedCausalLM(cfg, device=dev, seed=1234)
     torch.cuda.synchronize()
@@ -316,8 +675,8 @@ def phase_serving(dev):
     counts = launch_counts()
     log(f"serving launch counts: {counts}; first (fresh-prefill) step: "
         f"{run['per_step']}")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in SERVING_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
     V = cfg.vocab_size
@@ -345,17 +704,18 @@ def phase_serving(dev):
                 sampling=sampling)
 
 
-def phase_profile(dev, serving, kernels, probes):
+def phase_profile(dev, serving, training, kernels, probes):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
-    device time, and the device time of one fresh-prefill step and of one
-    16-step decode window at batch 8, beside the wall times of the
-    unprofiled run — the device's busy share and its top kernels."""
+    device time, and the device time of one fresh-prefill step, of one
+    16-step decode window at batch 8 and of one training step, beside the
+    wall times of the unprofiled runs — the device's busy share and its top
+    kernels."""
     from paddle_tpu_torch.inference import ServingEngine
 
-    for name, (fn, symbol) in probes.items():
-        kernels[name]["device_ms"] = kernel_device_ms(fn, symbol)
-        log(f"{name}: {kernels[name]['device_ms']} ms on the device")
+    for name, (fn, symbol, calls, target) in probes.items():
+        target["device_ms"] = kernel_device_ms(fn, symbol, calls)
+        log(f"{name}: {target['device_ms']} ms on the device")
     model, cfg = serving["model"], serving["cfg"]
     prompts, sampling = serving["prompts"], serving["sampling"]
     metrics = serving["metrics"]
@@ -378,7 +738,13 @@ def phase_profile(dev, serving, kernels, probes):
         raise AssertionError("profile: the decode batch is not 8 rows")
     dec_ms, dec_top = summary(profile_kernels(lambda: eng.decode_run(16)),
                               16)
+    trainer, tm = training["trainer"], training["metrics"]
+    train_ms, train_top = summary(profile_kernels(
+        lambda: trainer.step(training["ids"], training["labels"])), 1)
     prof = {
+        "training_step_device_ms": train_ms,
+        "training_device_busy": train_ms / tm["step_ms_median"],
+        "training_top": train_top,
         "fresh_prefill_step_device_ms": fresh_ms,
         "fresh_prefill_device_busy": fresh_ms
         / metrics["fresh_prefill_step_ms"],
@@ -460,15 +826,25 @@ def main():
     t0 = time.perf_counter()
     phase_device_and_build()
     kernels, probes = phase_kernels(dev)
+    phase_flash_kernels(dev, kernels, probes)
     serving = phase_serving(dev)
     phase_parity(dev, serving)
-    phase_profile(dev, serving, kernels, probes)
-    counts, run = serving["counts"], serving["run"]
+    training = phase_training(dev)
+    phase_training_parity(dev)
+    phase_profile(dev, serving, training, kernels, probes)
+    by_path = {"serving": serving["counts"], "training": training["counts"]}
+    per_step = {"serving": serving["run"]["per_step"],
+                "training": training["metrics"]["launches_per_step"]}
     line = []
     for name, r in kernels.items():
         r = dict(r)
-        r["launches"] = counts[name]
-        r["launches_per_step"] = run["per_step"][name]
+        paths = [p for p, kset in (("serving", SERVING_KERNELS),
+                                   ("training", TRAINING_KERNELS))
+                 if name in kset]
+        r["launches"] = sum(by_path[p][name] for p in paths)
+        r["launches_by_path"] = {p: by_path[p][name] for p in paths}
+        r["launches_per_step"] = {p: per_step[p].get(name)
+                                  for p in paths}
         line.append(r)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -6,12 +6,14 @@ path is a CUDA C++ kernel written for sm_90a (ops/kernels/csrc), built at
 first use. Entry points run on "cuda" unless the caller passes a device;
 device="cpu" runs the kernels' plain PyTorch versions.
 
-Ported so far: the paged-KV serving path (inference.serving).
+Ported so far: the paged-KV serving path (inference.serving) and one
+Llama training step (distributed.fleet.HybridTrainer over models.llama).
 """
-from . import incubate, inference, nn, ops, utils
+from . import distributed, incubate, inference, models, nn, ops, utils
 from .ops.kernels import launch_counts, reset_launch_counts, resolve_device
 
 __version__ = "0.1.0"
 
-__all__ = ["incubate", "inference", "nn", "ops", "utils", "launch_counts",
+__all__ = ["distributed", "incubate", "inference", "models", "nn", "ops",
+           "utils", "launch_counts",
            "reset_launch_counts", "resolve_device"]

@@ -1,0 +1,267 @@
+"""The functional stacked Llama core (paddle_tpu/models/llama.py:48-91,
+392-576): the training path's model.
+
+Parameters are a dict of tensors with the TPU package's pytree keys and
+shapes: block weights stacked on a leading layer axis, Linear weights in
+the [in, out] layout of ``x @ w``, the norm weights in f32. The trunk is a
+Python loop over the layers (the TPU package's ``lax.scan``); with
+``remat=True`` each layer runs under ``torch.utils.checkpoint`` (the
+TPU package's ``jax.checkpoint``), so its forward, attention kernel
+included, runs again in the backward. Attention goes through
+ops/kernels/flash_attention.py (the CUDA kernels on a card), RMSNorm
+through ops/kernels/rms_norm.py.
+
+Not ported here: the eager ``LlamaForCausalLM`` (it waits for the eager
+surface) and ring attention over a 'sep' mesh axis.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Dict, Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..ops.kernels import flash_attention as fa
+from ..ops.kernels import resolve_device
+from ..ops.kernels import rms_norm as rn
+
+__all__ = ["LlamaConfig", "LLAMA_PRESETS", "init_stacked_params",
+           "forward_stacked", "loss_fn_stacked", "num_params"]
+
+
+@dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_hidden_layers: int = 32
+    num_attention_heads: int = 32
+    num_key_value_heads: Optional[int] = None
+    max_position_embeddings: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    tie_word_embeddings: bool = False
+    dtype: str = "bfloat16"
+    use_flash_attention: bool = True
+    recompute: bool = True
+    # "full" recomputes the whole block in the backward; "save_attn" keeps
+    # each block's attention output (the attention forward is not run again)
+    remat_policy: str = "full"
+
+    def __post_init__(self):
+        if self.num_key_value_heads is None:
+            self.num_key_value_heads = self.num_attention_heads
+
+    @property
+    def head_dim(self):
+        return self.hidden_size // self.num_attention_heads
+
+
+LLAMA_PRESETS = {
+    "llama2-7b": LlamaConfig(),
+    "llama2-13b": LlamaConfig(hidden_size=5120, intermediate_size=13824,
+                              num_hidden_layers=40, num_attention_heads=40),
+    "llama2-70b": LlamaConfig(hidden_size=8192, intermediate_size=28672,
+                              num_hidden_layers=80, num_attention_heads=64,
+                              num_key_value_heads=8),
+    "tiny": LlamaConfig(vocab_size=512, hidden_size=256,
+                        intermediate_size=512, num_hidden_layers=2,
+                        num_attention_heads=4, max_position_embeddings=512),
+    "debug": LlamaConfig(vocab_size=256, hidden_size=128,
+                         intermediate_size=256, num_hidden_layers=2,
+                         num_attention_heads=2, num_key_value_heads=2,
+                         max_position_embeddings=256, dtype="float32"),
+}
+
+_BLOCK_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
+               "ln_attn", "ln_mlp")
+
+
+def _torch_dtype(name):
+    return torch.bfloat16 if name == "bfloat16" else torch.float32
+
+
+def init_stacked_params(config: LlamaConfig, seed: int = 0,
+                        device=None) -> Dict[str, Any]:
+    """The stacked-parameter dict (llama.py:392-423): normal weights scaled
+    by 1/sqrt(fan_in) (embeddings 0.02) in the model dtype, norm weights
+    ones in f32. Drawn on ``device`` from a generator seeded with ``seed``
+    (the numbers differ from the TPU package's jax.random ones)."""
+    dev = resolve_device(device)
+    d = _torch_dtype(config.dtype)
+    h, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
+    kvh = config.num_key_value_heads * config.head_dim
+    L = config.num_hidden_layers
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def norm_init(shape, scale=None):
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else fan_in ** -0.5
+        w = torch.randn(shape, generator=gen, device=dev,
+                        dtype=torch.float32)
+        return (w.mul_(s)).to(d)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=dev)
+
+    return {
+        "embed": norm_init((v, h), scale=0.02),
+        "blocks": {
+            "wq": norm_init((L, h, h)),
+            "wk": norm_init((L, h, kvh)),
+            "wv": norm_init((L, h, kvh)),
+            "wo": norm_init((L, h, h)),
+            "w_gate": norm_init((L, h, i)),
+            "w_up": norm_init((L, h, i)),
+            "w_down": norm_init((L, i, h)),
+            "ln_attn": ones(L, h),
+            "ln_mlp": ones(L, h),
+        },
+        "final_norm": ones(h),
+        "lm_head": norm_init((h, v)),
+    }
+
+
+def leaves(params) -> Dict[str, torch.Tensor]:
+    """{"['blocks']['wq']": tensor, ...}: the leaves under the TPU
+    package's jax.tree_util.keystr names, in its (sorted-key) order."""
+    out = {}
+
+    def walk(tree, prefix):
+        for key in sorted(tree):
+            sub = tree[key]
+            name = f"{prefix}['{key}']"
+            if isinstance(sub, dict):
+                walk(sub, name)
+            else:
+                out[name] = sub
+    walk(params, "")
+    return out
+
+
+def num_params(params) -> int:
+    return sum(t.numel() for t in leaves(params).values())
+
+
+def _rope(q, k, theta):
+    """Rotary embedding on rotating halves (llama.py:452-468)."""
+    _, s, _, hd = q.shape
+    inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
+                                        device=q.device) / hd))
+    pos = torch.arange(s, dtype=torch.float32, device=q.device)
+    freqs = torch.outer(pos, inv)
+    emb = torch.cat([freqs, freqs], dim=-1)
+    cos = emb.cos()[None, :, None, :]
+    sin = emb.sin()[None, :, None, :]
+
+    def rot(t):
+        d2 = t.shape[-1] // 2
+        rotated = torch.cat([-t[..., d2:], t[..., :d2]], dim=-1)
+        return (t.float() * cos + rotated.float() * sin).to(t.dtype)
+
+    return rot(q), rot(k)
+
+
+def _qkv(p, x, config: LlamaConfig):
+    """RMSNorm -> q, k, v projections -> RoPE -> GQA repeat, [B, S, H, D]."""
+    nh, kvh, hd = (config.num_attention_heads, config.num_key_value_heads,
+                   config.head_dim)
+    b, s, _ = x.shape
+    hx = rn.rms_norm(x, p["ln_attn"], config.rms_norm_eps)
+    q = (hx @ p["wq"]).reshape(b, s, nh, hd)
+    k = (hx @ p["wk"]).reshape(b, s, kvh, hd)
+    v = (hx @ p["wv"]).reshape(b, s, kvh, hd)
+    q, k = _rope(q, k, config.rope_theta)
+    if nh != kvh:
+        rep = nh // kvh
+        k = k.repeat_interleave(rep, dim=2)       # jnp.repeat(k, rep, 2)
+        v = v.repeat_interleave(rep, dim=2)
+    return q, k, v
+
+
+def _after_attn(p, x, attn, config: LlamaConfig):
+    """Output projection + residual, then the swiglu MLP + residual."""
+    b, s, h = x.shape
+    x = x + attn.reshape(b, s, h) @ p["wo"]
+    hx = rn.rms_norm(x, p["ln_mlp"], config.rms_norm_eps)
+    gated = torch.nn.functional.silu(hx @ p["w_gate"]) * (hx @ p["w_up"])
+    return x + gated @ p["w_down"]
+
+
+def _block(p, x, config: LlamaConfig):
+    """One decoder block (llama.py:471-518)."""
+    q, k, v = _qkv(p, x, config)
+    attn = fa.flash_attention_bshd(q, k, v, is_causal=True)
+    return _after_attn(p, x, attn, config)
+
+
+def _block_save_attn(p, x, config: LlamaConfig):
+    """remat_policy="save_attn": the parts before and after attention are
+    checkpointed apart, so the attention output (and the attention's own
+    saved inputs) stays and its forward is not run again."""
+    q, k, v = checkpoint(_qkv, p, x, config, use_reentrant=False)
+    attn = fa.flash_attention_bshd(q, k, v, is_causal=True)
+    return checkpoint(_after_attn, p, x, attn, config, use_reentrant=False)
+
+
+def _check_mesh(mesh):
+    if mesh is None:
+        return
+    shape = getattr(mesh, "shape", mesh)
+    if dict(shape).get("sep", 1) > 1:
+        raise NotImplementedError(
+            "paddle_tpu_torch: ring attention over a 'sep' mesh axis is "
+            "not ported yet")
+
+
+def _trunk(params, input_ids, config: LlamaConfig, remat: bool = True,
+           mesh=None):
+    """Embedding -> the blocks in order (llama.py:521-544)."""
+    _check_mesh(mesh)
+    x = params["embed"][input_ids]
+    if config.dtype == "bfloat16":
+        x = x.to(torch.bfloat16)
+    blocks = params["blocks"]
+    # unbind once: its backward stacks the layers' gradients in one op
+    per_layer = zip(*(blocks[key].unbind(0) for key in _BLOCK_KEYS))
+    remat = remat and torch.is_grad_enabled()
+    for vals in per_layer:
+        p = dict(zip(_BLOCK_KEYS, vals))
+        if not remat:
+            x = _block(p, x, config)
+        elif config.remat_policy == "save_attn":
+            x = _block_save_attn(p, x, config)
+        else:
+            x = checkpoint(_block, p, x, config, use_reentrant=False)
+    return x
+
+
+def forward_stacked(params, input_ids, config: LlamaConfig,
+                    remat: bool = True):
+    """Whole-model forward: trunk -> final norm -> f32 logits
+    (llama.py:547-553)."""
+    x = _trunk(params, input_ids, config, remat)
+    x = rn.rms_norm(x, params["final_norm"], config.rms_norm_eps)
+    return x.float() @ params["lm_head"].float()
+
+
+def _head_loss(params, h, labels, config: LlamaConfig):
+    """Final norm -> LM head -> mean next-token NLL as lse - picked, the
+    max under a stop-gradient (llama.py:556-567)."""
+    h = rn.rms_norm(h, params["final_norm"], config.rms_norm_eps)
+    logits = h.float() @ params["lm_head"].float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    picked = logits.gather(-1, labels[..., None].long())[..., 0]
+    return (lse - picked).mean()
+
+
+def loss_fn_stacked(params, batch, config: LlamaConfig, remat: bool = True,
+                    mesh=None):
+    """Next-token LM loss; batch = (input_ids [B, S], labels [B, S])
+    (llama.py:570-576). A mesh with a 'sep' axis > 1 raises: ring
+    attention is not ported yet."""
+    input_ids, labels = batch
+    x = _trunk(params, input_ids, config, remat, mesh=mesh)
+    return _head_loss(params, x, labels, config)

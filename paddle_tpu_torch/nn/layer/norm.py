@@ -11,7 +11,8 @@ __all__ = ["RMSNorm"]
 
 class RMSNorm(nn.Module):
     """Routed to the CUDA RMSNorm kernel for CUDA tensors
-    (ops/kernels/rms_norm.py); the weight starts at ones."""
+    (ops/kernels/rms_norm.py); the weight starts at ones and is trained
+    (the gradient is ops/kernels/rms_norm.py::_rms_norm_bwd)."""
 
     def __init__(self, normalized_shape, epsilon=1e-6, *, device=None):
         super().__init__()
@@ -19,8 +20,7 @@ class RMSNorm(nn.Module):
             normalized_shape = [normalized_shape]
         self._epsilon = epsilon
         self.weight = nn.Parameter(
-            torch.ones(list(normalized_shape), device=device),
-            requires_grad=False)
+            torch.ones(list(normalized_shape), device=device))
 
     def forward(self, x):
         return F.rms_norm(x, self.weight, self._epsilon)

@@ -7,8 +7,9 @@ a plain PyTorch version of the same function beside the wrapper. The
 wrapper takes the plain version only for a tensor that lies on the CPU; for
 a CUDA tensor it launches the kernel or raises.
 
-Each kernel module counts its launches in a module-level integer
-``launches``; ``launch_counts()`` reads them all and
+Each kernel module counts the launches of each of its kernels in a
+module-level integer (``launches``, or one ``launches_*`` a kernel where a
+module holds several); ``launch_counts()`` reads them all and
 ``reset_launch_counts()`` sets them to 0.
 """
 from __future__ import annotations
@@ -38,17 +39,23 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def _kernel_modules():
-    from . import rms_norm, varlen_attention
+def _counters():
+    """{kernel name: (module, name of its launch counter)}."""
+    from . import flash_attention, rms_norm, varlen_attention
 
-    return {"rms_norm": rms_norm, "varlen_attention_fwd": varlen_attention}
+    return {"rms_norm": (rms_norm, "launches"),
+            "varlen_attention_fwd": (varlen_attention, "launches"),
+            "flash_attention_fwd": (flash_attention, "launches_fwd"),
+            "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
+            "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq")}
 
 
 def launch_counts() -> dict:
     """{kernel name: kernel launches since the last reset}."""
-    return {name: mod.launches for name, mod in _kernel_modules().items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in _counters().items()}
 
 
 def reset_launch_counts():
-    for mod in _kernel_modules().values():
-        mod.launches = 0
+    for mod, attr in _counters().values():
+        setattr(mod, attr, 0)

@@ -45,4 +45,20 @@ __host__ __device__ __forceinline__ int ceil_div(int a, int b) {
   return (a + b - 1) / b;
 }
 
+// The dropout keep bit of attention pair (qi, ki) of head bh = b * H + h:
+// the lowbias32-style mixer of ops/pallas/flash_attention.py::_hash_keep
+// over global positions, bit for bit (uint32 arithmetic wraps as jnp's).
+__device__ __forceinline__ bool dropout_keep(uint32_t seed, uint32_t bh,
+                                             uint32_t qi, uint32_t ki,
+                                             uint32_t thresh) {
+  uint32_t h = qi * 0x9E3779B1u + ki * 0x85EBCA77u;
+  h = h + seed + bh * 0xC2B2AE3Du;
+  h ^= h >> 16;
+  h *= 0x7FEB352Du;
+  h ^= h >> 15;
+  h *= 0x846CA68Bu;
+  h ^= h >> 16;
+  return h >= thresh;
+}
+
 }  // namespace pt

@@ -1,3 +1,3 @@
-from .convert import params_from_paddle_tpu
+from .convert import params_from_paddle_tpu, stacked_params_from_paddle_tpu
 
-__all__ = ["params_from_paddle_tpu"]
+__all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu"]

@@ -13,12 +13,30 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["params_from_paddle_tpu"]
+__all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu"]
 
 # parameter names of PagedCausalLM in both packages
 _SERVING_NAMES = re.compile(
     r"(embed|ln_f|head)\.weight"
     r"|(ln1|qkv|proj|ln2|gate_up|down)\.\d+\.weight")
+
+
+def tensor_from_numpy(arr) -> torch.Tensor:
+    """numpy (or array-like) -> a CPU tensor of the same dtype; bf16,
+    which numpy lacks, goes through f32 (exact)."""
+    a = np.asarray(arr)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def stacked_params_from_paddle_tpu(tree) -> dict:
+    """The TPU package's stacked Llama pytree (models/llama.py::
+    init_stacked_params; nested dicts of arrays, e.g. after
+    ``jax.tree.map(np.asarray, params)``) -> the same nesting of CPU
+    tensors, dtype kept, for paddle_tpu_torch.models.llama."""
+    return {k: stacked_params_from_paddle_tpu(v) if isinstance(v, dict)
+            else tensor_from_numpy(v) for k, v in tree.items()}
 
 
 def params_from_paddle_tpu(named) -> dict:
@@ -30,10 +48,5 @@ def params_from_paddle_tpu(named) -> dict:
         if not _SERVING_NAMES.fullmatch(name):
             raise KeyError(f"{name!r} is not a parameter name of the "
                            f"serving model")
-        a = np.asarray(arr)
-        if a.dtype.name == "bfloat16":
-            out[name] = torch.from_numpy(
-                a.astype(np.float32)).to(torch.bfloat16)
-        else:
-            out[name] = torch.from_numpy(np.array(a, copy=True))
+        out[name] = tensor_from_numpy(arr)
     return out

@@ -5,15 +5,20 @@ Imports only torch and the port, so it runs on a machine without JAX:
 Every test skips where there is no CUDA device.
 
 Tolerances: RMSNorm in bf16 one bf16 ulp (2**-7 relative; both round the
-same f32 value up to its last bits), in f32 1e-5 relative. Varlen
-attention O in bf16 2e-2 absolute (the kernel rounds P to bf16 before the
-PV product, as the TPU kernel does; the dense plain version does not), in
-f32 1e-4; LSE 1e-3 absolute.
+same f32 value up to its last bits), in f32 1e-5 relative. Attention
+outputs and gradients are held element by element (``_worst_of_tol``) to
+rtol * (|ref| + the RMS of ref's row over D) + floor, so each row answers
+for its own size and not for the tensor's largest value: in bf16 rtol
+2**-6, floor 1e-5 (both sides round to bf16, up to 2**-7 |ref|; the
+kernels round P, p_used and dS to bf16 before their products, as the TPU
+kernels do, the dense plain versions do not), in f32 rtol 1e-4, floor
+1e-6. LSE 1e-3 absolute (f32 on both sides; |LSE| ~ 1-9 on live rows).
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.ops.kernels import flash_attention as FA
 from paddle_tpu_torch.ops.kernels import rms_norm as TR
 from paddle_tpu_torch.ops.kernels import varlen_attention as TV
 
@@ -55,6 +60,20 @@ def test_rms_norm_kernel_rejects_what_it_cannot_take(cuda_device):
                                dtype=torch.float16))
 
 
+def _tol(dtype):
+    """(rtol, floor) of ``_worst_of_tol`` for attention outputs."""
+    return (2.0 ** -6, 1e-5) if dtype == torch.bfloat16 else (1e-4, 1e-6)
+
+
+def _worst_of_tol(got, ref, rtol, floor):
+    """Worst ratio of |got - ref| to rtol * (|ref| + the RMS of ref's row
+    along the last axis) + floor; at most 1 passes."""
+    got, ref = got.float(), ref.float()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    return float(((got - ref).abs()
+                  / (rtol * (ref.abs() + rms) + floor)).max())
+
+
 def _segments(lens, total, device):
     cu = np.concatenate([[0], np.cumsum(lens)])
     return torch.tensor(TV.segment_ids_from_cu_seqlens(cu, total),
@@ -78,8 +97,7 @@ def test_varlen_kernel_matches_plain(lens, total, causal, d, dtype,
     o, lse = TV.varlen_flash_attention_packed(q, k, v, seg, seg, causal)
     o2, lse2 = TV._varlen_ref(q, k, v, seg, seg, causal)
     torch.cuda.synchronize()
-    tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-    assert float((o.float() - o2.float()).abs().max()) <= tol
+    assert _worst_of_tol(o, o2, *_tol(dtype)) <= 1.0
     assert float((lse - lse2).abs().max()) <= 1e-3
     assert bool(torch.isfinite(o.float()).all())
     assert TV.launches == before + 1
@@ -95,5 +113,95 @@ def test_varlen_kernel_fully_masked_query_segment(cuda_device):
     o, lse = TV.varlen_flash_attention_packed(q, k, v, seg, segk, True)
     o2, lse2 = TV._varlen_ref(q, k, v, seg, segk, True)
     torch.cuda.synchronize()
-    assert float((o - o2).abs().max()) <= 1e-4
+    assert _worst_of_tol(o, o2, *_tol(torch.float32)) <= 1.0
     assert float((lse - lse2).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("h", [2048, 64])
+def test_rms_norm_kernel_f32_weight_with_bf16_x(h, cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(h)
+    x = (torch.randn(37, h, device=cuda_device, generator=gen) * 3) \
+        .to(torch.bfloat16)
+    w = torch.randn(h, device=cuda_device, generator=gen)
+    before = TR.launches
+    got = TR.rms_norm(x, w)
+    ref = TR._rms_norm_ref(x, w, 1e-6)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.float() - ref.float()).abs()
+                 <= 2.0 ** -7 * ref.float().abs() + 1e-6).all())
+    assert TR.launches == before + 1
+
+
+def _flash_inputs(b, h, s, d, dtype, bias, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v, do = [torch.randn(b, h, s, d, device=device, generator=gen)
+                   .to(dtype) for _ in range(4)]
+    kmask = None
+    if bias:
+        kmask = torch.zeros(b, s, device=device)
+        kmask[0, s // 3:] = -1e30          # padding past a third of the keys
+        kmask[-1] = -1e30                  # a sequence with every key padded
+    return q, k, v, do, kmask
+
+
+
+
+@pytest.mark.parametrize("s,d,dtype,causal,bias,p", [
+    (128, 64, torch.float32, True, False, 0.0),
+    (128, 128, torch.float32, False, True, 0.0),
+    (128, 64, torch.bfloat16, False, False, 0.1),
+    (1024, 128, torch.bfloat16, True, False, 0.0),
+    (1024, 64, torch.float32, True, True, 0.2),
+    (1024, 128, torch.bfloat16, False, True, 0.1),
+    (4096, 128, torch.bfloat16, True, False, 0.0),
+    (4096, 64, torch.float32, False, False, 0.0),
+])
+def test_flash_kernels_match_plain(s, d, dtype, causal, bias, p,
+                                   cuda_device):
+    b, h = (2, 2) if s < 4096 else (1, 2)
+    q, k, v, do, kmask = _flash_inputs(b, h, s, d, dtype, bias,
+                                       cuda_device, s + d)
+    seed = -12345 if p > 0 else 0
+    n0 = (FA.launches_fwd, FA.launches_bwd_dkv, FA.launches_bwd_dq)
+    o, lse = FA.forward_with_lse(q, k, v, kmask, seed, causal, p)
+    o2, lse2 = FA._forward_ref(q, k, v, kmask, seed, causal, p)
+    g = FA.backward(q, k, v, kmask, seed, o, lse, do, causal, p)
+    g2 = FA._backward_ref(q, k, v, kmask, seed, o, lse, do, causal, p)
+    torch.cuda.synchronize()
+    assert (FA.launches_fwd, FA.launches_bwd_dkv, FA.launches_bwd_dq) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    tol = _tol(dtype)
+    # the fully padded sequence (the last batch, when there is a bias) is
+    # held apart from the live ones: its dV sums every dO row
+    parts = [slice(0, b - 1), slice(b - 1, b)] if bias else [slice(0, b)]
+    assert bool(torch.isfinite(o.float()).all())
+    assert float((lse - lse2).abs().max()) <= 1e-3
+    for sl in parts:
+        assert _worst_of_tol(o[sl], o2[sl], *tol) <= 1.0
+        for got, ref in zip(g, g2):
+            assert bool(torch.isfinite(got.float()).all())
+            assert _worst_of_tol(got[sl], ref[sl], *tol) <= 1.0
+
+
+def test_flash_autograd_launches_each_kernel_once(cuda_device):
+    q, k, v, do, _ = _flash_inputs(1, 2, 256, 128, torch.bfloat16, False,
+                                   cuda_device, 7)
+    q, k, v = (t.transpose(1, 2).contiguous().requires_grad_(True)
+               for t in (q, k, v))                  # [B, S, H, D]
+    n0 = (FA.launches_fwd, FA.launches_bwd_dkv, FA.launches_bwd_dq)
+    out = FA.flash_attention_bshd(q, k, v, is_causal=True)
+    out.backward(do.transpose(1, 2))
+    torch.cuda.synchronize()
+    assert (FA.launches_fwd, FA.launches_bwd_dkv, FA.launches_bwd_dq) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert out.shape == q.shape and q.grad.shape == q.shape
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(cuda_device):
+    q = torch.ones(1, 1, 256, 256, device=cuda_device)
+    with pytest.raises(ValueError):
+        FA.forward_with_lse(q, q, q)          # head_dim 256: no kernel
+    q = torch.ones(1, 1, 256, 64, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        FA.forward_with_lse(q, q, q)

@@ -48,6 +48,9 @@ def test_port_sources_import_no_jax_or_reference():
 def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference; "
             "import paddle_tpu_torch.utils.convert; "
+            "import paddle_tpu_torch.models.llama; "
+            "import paddle_tpu_torch.distributed.fleet.trainer; "
+            "import paddle_tpu_torch.ops.kernels.flash_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))

@@ -85,3 +85,65 @@ def test_cpu_path_launches_no_kernel():
     TR.rms_norm(torch.tensor(x))
     assert launch_counts()["rms_norm"] == 0
 
+
+
+@pytest.mark.parametrize("shape", [(6, 64), (2, 5, 128)])
+def test_bf16_x_with_f32_weight_matches_jax(shape):
+    """The training path's case: bf16 activations, f32 norm weights."""
+    x, w = _inputs(shape, 4)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    ref = np.asarray(JR._rms_norm_ref(xj, jnp.asarray(w), 1e-6)
+                     .astype(jnp.float32))
+    got = TR.rms_norm(torch.tensor(x).to(torch.bfloat16), torch.tensor(w))
+    assert got.dtype == torch.bfloat16
+    err = np.abs(got.float().numpy() - ref)
+    assert np.all(err <= 2.0 ** -7 * np.abs(ref) + 1e-30), err.max()
+
+
+@pytest.mark.parametrize("case", ["f32", "f32_no_weight", "bf16_x_f32_w",
+                                  "bf16"])
+def test_gradients_match_jax_vjp(case):
+    """The backward is the TPU package's _bwd (rms_norm.py:88-104): gx in
+    x's dtype, gw in the weight's. f32: 1e-5 of the largest magnitude (sums
+    in another order); a bf16 gx: one bf16 ulp, 2**-7 relative."""
+    import jax
+
+    x, w = _inputs((4, 3, 128), 5)
+    g = np.random.RandomState(6).randn(4, 3, 128).astype(np.float32)
+    xdt = jnp.bfloat16 if case.startswith("bf16") else jnp.float32
+    wdt = jnp.bfloat16 if case == "bf16" else jnp.float32
+    xj, gj = jnp.asarray(x, xdt), jnp.asarray(g, xdt)
+    tdt = {jnp.bfloat16: torch.bfloat16, jnp.float32: torch.float32}
+    xt = torch.tensor(np.asarray(xj, np.float32)).to(tdt[xdt]) \
+        .requires_grad_(True)
+    gt = torch.tensor(np.asarray(gj, np.float32)).to(tdt[xdt])
+    if case == "f32_no_weight":
+        _, vjp = jax.vjp(lambda a: JR.rms_norm(a, None, 1e-6), xj)
+        (gxj,) = vjp(gj)
+        TR.rms_norm(xt, None, 1e-6).backward(gt)
+        pairs = [(xt.grad, gxj)]
+    else:
+        wj = jnp.asarray(w, wdt)
+        _, vjp = jax.vjp(lambda a, b: JR.rms_norm(a, b, 1e-6), xj, wj)
+        gxj, gwj = vjp(gj)
+        wt = torch.tensor(np.asarray(wj, np.float32)).to(tdt[wdt]) \
+            .requires_grad_(True)
+        TR.rms_norm(xt, wt, 1e-6).backward(gt)
+        assert wt.grad.dtype == wt.dtype
+        pairs = [(xt.grad, gxj), (wt.grad, gwj)]
+    for got, ref in pairs:
+        ref = np.asarray(ref, np.float32)
+        got = got.float().numpy()
+        if case == "bf16" or (case == "bf16_x_f32_w" and got.shape == x.shape):
+            tol = 2.0 ** -7 * np.abs(ref) + 1e-6
+        else:
+            tol = 1e-5 * np.abs(ref).max()
+        assert np.all(np.abs(got - ref) <= tol), np.abs(got - ref).max()
+
+
+def test_layer_weight_trains():
+    layer = RMSNorm(64, device="cpu")
+    x = torch.tensor(_inputs((4, 64), 7)[0], requires_grad=True)
+    layer(x).square().sum().backward()
+    assert layer.weight.grad is not None and x.grad is not None
+    assert layer.weight.grad.shape == (64,)

@@ -9,6 +9,17 @@ Tolerance 1e-5 in f32: the same f32 arithmetic with sums in another order
 (the online softmax against a dense softmax). Rows with no valid key
 (padding) must agree with the kernel too: a finite uniform average of V
 over the keys the TPU kernel visits.
+
+Each test runs PyTorch on one intra-op thread, restored afterwards. In a
+fresh process with two or more threads, the first float exp after MKL's
+first GEMM sometimes computes one OpenMP thread's share with a
+low-accuracy exp: relative error up to 1.5e-4 (median 4.8e-5) over that
+thread's rows, while every later exp in the process agrees bit for bit
+with MKL VML's high-accuracy exp. The plain version's LSE then moved by
+4.9e-5 on one head and failed this comparison when its first case was the
+first exp of a test worker (the worker's earlier files ran only JAX). In
+separate processes under load: 3-5 of 30 such first calls on two threads,
+none on one thread, and none once any exp has run before.
 """
 import os
 
@@ -23,16 +34,19 @@ from paddle_tpu.ops.pallas import varlen_attention as JV
 from paddle_tpu_torch import launch_counts, reset_launch_counts
 from paddle_tpu_torch.ops.kernels import varlen_attention as TV
 
-torch.set_num_threads(2)
 TOL = 1e-5
 
 
 @pytest.fixture(autouse=True)
 def _interpret_mode():
-    # per-test env set, as tests/test_varlen_attention.py does
+    # per-test env set, as tests/test_varlen_attention.py does, and one
+    # PyTorch thread (see the module docstring); both restored
     old = os.environ.get("PT_PALLAS_INTERPRET")
+    threads = torch.get_num_threads()
     os.environ["PT_PALLAS_INTERPRET"] = "1"
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     if old is None:
         os.environ.pop("PT_PALLAS_INTERPRET", None)
     else:
