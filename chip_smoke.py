@@ -6,7 +6,8 @@ Phases, each of which fails the run with a non-zero exit:
   1. device and build: the card's name and power limit, then the CUDA
      kernels built from paddle_tpu_torch/ops/kernels/csrc with nvcc;
   2. kernels: each kernel against its plain PyTorch version at its path's
-     shapes, then timed (CUDA events around back-to-back calls, median of
+     shapes (the varlen backward kernels with exact zeros on padding rows
+     and keys), then timed (CUDA events around back-to-back calls, median of
      several such runs, after warm-up) beside its plain version and one
      PyTorch library call;
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
@@ -23,12 +24,22 @@ Phases, each of which fails the run with a non-zero exit:
      each and RMSNorm 65 times; then a 2-layer full-width f32 model's loss
      and every gradient on the card are held against the same weights on
      the CPU (plain versions);
-  6. profile, last: each kernel's device time and the device time of a
-     fresh-prefill step, a decode window and a training step, by
-     torch.profiler.
+  6. packed training: flash_attn_unpadded at the flagship's attention
+     width (16 heads of 128, bf16) over 16,384 packed tokens (the
+     training row's 4 x 4096) in ~14 documents, q/k/v projected from a
+     hidden state, causal, 1 warm-up and 3 timed forward + backward steps;
+     every step must launch the varlen forward, dK/dV and dQ kernels once
+     each; a total of 16,300 tokens (padded to 16,384) must give the
+     padding rows exactly zero gradient; one step through
+     flash_attn_varlen_qkvpacked; then the same path in f32 at a small
+     size on the card against the CPU;
+  7. profile, last: each kernel's device time and the device time of a
+     fresh-prefill step, a decode window, a training step and a packed
+     training step, by torch.profiler.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
+import contextlib
 import json
 import os
 import statistics
@@ -48,10 +59,20 @@ BF16_OPS_PER_S = 989e12
 F32_OPS_PER_S = 67e12
 # the training path's shape: the flagship row's batch and sequence
 TRAIN_BATCH, TRAIN_SEQ = 4, 4096
+# the packed-training path: the training row's tokens in one packed batch
+PACKED_TOKENS = TRAIN_BATCH * TRAIN_SEQ
+PACKED_SEED = 2026                 # document lengths
+# the kernels' correctness check of the varlen backward: one sequence's
+# worth of packed documents with a padding tail
+VARLEN_CHECK_TOKENS = 4096
 # the kernels each path must launch
 SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd")
 TRAINING_KERNELS = ("rms_norm", "flash_attention_fwd",
                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
+                  "varlen_attention_bwd_dq")
+PATHS = {"serving": SERVING_KERNELS, "training": TRAINING_KERNELS,
+         "packed_training": PACKED_KERNELS}
 
 
 def log(*a):
@@ -469,6 +490,285 @@ def phase_flash_kernels(dev, results, probes):
             f"ms ({r['library']}), bound {b:.4f} ms ({by})")
 
 
+def _packed_lens(total, seed):
+    """Document lengths log-uniform on [128, 4096] from a seeded
+    numpy.random.default_rng, the last cut so they sum to ``total``."""
+    rng = np.random.default_rng(seed)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(round(float(np.exp(rng.uniform(np.log(128),
+                                                       np.log(4096)))))))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+def _packed_segments(lens, total, dev):
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    return torch.tensor(VA.segment_ids_from_cu_seqlens(cu, total),
+                        device=dev)[None]
+
+
+def _causal_segment_pairs(seg):
+    """Valid causal (query, key) pairs of one head: the same non-negative
+    segment, row >= col."""
+    s = seg[0].long()
+    n = torch.unique(s[s >= 0], return_counts=True)[1].long()
+    return int((n * (n + 1) // 2).sum())
+
+
+def phase_varlen_bwd_kernels(dev, results, probes):
+    """The varlen backward kernels against their plain version at the
+    flagship's attention width (H=16, D=128, bf16) over 4096 packed tokens
+    with a padding tail and a query segment whose keys carry another id,
+    causal and not: the live rows element by element, the dead rows
+    (padding, and the segment with no valid key) and dead keys exactly 0.
+    Then, at the packed-training shape (16,384 tokens, causal) and two
+    document mixes, the forward and both backward kernels against their
+    plain versions, and their times beside the plain versions and SDPA
+    with the block-diagonal causal mask."""
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    H, D = 16, 128
+    RTOL, FLOOR = 2.0 ** -6, 1e-5
+    T = VARLEN_CHECK_TOKENS
+    lens = _packed_lens(T - 96, PACKED_SEED + 1)
+    seg = _packed_segments(lens, T, dev)
+    segk = seg.clone()
+    segk[segk == 1] = 10 ** 6                  # segment 1 finds no key
+    dead_q = (seg[0] < 0) | (seg[0] == 1)
+    dead_k = (segk[0] < 0) | (segk[0] == 10 ** 6)
+    q, k, v, do = [torch.randn(1, H, T, D, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4)]
+    errs = {"varlen_attention_bwd_dkv": 0.0, "varlen_attention_bwd_dq": 0.0}
+    for causal in (True, False):
+        o, lse = VA.varlen_flash_attention_packed(q, k, v, seg, segk, causal)
+        dq, dk, dv = VA.varlen_backward(q, k, v, seg, segk, o, lse, do,
+                                        causal)
+        dq2, dk2, dv2 = VA._varlen_bwd_ref(q, k, v, seg, segk, o, lse, do,
+                                           causal)
+        torch.cuda.synchronize()
+        live = {n: (a[:, :, ~m].float(), b[:, :, ~m])
+                for n, a, b, m in (("dQ", dq, dq2, dead_q),
+                                   ("dK", dk, dk2, dead_k),
+                                   ("dV", dv, dv2, dead_k))}
+        # the worst ratio over the finite elements, and the count of the
+        # others (each fails the check)
+        ratios = {n: _worst_of_tol(torch.where(torch.isfinite(a), a,
+                                               b.float()), b, RTOL, FLOOR)
+                  for n, (a, b) in live.items()}
+        nonfinite = {n: int((~torch.isfinite(a)).sum())
+                     for n, (a, _) in live.items()}
+        rms = {n: _rms(b[:, :, ~m]) for n, b, m in (("dQ", dq2, dead_q),
+                                                   ("dK", dk2, dead_k),
+                                                   ("dV", dv2, dead_k))}
+        zero = all(bool((t[:, :, m] == 0).all())
+                   for t, m in ((dq, dead_q), (dk, dead_k), (dv, dead_k),
+                                (dq2, dead_q), (dk2, dead_k),
+                                (dv2, dead_k)))
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (dq, dk, dv))
+        worst = max(ratios.values())
+        ok = finite and zero and worst <= 1.0
+        log(f"varlen backward H={H} T={T} D={D} bf16 causal={causal} "
+            f"({len(lens)} documents + {int((seg < 0).sum())} padding "
+            f"tokens): worst error / tol "
+            + ", ".join(f"{n} {ratios[n]:.3f} (RMS {rms[n]:.3e}"
+                        + (f", {nonfinite[n]} non-finite"
+                           if nonfinite[n] else "") + ")"
+                        for n in ratios)
+            + f" (tol 2**-6 * (|ref| + row RMS) + 1e-5); "
+            f"{int(dead_q.sum())} dead rows and {int(dead_k.sum())} dead "
+            f"keys exactly 0: {zero} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("varlen backward kernels disagree with "
+                                 "their plain version")
+        errs["varlen_attention_bwd_dkv"] = max(
+            errs["varlen_attention_bwd_dkv"], _max_err(dk, dk2),
+            _max_err(dv, dv2))
+        errs["varlen_attention_bwd_dq"] = max(
+            errs["varlen_attention_bwd_dq"], _max_err(dq, dq2))
+    del q, k, v, do, o, lse, dq, dk, dv, dq2, dk2, dv2
+
+    # the packed-training shape (16,384 tokens, causal) with two document
+    # mixes: the packed-training phase's 12 documents, and the flagship
+    # row's own sequences packed (4 of 4096: long documents, so a larger
+    # share of the causal tiles holds pairs of one document and the
+    # backward kernels skip fewer). Each mix fills the whole axis, so no
+    # row or key is dead. At each: the three kernels against their plain
+    # versions (the forward's one head at a time), element by element as
+    # above, then their times. The forward visits every causal tile
+    # whatever the mix, so it is timed at the first mix only.
+    T = PACKED_TOKENS
+    mixes = ((f"{len(_packed_lens(T, PACKED_SEED))} documents (seed "
+              f"{PACKED_SEED})", _packed_lens(T, PACKED_SEED)),
+             (f"{TRAIN_BATCH} documents of {T // TRAIN_BATCH}",
+              [T // TRAIN_BATCH] * TRAIN_BATCH))
+    fwd_err = 0.0
+    for i, (mix, lens) in enumerate(mixes):
+        seg = _packed_segments(lens, T, dev)
+        q, k, v, do = [torch.randn(1, H, T, D, device=dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4)]
+        o, lse = VA.varlen_flash_attention_packed(q, k, v, seg, seg, True)
+        o2, lse2 = _varlen_ref_by_head(q, k, v, seg, True)
+        got = VA.varlen_backward(q, k, v, seg, seg, o, lse, do, True)
+        ref = VA._varlen_bwd_ref(q, k, v, seg, seg, o, lse, do, True)
+        torch.cuda.synchronize()
+        names = ("O", "dQ", "dK", "dV")
+        ratios = {n: _worst_of_tol(a, b, RTOL, FLOOR)
+                  for n, a, b in zip(names, (o, *got), (o2, *ref))}
+        rms = {n: _rms(b) for n, b in zip(names, (o2, *ref))}
+        el = _max_err(lse, lse2)
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (o, *got))
+        worst = max(ratios.values())
+        ok = finite and el <= 1e-3 and worst <= 1.0
+        log(f"varlen forward + backward H={H} T={T} D={D} bf16 causal, "
+            f"{mix}: worst error / tol "
+            + ", ".join(f"{n} {ratios[n]:.3f} (RMS {rms[n]:.3e})"
+                        for n in names)
+            + f" (tol 2**-6 * (|ref| + row RMS) + 1e-5); LSE max_abs_err "
+            f"{el:.3e} (tol 1e-3; RMS of LSE {_rms(lse2):.3e}); finite "
+            f"{finite} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("varlen attention kernels disagree with "
+                                 "their plain versions at the packed shape")
+        fwd_err = max(fwd_err, _max_err(o, o2))
+        errs["varlen_attention_bwd_dkv"] = max(
+            errs["varlen_attention_bwd_dkv"], _max_err(got[1], ref[1]),
+            _max_err(got[2], ref[2]))
+        errs["varlen_attention_bwd_dq"] = max(
+            errs["varlen_attention_bwd_dq"], _max_err(got[0], ref[0]))
+        del o2, lse2, got, ref
+        _time_varlen_packed(results, probes, mix, i == 0, q, k, v, do, seg,
+                            o, lse)
+    results["varlen_attention_fwd"]["at_packed_shape"]["max_abs_err"] = \
+        fwd_err
+    for name in errs:
+        results[name]["max_abs_err"] = errs[name]
+
+
+def _varlen_ref_by_head(q, k, v, seg, causal):
+    """The varlen forward's plain version one head at a time (a head's
+    [T, T] f32 logits are 1 GiB at 16,384 tokens): (O, LSE)."""
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    outs = [VA._varlen_ref(q[:, h:h + 1], k[:, h:h + 1], v[:, h:h + 1],
+                           seg, seg, causal) for h in range(q.shape[1])]
+    return (torch.cat([o for o, _ in outs], 1),
+            torch.cat([lse for _, lse in outs], 1))
+
+
+def _time_varlen_packed(results, probes, mix, first, q, k, v, do, seg, o,
+                        lse):
+    """Times of the varlen kernels at the packed shape for one document
+    mix, beside their plain versions and SDPA with the block-diagonal
+    causal bool mask. The first mix makes the backward kernels' rows and
+    the forward's ``at_packed_shape``; a later one adds
+    ``at_<mix>`` to the backward rows."""
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    H, T, D = q.shape[1], q.shape[2], q.shape[3]
+    delta = (do.float() * o.float()).sum(-1)
+    pairs = H * _causal_segment_pairs(seg)
+    all_pairs = H * T * (T + 1) // 2
+    fwd = lambda: VA.varlen_flash_attention_packed(  # noqa: E731
+        q, k, v, seg, seg, True)
+    dkv = lambda: VA._launch_bwd_dkv(  # noqa: E731
+        q, k, v, seg, seg, do, lse, delta, True)
+    dqk = lambda: VA._launch_bwd_dq(  # noqa: E731
+        q, k, v, seg, seg, do, lse, delta, True)
+    pos = torch.arange(T, device=q.device)
+    mask = (seg[0][:, None] == seg[0][None, :]) \
+        & (pos[:, None] >= pos[None, :])
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qg, kg, vg, attn_mask=mask)
+    lib_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), calls=5, windows=5,
+        warmup=2)
+    del out, qg, kg, vg
+    plain_bwd_ms = time_ms(lambda: VA._varlen_bwd_ref(
+        q, k, v, seg, seg, o, lse, do, True), calls=1, windows=3, warmup=1)
+    shape = (f"q/k/v/dO [1, {H}, {T}, {D}] bf16 causal, {mix}, {pairs} "
+             f"within-segment causal pairs ({pairs / all_pairs:.3f} of the "
+             f"causal triangle)")
+    lse_b, d_b, seg_b = nbytes(lse), nbytes(delta), 2 * nbytes(seg)
+    lib_note = ("SDPA backward (dQ, dK, dV together), block-diagonal causal "
+                "bool mask")
+    if first:
+        lib_fwd_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask), calls=5,
+                             windows=5, warmup=2)
+        b, by = bound(nbytes(q, k, v, o) + lse_b + seg_b, 4 * D * pairs,
+                      BF16_OPS_PER_S)
+        fp = results["varlen_attention_fwd"]["at_packed_shape"] = dict(
+            shape=shape, ms=time_ms(fwd, calls=5, windows=5, warmup=2),
+            plain_ms=time_ms(lambda: _varlen_ref_by_head(q, k, v, seg, True),
+                             calls=1, windows=3, warmup=1),
+            plain_note="the dense f32 plain version a head at a time",
+            bound_ms=b, bound_by=by, library_ms=lib_fwd_ms,
+            library="SDPA forward, block-diagonal causal bool mask")
+        probes["varlen_attention_fwd at the packed shape"] = (
+            fwd, "varlen_fwd_kernel", 5, fp)
+        log(f"varlen_attention_fwd at the packed shape: {fp['ms']:.3f} ms "
+            f"a call, {fp['plain_ms']:.3f} ms plain, library "
+            f"{lib_fwd_ms:.3f} ms, bound {b:.4f} ms ({by})")
+    rows = {
+        "varlen_attention_bwd_dkv": dict(
+            replaces="paddle_tpu/ops/pallas/varlen_attention.py:147",
+            fn=dkv, ops=8 * D * pairs,
+            nbytes=nbytes(q, k, v, do, k, v) + lse_b + d_b + seg_b,
+            symbol="varlen_bwd_dkv_kernel"),
+        "varlen_attention_bwd_dq": dict(
+            replaces="paddle_tpu/ops/pallas/varlen_attention.py:196",
+            fn=dqk, ops=6 * D * pairs,
+            nbytes=nbytes(q, k, v, do, q) + lse_b + d_b + seg_b,
+            symbol="varlen_bwd_dq_kernel"),
+    }
+    for name, r in rows.items():
+        b, by = bound(r["nbytes"], r["ops"], BF16_OPS_PER_S)
+        row = dict(ms=time_ms(r["fn"], calls=5, windows=5, warmup=2),
+                   plain_ms=plain_bwd_ms, bound_ms=b, bound_by=by,
+                   library_ms=lib_bwd_ms, library=lib_note, shape=shape,
+                   plain_note="one dense f32 backward, a head at a time, "
+                              "computes dQ, dK and dV")
+        if first:
+            row = results[name] = dict(
+                name=name, route="cuda",
+                source="paddle_tpu_torch/ops/kernels/csrc/"
+                       "varlen_attention_bwd.cu",
+                replaces=r["replaces"], max_abs_err=None, **row)
+            probes[name] = (r["fn"], r["symbol"], 5, row)
+        else:
+            key = "at_" + "_".join(mix.split())
+            results[name][key] = row
+            probes[f"{name} {key}"] = (r["fn"], r["symbol"], 5, row)
+        log(f"{name} ({mix}): {row['ms']:.3f} ms a call, "
+            f"{plain_bwd_ms:.3f} ms plain, library {lib_bwd_ms:.3f} ms, "
+            f"bound {b:.4f} ms ({by})")
+
+
+@contextlib.contextmanager
+def one_cpu_thread():
+    """PyTorch on one intra-op thread inside the block, restored after: the
+    parity phases' CPU reference passes run under it. With two or more
+    threads, the first float exp of a process after its first MKL GEMM
+    sometimes computes one thread's share at low accuracy (relative error
+    up to 1.5e-4; tests/test_torch_varlen_attention.py). On an 8-thread
+    H100 host it moved the training parity's CPU lm_head gradient to 4.4x
+    its tolerance in one fresh process of eight (0.08x in the others),
+    while the card's side repeated to the bit
+    (tools/cpu_reference_spread.py)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def _flagship_config():
     from paddle_tpu_torch.models.llama import LlamaConfig
 
@@ -573,21 +873,25 @@ def phase_training_parity(dev):
                                    (1, min(512, TRAIN_SEQ))))
     labels = torch.roll(ids, -1, dims=1)
     out = []
-    for where in (dev, torch.device("cpu")):
-        p = {k: ({kk: vv.detach().to(where).requires_grad_(True)
-                  for kk, vv in v.items()} if isinstance(v, dict)
-                 else v.detach().to(where).requires_grad_(True))
-             for k, v in params.items()}
-        reset_launch_counts()
-        loss = TL.loss_fn_stacked(p, (ids.to(where), labels.to(where)), cfg)
-        loss.backward()
-        if where.type == "cuda":
-            torch.cuda.synchronize()
-            c = launch_counts()
-            if min(c[n] for n in TRAINING_KERNELS) <= 0:
-                raise AssertionError(f"parity run missed a kernel: {c}")
-        out.append((float(loss.detach()), {k: t.grad.detach().cpu()
-                                  for k, t in TL.leaves(p).items()}))
+    with one_cpu_thread():
+        for where in (dev, torch.device("cpu")):
+            p = {k: ({kk: vv.detach().to(where).requires_grad_(True)
+                      for kk, vv in v.items()} if isinstance(v, dict)
+                     else v.detach().to(where).requires_grad_(True))
+                 for k, v in params.items()}
+            reset_launch_counts()
+            loss = TL.loss_fn_stacked(
+                p, (ids.to(where), labels.to(where)), cfg)
+            loss.backward()
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+                c = launch_counts()
+                if min(c[n] for n in TRAINING_KERNELS) <= 0:
+                    raise AssertionError(f"parity run missed a kernel: "
+                                         f"{c}")
+            out.append((float(loss.detach()),
+                        {k: t.grad.detach().cpu()
+                         for k, t in TL.leaves(p).items()}))
     (lc, gc), (lp, gp) = out
     ratios = {k: _worst_of_tol(gc[k], gp[k], 1e-3, 1e-12) for k in gp}
     worst_leaf = max(ratios, key=ratios.get)
@@ -602,6 +906,196 @@ def phase_training_parity(dev):
         f"{len(gp)} leaves {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("training on the card disagrees with the CPU")
+
+
+def _packed_qkv(x, w, heads):
+    """q, k, v [T, heads, D] from a hidden state x [T, hidden] through
+    bias-free projections w[n] [hidden, hidden]."""
+    return [(x @ w[n]).view(x.shape[0], heads, -1) for n in "qkv"]
+
+
+def phase_packed_training(dev):
+    """flash_attn_unpadded trained at the flagship's attention width (16
+    heads of 128, bf16) over PACKED_TOKENS packed tokens: q, k, v projected
+    from a seeded hidden state, causal, loss sum(out * a fixed random
+    cotangent), backward to the projections; 1 warm-up and 3 timed steps,
+    each held to one launch of each varlen kernel and none of the flash
+    kernels. Then a total of 16,300 tokens (padded to 16,384) and one step
+    through flash_attn_varlen_qkvpacked."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    cfg = _flagship_config()
+    H = cfg.num_attention_heads
+    hidden = cfg.hidden_size
+    D = hidden // H
+    T, steps = PACKED_TOKENS, 3
+    lens = _packed_lens(T, PACKED_SEED)
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf16 = torch.bfloat16
+    x = torch.randn(T, hidden, device=dev, generator=gen).to(bf16)
+    w = {n: (torch.randn(hidden, hidden, device=dev, generator=gen)
+             * hidden ** -0.5).to(bf16).requires_grad_(True) for n in "qkv"}
+    cot = torch.randn(T, H, D, device=dev, generator=gen).to(bf16)
+    log(f"packed training: H={H}, D={D}, bf16, {T} tokens in {len(lens)} "
+        f"documents (lengths {lens})")
+
+    def step():
+        for t in w.values():
+            t.grad = None
+        q, k, v = _packed_qkv(x, w, H)
+        out, _ = IF.flash_attn_unpadded(q, k, v, cu, cu, causal=True)
+        loss = (out.float() * cot.float()).sum()
+        loss.backward()
+        return loss.detach()
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    start_bytes = torch.cuda.memory_allocated(dev)
+    t = time.perf_counter()
+    warm = float(step())
+    torch.cuda.synchronize()
+    log(f"packed training warm-up step: {time.perf_counter() - t:.2f} s, "
+        f"loss {warm:.4f}")
+    expect = {n: 1 for n in PACKED_KERNELS}
+    losses, step_ms, per_step = [], [], []
+    reset_launch_counts()
+    for _ in range(steps):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        per_step.append(per)
+        for name, n in per.items():
+            if n != expect.get(name, 0):
+                raise AssertionError(f"packed training step launched "
+                                     f"{name} {n} times, not "
+                                     f"{expect.get(name, 0)}")
+    counts = launch_counts()
+    grads_ok = all(bool(torch.isfinite(t.grad.float()).all())
+                   and float(t.grad.float().abs().max()) > 0
+                   for t in w.values())
+    if not (all(np.isfinite(losses)) and grads_ok):
+        raise AssertionError(f"packed training: losses {losses}, finite "
+                             f"non-zero weight gradients {grads_ok}")
+    ms = statistics.median(step_ms)
+    metrics = {
+        "tokens": T, "heads": H, "head_dim": D, "documents": len(lens),
+        "steps": steps, "step_ms": step_ms, "step_ms_median": ms,
+        "tokens_per_s": T / (ms / 1e3), "losses": losses,
+        "warmup_loss": warm,
+        # the phase's own peak: the earlier phases' models stay allocated
+        # for the profile phase
+        "peak_memory_over_start_gb": (torch.cuda.max_memory_allocated(dev)
+                                      - start_bytes) / 1e9,
+        # as counted in the last step (each step was held to `expect`)
+        "launches_per_step": per_step[-1],
+    }
+    log(json.dumps({"packed_training": metrics}))
+
+    # 16,300 tokens pad to 16,384: the packed entry on the padded tensors
+    # gives the padding rows exactly zero dQ, dK, dV under a cotangent that
+    # is not zero there, and flash_attn_unpadded equals it on the live rows
+    n = T - 84
+    cu_n = np.concatenate([[0], np.cumsum(_packed_lens(n, PACKED_SEED))])
+    with torch.no_grad():
+        qkv = [t.detach() for t in _packed_qkv(x[:n], w, H)]
+    live = [t.clone().requires_grad_(True) for t in qkv]
+    n0 = launch_counts()
+    out, _ = IF.flash_attn_unpadded(*live, cu_n, cu_n, causal=True)
+    out.backward(cot[:n])
+    per = {k: v - n0[k] for k, v in launch_counts().items()}
+    seg = _packed_segments(np.diff(cu_n), T, dev)
+    padded = [torch.cat([t, torch.zeros(T - n, H, D, device=dev,
+                                        dtype=bf16)]).transpose(0, 1)[None]
+              .contiguous().requires_grad_(True) for t in qkv]
+    o = VA.varlen_flash_attention(*padded, seg, seg, is_causal=True)
+    o.backward(cot.transpose(0, 1)[None])
+    torch.cuda.synchronize()
+    zero = all(bool((t.grad[:, :, n:] == 0).all()) for t in padded)
+    same = torch.equal(out, o[0].transpose(0, 1)[:n]) and all(
+        torch.equal(a.grad, b.grad[0].transpose(0, 1)[:n])
+        for a, b in zip(live, padded))
+    ok = zero and same and all(per[k] == 1 for k in PACKED_KERNELS)
+    log(f"packed training, {n} tokens padded to {T}: padding rows' dQ, dK, "
+        f"dV exactly 0: {zero}; flash_attn_unpadded equals the packed "
+        f"entry on the live rows, bit for bit: {same}; launches {per} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("packed training with padding failed")
+
+    # flash_attn_varlen_qkvpacked on the same q, k, v: the same bits
+    qkvp = torch.stack(qkv, dim=1).requires_grad_(True)
+    n0 = launch_counts()
+    outp, _ = IF.flash_attn_varlen_qkvpacked(qkvp, cu_n, cu_n, causal=True)
+    outp.backward(cot[:n])
+    torch.cuda.synchronize()
+    per = {k: v - n0[k] for k, v in launch_counts().items()}
+    same = torch.equal(outp, out) and all(
+        torch.equal(qkvp.grad[:, i], live[i].grad) for i in range(3))
+    ok = same and all(per[k] == 1 for k in PACKED_KERNELS)
+    log(f"packed training through flash_attn_varlen_qkvpacked: output and "
+        f"gradients equal flash_attn_unpadded's bit for bit: {same}; "
+        f"launches {per} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash_attn_varlen_qkvpacked disagrees")
+    return dict(metrics=metrics, counts=counts, step=step)
+
+
+def phase_packed_parity(dev):
+    """The packed path in f32 at full attention width (16 heads of 128,
+    hidden 2048) over 1000 tokens in 4 documents (padded to 1024): the
+    output and the projections' gradients on the card (kernels) against
+    the same inputs on the CPU (plain versions), each element within
+    1e-4 * (|ref| + its row's RMS) + 1e-6 (f32 sums in other orders)."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    cfg = _flagship_config()
+    H, hidden = cfg.num_attention_heads, cfg.hidden_size
+    lens = [300, 128, 450, 122]
+    cu = np.concatenate([[0], np.cumsum(lens)])
+    T = int(cu[-1])
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(T, hidden, generator=g)
+    w = {n: torch.randn(hidden, hidden, generator=g) * hidden ** -0.5
+         for n in "qkv"}
+    cot = torch.randn(T, H, hidden // H, generator=g)
+    res = []
+    with one_cpu_thread():
+        for where in (dev, torch.device("cpu")):
+            ww = {n: t.to(where).requires_grad_(True) for n, t in w.items()}
+            reset_launch_counts()
+            out, _ = IF.flash_attn_unpadded(
+                *_packed_qkv(x.to(where), ww, H), torch.tensor(cu), cu,
+                causal=True)
+            out.backward(cot.to(where))
+            if where.type == "cuda":
+                torch.cuda.synchronize()
+                c = launch_counts()
+                if any(c[k] != 1 for k in PACKED_KERNELS):
+                    raise AssertionError(f"packed parity run: launches "
+                                         f"{c}")
+            res.append([out.detach().cpu()]
+                       + [ww[n].grad.cpu() for n in "qkv"])
+    names = ["out", "dWq", "dWk", "dWv"]
+    ratios = {n: _worst_of_tol(a, b, 1e-4, 1e-6)
+              for n, a, b in zip(names, *res)}
+    worst = max(ratios.values())
+    ok = worst <= 1.0
+    log(f"packed parity f32 H={H} hidden={hidden} T={T} ({len(lens)} "
+        f"documents, padded to 1024), card vs CPU: worst error / tol "
+        + ", ".join(f"{n} {r:.3e}" for n, r in ratios.items())
+        + f" (tol 1e-4 * (|ref| + row RMS) + 1e-6) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("packed attention on the card disagrees with "
+                             "the CPU")
 
 
 def _prompts(rng, lens, vocab):
@@ -704,13 +1198,13 @@ def phase_serving(dev):
                 sampling=sampling)
 
 
-def phase_profile(dev, serving, training, kernels, probes):
+def phase_profile(dev, serving, training, packed, kernels, probes):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
-    16-step decode window at batch 8 and of one training step, beside the
-    wall times of the unprofiled runs — the device's busy share and its top
-    kernels."""
+    16-step decode window at batch 8, of one training step and of one
+    packed training step, beside the wall times of the unprofiled runs —
+    the device's busy share and its top kernels."""
     from paddle_tpu_torch.inference import ServingEngine
 
     for name, (fn, symbol, calls, target) in probes.items():
@@ -741,7 +1235,12 @@ def phase_profile(dev, serving, training, kernels, probes):
     trainer, tm = training["trainer"], training["metrics"]
     train_ms, train_top = summary(profile_kernels(
         lambda: trainer.step(training["ids"], training["labels"])), 1)
+    pm = packed["metrics"]
+    packed_ms, packed_top = summary(profile_kernels(packed["step"]), 1)
     prof = {
+        "packed_training_step_device_ms": packed_ms,
+        "packed_training_device_busy": packed_ms / pm["step_ms_median"],
+        "packed_training_top": packed_top,
         "training_step_device_ms": train_ms,
         "training_device_busy": train_ms / tm["step_ms_median"],
         "training_top": train_top,
@@ -827,20 +1326,23 @@ def main():
     phase_device_and_build()
     kernels, probes = phase_kernels(dev)
     phase_flash_kernels(dev, kernels, probes)
+    phase_varlen_bwd_kernels(dev, kernels, probes)
     serving = phase_serving(dev)
     phase_parity(dev, serving)
     training = phase_training(dev)
     phase_training_parity(dev)
-    phase_profile(dev, serving, training, kernels, probes)
-    by_path = {"serving": serving["counts"], "training": training["counts"]}
+    packed = phase_packed_training(dev)
+    phase_packed_parity(dev)
+    phase_profile(dev, serving, training, packed, kernels, probes)
+    by_path = {"serving": serving["counts"], "training": training["counts"],
+               "packed_training": packed["counts"]}
     per_step = {"serving": serving["run"]["per_step"],
-                "training": training["metrics"]["launches_per_step"]}
+                "training": training["metrics"]["launches_per_step"],
+                "packed_training": packed["metrics"]["launches_per_step"]}
     line = []
     for name, r in kernels.items():
         r = dict(r)
-        paths = [p for p, kset in (("serving", SERVING_KERNELS),
-                                   ("training", TRAINING_KERNELS))
-                 if name in kset]
+        paths = [p for p, kset in PATHS.items() if name in kset]
         r["launches"] = sum(by_path[p][name] for p in paths)
         r["launches_by_path"] = {p: by_path[p][name] for p in paths}
         r["launches_per_step"] = {p: per_step[p].get(name)

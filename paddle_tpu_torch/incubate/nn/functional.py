@@ -1,4 +1,4 @@
-"""Fused serving ops of the ported slice (paddle_tpu/incubate/nn/functional).
+"""Fused ops of the ported slices (paddle_tpu/incubate/nn/functional).
 
 ``block_multihead_attention`` is the paged-KV attention of the serving
 step. Its fresh-prefill route runs the varlen flash-attention kernel; its
@@ -6,17 +6,25 @@ decode and chunked-prefill route is tensor code, as the reference's is.
 The stacked caches are updated IN PLACE (the reference returns new
 arrays): a serving step writes each layer's new K/V straight into the one
 [L, num_blocks, HKV, block_size, D] buffer pair, with no copy of the pool.
+
+``flash_attn_unpadded`` and ``flash_attn_varlen_qkvpacked`` are the
+packed-sequence entry points, differentiable: their kernel route runs the
+varlen flash-attention forward and its two backward kernels.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from ...ops.kernels.varlen_attention import varlen_flash_attention_packed
+from ...ops.kernels.varlen_attention import (segment_ids_from_cu_seqlens,
+                                             varlen_flash_attention,
+                                             varlen_flash_attention_packed)
 
-__all__ = ["swiglu", "block_multihead_attention"]
+__all__ = ["swiglu", "block_multihead_attention", "flash_attn_unpadded",
+           "flash_attn_varlen_qkvpacked"]
 
 
 def swiglu(x, y=None):
@@ -127,3 +135,98 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     out = torch.einsum("tkgc,kcd->tkgd", probs.to(qkv.dtype).float(),
                        vd.float()).to(qkv.dtype)
     return out.reshape(T, HQ * D), qkv, key_cache, value_cache
+
+
+def _host_offsets(cu):
+    """Cumulative sequence offsets on the host, as int64 numpy (the TPU
+    package reads them with ``.numpy()``): from a list, a numpy array or a
+    tensor on any device."""
+    if isinstance(cu, torch.Tensor):
+        cu = cu.detach().cpu().numpy()
+    return np.asarray(cu).astype(np.int64)
+
+
+def _unpadded_kernel_route(d, cq, ck, scale, dropout, training):
+    """Where the TPU package takes its segment-id kernel route
+    (incubate/nn/functional/__init__.py:224-229, without its use_pallas()
+    term): no live dropout, the default scale, D a multiple of 64 and one
+    set of offsets for queries and keys."""
+    return ((dropout == 0.0 or not training) and scale is None
+            and d % 64 == 0 and np.array_equal(cq, ck))
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q=None, max_seqlen_k=None, scale=None,
+                        dropout=0.0, causal=False, return_softmax=False,
+                        fixed_seed_offset=None, rng_name="", training=True,
+                        name=None, generator=None):
+    """Varlen (packed) attention (incubate/nn/functional/__init__.py:
+    196-285): query/key/value [total, H, D] with cumulative offsets
+    ``cu_seqlens_q`` / ``cu_seqlens_k`` (a list, numpy array or tensor,
+    read on the host). Returns (out [total, H, D], None). Differentiable.
+
+    Kernel route (``_unpadded_kernel_route``): pad the token axis to a
+    multiple of 128, give the padding segment id -1, run
+    ``varlen_flash_attention`` on [1, H, Tp, D] and slice the padding off.
+    Otherwise the per-segment dense route: each segment's attention in
+    f32, causal bottom-right aligned when a segment has fewer queries than
+    keys, ``scale`` (default 1/sqrt(D)) and dropout. The TPU package draws
+    its dropout bits from jax.random, which cannot be reproduced: here
+    they come from ``generator`` (the default generator of the tensors'
+    device when None), so a seed repeats a draw within the port only."""
+    cq, ck = _host_offsets(cu_seqlens_q), _host_offsets(cu_seqlens_k)
+    d = int(query.shape[-1])
+    if _unpadded_kernel_route(d, cq, ck, scale, dropout, training):
+        total = int(query.shape[0])
+        padded = 128 * ((total + 127) // 128)
+        seg = torch.from_numpy(segment_ids_from_cu_seqlens(cq, padded)) \
+            .to(query.device)[None]
+
+        def packed(t):                        # [total, H, D] -> [1, H, Tp, D]
+            return TF.pad(t, (0, 0, 0, 0, 0, padded - total)) \
+                .transpose(0, 1)[None]
+
+        o = varlen_flash_attention(packed(query), packed(key),
+                                   packed(value), seg, seg,
+                                   is_causal=causal)
+        return o[0].transpose(0, 1)[:total], None
+
+    s = scale if scale is not None else 1.0 / d ** 0.5
+    live_dropout = dropout > 0.0 and training
+    outs = []
+    for i in range(len(cq) - 1):
+        qs = query[int(cq[i]):int(cq[i + 1])].float()
+        ks = key[int(ck[i]):int(ck[i + 1])].float()
+        vs = value[int(ck[i]):int(ck[i + 1])].float()
+        logits = torch.einsum("qhd,khd->hqk", qs, ks) * s
+        if causal:
+            # bottom-right aligned (FA2 varlen): with q_len < k_len the
+            # queries sit at the END of the keys
+            off = ks.shape[0] - qs.shape[0]
+            qi = torch.arange(qs.shape[0], device=query.device)[:, None] \
+                + off
+            ki = torch.arange(ks.shape[0], device=query.device)[None, :]
+            logits = torch.where((qi >= ki)[None], logits,
+                                 torch.full_like(logits, -1e30))
+        probs = torch.softmax(logits, dim=-1)
+        if live_dropout:
+            keep = torch.rand(probs.shape, generator=generator,
+                              device=probs.device) < 1.0 - dropout
+            probs = probs * keep / (1.0 - dropout)
+        outs.append(torch.einsum("hqk,khd->qhd", probs, vs))
+    return torch.cat(outs, dim=0).to(query.dtype), None
+
+
+def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
+                                max_seqlen_q=None, max_seqlen_k=None,
+                                scale=None, dropout=0.0, causal=False,
+                                return_softmax=False, training=True,
+                                generator=None, **kw):
+    """Packed [total, 3, H, D] varlen attention
+    (incubate/nn/functional/__init__.py:288-298): unpack and delegate to
+    ``flash_attn_unpadded``."""
+    return flash_attn_unpadded(qkv[:, 0], qkv[:, 1], qkv[:, 2],
+                               cu_seqlens_q, cu_seqlens_k, max_seqlen_q,
+                               max_seqlen_k, scale, dropout, causal,
+                               return_softmax, training=training,
+                               generator=generator)

@@ -45,6 +45,9 @@ def _counters():
 
     return {"rms_norm": (rms_norm, "launches"),
             "varlen_attention_fwd": (varlen_attention, "launches"),
+            "varlen_attention_bwd_dkv": (varlen_attention,
+                                         "launches_bwd_dkv"),
+            "varlen_attention_bwd_dq": (varlen_attention, "launches_bwd_dq"),
             "flash_attention_fwd": (flash_attention, "launches_fwd"),
             "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
             "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq")}

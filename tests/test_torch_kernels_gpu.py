@@ -205,3 +205,69 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda_device):
     q = torch.ones(1, 1, 256, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         FA.forward_with_lse(q, q, q)
+
+
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lens,total", [([90, 60, 70], 256),
+                                        ([17, 200, 30, 5], 384),
+                                        ([700, 1000, 300, 1900], 4096),
+                                        ([3], 5)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_varlen_backward_kernels_match_plain(lens, total, causal, d, dtype,
+                                             cuda_device):
+    """dK/dV and dQ against ``_varlen_bwd_ref``. Query segment 1 finds no
+    key (its keys carry another id): its rows get exactly zero dQ, and its
+    keys and the padding keys exactly zero dK and dV."""
+    gen = torch.Generator(device=cuda_device).manual_seed(total + d)
+    seg = _segments(lens, total, cuda_device)
+    segk = seg.clone()
+    segk[segk == 1] = 9
+    q, k, v, do = [torch.randn(1, 4, total, d, device=cuda_device,
+                               generator=gen).to(dtype) for _ in range(4)]
+    o, lse = TV.varlen_flash_attention_packed(q, k, v, seg, segk, causal)
+    n0 = (TV.launches_bwd_dkv, TV.launches_bwd_dq)
+    got = TV.varlen_backward(q, k, v, seg, segk, o, lse, do, causal)
+    ref = TV._varlen_bwd_ref(q, k, v, seg, segk, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (TV.launches_bwd_dkv, TV.launches_bwd_dq) == (n0[0] + 1,
+                                                         n0[1] + 1)
+    for a, b in zip(got, ref):
+        assert bool(torch.isfinite(a.float()).all())
+        assert _worst_of_tol(a, b, *_tol(dtype)) <= 1.0
+    dead_q = (seg[0] < 0) | (seg[0] == 1)
+    dead_k = (segk[0] < 0) | (segk[0] == 9)
+    assert bool((got[0][:, :, dead_q] == 0).all())
+    assert bool((got[1][:, :, dead_k] == 0).all())
+    assert bool((got[2][:, :, dead_k] == 0).all())
+
+
+def test_varlen_autograd_launches_each_kernel_once(cuda_device):
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    cu = [0, 100, 250, 300]
+    q, k, v = (torch.randn(300, 2, 128, device=cuda_device, generator=gen)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    n0 = (TV.launches, TV.launches_bwd_dkv, TV.launches_bwd_dq)
+    out, _ = IF.flash_attn_unpadded(q, k, v, cu, cu, causal=True)
+    out.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert (TV.launches, TV.launches_bwd_dkv, TV.launches_bwd_dq) == \
+        (n0[0] + 1, n0[1] + 1, n0[2] + 1)
+    assert out.shape == q.shape and q.grad.shape == q.shape
+
+
+def test_varlen_backward_rejects_what_it_cannot_take(cuda_device):
+    q = torch.ones(1, 2, 128, 96, device=cuda_device)
+    seg = torch.zeros(1, 128, dtype=torch.int32, device=cuda_device)
+    lse = torch.zeros(1, 2, 128, device=cuda_device)
+    with pytest.raises(ValueError):
+        TV._launch_bwd(q, q, q, seg, seg, q, lse, q, True)   # head_dim 96
+    q = torch.ones(1, 2, 128, 64, device=cuda_device)
+    with pytest.raises(ValueError):
+        TV._launch_bwd_dq(q, q, q, seg, seg, q, lse,
+                          lse[:, :, :64], True)               # delta shape
+    with pytest.raises(TypeError):
+        TV._launch_bwd(q.half(), q.half(), q.half(), seg, seg, q.half(),
+                       lse, q.half(), True)
