@@ -4,12 +4,15 @@
 
 Phases, each of which fails the run with a non-zero exit:
   1. device and build: the card's name and power limit, then the CUDA
-     kernels built from paddle_tpu_torch/ops/kernels/csrc with nvcc;
+     kernels built from paddle_tpu_torch/ops/kernels/csrc with nvcc, and
+     the count of tensor-core instructions (HGMMA, HMMA) in the bf16 flash
+     backward kernels' SASS where cuobjdump is found (printed only);
   2. kernels: each kernel against its plain PyTorch version at its path's
      shapes (the varlen backward kernels with exact zeros on padding rows
      and keys), then timed (CUDA events around back-to-back calls, median of
      several such runs, after warm-up) beside its plain version and one
-     PyTorch library call;
+     PyTorch library call; the flash backward kernels also run twice at
+     the training shape and must give the same bits;
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run; the
@@ -160,6 +163,40 @@ def phase_device_and_build():
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(so, HERE)} (nvcc "
         f"{' '.join(_build.ARCH_FLAGS)})")
+    log_tensor_core_sass(so)
+
+
+def log_tensor_core_sass(so):
+    """Print the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in
+    the SASS of the bf16 flash backward kernels, where cuobjdump is on
+    PATH or beside nvcc. Printed, not required."""
+    import re
+    import shutil
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(_build._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        log("SASS: cuobjdump not found; tensor-core instructions not counted")
+        return
+    sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
+                          text=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            k = re.search(r"(flash_bwd_d\w+_kernel)ILi(\d+)EEEvPK13__nv_bf",
+                          m.group(1))
+            fn = f"{k.group(1)}<bf16, D={k.group(2)}>" if k else None
+            continue
+        if fn:
+            for op in ("HGMMA", "HMMA"):
+                if re.search(rf"\b{op}\.", line):
+                    counts.setdefault(fn, Counter())[op] += 1
+    log("SASS tensor-core instructions: " + ("; ".join(
+        f"{f} " + ", ".join(f"{op} {n}" for op, n in sorted(c.items()))
+        for f, c in sorted(counts.items())) or "none found"))
 
 
 def _max_err(a, b):
@@ -428,6 +465,46 @@ def phase_flash_kernels(dev, results, probes):
     o, lse = FA.forward_with_lse(q, k, v, None, 0, True, 0.0)
     _, _, _, _, _, _, delta = FA._bwd_inputs(q, k, v, None, o, lse, do,
                                              True)
+    # no block writes another's rows (no atomics): two backward calls give
+    # the same bits
+    runs = [FA._launch_bwd_dkv(q, k, v, None, 0, do, lse, delta, True, 0.0)
+            + (FA._launch_bwd_dq(q, k, v, None, 0, do, lse, delta, True,
+                                 0.0),) for _ in range(2)]
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    log(f"flash attention backward at q/k/v [{B}, {H}, {S}, {D}] bf16 "
+        f"causal: two calls give bit-identical dK, dV and dQ: "
+        f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("flash attention backward is not "
+                             "deterministic")
+    # the kernels at the training shape's own grid (B*H = 64 heads) against
+    # the plain backward, with the tolerances of the cases above
+    dk, dv, dq = runs[0]
+    dq2, dk2, dv2 = FA._backward_ref(q, k, v, None, 0, o, lse, do, True, 0.0)
+    torch.cuda.synchronize()
+    train_ratios = {n: _worst_of_tol(a, b, RTOL, FLOOR)
+                    for n, (a, b) in (("dQ", (dq, dq2)), ("dK", (dk, dk2)),
+                                      ("dV", (dv, dv2)))}
+    finite = all(bool(torch.isfinite(t.float()).all()) for t in runs[0])
+    ok = finite and max(train_ratios.values()) <= 1.0
+    log(f"flash attention backward at q/k/v [{B}, {H}, {S}, {D}] bf16 "
+        f"causal vs plain: worst error / tol "
+        + ", ".join(f"{n} {r:.3f}" for n, r in train_ratios.items())
+        + f"; tol 2**-6 * (|ref| + row RMS) + 1e-5 "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash attention backward kernels disagree "
+                             "with their plain version at the training "
+                             "shape")
+    errs["flash_attention_bwd_dkv"] = max(
+        errs["flash_attention_bwd_dkv"], _max_err(dk, dk2), _max_err(dv, dv2))
+    errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
+                                         _max_err(dq, dq2))
+    worst_at_train = {"flash_attention_bwd_dkv": max(train_ratios["dK"],
+                                                     train_ratios["dV"]),
+                      "flash_attention_bwd_dq": train_ratios["dQ"]}
+    del runs, dq, dk, dv, dq2, dk2, dv2
     pairs = B * H * S * (S + 1) // 2            # causal (q, k) pairs
     fwd = lambda: FA.forward_with_lse(q, k, v, None, 0, True, 0.0)  # noqa
     dkv = lambda: FA._launch_bwd_dkv(q, k, v, None, 0, do, lse, delta,  # noqa
@@ -476,18 +553,28 @@ def phase_flash_kernels(dev, results, probes):
     }
     for name, r in rows.items():
         b, by = bound(r["nbytes"], r["ops"], BF16_OPS_PER_S)
+        ms = time_ms(r["fn"], calls=5, windows=5, warmup=2)
         results[name] = dict(
             name=name, route="cuda", source=r["source"],
-            replaces=r["replaces"], max_abs_err=errs[name],
-            ms=time_ms(r["fn"], calls=5, windows=5, warmup=2),
+            replaces=r["replaces"], max_abs_err=errs[name], ms=ms,
             plain_ms=r["plain_ms"], bound_ms=b, bound_by=by,
             library_ms=r["library_ms"], library=r["library"], shape=shape,
             plain_note="one dense f32 backward computes dQ, dK and dV"
             if "bwd" in name else "dense f32 forward")
+        extra = ""
+        if "bwd" in name:
+            # achieved rate over the causal pairs' operations, and the
+            # share of the bound
+            results[name]["tflops"] = r["ops"] / ms / 1e9
+            results[name]["bound_share"] = b / ms
+            # worst error / tol against the plain backward at this shape
+            results[name]["worst_ratio_at_shape"] = worst_at_train[name]
+            extra = (f", {results[name]['tflops']:.1f} TFLOP/s, "
+                     f"{100 * b / ms:.1f}% of the bound")
         probes[name] = (r["fn"], r["symbol"], 5, results[name])
-        log(f"{name}: {results[name]['ms']:.3f} ms a call, "
+        log(f"{name}: {ms:.3f} ms a call, "
             f"{r['plain_ms']:.3f} ms plain, library {r['library_ms']:.3f} "
-            f"ms ({r['library']}), bound {b:.4f} ms ({by})")
+            f"ms ({r['library']}), bound {b:.4f} ms ({by}){extra}")
 
 
 def _packed_lens(total, seed):

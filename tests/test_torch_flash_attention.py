@@ -8,8 +8,12 @@ tests/test_torch_kernels_gpu.py and chip_smoke.py.
 
 Tolerances, f32: O and LSE 1e-5 (the same f32 arithmetic, summed in
 another order: online softmax against a dense softmax); dQ, dK, dV 1e-4 of
-the largest magnitude (blockwise against dense sums). The dropout keep
-mask is an integer function and must match bit for bit.
+the largest magnitude (blockwise against dense sums). On the dense fallback
+routes O is held element by element to 1e-5 * (|ref| + the RMS of ref's
+row over D) + 1e-6, the form of the card checks: a fully padded row there
+sums V over hundreds of keys, so an element that cancels to near zero
+carries the f32 rounding of the row's scale. The dropout keep mask is an
+integer function and must match bit for bit.
 """
 import os
 
@@ -78,6 +82,14 @@ def _port_grads(q, k, v, kmask, seed, causal, p, do):
     o = FA._FlashAttention.apply(qt, kt, vt, kmt, seed, causal, p)
     o.backward(torch.tensor(do))
     return o.detach().numpy(), [t.grad.numpy() for t in (qt, kt, vt)]
+
+
+def _close_to_row_scale(got, ref, tol=TOL, floor=1e-6):
+    """|got - ref| <= tol * (|ref| + the RMS of ref's row over the last
+    axis) + floor, element by element."""
+    ref = np.asarray(ref)
+    rms = np.sqrt(np.square(ref).mean(-1, keepdims=True))
+    assert np.all(np.abs(got - ref) <= tol * (np.abs(ref) + rms) + floor)
 
 
 def _close_grads(got, ref):
@@ -163,8 +175,7 @@ def test_fallback_routes_match_reference(sq, sk, causal, bias):
     assert not FA._kernel_ok(torch.tensor(q), torch.tensor(k), causal)
     oj, lj = JF._forward_with_lse(qj, kj, vj, kmj, sj, causal, 0.0)
     ot, lt = FA.forward_with_lse(*_t(q, k, v, kmask), 0, causal, 0.0)
-    np.testing.assert_allclose(ot.numpy(), np.asarray(oj), atol=TOL,
-                               rtol=TOL)
+    _close_to_row_scale(ot.numpy(), oj)
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=TOL,
                                rtol=TOL)
 

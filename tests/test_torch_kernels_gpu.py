@@ -133,35 +133,41 @@ def test_rms_norm_kernel_f32_weight_with_bf16_x(h, cuda_device):
     assert TR.launches == before + 1
 
 
-def _flash_inputs(b, h, s, d, dtype, bias, device, seed):
+def _flash_inputs(b, h, s, d, dtype, bias, device, seed, sk=None):
     gen = torch.Generator(device=device).manual_seed(seed)
-    q, k, v, do = [torch.randn(b, h, s, d, device=device, generator=gen)
-                   .to(dtype) for _ in range(4)]
+    sk = sk or s
+    q, k, v, do = [torch.randn(b, h, n, d, device=device, generator=gen)
+                   .to(dtype) for n in (s, sk, sk, s)]
     kmask = None
     if bias:
-        kmask = torch.zeros(b, s, device=device)
-        kmask[0, s // 3:] = -1e30          # padding past a third of the keys
+        kmask = torch.zeros(b, sk, device=device)
+        kmask[0, sk // 3:] = -1e30         # padding past a third of the keys
         kmask[-1] = -1e30                  # a sequence with every key padded
     return q, k, v, do, kmask
 
 
 
 
-@pytest.mark.parametrize("s,d,dtype,causal,bias,p", [
-    (128, 64, torch.float32, True, False, 0.0),
-    (128, 128, torch.float32, False, True, 0.0),
-    (128, 64, torch.bfloat16, False, False, 0.1),
-    (1024, 128, torch.bfloat16, True, False, 0.0),
-    (1024, 64, torch.float32, True, True, 0.2),
-    (1024, 128, torch.bfloat16, False, True, 0.1),
-    (4096, 128, torch.bfloat16, True, False, 0.0),
-    (4096, 64, torch.float32, False, False, 0.0),
+@pytest.mark.parametrize("s,d,dtype,causal,bias,p,sk", [
+    (128, 64, torch.float32, True, False, 0.0, None),
+    (128, 128, torch.float32, False, True, 0.0, None),
+    (128, 64, torch.bfloat16, False, False, 0.1, None),
+    (1024, 128, torch.bfloat16, True, False, 0.0, None),
+    (1024, 64, torch.float32, True, True, 0.2, None),
+    (1024, 128, torch.bfloat16, False, True, 0.1, None),
+    (4096, 128, torch.bfloat16, True, False, 0.0, None),
+    (4096, 64, torch.float32, False, False, 0.0, None),
+    # Sq != Sk: more keys than queries with a key-padding bias, and more
+    # queries than keys
+    (256, 128, torch.bfloat16, False, True, 0.0, 384),
+    (384, 128, torch.bfloat16, False, False, 0.0, 128),
+    (1024, 64, torch.bfloat16, True, False, 0.2, None),
 ])
-def test_flash_kernels_match_plain(s, d, dtype, causal, bias, p,
+def test_flash_kernels_match_plain(s, d, dtype, causal, bias, p, sk,
                                    cuda_device):
     b, h = (2, 2) if s < 4096 else (1, 2)
     q, k, v, do, kmask = _flash_inputs(b, h, s, d, dtype, bias,
-                                       cuda_device, s + d)
+                                       cuda_device, s + d, sk)
     seed = -12345 if p > 0 else 0
     n0 = (FA.launches_fwd, FA.launches_bwd_dkv, FA.launches_bwd_dq)
     o, lse = FA.forward_with_lse(q, k, v, kmask, seed, causal, p)
@@ -182,6 +188,22 @@ def test_flash_kernels_match_plain(s, d, dtype, causal, bias, p,
         for got, ref in zip(g, g2):
             assert bool(torch.isfinite(got.float()).all())
             assert _worst_of_tol(got[sl], ref[sl], *tol) <= 1.0
+
+
+@pytest.mark.parametrize("d,causal,bias,p", [(128, True, False, 0.0),
+                                          (64, False, True, 0.1)])
+def test_flash_backward_repeats_to_the_bit(d, causal, bias, p, cuda_device):
+    """No block writes another's rows (no atomics): two backward calls on
+    the same inputs give the same bits."""
+    q, k, v, do, kmask = _flash_inputs(2, 4, 1024, d, torch.bfloat16, bias,
+                                       cuda_device, 11)
+    seed = 777 if p > 0 else 0
+    o, lse = FA.forward_with_lse(q, k, v, kmask, seed, causal, p)
+    g1 = FA.backward(q, k, v, kmask, seed, o, lse, do, causal, p)
+    g2 = FA.backward(q, k, v, kmask, seed, o, lse, do, causal, p)
+    torch.cuda.synchronize()
+    for a, b_ in zip(g1, g2):
+        assert torch.equal(a, b_)
 
 
 def test_flash_autograd_launches_each_kernel_once(cuda_device):
@@ -205,6 +227,13 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda_device):
     q = torch.ones(1, 1, 256, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
         FA.forward_with_lse(q, q, q)
+    # the bf16 backward kernels take whole 128-row tiles only: their entry
+    # points refuse a length of 192, and the wrapper raises
+    q = torch.ones(1, 1, 192, 64, device=cuda_device, dtype=torch.bfloat16)
+    lse = torch.zeros(1, 1, 192, device=cuda_device)
+    for launch in (FA._launch_bwd_dkv, FA._launch_bwd_dq):
+        with pytest.raises(RuntimeError):
+            launch(q, q, q, None, 0, q, lse, lse, False, 0.0)
 
 
 @pytest.mark.parametrize("d", [128, 64])
