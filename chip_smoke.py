@@ -5,14 +5,18 @@
 Phases, each of which fails the run with a non-zero exit:
   1. device and build: the card's name and power limit, then the CUDA
      kernels built from paddle_tpu_torch/ops/kernels/csrc with nvcc, and
-     the count of tensor-core instructions (HGMMA, HMMA) in the bf16 flash
-     backward kernels' SASS where cuobjdump is found (printed only);
+     the count of tensor-core instructions (HGMMA, HMMA) in the bf16
+     attention kernels' SASS where cuobjdump is found (printed, and in the
+     kernels line);
   2. kernels: each kernel against its plain PyTorch version at its path's
      shapes (the varlen backward kernels with exact zeros on padding rows
      and keys), then timed (CUDA events around back-to-back calls, median of
      several such runs, after warm-up) beside its plain version and one
-     PyTorch library call; the flash backward kernels also run twice at
-     the training shape and must give the same bits;
+     PyTorch library call; the flash kernels also run twice at the training
+     shape and the varlen forward twice at the packed shape, and must give
+     the same bits; the varlen forward is timed at both document mixes,
+     with the share of the causal tiles its skip's rule keeps (computed
+     from the segment ids, in the log only);
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run; the
@@ -76,6 +80,11 @@ PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
                   "varlen_attention_bwd_dq")
 PATHS = {"serving": SERVING_KERNELS, "training": TRAINING_KERNELS,
          "packed_training": PACKED_KERNELS}
+# the bf16 tensor-core kernels whose SASS is searched for HGMMA
+SASS_SYMBOLS = {"flash_attention_fwd": "flash_fwd_kernel",
+                "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
+                "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
+                "varlen_attention_fwd": "varlen_fwd_kernel"}
 
 
 def log(*a):
@@ -163,13 +172,14 @@ def phase_device_and_build():
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(so, HERE)} (nvcc "
         f"{' '.join(_build.ARCH_FLAGS)})")
-    log_tensor_core_sass(so)
+    return log_tensor_core_sass(so)
 
 
 def log_tensor_core_sass(so):
     """Print the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in
-    the SASS of the bf16 flash backward kernels, where cuobjdump is on
-    PATH or beside nvcc. Printed, not required."""
+    the SASS of the bf16 attention kernels (flash forward and backward,
+    varlen forward), where cuobjdump is on PATH or beside nvcc; returns
+    {kernel symbol: {D: HGMMA count}}. Printed, not required."""
     import re
     import shutil
 
@@ -179,16 +189,20 @@ def log_tensor_core_sass(so):
         os.path.dirname(_build._nvcc()), "cuobjdump")
     if not os.path.exists(tool):
         log("SASS: cuobjdump not found; tensor-core instructions not counted")
-        return
+        return {}
     sass = subprocess.run([tool, "-sass", str(so)], capture_output=True,
                           text=True, timeout=120).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            k = re.search(r"(flash_bwd_d\w+_kernel)ILi(\d+)EEEvPK13__nv_bf",
+            # <D> or <D, PLAIN> (the flash forward), bf16 operands
+            k = re.search(r"((?:flash_bwd_d\w+|flash_fwd|varlen_fwd)_kernel)"
+                          r"ILi(\d+)E(?:Lb([01])E)?EEvPK13__nv_bf",
                           m.group(1))
-            fn = f"{k.group(1)}<bf16, D={k.group(2)}>" if k else None
+            fn = (f"{k.group(1)}<bf16, D={k.group(2)}"
+                  + {None: "", "1": ", plain", "0": ", general"}[k.group(3)]
+                  + ">") if k else None
             continue
         if fn:
             for op in ("HGMMA", "HMMA"):
@@ -197,6 +211,11 @@ def log_tensor_core_sass(so):
     log("SASS tensor-core instructions: " + ("; ".join(
         f"{f} " + ", ".join(f"{op} {n}" for op, n in sorted(c.items()))
         for f, c in sorted(counts.items())) or "none found"))
+    hgmma = {}
+    for f, c in counts.items():
+        sym, rest = re.match(r"(\w+)<bf16, (.*)>", f).groups()
+        hgmma.setdefault(sym, {})[rest] = c["HGMMA"]
+    return hgmma
 
 
 def _max_err(a, b):
@@ -463,6 +482,28 @@ def phase_flash_kernels(dev, results, probes):
     B = TRAIN_BATCH
     q, k, v, do, _ = inputs(B, H, S, False)
     o, lse = FA.forward_with_lse(q, k, v, None, 0, True, 0.0)
+    # the forward at the training shape's own grid (B*H = 64 heads): two
+    # calls give the same bits, and O and LSE agree with the plain forward
+    # with the tolerances of the cases above
+    o_again, lse_again = FA.forward_with_lse(q, k, v, None, 0, True, 0.0)
+    o2, lse2 = FA._forward_ref(q, k, v, None, 0, True, 0.0)
+    torch.cuda.synchronize()
+    same = torch.equal(o, o_again) and torch.equal(lse, lse_again)
+    fwd_ratio = _worst_of_tol(o, o2, RTOL, FLOOR)
+    el = _max_err(lse, lse2)
+    ok = same and fwd_ratio <= 1.0 and el <= 1e-3 \
+        and bool(torch.isfinite(o.float()).all())
+    log(f"flash attention forward at q/k/v [{B}, {H}, {S}, {D}] bf16 causal: "
+        f"two calls bit-identical {same}; vs plain: O worst error / tol "
+        f"{fwd_ratio:.3f} (tol 2**-6 * (|ref| + row RMS) + 1e-5), LSE "
+        f"max_abs_err {el:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash attention forward kernel disagrees with "
+                             "its plain version (or itself) at the training "
+                             "shape")
+    errs["flash_attention_fwd"] = max(errs["flash_attention_fwd"],
+                                      _max_err(o, o2))
+    del o_again, lse_again, o2, lse2
     _, _, _, _, _, _, delta = FA._bwd_inputs(q, k, v, None, o, lse, do,
                                              True)
     # no block writes another's rows (no atomics): two backward calls give
@@ -501,7 +542,8 @@ def phase_flash_kernels(dev, results, probes):
         errs["flash_attention_bwd_dkv"], _max_err(dk, dk2), _max_err(dv, dv2))
     errs["flash_attention_bwd_dq"] = max(errs["flash_attention_bwd_dq"],
                                          _max_err(dq, dq2))
-    worst_at_train = {"flash_attention_bwd_dkv": max(train_ratios["dK"],
+    worst_at_train = {"flash_attention_fwd": fwd_ratio,
+                      "flash_attention_bwd_dkv": max(train_ratios["dK"],
                                                      train_ratios["dV"]),
                       "flash_attention_bwd_dq": train_ratios["dQ"]}
     del runs, dq, dk, dv, dq2, dk2, dv2
@@ -561,16 +603,14 @@ def phase_flash_kernels(dev, results, probes):
             library_ms=r["library_ms"], library=r["library"], shape=shape,
             plain_note="one dense f32 backward computes dQ, dK and dV"
             if "bwd" in name else "dense f32 forward")
-        extra = ""
-        if "bwd" in name:
-            # achieved rate over the causal pairs' operations, and the
-            # share of the bound
-            results[name]["tflops"] = r["ops"] / ms / 1e9
-            results[name]["bound_share"] = b / ms
-            # worst error / tol against the plain backward at this shape
-            results[name]["worst_ratio_at_shape"] = worst_at_train[name]
-            extra = (f", {results[name]['tflops']:.1f} TFLOP/s, "
-                     f"{100 * b / ms:.1f}% of the bound")
+        # achieved rate over the causal pairs' operations, the share of
+        # the bound, and the worst error / tol against the plain version
+        # at this shape
+        results[name]["tflops"] = r["ops"] / ms / 1e9
+        results[name]["bound_share"] = b / ms
+        results[name]["worst_ratio_at_shape"] = worst_at_train[name]
+        extra = (f", {results[name]['tflops']:.1f} TFLOP/s, "
+                 f"{100 * b / ms:.1f}% of the bound")
         probes[name] = (r["fn"], r["symbol"], 5, results[name])
         log(f"{name}: {ms:.3f} ms a call, "
             f"{r['plain_ms']:.3f} ms plain, library {r['library_ms']:.3f} "
@@ -686,19 +726,20 @@ def phase_varlen_bwd_kernels(dev, results, probes):
     # backward kernels skip fewer). Each mix fills the whole axis, so no
     # row or key is dead. At each: the three kernels against their plain
     # versions (the forward's one head at a time), element by element as
-    # above, then their times. The forward visits every causal tile
-    # whatever the mix, so it is timed at the first mix only.
+    # above, then their times; the forward also gives the same bits twice.
     T = PACKED_TOKENS
     mixes = ((f"{len(_packed_lens(T, PACKED_SEED))} documents (seed "
               f"{PACKED_SEED})", _packed_lens(T, PACKED_SEED)),
              (f"{TRAIN_BATCH} documents of {T // TRAIN_BATCH}",
               [T // TRAIN_BATCH] * TRAIN_BATCH))
-    fwd_err = 0.0
+    fwd_err = fwd_ratio = 0.0
     for i, (mix, lens) in enumerate(mixes):
         seg = _packed_segments(lens, T, dev)
         q, k, v, do = [torch.randn(1, H, T, D, device=dev, generator=gen)
                        .to(torch.bfloat16) for _ in range(4)]
         o, lse = VA.varlen_flash_attention_packed(q, k, v, seg, seg, True)
+        o_again, lse_again = VA.varlen_flash_attention_packed(q, k, v, seg,
+                                                              seg, True)
         o2, lse2 = _varlen_ref_by_head(q, k, v, seg, True)
         got = VA.varlen_backward(q, k, v, seg, seg, o, lse, do, True)
         ref = VA._varlen_bwd_ref(q, k, v, seg, seg, o, lse, do, True)
@@ -710,19 +751,23 @@ def phase_varlen_bwd_kernels(dev, results, probes):
         el = _max_err(lse, lse2)
         finite = all(bool(torch.isfinite(t.float()).all())
                      for t in (o, *got))
+        same = torch.equal(o, o_again) and torch.equal(lse, lse_again)
+        del o_again, lse_again
         worst = max(ratios.values())
-        ok = finite and el <= 1e-3 and worst <= 1.0
+        ok = finite and same and el <= 1e-3 and worst <= 1.0
         log(f"varlen forward + backward H={H} T={T} D={D} bf16 causal, "
             f"{mix}: worst error / tol "
             + ", ".join(f"{n} {ratios[n]:.3f} (RMS {rms[n]:.3e})"
                         for n in names)
             + f" (tol 2**-6 * (|ref| + row RMS) + 1e-5); LSE max_abs_err "
             f"{el:.3e} (tol 1e-3; RMS of LSE {_rms(lse2):.3e}); finite "
-            f"{finite} {'ok' if ok else 'FAIL'}")
+            f"{finite}; two forward calls bit-identical {same} "
+            f"{'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("varlen attention kernels disagree with "
                                  "their plain versions at the packed shape")
         fwd_err = max(fwd_err, _max_err(o, o2))
+        fwd_ratio = max(fwd_ratio, ratios["O"])
         errs["varlen_attention_bwd_dkv"] = max(
             errs["varlen_attention_bwd_dkv"], _max_err(got[1], ref[1]),
             _max_err(got[2], ref[2]))
@@ -731,8 +776,10 @@ def phase_varlen_bwd_kernels(dev, results, probes):
         del o2, lse2, got, ref
         _time_varlen_packed(results, probes, mix, i == 0, q, k, v, do, seg,
                             o, lse)
-    results["varlen_attention_fwd"]["at_packed_shape"]["max_abs_err"] = \
-        fwd_err
+    fp = results["varlen_attention_fwd"]["at_packed_shape"]
+    fp["max_abs_err"] = fwd_err
+    # worst error / tol of O against the plain version over both mixes
+    fp["worst_ratio_at_shape"] = fwd_ratio
     for name in errs:
         results[name]["max_abs_err"] = errs[name]
 
@@ -748,13 +795,37 @@ def _varlen_ref_by_head(q, k, v, seg, causal):
             torch.cat([lse for _, lse in outs], 1))
 
 
+def _skip_tiles(seg):
+    """(key tiles the segment-range skip leaves in, causal tiles), computed
+    on the host from one sequence of segment ids [1, T] with T a multiple
+    of 128, causal: query block i (128 rows) keeps key tile j (64 keys)
+    below its diagonal when one of the tile's ids lies in [min, max] of the
+    block's non-negative ids. Not counted on the card: a block with a row
+    that finds no valid key visits every tile up to its bound as well (the
+    mixes timed here have no such row), and a kernel that skipped nothing
+    would not change these numbers; its measured times at the two mixes
+    show the skip."""
+    s = seg[0].cpu().numpy()
+    tiles = s.reshape(-1, 64)
+    kept = causal = 0
+    for i, blk in enumerate(s.reshape(-1, 128)):
+        live = blk[blk >= 0]
+        n = 2 * i + 2
+        causal += n
+        if live.size:
+            lo, hi = live.min(), live.max()
+            kept += int(((tiles[:n] >= lo) & (tiles[:n] <= hi))
+                           .any(axis=1).sum())
+    return kept, causal
+
+
 def _time_varlen_packed(results, probes, mix, first, q, k, v, do, seg, o,
                         lse):
     """Times of the varlen kernels at the packed shape for one document
     mix, beside their plain versions and SDPA with the block-diagonal
     causal bool mask. The first mix makes the backward kernels' rows and
-    the forward's ``at_packed_shape``; a later one adds
-    ``at_<mix>`` to the backward rows."""
+    the forward's ``at_packed_shape``; a later one adds ``at_<mix>`` to
+    the backward rows and ``at_packed_shape_<mix>`` to the forward's."""
     from paddle_tpu_torch.ops.kernels import varlen_attention as VA
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -785,23 +856,33 @@ def _time_varlen_packed(results, probes, mix, first, q, k, v, do, seg, o,
     lse_b, d_b, seg_b = nbytes(lse), nbytes(delta), 2 * nbytes(seg)
     lib_note = ("SDPA backward (dQ, dK, dV together), block-diagonal causal "
                 "bool mask")
-    if first:
-        lib_fwd_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask), calls=5,
-                             windows=5, warmup=2)
-        b, by = bound(nbytes(q, k, v, o) + lse_b + seg_b, 4 * D * pairs,
-                      BF16_OPS_PER_S)
-        fp = results["varlen_attention_fwd"]["at_packed_shape"] = dict(
-            shape=shape, ms=time_ms(fwd, calls=5, windows=5, warmup=2),
-            plain_ms=time_ms(lambda: _varlen_ref_by_head(q, k, v, seg, True),
-                             calls=1, windows=3, warmup=1),
-            plain_note="the dense f32 plain version a head at a time",
-            bound_ms=b, bound_by=by, library_ms=lib_fwd_ms,
-            library="SDPA forward, block-diagonal causal bool mask")
-        probes["varlen_attention_fwd at the packed shape"] = (
-            fwd, "varlen_fwd_kernel", 5, fp)
-        log(f"varlen_attention_fwd at the packed shape: {fp['ms']:.3f} ms "
-            f"a call, {fp['plain_ms']:.3f} ms plain, library "
-            f"{lib_fwd_ms:.3f} ms, bound {b:.4f} ms ({by})")
+    # the forward at every mix: its tile skip visits the key tiles whose
+    # segment ids meet its 128-row query block's, so its time follows the
+    # mix
+    lib_fwd_ms = time_ms(lambda: sdpa(q, k, v, attn_mask=mask), calls=5,
+                         windows=5, warmup=2)
+    b, by = bound(nbytes(q, k, v, o) + lse_b + seg_b, 4 * D * pairs,
+                  BF16_OPS_PER_S)
+    fwd_ms = time_ms(fwd, calls=5, windows=5, warmup=2)
+    kept, causal_tiles = _skip_tiles(seg)
+    fp = dict(
+        shape=shape, ms=fwd_ms,
+        plain_ms=time_ms(lambda: _varlen_ref_by_head(q, k, v, seg, True),
+                         calls=1, windows=3, warmup=1),
+        plain_note="the dense f32 plain version a head at a time",
+        bound_ms=b, bound_by=by, library_ms=lib_fwd_ms,
+        library="SDPA forward, block-diagonal causal bool mask",
+        tflops=4 * D * pairs / fwd_ms / 1e9, bound_share=b / fwd_ms)
+    key = "at_packed_shape" + ("" if first else "_" + "_".join(mix.split()))
+    results["varlen_attention_fwd"][key] = fp
+    probes[f"varlen_attention_fwd {key}"] = (fwd, "varlen_fwd_kernel", 5, fp)
+    log(f"varlen_attention_fwd at the packed shape ({mix}): {fwd_ms:.3f} ms "
+        f"a call, {fp['plain_ms']:.3f} ms plain, library {lib_fwd_ms:.3f} "
+        f"ms, bound {b:.4f} ms ({by}), {fp['tflops']:.1f} TFLOP/s over the "
+        f"within-segment pairs, {100 * fp['bound_share']:.1f}% of the bound")
+    log(f"  the skip's rule keeps {kept} of the {causal_tiles} causal 128x64 "
+        f"tiles ({100 * kept / causal_tiles:.1f}%): computed on the host from "
+        f"the segment ids, not counted on the card")
     rows = {
         "varlen_attention_bwd_dkv": dict(
             replaces="paddle_tpu/ops/pallas/varlen_attention.py:147",
@@ -1410,7 +1491,7 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    phase_device_and_build()
+    hgmma = phase_device_and_build()
     kernels, probes = phase_kernels(dev)
     phase_flash_kernels(dev, kernels, probes)
     phase_varlen_bwd_kernels(dev, kernels, probes)
@@ -1434,6 +1515,8 @@ def main():
         r["launches_by_path"] = {p: by_path[p][name] for p in paths}
         r["launches_per_step"] = {p: per_step[p].get(name)
                                   for p in paths}
+        if SASS_SYMBOLS.get(name) in hgmma:
+            r["sass_hgmma"] = hgmma[SASS_SYMBOLS[name]]
         line.append(r)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": line}))

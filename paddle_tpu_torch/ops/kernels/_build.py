@@ -117,3 +117,15 @@ def check(err: int, name: str):
         raise RuntimeError(f"paddle_tpu_torch: {name} launch failed with "
                            f"cudaError_t {err} "
                            f"({describe(err).decode()})")
+
+
+def check_aligned16(what, *tensors):
+    """Raise on a tensor (None skipped) whose data does not start on a
+    16-byte boundary, such as a view at an odd offset: the bf16 kernels
+    copy their tiles with 16-byte cp.async, and the wrappers refuse such
+    inputs instead of copying them."""
+    for t in tensors:
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"{what}: bf16 inputs must start on a 16-byte "
+                             f"boundary (a tensor starts at "
+                             f"{t.data_ptr():#x})")

@@ -77,6 +77,16 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
+// As cp_async16 when `in`; else the 16 bytes at smem are filled with zeros
+// and nothing is read (cp.async's source size 0).
+__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
+                                                 bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(in ? 16 : 0)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -130,6 +140,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Hide a value's origin from the compiler (it cannot hoist or fold what
+// is computed from it).
+__device__ __forceinline__ void opaque(uint64_t& v) {
+  asm volatile("" : "+l"(v));
 }
 
 // Accumulator layout of m64nNk16 (f32): warp w of the warpgroup holds rows
@@ -221,6 +237,14 @@ __device__ __forceinline__ void wgmma_rs_m64n128_tb(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// 2^x by the MUFU (ex2.approx, subnormal results flushed to 0): the
+// exponential of the attention kernels' softmax, as exp2(x * log2(e)).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Two floats rounded to bf16 and packed, lo in the low half.

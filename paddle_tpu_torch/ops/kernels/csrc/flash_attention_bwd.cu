@@ -51,9 +51,7 @@
 // diagonal. Ragged lengths are masked in the kernels.
 #include <math.h>
 
-#include <initializer_list>
-
-#include "common.cuh"
+#include "attention_tiles.cuh"
 
 namespace {
 
@@ -438,13 +436,19 @@ cudaError_t launch_dq_f32(const void* q, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int kThreads = 256;  // 2 warpgroups, 64 resident rows each
-constexpr int kRows = 128;     // resident tile: keys (dK/dV), queries (dQ)
-constexpr int kCols = 64;      // streamed tile: queries (dK/dV), keys (dQ)
-constexpr int kStages = 2;     // ring of streamed tiles
-constexpr int kAcc = kCols / 2;  // S / dP accumulator floats a thread
+// the shared tile helpers (attention_tiles.cuh)
+using pt::tc::bf16;
+using pt::tc::finish;
+using pt::tc::kAcc;
+using pt::tc::kCols;
+using pt::tc::kRows;
+using pt::tc::kStages;
+using pt::tc::kThreads;
+using pt::tc::load_async;
+using pt::tc::load_vec_async;
+using pt::tc::product_acc;
+using pt::tc::product_nt;
+using pt::tc::store_rows;
 
 // Shared memory: the two resident tiles, then kStages stages, each two
 // streamed tiles and two f32 vectors of kCols (lse and delta; the bias),
@@ -457,110 +461,6 @@ struct Smem {
       (2 * kStr * 2 + 2 * kCols * 4 + 1023) / 1024 * 1024;
   static constexpr size_t kBytes = 2 * kRes * 2 + kStages * kStageBytes;
 };
-
-// Element offset of (r, c) in a [ROWS][D] bf16 tile in the 128-byte
-// swizzled layout (common.cuh): 64-column slabs of ROWS x 128 bytes.
-template <int ROWS>
-__device__ __forceinline__ int swz(int r, int c) {
-  return (c >> 6) * (ROWS * 64) + r * 64 + ((((c >> 3) ^ r) & 7) << 3) +
-         (c & 7);
-}
-
-// ROWS x D rows of a contiguous [*, D] matrix into a swizzled tile by
-// 16-byte cp.async, coalesced: thread i copies chunks i, i + 256, ...
-template <int D, int ROWS>
-__device__ __forceinline__ void load_async(bf16* dst, const bf16* src) {
-  constexpr int kChunks = D / 8;
-  static_assert(ROWS * kChunks % kThreads == 0, "tile / threads");
-#pragma unroll
-  for (int i = 0; i < ROWS * kChunks / kThreads; ++i) {
-    const int idx = i * kThreads + threadIdx.x;
-    const int r = idx / kChunks, c = (idx % kChunks) * 8;
-    pt::cp_async16(dst + swz<ROWS>(r, c),
-                   src + static_cast<int64_t>(r) * D + c);
-  }
-}
-
-// kCols floats by the kCols / 4 threads from t0, 16 bytes each.
-__device__ __forceinline__ void load_vec_async(float* dst, const float* src,
-                                               int t0) {
-  const int i = threadIdx.x - t0;
-  if (i >= 0 && i < kCols / 4) pt::cp_async16(dst + 4 * i, src + 4 * i);
-}
-
-// acc[64 x kCols] = A . B^T over D: A the warpgroup's 64 rows r0.. of a
-// resident [kRows][D] tile, B a streamed [kCols][D] tile; both K-major, so
-// k-step kk is 32 bytes into slab kk / 4 (the swizzle is applied to the
-// address, so the start may sit inside an atom).
-template <int D>
-__device__ __forceinline__ void product_nt(float (&acc)[kAcc], const bf16* a,
-                                           const bf16* b, int r0) {
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
-  pt::fence_regs(acc);
-  pt::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int c = kk * 16;
-    pt::wgmma_ss_m64n64(acc,
-                        pt::sw128_desc(a + swz<kRows>(r0, c), 16, 1024),
-                        pt::sw128_desc(b + swz<kCols>(0, c), 16, 1024));
-  }
-}
-
-// acc[64 x D] += X[64 x kCols] . T[kCols x D]: X from the accumulator
-// registers of a product_nt (n-tiles 2kk, 2kk + 1 rounded to bf16 are the
-// A operand of k-step kk), T a streamed [kCols][D] tile, MN-major: k-step
-// kk starts at row 16 kk, slabs kCols * 128 bytes apart.
-template <int D>
-__device__ __forceinline__ void product_acc(float (&acc)[D / 2],
-                                            const float (&x)[kAcc],
-                                            const bf16* t) {
-  pt::fence_regs(acc);
-  pt::wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < kCols / 16; ++kk) {
-    const uint32_t a[4] = {pt::pack_bf16(x[8 * kk], x[8 * kk + 1]),
-                           pt::pack_bf16(x[8 * kk + 2], x[8 * kk + 3]),
-                           pt::pack_bf16(x[8 * kk + 4], x[8 * kk + 5]),
-                           pt::pack_bf16(x[8 * kk + 6], x[8 * kk + 7])};
-    const uint64_t desc =
-        pt::sw128_desc(t + swz<kCols>(16 * kk, 0), kCols * 128, 1024);
-    if constexpr (D == 128)
-      pt::wgmma_rs_m64n128_tb(acc, a, desc);
-    else
-      pt::wgmma_rs_m64n64_tb(acc, a, desc);
-  }
-}
-
-// Commit the products started since the last wgmma_fence and wait for them.
-template <int N>
-__device__ __forceinline__ void finish(float (&a)[N]) {
-  pt::wgmma_commit();
-  pt::wgmma_wait<0>();
-  pt::fence_regs(a);
-}
-template <int N, int M>
-__device__ __forceinline__ void finish(float (&a)[N], float (&b)[M]) {
-  pt::wgmma_commit();
-  pt::wgmma_wait<0>();
-  pt::fence_regs(a);
-  pt::fence_regs(b);
-}
-
-// rows r_lo, r_lo + 8 of a [*, D] matrix from the accumulator layout, bf16
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, int64_t r_lo,
-                                           const float (&acc)[D / 2], int t) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    const int c = j * 8 + 2 * t;
-    *reinterpret_cast<uint32_t*>(out + r_lo * D + c) =
-        pt::pack_bf16(acc[4 * j], acc[4 * j + 1]);
-    *reinterpret_cast<uint32_t*>(out + (r_lo + 8) * D + c) =
-        pt::pack_bf16(acc[4 * j + 2], acc[4 * j + 3]);
-  }
-}
 
 // dK/dV. grid (B * H, Sk / 128): a block owns 128 keys (K, V resident),
 // warpgroup w keys 64w..64w+63, and streams 64-query tiles of Q, dO, LSE
@@ -844,13 +744,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 }  // namespace tc
 
 
-// Every non-null pointer 16-byte aligned (the bf16 kernels' cp.async).
-inline bool aligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
-  return true;
-}
-
 }  // namespace
 
 // All tensors contiguous; D in {64, 128}; Sq, Sk > 0; kbias [B, Sk] f32 or
@@ -862,8 +755,8 @@ extern "C" int pt_flash_attention_bwd_dkv(
     int dropout, uint32_t seed, uint32_t thresh, float inv_keep, int dtype,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == pt::kBFloat16 && !aligned16({q, k, v, dout, kbias, lse, delta,
-                                            dk, dv}))
+  if (dtype == pt::kBFloat16 &&
+      !pt::tc::aligned16({q, k, v, dout, kbias, lse, delta, dk, dv}))
     return cudaErrorInvalidValue;
   if (dtype == pt::kBFloat16 && D == 128)
     return tc::launch_dkv<128>(q, k, v, dout, kbias, lse, delta, dk, dv, B,
@@ -891,8 +784,8 @@ extern "C" int pt_flash_attention_bwd_dq(
     uint32_t seed, uint32_t thresh, float inv_keep, int dtype,
     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == pt::kBFloat16 && !aligned16({q, k, v, dout, kbias, lse, delta,
-                                            dq}))
+  if (dtype == pt::kBFloat16 &&
+      !pt::tc::aligned16({q, k, v, dout, kbias, lse, delta, dq}))
     return cudaErrorInvalidValue;
   if (dtype == pt::kBFloat16 && D == 128)
     return tc::launch_dq<128>(q, k, v, dout, kbias, lse, delta, dq, B, H, Sq,

@@ -292,6 +292,9 @@ def _launch_fwd(q, k, v, kmask, seed, causal, dropout_p):
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if b == 0 or h == 0:
         return o, lse
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned16("flash attention forward kernel", q, k, v,
+                               kmask)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("pt_flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),

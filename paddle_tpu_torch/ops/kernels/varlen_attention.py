@@ -56,7 +56,7 @@ launches_bwd_dq = 0
 # underflows to exactly 0 while m stays finite when a leading block of a
 # row is fully masked
 _MASK_MIN = -1e30
-_TILE = 64                    # the CUDA kernel's query and key tile
+_TILE = 64                    # the CUDA kernels' key tile
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _entries = {}
 
@@ -222,6 +222,8 @@ def _launch(q, k, v, seg_q, seg_k, causal):
         return o, lse
     if tk == 0:
         raise ValueError("varlen attention kernel: no keys")
+    if q.dtype == torch.bfloat16:
+        _build.check_aligned16("varlen attention kernel", q, k, v)
     bq, bk = _key_bounds(tq, tk, d)
     if "fwd" not in _entries:
         _entries["fwd"] = _build.entry("pt_varlen_attention_fwd", [

@@ -103,6 +103,89 @@ def test_varlen_kernel_matches_plain(lens, total, causal, d, dtype,
     assert TV.launches == before + 1
 
 
+def _short_documents(total, seed):
+    """Lengths 40-160 from a seeded generator, the last cut to fill
+    ``total``: about 40 documents in 4096 tokens."""
+    rng = np.random.default_rng(seed)
+    lens = []
+    while sum(lens) < total:
+        lens.append(int(rng.integers(40, 161)))
+    lens[-1] -= sum(lens) - total
+    return lens
+
+
+# Layouts for the bf16 kernel's segment-range tile skip: most key tiles
+# skipped, documents that straddle the 128-row query blocks, a padding
+# tail that shares its 128-row block with live rows (the block goes on to
+# every key tile for the padding rows' uniform average), and the serving
+# path's 16 query heads over 8 KV heads: (lengths, total, (H, HKV))
+_SKIP_LAYOUTS = {
+    "40 short documents": (_short_documents(4096, 5), 4096, (4, 2)),
+    "straddling 128-row blocks": ([200, 250, 190, 384], 1024, (4, 2)),
+    "padding tail in a live block": ([300, 400, 250], 1024, (4, 2)),
+    "GQA 16/8, short documents, padding": (_short_documents(900, 6), 1024,
+                                           (16, 8)),
+}
+
+
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", sorted(_SKIP_LAYOUTS))
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_varlen_kernel_skip_layouts(layout, causal, d, dtype, cuda_device):
+    lens, total, (h, hkv) = _SKIP_LAYOUTS[layout]
+    gen = torch.Generator(device=cuda_device).manual_seed(total + d)
+    seg = _segments(lens, total, cuda_device)
+    q, k, v = [torch.randn(1, n, total, d, device=cuda_device,
+                           generator=gen).to(dtype) for n in (h, hkv, hkv)]
+    o, lse = TV.varlen_flash_attention_packed(q, k, v, seg, seg, causal)
+    o2, lse2 = TV._varlen_ref(q, k, v, seg, seg, causal)
+    torch.cuda.synchronize()
+    assert _worst_of_tol(o, o2, *_tol(dtype)) <= 1.0
+    assert float((lse - lse2).abs().max()) <= 1e-3
+    assert bool(torch.isfinite(o.float()).all())
+    dead = seg[0] < 0
+    if dead.any():
+        # padding rows: the uniform average of V over every visited key,
+        # as the plain version takes it
+        assert _worst_of_tol(o[:, :, dead], o2[:, :, dead],
+                             *_tol(dtype)) <= 1.0
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_kernels_repeat_to_the_bit(causal, cuda_device):
+    """No block writes another's rows (no atomics): two forward calls on
+    the same inputs give the same bits, flash (with a key-padding bias and
+    dropout) and varlen (with skipped tiles and a padding tail)."""
+    q, k, v, _, kmask = _flash_inputs(2, 4, 1024, 128, torch.bfloat16, True,
+                                      cuda_device, 13)
+    runs = [FA.forward_with_lse(q, k, v, kmask, 99, causal, 0.1)
+            for _ in range(2)]
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    seg = _segments(_short_documents(4000, 7), 4096, cuda_device)
+    qv, kv, vv = [torch.randn(1, h, 4096, 128, device=cuda_device,
+                              generator=gen).to(torch.bfloat16)
+                  for h in (4, 2, 2)]
+    runs_v = [TV.varlen_flash_attention_packed(qv, kv, vv, seg, seg, causal)
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    for (a, la), (b_, lb) in (runs, runs_v):
+        assert torch.equal(a, b_) and torch.equal(la, lb)
+
+
+def test_forward_kernels_reject_unaligned_bf16(cuda_device):
+    """The bf16 forward kernels read tiles by 16-byte cp.async: a tensor
+    that starts 8 bytes into its storage is refused, not copied."""
+    buf = torch.zeros(2 * 256 * 64 + 4, device=cuda_device,
+                      dtype=torch.bfloat16)
+    q = buf[4:].view(1, 2, 256, 64)
+    with pytest.raises(ValueError):
+        FA.forward_with_lse(q, q, q, None, 0, True, 0.0)
+    seg = torch.zeros(1, 256, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        TV.varlen_flash_attention_packed(q, q, q, seg, seg, True)
+
+
 def test_varlen_kernel_fully_masked_query_segment(cuda_device):
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     seg = _segments([60, 70, 100], 256, cuda_device)

@@ -135,6 +135,34 @@ def test_matches_dense_reference(causal, total):
     np.testing.assert_allclose(ot, routed, atol=TOL, rtol=TOL)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+def test_many_short_documents_and_padding_in_a_live_block(causal):
+    """The layout the CUDA kernel's segment-range tile skip meets most:
+    15 documents of 40 tokens in 640 (the TPU block is 128, so a 128-row
+    query block spans several documents and most key tiles lie across
+    them), and a padding tail of 40 rows inside the last block, beside 88
+    live rows. The plain version the card holds the kernel to must equal
+    _vfa_kernel here, the padding rows' uniform average over the keys that
+    kernel visits included."""
+    q, k, v, seg = _case([40] * 15, 640, seed=6)
+    blk = JV._vfa_block(640)
+    assert blk == 128
+    oj, lj = JV._vfa_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             jnp.asarray(seg), jnp.asarray(seg), causal, blk,
+                             blk)
+    ot, lt = _port(q, k, v, seg, seg, causal)
+    pad = seg[0] < 0
+    assert pad.sum() == 40 and not pad[:600].any()
+    np.testing.assert_allclose(ot, np.asarray(oj), atol=TOL, rtol=TOL)
+    np.testing.assert_allclose(lt, np.asarray(lj), atol=TOL, rtol=TOL)
+    # the padding rows average V over every key the TPU kernel visits: all
+    # 640 (its last query block's causal bound is the whole axis)
+    expect = v[0].mean(axis=1)[:, None, :]
+    got = ot[0][:, pad]
+    np.testing.assert_allclose(got, np.broadcast_to(expect, got.shape),
+                               atol=TOL)
+
+
 @pytest.mark.parametrize("total", [10, 128, 130])
 def test_segment_ids_from_cu_seqlens(total):
     cu = np.array([0, 3, 3, 9, 10])
