@@ -6,21 +6,24 @@ Phases, each of which fails the run with a non-zero exit:
   1. device and build: the card's name and power limit, then the CUDA
      kernels built from paddle_tpu_torch/ops/kernels/csrc with nvcc, and
      the count of tensor-core instructions (HGMMA, HMMA) in the bf16
-     attention kernels' SASS where cuobjdump is found (printed, and in the
-     kernels line);
+     attention kernels' SASS (flash and varlen, forward and backward) where
+     cuobjdump is found (printed, and in the kernels line);
   2. kernels: each kernel against its plain PyTorch version at its path's
      shapes (the varlen backward kernels with exact zeros on padding rows
      and keys), then timed (CUDA events around back-to-back calls, median of
      several such runs, after warm-up) beside its plain version and one
      PyTorch library call; the flash kernels also run twice at the training
      shape and the varlen forward twice at the packed shape, and must give
-     the same bits; the varlen forward is timed at both document mixes,
-     with the share of the causal tiles its skip's rule keeps (computed
-     from the segment ids, in the log only);
+     the same bits; the varlen forward and backward kernels are timed at
+     both document mixes, with the share of the causal tiles the skip's
+     rule keeps and the backward's tiles a block (both computed from the
+     segment ids, in the log only), and the TFLOP/s over the
+     within-segment pairs;
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run; the
-     serving kernels' launch counters must rise during that run;
+     serving kernels' launch counters must rise during that run, and no
+     input be copied to a 16-byte boundary;
   4. parity: a 2-layer full-width f32 engine's greedy streams equal its
      forward_dense greedy decode, and the bf16 16-layer engine's first-step
      logits are close to forward_dense;
@@ -28,15 +31,20 @@ Phases, each of which fails the run with a non-zero exit:
      16 layers, 16 heads, bf16, recompute; batch 4, seq 4096) takes one
      warm-up and 3 timed HybridTrainer steps; every step must launch the
      flash-attention forward 32 times, its dK/dV and dQ kernels 16 times
-     each and RMSNorm 65 times; then a 2-layer full-width f32 model's loss
-     and every gradient on the card are held against the same weights on
-     the CPU (plain versions);
+     each and RMSNorm 65 times, and copy no input to a 16-byte boundary;
+     the step time and peak memory under each remat policy (the timed
+     steps are "full"; then "save_attn", which must launch the forward 16
+     times a step, and whose forward must leave held the layers' attention
+     outputs and LSEs beside what "full" holds, no more); then a 2-layer
+     full-width f32 model's loss and every
+     gradient on the card are held against the same weights on the CPU
+     (plain versions);
   6. packed training: flash_attn_unpadded at the flagship's attention
      width (16 heads of 128, bf16) over 16,384 packed tokens (the
      training row's 4 x 4096) in ~14 documents, q/k/v projected from a
      hidden state, causal, 1 warm-up and 3 timed forward + backward steps;
      every step must launch the varlen forward, dK/dV and dQ kernels once
-     each; a total of 16,300 tokens (padded to 16,384) must give the
+     each, no other kernel, and copy no input to a 16-byte boundary; a total of 16,300 tokens (padded to 16,384) must give the
      padding rows exactly zero gradient; one step through
      flash_attn_varlen_qkvpacked; then the same path in f32 at a small
      size on the card against the CPU;
@@ -84,7 +92,9 @@ PATHS = {"serving": SERVING_KERNELS, "training": TRAINING_KERNELS,
 SASS_SYMBOLS = {"flash_attention_fwd": "flash_fwd_kernel",
                 "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
                 "flash_attention_bwd_dq": "flash_bwd_dq_kernel",
-                "varlen_attention_fwd": "varlen_fwd_kernel"}
+                "varlen_attention_fwd": "varlen_fwd_kernel",
+                "varlen_attention_bwd_dkv": "varlen_bwd_dkv_kernel",
+                "varlen_attention_bwd_dq": "varlen_bwd_dq_kernel"}
 
 
 def log(*a):
@@ -177,8 +187,8 @@ def phase_device_and_build():
 
 def log_tensor_core_sass(so):
     """Print the tensor-core instructions (HGMMA: wgmma, HMMA: mma.sync) in
-    the SASS of the bf16 attention kernels (flash forward and backward,
-    varlen forward), where cuobjdump is on PATH or beside nvcc; returns
+    the SASS of the bf16 attention kernels (flash and varlen, forward and
+    backward), where cuobjdump is on PATH or beside nvcc; returns
     {kernel symbol: {D: HGMMA count}}. Printed, not required."""
     import re
     import shutil
@@ -197,7 +207,8 @@ def log_tensor_core_sass(so):
         m = re.search(r"Function : (\S+)", line)
         if m:
             # <D> or <D, PLAIN> (the flash forward), bf16 operands
-            k = re.search(r"((?:flash_bwd_d\w+|flash_fwd|varlen_fwd)_kernel)"
+            k = re.search(r"((?:flash_bwd_d\w+|flash_fwd|varlen_fwd"
+                          r"|varlen_bwd_d\w+)_kernel)"
                           r"ILi(\d+)E(?:Lb([01])E)?EEvPK13__nv_bf",
                           m.group(1))
             fn = (f"{k.group(1)}<bf16, D={k.group(2)}"
@@ -819,6 +830,26 @@ def _skip_tiles(seg):
     return kept, causal
 
 
+def _bwd_block_tiles(seg):
+    """Streamed tiles each block of the varlen backward kernels visits,
+    computed on the host from one sequence of segment ids [1, T] with T a
+    multiple of 128, causal, self-attention: dK/dV block i (keys 128i..)
+    visits query tile j >= 2i, dQ block i (queries 128i..) key tile j <
+    2i + 2, when one of the tile's 64 ids lies in [min, max] of the block's
+    non-negative ids. Returns (dK/dV counts, dQ counts), one a block and
+    head."""
+    s = seg[0].cpu().numpy()
+    tiles = s.reshape(-1, 64)
+    dkv, dq = [], []
+    for i, blk in enumerate(s.reshape(-1, 128)):
+        live = blk[blk >= 0]
+        hit = ((tiles >= live.min()) & (tiles <= live.max())).any(axis=1) \
+            if live.size else np.zeros(len(tiles), bool)
+        dkv.append(int(hit[2 * i:].sum()))
+        dq.append(int(hit[:2 * i + 2].sum()))
+    return dkv, dq
+
+
 def _time_varlen_packed(results, probes, mix, first, q, k, v, do, seg, o,
                         lse):
     """Times of the varlen kernels at the packed shape for one document
@@ -895,13 +926,25 @@ def _time_varlen_packed(results, probes, mix, first, q, k, v, do, seg, o,
             nbytes=nbytes(q, k, v, do, q) + lse_b + d_b + seg_b,
             symbol="varlen_bwd_dq_kernel"),
     }
+    # the spread of the work over the blocks: each block's visited tiles
+    # (a block's time follows them), beside the grid of 128-row blocks;
+    # worked out from the ids, so it stays in the log
+    for name, n in zip(("varlen_attention_bwd_dkv", "varlen_attention_bwd_dq"),
+                       _bwd_block_tiles(seg)):
+        log(f"  {name} ({mix}): tiles visited a block (computed on the host "
+            f"from the segment ids, {len(n)} blocks a head): min {min(n)}, "
+            f"median {statistics.median(n)}, mean {statistics.mean(n):.2f}, "
+            f"max {max(n)}; {sum(n)} in all")
     for name, r in rows.items():
         b, by = bound(r["nbytes"], r["ops"], BF16_OPS_PER_S)
-        row = dict(ms=time_ms(r["fn"], calls=5, windows=5, warmup=2),
-                   plain_ms=plain_bwd_ms, bound_ms=b, bound_by=by,
+        ms = time_ms(r["fn"], calls=5, windows=5, warmup=2)
+        row = dict(ms=ms, plain_ms=plain_bwd_ms, bound_ms=b, bound_by=by,
                    library_ms=lib_bwd_ms, library=lib_note, shape=shape,
                    plain_note="one dense f32 backward, a head at a time, "
-                              "computes dQ, dK and dV")
+                              "computes dQ, dK and dV",
+                   # achieved rate over the within-segment pairs' operations
+                   # and the share of the bound
+                   tflops=r["ops"] / ms / 1e9, bound_share=b / ms)
         if first:
             row = results[name] = dict(
                 name=name, route="cuda",
@@ -915,7 +958,9 @@ def _time_varlen_packed(results, probes, mix, first, q, k, v, do, seg, o,
             probes[f"{name} {key}"] = (r["fn"], r["symbol"], 5, row)
         log(f"{name} ({mix}): {row['ms']:.3f} ms a call, "
             f"{plain_bwd_ms:.3f} ms plain, library {lib_bwd_ms:.3f} ms, "
-            f"bound {b:.4f} ms ({by})")
+            f"bound {b:.4f} ms ({by}), {row['tflops']:.1f} TFLOP/s over the "
+            f"within-segment pairs, {100 * row['bound_share']:.1f}% of the "
+            f"bound")
 
 
 @contextlib.contextmanager
@@ -979,11 +1024,16 @@ def phase_training(dev):
     torch.cuda.synchronize()
     log(f"training warm-up step: {time.perf_counter() - t:.2f} s, loss "
         f"{warm:.4f}")
+    # no input of the step's kernels needs a copy to a 16-byte boundary
     expect = {"rms_norm": 4 * cfg.num_hidden_layers + 1,
               "flash_attention_fwd": 2 * cfg.num_hidden_layers,
               "flash_attention_bwd_dkv": cfg.num_hidden_layers,
-              "flash_attention_bwd_dq": cfg.num_hidden_layers}
+              "flash_attention_bwd_dq": cfg.num_hidden_layers,
+              "aligned16_copies": 0}
     losses, step_ms, per_step = [], [], []
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
     reset_launch_counts()
     for _ in range(steps):
         before = launch_counts()
@@ -1003,6 +1053,7 @@ def phase_training(dev):
             raise AssertionError("the training step launched the varlen "
                                  "kernel")
     counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
     if not all(np.isfinite(losses)):
         raise AssertionError(f"training losses not finite: {losses}")
     ms = statistics.median(step_ms)
@@ -1014,13 +1065,98 @@ def phase_training(dev):
         "losses": losses, "warmup_loss": warm,
         "model_flops_per_token": fpt,
         "share_of_989_tflops": tps * fpt / BF16_OPS_PER_S,
-        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        # over the timed steps, and over their start (weights, moments)
+        "peak_memory_gb": peak / 1e9,
+        "peak_over_start_gb": (peak - start) / 1e9,
         # as counted in the last step (each step was held to `expect`)
         "launches_per_step": per_step[-1],
     }
     log(json.dumps({"training": metrics}))
+    metrics["remat_policies"] = _remat_policies(dev, trainer, ids_t,
+                                                labels_t, expect, metrics)
     return dict(metrics=metrics, counts=counts, trainer=trainer,
                 ids=ids_t, labels=labels_t)
+
+
+def _held_after_forward(dev, trainer, ids, labels):
+    """Device bytes the step's forward leaves held for its backward: the
+    memory allocated once the loss is computed, less the memory before."""
+    from paddle_tpu_torch.models import llama
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(dev)
+    loss = llama.loss_fn_stacked(trainer.params, (ids, labels),
+                                 trainer.config, remat=trainer.remat)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev) - before
+    del loss
+    return held
+
+
+def _remat_policies(dev, trainer, ids, labels, expect, full):
+    """The flagship step under each remat policy, on the same trainer:
+    "full", timed by phase_training (``full``), recomputes each block in
+    the backward; "save_attn" keeps each block's attention output O and
+    LSE, recomputes q, k and v, and does not run the attention forward
+    again (16 forward launches a step in place of 32). For "save_attn" its
+    step time (median of as many steps as ``full`` after one warm-up) and
+    peak device memory, absolute and over the step's start; for both, the
+    bytes a forward leaves held for the backward. Their difference must be
+    the layers' O and LSE, no more: what "save_attn" keeps beside "full".
+    The policy is set back to "full" after."""
+    from paddle_tpu_torch import launch_counts
+
+    cfg = trainer.config
+    layers, batch, seq = cfg.num_hidden_layers, ids.shape[0], ids.shape[1]
+    out = {"full": {k: full[k] for k in (
+        "step_ms", "step_ms_median", "peak_memory_gb", "peak_over_start_gb",
+        "launches_per_step")}}
+    held_full = _held_after_forward(dev, trainer, ids, labels)
+    out["full"]["held_after_forward_gb"] = held_full / 1e9
+    cfg.remat_policy = "save_attn"
+    want = dict(expect, flash_attention_fwd=layers)
+    trainer.step(ids, labels)
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step_ms = []
+    for _ in range(full["steps"]):
+        before = launch_counts()
+        t = time.perf_counter()
+        loss = float(trainer.step(ids, labels))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        for name, n in want.items():
+            if per[name] != n:
+                raise AssertionError(f"training step under save_attn "
+                                     f"launched {name} {per[name]} times, "
+                                     f"not {n}")
+        if not np.isfinite(loss):
+            raise AssertionError(f"save_attn: loss {loss}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    held = _held_after_forward(dev, trainer, ids, labels)
+    cfg.remat_policy = "full"
+    # a layer's O [B, H, S, D] bf16 and LSE [B, H, S] f32
+    o_lse = layers * batch * cfg.num_attention_heads * seq * (
+        cfg.hidden_size // cfg.num_attention_heads * 2 + 4)
+    out["save_attn"] = {"step_ms": step_ms,
+                        "step_ms_median": statistics.median(step_ms),
+                        "peak_memory_gb": peak / 1e9,
+                        "peak_over_start_gb": (peak - start) / 1e9,
+                        "launches_per_step": per,
+                        "held_after_forward_gb": held / 1e9}
+    extra = held - held_full
+    out["save_attn_held_over_full_gb"] = extra / 1e9
+    out["layers_o_and_lse_gb"] = o_lse / 1e9
+    log(json.dumps({"training_remat_policies": out}))
+    # anything beyond O and LSE (say q, k, v, or O saved twice) is at
+    # least a layer's [B, S, hidden] bf16 tensor, 67 MB at this shape
+    if abs(extra - o_lse) > o_lse / (2 * layers):
+        raise AssertionError(f"save_attn holds {extra / 1e9:.3f} GB over "
+                             f"full after the forward, not the layers' O "
+                             f"and LSE ({o_lse / 1e9:.3f} GB)")
+    return out
 
 
 def phase_training_parity(dev):
@@ -1126,6 +1262,7 @@ def phase_packed_training(dev):
     torch.cuda.synchronize()
     log(f"packed training warm-up step: {time.perf_counter() - t:.2f} s, "
         f"loss {warm:.4f}")
+    # every other counter, aligned16_copies too, must stay at 0
     expect = {n: 1 for n in PACKED_KERNELS}
     losses, step_ms, per_step = [], [], []
     reset_launch_counts()
@@ -1341,6 +1478,10 @@ def phase_serving(dev):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
+    if counts["aligned16_copies"]:
+        raise AssertionError(f"the serving run copied "
+                             f"{counts['aligned16_copies']} inputs to a "
+                             f"16-byte boundary")
     V = cfg.vocab_size
     for rid in run["rids"]:
         toks = run["outs"][rid]

@@ -196,12 +196,53 @@ def _block(p, x, config: LlamaConfig):
     return _after_attn(p, x, attn, config)
 
 
+class _SavedAttention(torch.autograd.Function):
+    """The attention half of a block under remat_policy="save_attn": RMSNorm,
+    the q, k, v projections, RoPE and causal flash attention. It keeps what
+    the reference's ``save_only_these_names("flash_attn_out")``
+    (llama.py:534-540) keeps, the attention output O (and its LSE, which
+    the flash backward needs beside it), and its inputs, which the block
+    keeps anyway; q, k and v are recomputed in the backward and fed to the
+    flash backward with the saved O and LSE. The numbers are those of
+    ``_qkv`` then ``flash_attention_bshd``."""
+
+    @staticmethod
+    def forward(ctx, x, ln_attn, wq, wk, wv, config):
+        p = {"ln_attn": ln_attn, "wq": wq, "wk": wk, "wv": wv}
+        q, k, v = _qkv_bhsd(p, x, config)
+        o, lse = fa.forward_with_lse(q, k, v, None, 0, True, 0.0)
+        ctx.save_for_backward(x, ln_attn, wq, wk, wv, o, lse)
+        ctx.config = config
+        return o.transpose(1, 2)
+
+    @staticmethod
+    def backward(ctx, do):
+        x, ln_attn, wq, wk, wv, o, lse = ctx.saved_tensors
+        inputs = [t.detach().requires_grad_(need) for t, need in
+                  zip((x, ln_attn, wq, wk, wv), ctx.needs_input_grad)]
+        with torch.enable_grad():
+            p = dict(zip(("ln_attn", "wq", "wk", "wv"), inputs[1:]))
+            q, k, v = _qkv_bhsd(p, inputs[0], ctx.config)
+        dq, dk, dv = fa.backward(q.detach(), k.detach(), v.detach(), None,
+                                 0, o, lse, do.transpose(1, 2), True, 0.0)
+        wanted = [t for t in inputs if t.requires_grad]
+        grads = iter(torch.autograd.grad((q, k, v), wanted, (dq, dk, dv)))
+        return tuple(next(grads) if t.requires_grad else None
+                     for t in inputs) + (None,)
+
+
+def _qkv_bhsd(p, x, config: LlamaConfig):
+    """``_qkv`` in the flash kernels' layout: [B, H, S, D] views, as
+    ``flash_attention_bshd`` makes them."""
+    return tuple(t.transpose(1, 2) for t in _qkv(p, x, config))
+
+
 def _block_save_attn(p, x, config: LlamaConfig):
-    """remat_policy="save_attn": the parts before and after attention are
-    checkpointed apart, so the attention output (and the attention's own
-    saved inputs) stays and its forward is not run again."""
-    q, k, v = checkpoint(_qkv, p, x, config, use_reentrant=False)
-    attn = fa.flash_attention_bshd(q, k, v, is_causal=True)
+    """remat_policy="save_attn": the attention half keeps only its output
+    O and LSE (``_SavedAttention``), and the rest of the block is
+    checkpointed, so the attention forward is not run again."""
+    attn = _SavedAttention.apply(x, p["ln_attn"], p["wq"], p["wk"], p["wv"],
+                                 config)
     return checkpoint(_after_attn, p, x, attn, config, use_reentrant=False)
 
 

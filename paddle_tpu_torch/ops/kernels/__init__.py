@@ -10,7 +10,9 @@ a CUDA tensor it launches the kernel or raises.
 Each kernel module counts the launches of each of its kernels in a
 module-level integer (``launches``, or one ``launches_*`` a kernel where a
 module holds several); ``launch_counts()`` reads them all and
-``reset_launch_counts()`` sets them to 0.
+``reset_launch_counts()`` sets them to 0. Beside them,
+``aligned16_copies`` counts the inputs the wrappers copied to a 16-byte
+boundary (``_build.aligned16``).
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ def resolve_device(device=None) -> torch.device:
 
 def _counters():
     """{kernel name: (module, name of its launch counter)}."""
-    from . import flash_attention, rms_norm, varlen_attention
+    from . import _build, flash_attention, rms_norm, varlen_attention
 
     return {"rms_norm": (rms_norm, "launches"),
             "varlen_attention_fwd": (varlen_attention, "launches"),
@@ -50,11 +52,13 @@ def _counters():
             "varlen_attention_bwd_dq": (varlen_attention, "launches_bwd_dq"),
             "flash_attention_fwd": (flash_attention, "launches_fwd"),
             "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
-            "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq")}
+            "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq"),
+            "aligned16_copies": (_build, "copies")}
 
 
 def launch_counts() -> dict:
-    """{kernel name: kernel launches since the last reset}."""
+    """{kernel name: kernel launches since the last reset}, and
+    ``aligned16_copies``."""
     return {name: getattr(mod, attr)
             for name, (mod, attr) in _counters().items()}
 

@@ -17,12 +17,17 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
+# inputs copied by aligned16 since the last reset
+# (ops.kernels.reset_launch_counts)
+copies = 0
 
 
 def _nvcc() -> str:
@@ -119,13 +124,14 @@ def check(err: int, name: str):
                            f"({describe(err).decode()})")
 
 
-def check_aligned16(what, *tensors):
-    """Raise on a tensor (None skipped) whose data does not start on a
-    16-byte boundary, such as a view at an odd offset: the bf16 kernels
-    copy their tiles with 16-byte cp.async, and the wrappers refuse such
-    inputs instead of copying them."""
-    for t in tensors:
-        if t is not None and t.data_ptr() % 16:
-            raise ValueError(f"{what}: bf16 inputs must start on a 16-byte "
-                             f"boundary (a tensor starts at "
-                             f"{t.data_ptr():#x})")
+def aligned16(t):
+    """``t`` where its data starts on a 16-byte boundary (or it is None),
+    else a fresh contiguous copy, counted in ``copies``: the kernels copy
+    their tiles with 16-byte loads, and a view at an odd offset (8 bytes
+    into its storage, say) is copied once here instead of refused. The C
+    entries still refuse an unaligned pointer."""
+    global copies
+    if t is None or t.data_ptr() % 16 == 0:
+        return t
+    copies += 1
+    return t.clone(memory_format=torch.contiguous_format)

@@ -1,5 +1,5 @@
 // Tiles of the bf16 tensor-core attention kernels (sm_90a): the flash
-// forward and backward and the varlen forward share them.
+// forward and backward and the varlen forward and backward share them.
 //
 // A block is two warpgroups (256 threads). It keeps kRows rows of one
 // operand resident in shared memory (64 a warpgroup) and streams kCols-row
@@ -12,6 +12,8 @@
 // warp w holds rows 16w + g and 16w + g + 8; element 4j + e is row
 // 16w + g + 8 (e / 2), column 8j + 2t + e % 2.
 #pragma once
+
+#include <limits.h>
 
 #include <initializer_list>
 
@@ -74,6 +76,99 @@ __device__ __forceinline__ void load_vec_async(float* dst, const float* src,
                                                int t0) {
   const int i = threadIdx.x - t0;
   if (i >= 0 && i < kCols / 4) pt::cp_async16(dst + 4 * i, src + 4 * i);
+}
+
+// kCols 4-byte values of a vector whose values end at n (n may be < 0)
+// by the kCols threads from t0: in range by cp.async, past the end `fill`
+// stored plainly (visible, as the copies, after the next barrier).
+template <typename T>
+__device__ __forceinline__ void load_col_async(T* dst, const T* src, int n,
+                                               T fill, int t0) {
+  static_assert(sizeof(T) == 4, "4-byte values");
+  const int i = threadIdx.x - t0;
+  if (i < 0 || i >= kCols) return;
+  if (i < n)
+    pt::cp_async4(dst + i, src + i);
+  else
+    dst[i] = fill;
+}
+
+// The varlen kernels' exact tile skip. A block keeps kRows rows of one
+// side; the range [lo, hi] of their non-negative segment ids (lo > hi when
+// there are none) bounds the ids a streamed tile of the other side must
+// hold to have a valid pair with any of them.
+
+// [lo, hi] of the non-negative ids among ids[0, min(n, kRows)), thread i
+// reading id i; sRange is 8 ints of scratch. Ends with a barrier.
+__device__ __forceinline__ void id_range(const int* ids, int n, int* sRange,
+                                         int& lo, int& hi) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int id = tid < kRows && tid < n ? ids[tid] : -1;
+  int l = id >= 0 ? id : INT_MAX, h = id;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    l = min(l, __shfl_xor_sync(0xffffffffu, l, off));
+    h = max(h, __shfl_xor_sync(0xffffffffu, h, off));
+  }
+  if (lane == 0 && warp < kRows / 32) {
+    sRange[warp] = l;
+    sRange[4 + warp] = h;
+  }
+  __syncthreads();
+  lo = min(min(sRange[0], sRange[1]), min(sRange[2], sRange[3]));
+  hi = max(max(sRange[4], sRange[5]), max(sRange[6], sRange[7]));
+}
+
+// One bit a streamed tile, in words of 32 tiles over [0, n_tiles): bit j
+// set when j lies in [j_lo, j_hi) (j_hi <= n_tiles) and tile j, ids
+// [j kCols, (j + 1) kCols) of ids[0, total), holds an id in [lo, hi]. One
+// tile a thread (16-byte loads where the tile is whole and aligned), one
+// word a warp; the caller ends it with a barrier.
+__device__ __forceinline__ void mark_tiles(uint32_t* bits, const int* ids,
+                                           int total, int n_tiles, int j_lo,
+                                           int j_hi, int lo, int hi) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto in_range = [&](int s) { return s >= lo && s <= hi; };
+  for (int base = 0; base < n_tiles; base += kThreads) {
+    const int j = base + threadIdx.x;
+    bool hit = false;
+    if (j >= j_lo && j < j_hi) {
+      const int c0 = j * kCols, n = min(kCols, total - c0);
+      if (n == kCols && reinterpret_cast<uintptr_t>(ids + c0) % 16 == 0) {
+        const int4* s4 = reinterpret_cast<const int4*>(ids + c0);
+#pragma unroll
+        for (int c = 0; c < kCols / 4; ++c) {
+          const int4 s = s4[c];
+          hit |= in_range(s.x) || in_range(s.y) || in_range(s.z) ||
+                 in_range(s.w);
+        }
+      } else {
+        for (int c = 0; c < n; ++c) hit |= in_range(ids[c0 + c]);
+      }
+    }
+    const uint32_t word = __ballot_sync(0xffffffffu, hit);
+    if (lane == 0) bits[(base >> 5) + warp] = word;
+  }
+}
+
+// Bytes of the bits for n_tiles tiles: words in groups of 8 (kThreads
+// tiles), as mark_tiles writes them.
+__host__ __device__ __forceinline__ int tile_bits_bytes(int n_tiles) {
+  return pt::ceil_div(n_tiles, kThreads) * 8 * 4;
+}
+
+// The first tile in [j, end) whose bit equals `want`, or end.
+__device__ __forceinline__ int next_tile(const uint32_t* bits, int j, int end,
+                                         bool want) {
+  for (int w = j >> 5; (w << 5) < end; ++w) {
+    uint32_t word = want ? bits[w] : ~bits[w];
+    if (w == (j >> 5)) word &= 0xffffffffu << (j & 31);
+    if (word) {
+      const int r = (w << 5) + __ffs(word) - 1;
+      return r < end ? r : end;
+    }
+  }
+  return end;
 }
 
 // acc[64 x kCols] = A . B^T over D: A the warpgroup's 64 rows r0.. of a

@@ -87,6 +87,15 @@ __device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem,
                : "memory");
 }
 
+// 4 bytes from global to shared memory, asynchronously (L1 and L2; .cg
+// takes 16 bytes only). Both addresses 4-byte aligned.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -115,14 +115,17 @@ cudaError_t launch(const void* x, const void* w, void* y, int64_t rows,
 
 }  // namespace
 
-// x, y: [rows, h] row-contiguous, 16-byte aligned; w: [h] or null, of
-// dtype wdtype (x's dtype, or f32). h must be a multiple of 16 bytes' worth
-// of elements and at most 4 * 1024 such vectors (checked by the Python
-// wrapper).
+// x, y: [rows, h] row-contiguous; w: [h] or null, of dtype wdtype (x's
+// dtype, or f32); all 16-byte aligned (the vector loads), else refused.
+// h must be a multiple of 16 bytes' worth of elements and at most 4 * 1024
+// such vectors (checked by the Python wrapper).
 extern "C" int pt_rms_norm(const void* x, const void* w, void* y,
                            int64_t rows, int h, float eps, int dtype,
                            int wdtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w) |
+       reinterpret_cast<uintptr_t>(y)) % 16 != 0)
+    return cudaErrorInvalidValue;
   if (dtype == pt::kBFloat16 && wdtype == pt::kBFloat16)
     return launch<__nv_bfloat16, __nv_bfloat16>(x, w, y, rows, h, eps, s);
   if (dtype == pt::kBFloat16 && wdtype == pt::kFloat32)

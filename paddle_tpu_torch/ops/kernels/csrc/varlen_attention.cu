@@ -311,12 +311,15 @@ constexpr float kLog2e = 1.4426950408889634f;
 // the shared tile helpers (attention_tiles.cuh)
 using pt::tc::bf16;
 using pt::tc::finish;
+using pt::tc::id_range;
 using pt::tc::kAcc;
 using pt::tc::kCols;
 using pt::tc::kRows;
 using pt::tc::kStages;
 using pt::tc::kThreads;
 using pt::tc::load_async_upto;
+using pt::tc::mark_tiles;
+using pt::tc::next_tile;
 using pt::tc::product_acc;
 using pt::tc::product_nt;
 using pt::tc::row_max4;
@@ -335,26 +338,11 @@ struct Smem {
       (2 * kStr * 2 + kCols * 4 + 1023) / 1024 * 1024;
   static constexpr int kRange = kRes * 2 + kStages * kStageBytes;
   static constexpr int kBits = kRange + 8 * 4;
-  // bytes for Tk keys: the bit words come in groups of 8 (256 tiles)
+  // bytes for Tk keys
   static size_t bytes(int Tk) {
-    return kBits + static_cast<size_t>(pt::ceil_div(pt::ceil_div(Tk, kCols),
-                                                    kThreads)) * 8 * 4;
+    return kBits + pt::tc::tile_bits_bytes(pt::ceil_div(Tk, kCols));
   }
 };
-
-// The first tile in [j, end) whose bit equals `want`, or end.
-__device__ __forceinline__ int next_tile(const uint32_t* bits, int j, int end,
-                                         bool want) {
-  for (int w = j >> 5; (w << 5) < end; ++w) {
-    uint32_t word = want ? bits[w] : ~bits[w];
-    if (w == (j >> 5)) word &= 0xffffffffu << (j & 31);
-    if (word) {
-      const int r = (w << 5) + __ffs(word) - 1;
-      return r < end ? r : end;
-    }
-  }
-  return end;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -371,7 +359,7 @@ varlen_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint32_t* sBits = reinterpret_cast<uint32_t*>(smem_raw + S::kBits);
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
+  const int lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int r0 = (tid >> 7) * 64;   // the warpgroup's rows of sQ
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const int kvh = h / (H / HKV);
@@ -388,48 +376,11 @@ varlen_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_async_upto<D, kRows>(sQ, q + (qoff + q0) * D, Tq - q0);
 
-  // [lo, hi] of the block's non-negative query ids (lo > hi: none)
-  {
-    const int r = q0 + tid;
-    const int id = tid < kRows && r < Tq ? sq[r] : -1;
-    int lo = id >= 0 ? id : INT_MAX, hi = id;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
-      hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
-    }
-    if (lane == 0 && warp < kRows / 32) {
-      sRange[warp] = lo;
-      sRange[4 + warp] = hi;
-    }
-  }
-  __syncthreads();
-  const int lo = min(min(sRange[0], sRange[1]), min(sRange[2], sRange[3]));
-  const int hi = max(max(sRange[4], sRange[5]), max(sRange[6], sRange[7]));
-  // bit j: key tile j (below the diagonal) holds an id in [lo, hi]; one
-  // tile a thread (16-byte loads where the tile is whole and aligned), one
-  // word a warp
-  auto in_range = [&](int s) { return s >= lo && s <= hi; };
-  for (int base = 0; base < n_tiles; base += kThreads) {
-    const int j = base + tid;
-    bool hit = false;
-    if (j < j_diag) {
-      const int k0 = j * kCols, n = min(kCols, Tk - k0);
-      if (n == kCols && reinterpret_cast<uintptr_t>(sk + k0) % 16 == 0) {
-        const int4* s4 = reinterpret_cast<const int4*>(sk + k0);
-#pragma unroll
-        for (int c = 0; c < kCols / 4; ++c) {
-          const int4 s = s4[c];
-          hit |= in_range(s.x) || in_range(s.y) || in_range(s.z) ||
-                 in_range(s.w);
-        }
-      } else {
-        for (int c = 0; c < n; ++c) hit |= in_range(sk[k0 + c]);
-      }
-    }
-    const uint32_t word = __ballot_sync(0xffffffffu, hit);
-    if (lane == 0) sBits[(base >> 5) + warp] = word;
-  }
+  // [lo, hi] of the block's non-negative query ids (lo > hi: none); bit
+  // j: key tile j (below the diagonal) holds an id in [lo, hi]
+  int lo, hi;
+  id_range(sq + q0, Tq - q0, sRange, lo, hi);
+  mark_tiles(sBits, sk, Tk, n_tiles, 0, j_diag, lo, hi);
   __syncthreads();
 
   auto stage_k = [&](int slot) {

@@ -293,8 +293,7 @@ def _launch_fwd(q, k, v, kmask, seed, causal, dropout_p):
     if b == 0 or h == 0:
         return o, lse
     if q.dtype == torch.bfloat16:
-        _build.check_aligned16("flash attention forward kernel", q, k, v,
-                               kmask)
+        q, k, v, kmask = (_build.aligned16(t) for t in (q, k, v, kmask))
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _entry("pt_flash_attention_fwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -346,9 +345,9 @@ def _launch_bwd_dq(q, k, v, kmask, seed, do, lse, delta, causal,
 
 
 def _bwd_inputs(q, k, v, kmask, o, lse, do, causal):
-    """Checked, contiguous backward inputs and delta = rowsum(dO * O) in
-    f32, a tensor op as _pallas_backward computes it
-    (flash_attention.py:466-467)."""
+    """Checked, contiguous backward inputs (bf16 ones on a 16-byte
+    boundary, ``_build.aligned16``) and delta = rowsum(dO * O) in f32, a
+    tensor op as _pallas_backward computes it (flash_attention.py:466-467)."""
     _check(q, k, v, kmask, causal, extra=(do, o))
     b, h, sq, _ = q.shape
     if tuple(lse.shape) != (b, h, sq) or lse.dtype != torch.float32:
@@ -357,8 +356,12 @@ def _bwd_inputs(q, k, v, kmask, o, lse, do, causal):
     q, k, v, do = q.contiguous(), k.contiguous(), v.contiguous(), \
         do.contiguous()
     kmask = kmask.contiguous() if kmask is not None else None
+    lse = lse.contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, do, kmask, lse = (_build.aligned16(t)
+                                   for t in (q, k, v, do, kmask, lse))
     delta = (do.float() * o.float()).sum(-1)
-    return q, k, v, kmask, lse.contiguous(), do, delta
+    return q, k, v, kmask, lse, do, delta
 
 
 def _launch_bwd(q, k, v, kmask, seed, o, lse, do, causal, dropout_p):

@@ -223,7 +223,7 @@ def _launch(q, k, v, seg_q, seg_k, causal):
     if tk == 0:
         raise ValueError("varlen attention kernel: no keys")
     if q.dtype == torch.bfloat16:
-        _build.check_aligned16("varlen attention kernel", q, k, v)
+        q, k, v = (_build.aligned16(t) for t in (q, k, v))
     bq, bk = _key_bounds(tq, tk, d)
     if "fwd" not in _entries:
         _entries["fwd"] = _build.entry("pt_varlen_attention_fwd", [
@@ -276,8 +276,9 @@ def _bwd_args(q, k, v, seg_q, seg_k, do, lse, delta, causal):
 def _launch_bwd_dkv(q, k, v, seg_q, seg_k, do, lse, delta, causal):
     """dK, dV from the dK/dV kernel. Every input contiguous, on one
     device: q, do [B, H, Tq, D], k, v [B, H, Tk, D] (D 64 or 128, f32 or
-    bf16), int32 segment ids [B, Tq] / [B, Tk], lse and delta = rowsum(dO
-    * O) float32 [B, H, Tq]; B, H, Tq, Tk > 0."""
+    bf16; bf16 ones 16-byte aligned, as ``_launch_bwd`` makes them), int32
+    segment ids [B, Tq] / [B, Tk], lse and delta = rowsum(dO * O) float32
+    [B, H, Tq]; B, H, Tq, Tk > 0."""
     global launches_bwd_dkv
     _bwd_check(q, k, v, seg_q, seg_k, do, lse, delta,
                "varlen attention dK/dV kernel")
@@ -307,6 +308,8 @@ def _launch_bwd(q, k, v, seg_q, seg_k, o, lse, do, causal):
     computes it, varlen_attention.py:252-253), then the dK/dV kernel and
     the dQ kernel. Returns (dQ, dK, dV)."""
     q, k, v, do = (t.contiguous() for t in (q, k, v, do))
+    if q.dtype == torch.bfloat16:       # the kernels' 16-byte cp.async
+        q, k, v, do = (_build.aligned16(t) for t in (q, k, v, do))
     seg_q, seg_k, lse = seg_q.contiguous(), seg_k.contiguous(), \
         lse.contiguous()
     if o.shape != q.shape:

@@ -174,16 +174,78 @@ def test_forward_kernels_repeat_to_the_bit(causal, cuda_device):
 
 
 def test_forward_kernels_reject_unaligned_bf16(cuda_device):
-    """The bf16 forward kernels read tiles by 16-byte cp.async: a tensor
-    that starts 8 bytes into its storage is refused, not copied."""
-    buf = torch.zeros(2 * 256 * 64 + 4, device=cuda_device,
-                      dtype=torch.bfloat16)
+    """The bf16 kernels read tiles by 16-byte loads: their C entries refuse
+    a tensor that starts 8 bytes into its storage, and the wrappers copy
+    such an input once (counted in ``aligned16_copies``) and compute what
+    they compute on an aligned copy, bit for bit."""
+    import ctypes
+
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.kernels import _build
+
+    gen = torch.Generator(device=cuda_device).manual_seed(23)
+    buf = torch.randn(2 * 256 * 64 + 4, device=cuda_device,
+                      generator=gen).to(torch.bfloat16)
     q = buf[4:].view(1, 2, 256, 64)
-    with pytest.raises(ValueError):
-        FA.forward_with_lse(q, q, q, None, 0, True, 0.0)
-    seg = torch.zeros(1, 256, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError):
-        TV.varlen_flash_attention_packed(q, q, q, seg, seg, True)
+    assert q.is_contiguous() and q.data_ptr() % 16 == 8
+    qa = q.clone()
+    seg = _segments([100, 156], 256, cuda_device)
+    runs = {
+        "flash forward": lambda x: FA.forward_with_lse(x, qa, qa, None, 0,
+                                                       True, 0.0),
+        "varlen forward": lambda x: TV.varlen_flash_attention_packed(
+            x, qa, qa, seg, seg, True),
+        "rms_norm": lambda x: (TR.rms_norm(x.view(512, 64)),),
+    }
+    for name, run in runs.items():
+        reset_launch_counts()
+        got = run(q)
+        assert launch_counts()["aligned16_copies"] == 1, name
+        ref = run(qa)
+        torch.cuda.synchronize()
+        assert launch_counts()["aligned16_copies"] == 1, name
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), name
+    # the backward kernels: an unaligned dO is copied once as well
+    o, lse = TV.varlen_flash_attention_packed(qa, qa, qa, seg, seg, True)
+    reset_launch_counts()
+    got = TV.varlen_backward(qa, qa, qa, seg, seg, o, lse, q, True)
+    assert launch_counts()["aligned16_copies"] == 1
+    ref = TV.varlen_backward(qa, qa, qa, seg, seg, o, lse, qa, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    # the C entries themselves refuse the unaligned pointer
+    stream = torch.cuda.current_stream().cuda_stream
+    o = torch.empty_like(qa)
+    lse = torch.empty(1, 2, 256, device=cuda_device)
+    err = FA._entry("pt_flash_attention_fwd")(
+        q.data_ptr(), qa.data_ptr(), qa.data_ptr(), None, o.data_ptr(),
+        lse.data_ptr(), 1, 2, 256, 256, 64, 1, 0.125, 0, 0, 0, 1.0, 1,
+        stream)
+    assert err != 0
+    fwd = _build.entry("pt_varlen_attention_fwd", [ctypes.c_void_p] * 7
+                       + [ctypes.c_int] * 9
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    err = fwd(q.data_ptr(), qa.data_ptr(), qa.data_ptr(), seg.data_ptr(),
+              seg.data_ptr(), o.data_ptr(), lse.data_ptr(), 1, 2, 2, 256,
+              256, 64, 1, 256, 256, 0.125, 1, stream)
+    assert err != 0
+    for name in ("dkv", "dq"):
+        ptrs = [q.data_ptr(), qa.data_ptr(), qa.data_ptr(), qa.data_ptr(),
+                seg.data_ptr(), seg.data_ptr(), lse.data_ptr(),
+                lse.data_ptr(), o.data_ptr()] \
+            + ([o.data_ptr()] if name == "dkv" else [])
+        err = TV._bwd_entry(name)(*ptrs, 1, 2, 256, 256, 64, 1, 0.125, 1,
+                                  stream)
+        assert err != 0, name
+    rms = _build.entry("pt_rms_norm", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p])
+    y = torch.empty(512, 64, device=cuda_device, dtype=torch.bfloat16)
+    assert rms(q.data_ptr(), None, y.data_ptr(), 512, 64, 1e-6, 1, 1,
+               stream) != 0
+    torch.cuda.synchronize()
 
 
 def test_varlen_kernel_fully_masked_query_segment(cuda_device):
@@ -319,24 +381,30 @@ def test_flash_kernel_rejects_what_it_cannot_take(cuda_device):
             launch(q, q, q, None, 0, q, lse, lse, False, 0.0)
 
 
-@pytest.mark.parametrize("d", [128, 64])
-@pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("lens,total", [([90, 60, 70], 256),
-                                        ([17, 200, 30, 5], 384),
-                                        ([700, 1000, 300, 1900], 4096),
-                                        ([3], 5)])
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_varlen_backward_kernels_match_plain(lens, total, causal, d, dtype,
-                                             cuda_device):
-    """dK/dV and dQ against ``_varlen_bwd_ref``. Query segment 1 finds no
-    key (its keys carry another id): its rows get exactly zero dQ, and its
-    keys and the padding keys exactly zero dK and dV."""
-    gen = torch.Generator(device=cuda_device).manual_seed(total + d)
-    seg = _segments(lens, total, cuda_device)
-    segk = seg.clone()
-    segk[segk == 1] = 9
-    q, k, v, do = [torch.randn(1, 4, total, d, device=cuda_device,
-                               generator=gen).to(dtype) for _ in range(4)]
+# the backward's cases: short ragged totals, one sequence's worth of long
+# documents, and the forward's skip layouts (H = HKV: the backward takes no
+# GQA)
+_BWD_LAYOUTS = [([90, 60, 70], 256), ([17, 200, 30, 5], 384),
+                ([700, 1000, 300, 1900], 4096), ([3], 5)] \
+    + [(lens, total) for lens, total, _ in _SKIP_LAYOUTS.values()]
+
+
+def _varlen_bwd_case(lens, total, d, dtype, device, seed, tk=None,
+                     lens_k=None):
+    """q, k, v, dO with H = 4, the query ids, and key ids in which query
+    segment 1 finds no key (its keys carry an id no query has, so the ids
+    are not sorted): with ``tk``, Tk = tk keys in documents ``lens_k``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    seg = _segments(lens, total, device)
+    tk = tk or total
+    segk = _segments(lens_k or lens, tk, device)
+    segk[segk == 1] = 10 ** 6
+    q, k, v, do = [torch.randn(1, 4, n, d, device=device, generator=gen)
+                   .to(dtype) for n in (total, tk, tk, total)]
+    return q, k, v, do, seg, segk
+
+
+def _check_varlen_backward(q, k, v, do, seg, segk, causal, dtype):
     o, lse = TV.varlen_flash_attention_packed(q, k, v, seg, segk, causal)
     n0 = (TV.launches_bwd_dkv, TV.launches_bwd_dq)
     got = TV.varlen_backward(q, k, v, seg, segk, o, lse, do, causal)
@@ -348,10 +416,55 @@ def test_varlen_backward_kernels_match_plain(lens, total, causal, d, dtype,
         assert bool(torch.isfinite(a.float()).all())
         assert _worst_of_tol(a, b, *_tol(dtype)) <= 1.0
     dead_q = (seg[0] < 0) | (seg[0] == 1)
-    dead_k = (segk[0] < 0) | (segk[0] == 9)
+    dead_k = (segk[0] < 0) | (segk[0] == 10 ** 6)
     assert bool((got[0][:, :, dead_q] == 0).all())
     assert bool((got[1][:, :, dead_k] == 0).all())
     assert bool((got[2][:, :, dead_k] == 0).all())
+
+
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("lens,total", _BWD_LAYOUTS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_varlen_backward_kernels_match_plain(lens, total, causal, d, dtype,
+                                             cuda_device):
+    """dK/dV and dQ against ``_varlen_bwd_ref``. Query segment 1 finds no
+    key (its keys carry another id): its rows get exactly zero dQ, and its
+    keys and the padding keys exactly zero dK and dV."""
+    _check_varlen_backward(*_varlen_bwd_case(lens, total, d, dtype,
+                                             cuda_device, total + d),
+                           causal, dtype)
+
+
+@pytest.mark.parametrize("d", [128, 64])
+@pytest.mark.parametrize("tq,lens_q,tk,lens_k", [
+    (200, [90, 60, 50], 384, [150, 100, 134]),
+    (384, [17, 200, 130], 130, [40, 40, 50]),
+])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_varlen_backward_kernels_tq_ne_tk(tq, lens_q, tk, lens_k, d, dtype,
+                                          cuda_device):
+    """Tq != Tk, not causal: more keys than queries and the other way
+    round, each side with its own ragged end."""
+    _check_varlen_backward(*_varlen_bwd_case(lens_q, tq, d, dtype,
+                                             cuda_device, tq + tk + d,
+                                             tk=tk, lens_k=lens_k),
+                           False, dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_varlen_backward_repeats_to_the_bit(causal, cuda_device):
+    """No block writes another's rows (no atomics): two backward calls on
+    the same inputs give the same bits (skipped tiles, a padding tail)."""
+    q, k, v, do, seg, segk = _varlen_bwd_case(
+        _short_documents(4000, 8), 4096, 128, torch.bfloat16, cuda_device,
+        29)
+    o, lse = TV.varlen_flash_attention_packed(q, k, v, seg, segk, causal)
+    g1 = TV.varlen_backward(q, k, v, seg, segk, o, lse, do, causal)
+    g2 = TV.varlen_backward(q, k, v, seg, segk, o, lse, do, causal)
+    torch.cuda.synchronize()
+    for a, b_ in zip(g1, g2):
+        assert torch.equal(a, b_)
 
 
 def test_varlen_autograd_launches_each_kernel_once(cuda_device):

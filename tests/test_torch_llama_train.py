@@ -111,6 +111,53 @@ def test_loss_and_every_gradient_match_jax_f32(remat, policy):
     _compare(jcfg, tcfg, remat, 1e-5, 1e-4)
 
 
+def test_save_attn_layer_keeps_attention_output_not_qkv():
+    """remat_policy="save_attn" keeps, as the reference's
+    save_only_these_names("flash_attn_out") does, each layer's attention
+    output (O, with its LSE for the flash backward), and recomputes q, k
+    and v in the backward: beside the layer's input and weights, the
+    tensors a layer saves for its backward lie in exactly two storages,
+    O's (the [B, H, S, D] tensor equal to O, and the [B, S, H, D] view of
+    it that the checkpointed rest of the block takes) and the f32
+    [B, H, S] LSE's. Its gradients are the full-recompute layer's."""
+    _, tcfg = _config(remat_policy="save_attn")
+    params = TL.init_stacked_params(tcfg, seed=3, device="cpu")
+    layer = {key: params["blocks"][key][0].detach().requires_grad_(True)
+             for key in TL._BLOCK_KEYS}
+    b, s, h = 2, 128, tcfg.hidden_size
+    nh, hd = tcfg.num_attention_heads, tcfg.head_dim
+    x = torch.randn(b, s, h, generator=torch.Generator().manual_seed(4)) \
+        .requires_grad_(True)
+    saved = []
+
+    def pack(t):
+        saved.append(t)
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        y = TL._block_save_attn(layer, x, tcfg)
+    q, k, v = (t.transpose(1, 2) for t in TL._qkv(layer, x, tcfg))
+    o, lse = TL.fa.forward_with_lse(q, k, v, None, 0, True, 0.0)
+    inputs = {t.untyped_storage().data_ptr()
+              for t in [x] + list(layer.values())}
+    kept = [t for t in saved
+            if t.untyped_storage().data_ptr() not in inputs]
+    heads = [t for t in kept if tuple(t.shape) == (b, nh, s, hd)]
+    assert len(heads) == 1 and torch.equal(heads[0], o)
+    storages = {t.untyped_storage().data_ptr() for t in kept}
+    assert len(storages) == 2, [tuple(t.shape) for t in kept]
+    assert not any(torch.equal(heads[0], t) for t in (q, k, v))
+    lses = [t for t in kept if tuple(t.shape) == (b, nh, s)]
+    assert len(lses) == 1 and lses[0].dtype == torch.float32
+    assert torch.equal(lses[0], lse)
+    cot = torch.randn(y.shape, generator=torch.Generator().manual_seed(5))
+    leaves = [x] + list(layer.values())
+    got = torch.autograd.grad(y, leaves, cot)
+    ref = torch.autograd.grad(TL._block(layer, x, tcfg), leaves, cot)
+    for a, r in zip(got, ref):
+        torch.testing.assert_close(a, r, rtol=1e-6, atol=1e-6)
+
+
 def test_gqa_loss_and_gradients_match_jax():
     jcfg, tcfg = _config(num_attention_heads=2, num_key_value_heads=1)
     _compare(jcfg, tcfg, True, 1e-5, 1e-4, seed=1)

@@ -6,7 +6,8 @@ Nothing on the port's path or in its tests uses it.
 
 TARGET is `fwd` (the flash and varlen forwards, csrc/flash_attention_fwd.cu
 and csrc/varlen_attention.cu), `bwd` (the flash backward,
-csrc/flash_attention_bwd.cu) or `step` (the forwards' checks, then the
+csrc/flash_attention_bwd.cu), `vbwd` (the varlen backward,
+csrc/varlen_attention_bwd.cu) or `step` (the forwards' checks, then the
 flagship training step). VARIANTS is a JSON object {name: [[old, new],
 ...]}: each variant is the whole csrc directory with every `old` text
 replaced by `new` in whichever files hold it (each must occur in one); a
@@ -31,6 +32,11 @@ tolerance against the plain versions (chip_smoke._worst_of_tol, 2**-6,
   [1, 16, 16384, 128] for the 12 documents and for 4 x 4096.
 - bwd: dQ, dK and dV of the flash backward at the same flash shapes.
   Timed: dK/dV and dQ at the training shape.
+- vbwd: dQ, dK and dV of the varlen backward (H = 16, bf16) at 4096 tokens
+  with a padding tail and a query segment with no valid key, causal and
+  not, D = 128 and 64, and at 16,384 tokens in the 12 documents, causal;
+  the forward is the first library's. Timed: dK/dV and dQ at
+  [1, 16, 16384, 128] causal for the 12 documents and for 4 x 4096.
 - step: timed, chip_smoke's flagship training step (HybridTrainer.step,
   batch 4, seq 4096, random weights and tokens), one trainer for all
   variants.
@@ -60,7 +66,8 @@ from paddle_tpu_torch.ops.kernels import varlen_attention as VA  # noqa: E402
 CSRC = os.path.join(HERE, "paddle_tpu_torch", "ops", "kernels", "csrc")
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 TARGETS = {"fwd": ("flash_attention_fwd.cu", "varlen_attention.cu"),
-           "bwd": ("flash_attention_bwd.cu",)}
+           "bwd": ("flash_attention_bwd.cu",),
+           "vbwd": ("varlen_attention_bwd.cu",)}
 TARGETS["step"] = TARGETS["fwd"]
 
 
@@ -200,6 +207,30 @@ def bwd_checks(rnd, dev):
     return cases
 
 
+def vbwd_checks(rnd, dev):
+    """The same, for the varlen backward's dQ, dK and dV."""
+    cases = []
+    seg = _packed_segments(_packed_lens(4000, PACKED_SEED + 1), 4096, dev)
+    segk = seg.clone()
+    segk[segk == 1] = 10 ** 6
+    seg12 = _packed_segments(_packed_lens(16384, PACKED_SEED), 16384, dev)
+    for label, n, d, sq, sk, causal in (
+            ("T=4096 padding + dead segment causal", 4096, 128, seg, segk,
+             True),
+            ("T=4096 padding + dead segment", 4096, 128, seg, segk, False),
+            ("T=4096 D=64 padding + dead segment causal", 4096, 64, seg,
+             segk, True),
+            ("T=16384 12 documents causal", 16384, 128, seg12, seg12,
+             True)):
+        q, k, v, do = (rnd(1, 16, n, d) for _ in range(4))
+        o, lse = VA._launch(q, k, v, sq, sk, causal)
+        args = (q, k, v, sq, sk, o, lse, do, causal)
+        cases.append((f"varlen {label}",
+                      lambda a=args: VA._launch_bwd(*a),
+                      VA._varlen_bwd_ref(*args), False))
+    return cases
+
+
 def fwd_timers(rnd, dev):
     """{label: (call, operations, calls a window)} of the timed
     forwards."""
@@ -229,6 +260,24 @@ def bwd_timers(rnd, dev):
             "dq": (lambda: FA._launch_bwd_dq(q, k, v, None, 0, do, lse,
                                              delta, True, 0.0),
                    6 * 128 * pairs, 10)}
+
+
+def vbwd_timers(rnd, dev):
+    q, k, v, do = (rnd(1, 16, 16384, 128) for _ in range(4))
+    timers = {}
+    for mix, lens in (("12 docs", _packed_lens(16384, PACKED_SEED)),
+                      ("4x4096", [4096] * 4)):
+        s = _packed_segments(lens, 16384, dev)
+        o, lse = VA._launch(q, k, v, s, s, True)
+        delta = (do.float() * o.float()).sum(-1)
+        n = torch.tensor(lens, dtype=torch.float64)
+        pairs = 16 * (n * (n + 1) / 2).sum()
+        args = (q, k, v, s, s, do, lse, delta, True)
+        timers[f"dkv {mix}"] = (lambda a=args: VA._launch_bwd_dkv(*a),
+                                int(8 * 128 * pairs), 10)
+        timers[f"dq {mix}"] = (lambda a=args: VA._launch_bwd_dq(*a),
+                               int(6 * 128 * pairs), 10)
+    return timers
 
 
 def step_timers(rnd, dev):
@@ -262,6 +311,7 @@ def main():
 
     checks, timers = {"fwd": (fwd_checks, fwd_timers),
                       "bwd": (bwd_checks, bwd_timers),
+                      "vbwd": (vbwd_checks, vbwd_timers),
                       "step": (fwd_checks, step_timers)}[target]
     use(main_lib)
     cases = checks(rnd, dev)
