@@ -10,20 +10,24 @@ Phases, each of which fails the run with a non-zero exit:
      cuobjdump is found (printed, and in the kernels line);
   2. kernels: each kernel against its plain PyTorch version at its path's
      shapes (the varlen backward kernels with exact zeros on padding rows
-     and keys), then timed (CUDA events around back-to-back calls, median of
-     several such runs, after warm-up) beside its plain version and one
+     and keys; the RMSNorm gradient at the serving and training shapes, and
+     RMSNorm forward and gradient at h = 100 and 40,000), then timed (CUDA
+     events around back-to-back calls, median of several such runs, after
+     warm-up; RMSNorm's host-bound serving-shape call in turns with its
+     plain version and F.rms_norm) beside its plain version and one
      PyTorch library call; the flash kernels also run twice at the training
-     shape and the varlen forward twice at the packed shape, and must give
-     the same bits; the varlen forward and backward kernels are timed at
-     both document mixes, with the share of the causal tiles the skip's
-     rule keeps and the backward's tiles a block (both computed from the
-     segment ids, in the log only), and the TFLOP/s over the
-     within-segment pairs;
+     shape, the varlen forward at the packed shape and the RMSNorm
+     gradient at the training shape, and must give the same bits; the
+     varlen forward and backward kernels are timed at both document mixes,
+     with the share of the causal tiles the skip's rule keeps and the
+     backward's tiles a block (both computed from the segment ids, in the
+     log only), and the TFLOP/s over the within-segment pairs;
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run; the
-     serving kernels' launch counters must rise during that run, and no
-     input be copied to a 16-byte boundary;
+     serving kernels' launch counters must rise during that run, the
+     RMSNorm gradient must not launch, and no input be copied to a 16-byte
+     boundary;
   4. parity: a 2-layer full-width f32 engine's greedy streams equal its
      forward_dense greedy decode, and the bf16 16-layer engine's first-step
      logits are close to forward_dense;
@@ -31,7 +35,8 @@ Phases, each of which fails the run with a non-zero exit:
      16 layers, 16 heads, bf16, recompute; batch 4, seq 4096) takes one
      warm-up and 3 timed HybridTrainer steps; every step must launch the
      flash-attention forward 32 times, its dK/dV and dQ kernels 16 times
-     each and RMSNorm 65 times, and copy no input to a 16-byte boundary;
+     each, RMSNorm 65 times and its gradient 33 times, and copy no input to
+     a 16-byte boundary;
      the step time and peak memory under each remat policy (the timed
      steps are "full"; then "save_attn", which must launch the forward 16
      times a step, and whose forward must leave held the layers' attention
@@ -82,7 +87,7 @@ PACKED_SEED = 2026                 # document lengths
 VARLEN_CHECK_TOKENS = 4096
 # the kernels each path must launch
 SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd")
-TRAINING_KERNELS = ("rms_norm", "flash_attention_fwd",
+TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd",
                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
                   "varlen_attention_bwd_dq")
@@ -122,6 +127,29 @@ def time_ms(fn, calls=50, windows=7, warmup=10):
     return statistics.median(per_call)
 
 
+def time_ms_turns(fns, calls=50, windows=7, warmup=10):
+    """{name: milliseconds per call} of host-bound calls compared with each
+    other: time_ms's windows taken in turns, one window of each function
+    after the other, so that a slow spell of the host falls on all of
+    them; the median of each function's windows."""
+    for fn in fns.values():
+        for _ in range(warmup):
+            fn()
+    torch.cuda.synchronize()
+    per_call = {name: [] for name in fns}
+    for _ in range(windows):
+        for name, fn in fns.items():
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            for _ in range(calls):
+                fn()
+            e.record()
+            e.synchronize()
+            per_call[name].append(s.elapsed_time(e) / calls)
+    return {name: statistics.median(v) for name, v in per_call.items()}
+
+
 def profile_kernels(fn, calls=1):
     """{kernel name: (launches, total device us)} of ``calls`` calls of
     ``fn`` under torch.profiler (CUPTI), device-side kernel rows only."""
@@ -145,13 +173,21 @@ def profile_kernels(fn, calls=1):
 
 def kernel_device_ms(fn, kernel_symbol, calls=50):
     """Mean device time of one launch of the kernel whose name contains
-    ``kernel_symbol`` (None when the profiler records no device time)."""
+    ``kernel_symbol``; for a tuple of symbols (a wrapper that launches
+    several kernels), the sum over them (None when the profiler records no
+    device time for one)."""
     fn()
     torch.cuda.synchronize()
-    for key, (n, us) in profile_kernels(fn, calls).items():
-        if kernel_symbol in key and n:
-            return us / n / 1e3
-    return None
+    prof = profile_kernels(fn, calls)
+    total = 0.0
+    for symbol in ((kernel_symbol,) if isinstance(kernel_symbol, str)
+                   else kernel_symbol):
+        found = [us / n for key, (n, us) in prof.items()
+                 if symbol in key and n]
+        if not found:
+            return None
+        total += found[0]
+    return total / 1e3
 
 
 def nbytes(*tensors):
@@ -280,29 +316,37 @@ def phase_kernels(dev):
     rms_err = max(rms_err, float(d.max()))
     bt, byt = bound(2 * xt.numel() * 2 + h * 4, 4 * xt.numel(),
                     F32_OPS_PER_S)
+    lib = torch.nn.functional.rms_norm
     training_shape = dict(
         shape=f"x [{xt.shape[0]}, {h}] bf16, weight [{h}] f32",
         ms=time_ms(lambda: RN.rms_norm(xt, wt), calls=20, windows=5),
         plain_ms=time_ms(lambda: RN._rms_norm_ref(xt, wt, 1e-6), calls=20,
                          windows=5),
-        bound_ms=bt, bound_by=byt, library_ms=None)
+        bound_ms=bt, bound_by=byt,
+        # bf16 x with an f32 weight: F.rms_norm's composite path (it warns
+        # that it cannot dispatch to its fused kernel)
+        library_ms=time_ms(lambda: lib(xt, (h,), wt, 1e-6), calls=20,
+                           windows=5))
     x = (torch.randn(256, h, device=dev, generator=gen) * 3) \
         .to(torch.bfloat16)
     w = torch.randn(h, device=dev, generator=gen).to(torch.bfloat16)
-    lib = getattr(torch.nn.functional, "rms_norm", None)
     b, by = bound(2 * x.numel() * 2 + h * 2, 4 * x.numel(), F32_OPS_PER_S)
+    # host-bound at this shape (~2 us of device time): timed in turns
+    turns = time_ms_turns({"ms": lambda: RN.rms_norm(x, w),
+                           "plain_ms": lambda: RN._rms_norm_ref(x, w, 1e-6),
+                           "library_ms": lambda: lib(x, (h,), w, 1e-6)})
     results["rms_norm"] = dict(
         name="rms_norm", route="cuda",
         source="paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu",
         replaces="paddle_tpu/ops/pallas/rms_norm.py:31",
-        max_abs_err=rms_err,
-        ms=time_ms(lambda: RN.rms_norm(x, w)),
-        plain_ms=time_ms(lambda: RN._rms_norm_ref(x, w, 1e-6)),
-        bound_ms=b, bound_by=by,
-        library_ms=(time_ms(lambda: lib(x, (h,), w, 1e-6))
-                    if lib is not None else None),
+        max_abs_err=rms_err, ms=turns["ms"], plain_ms=turns["plain_ms"],
+        bound_ms=b, bound_by=by, library_ms=turns["library_ms"],
         shape="x [256, 2048] bf16, weight [2048]",
         at_training_shape=training_shape)
+
+    results["rms_norm_bwd"], bwd_probe = _rms_norm_bwd_checks(dev, gen, xt,
+                                                             wt)
+    _rms_norm_widths(dev, gen)
 
     # -- varlen attention: the fresh-prefill shape, GQA 16q/8kv, D=128;
     # bf16 O element by element within 2**-6 * (|ref| + row RMS) + 1e-5
@@ -382,11 +426,135 @@ def phase_kernels(dev):
         "rms_norm at the training shape": (
             lambda: RN.rms_norm(xt, wt), "rms_norm_kernel", 20,
             training_shape),
+        "rms_norm_bwd": bwd_probe,
         "varlen_attention_fwd": (lambda: VA.varlen_flash_attention_packed(
             q, k, v, seg, seg, True), "varlen_fwd_kernel", 50,
             results["varlen_attention_fwd"]),
     }
     return results, probes
+
+
+def _rms_norm_bwd_worst(x, w, g, gx, gw, eps):
+    """Worst ratios (gx, gw) of the gradient kernel's errors to their
+    tolerances against its plain version: gx element by element within
+    rtol * (|ref| + the RMS of ref's row) + floor (gx has cancellations),
+    bf16 2**-7 and 1e-6, f32 1e-5 and 1e-7; gw per column within
+    1e-4 * sum over rows of |g * xhat| + 1e-6, plus one bf16 ulp
+    (2**-7 * |ref|) for a bf16 gw (both round f32 sums taken in other
+    orders)."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as RN
+
+    gxr, gwr = RN._rms_norm_bwd(x, w, eps, g)
+    rtol, floor = (2.0 ** -7, 1e-6) if x.dtype == torch.bfloat16 \
+        else (1e-5, 1e-7)
+    rx = _worst_of_tol(gx, gxr, rtol, floor)
+    if w is None:
+        return rx, 0.0
+    xf = x.float().reshape(-1, x.shape[-1])
+    xhat = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    scale = (g.float().reshape(xf.shape) * xhat).abs().sum(0)
+    gwr = gwr.float()
+    tol = 1e-4 * scale + 1e-6 + (2.0 ** -7 * gwr.abs()
+                                 if w.dtype == torch.bfloat16 else 0.0)
+    return rx, float(((gw.float() - gwr).abs() / tol).max())
+
+
+def _rms_norm_bwd_checks(dev, gen, xt, wt):
+    """The gradient kernel against its plain version at the serving shape
+    (bf16 x and weight, [256, 2048]; with and without the weight) and at
+    the training shape (bf16 x [16384, 2048], f32 weight, eps 1e-5 as the
+    flagship's), twice there for the same bits; then timed at the training
+    shape beside its plain version and torch.autograd.grad through
+    F.rms_norm. Returns its kernels-line row and its device-time probe."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as RN
+
+    h = xt.shape[-1]
+    eps = 1e-5
+    x = (torch.randn(256, h, device=dev, generator=gen) * 3) \
+        .to(torch.bfloat16)
+    w = torch.randn(h, device=dev, generator=gen).to(torch.bfloat16)
+    g = torch.randn(256, h, device=dev, generator=gen).to(torch.bfloat16)
+    gt = torch.randn(xt.shape, device=dev, generator=gen).to(torch.bfloat16)
+    worst, err = (0.0, 0.0), 0.0
+    for label, (a, b, c) in {"[256, 2048] bf16, bf16 weight": (x, w, g),
+                             "[256, 2048] bf16, no weight": (x, None, g),
+                             f"[{xt.shape[0]}, {h}] bf16, f32 weight":
+                             (xt, wt, gt)}.items():
+        gx, gw = RN._backward(a, b, eps, c)
+        torch.cuda.synchronize()
+        r = _rms_norm_bwd_worst(a, b, c, gx, gw, eps)
+        ok = max(r) <= 1.0 and bool(torch.isfinite(gx.float()).all())
+        err = max(err, _max_err(gx, RN._rms_norm_bwd(a, b, eps, c)[0]))
+        log(f"rms_norm_bwd {label}: worst error / tol gx {r[0]:.3f}, gw "
+            f"{r[1]:.3f} (gx 2**-7 * (|ref| + row RMS) + 1e-6; gw 1e-4 * "
+            f"sum |g * xhat| + 1e-6, + 2**-7 |ref| in bf16) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("rms_norm gradient kernel disagrees with "
+                                 "its plain version")
+        worst = tuple(max(p, q) for p, q in zip(worst, r))
+    again = RN._backward(xt, wt, eps, gt)
+    torch.cuda.synchronize()
+    if not (torch.equal(again[0], gx) and torch.equal(again[1], gw)):
+        raise AssertionError("rms_norm gradient kernel: two calls differ")
+    xl = xt.detach().requires_grad_(True)
+    wl = wt.detach().requires_grad_(True)
+    y = torch.nn.functional.rms_norm(xl, (h,), wl, eps)
+    # read x and g, write gx (bf16); read the weight, write gw (f32); ~10
+    # f32 operations an element
+    b, by = bound(3 * nbytes(xt) + 2 * nbytes(wt), 10 * xt.numel(),
+                  F32_OPS_PER_S)
+    row = dict(
+        name="rms_norm_bwd", route="cuda",
+        source="paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu",
+        replaces="paddle_tpu/ops/pallas/rms_norm.py:88 (_bwd; no Pallas "
+                 "kernel, XLA fuses it)",
+        max_abs_err=err, worst_ratio_gx=worst[0], worst_ratio_gw=worst[1],
+        ms=time_ms(lambda: RN._backward(xt, wt, eps, gt), calls=20,
+                   windows=5),
+        plain_ms=time_ms(lambda: RN._rms_norm_bwd(xt, wt, eps, gt),
+                         calls=20, windows=5),
+        bound_ms=b, bound_by=by,
+        library_ms=time_ms(lambda: torch.autograd.grad(
+            y, (xl, wl), gt, retain_graph=True), calls=20, windows=5),
+        shape=f"x, g [{xt.shape[0]}, {h}] bf16, weight [{h}] f32")
+    log(f"rms_norm_bwd: {row['ms']:.4f} ms a call, {row['plain_ms']:.4f} ms "
+        f"plain, library {row['library_ms']:.4f} ms (autograd.grad through "
+        f"F.rms_norm), bound {b:.5f} ms ({by})")
+    probe = (lambda: RN._backward(xt, wt, eps, gt),
+             ("rms_norm_bwd_kernel", "rms_norm_bwd_gw_kernel"), 20, row)
+    return row, probe
+
+
+def _rms_norm_widths(dev, gen):
+    """Forward and gradient at widths off the main paths, against the plain
+    versions: h = 100 (bf16: element loads) and h = 40,000 (two passes over
+    each row), 64 rows, bf16 x with a bf16 weight; each call must count one
+    launch."""
+    from paddle_tpu_torch.ops.kernels import rms_norm as RN
+
+    for h in (100, 40000):
+        x = (torch.randn(64, h, device=dev, generator=gen) * 3) \
+            .to(torch.bfloat16)
+        w = torch.randn(h, device=dev, generator=gen).to(torch.bfloat16)
+        g = torch.randn(64, h, device=dev, generator=gen).to(torch.bfloat16)
+        before = (RN.launches, RN.launches_bwd)
+        y = RN.rms_norm(x, w)
+        gx, gw = RN._backward(x, w, 1e-6, g)
+        torch.cuda.synchronize()
+        yr = RN._rms_norm_ref(x, w, 1e-6).float()
+        ok_y = bool(((y.float() - yr).abs() <= 2.0 ** -7 * yr.abs()).all())
+        r = _rms_norm_bwd_worst(x, w, g, gx, gw, 1e-6)
+        counted = (RN.launches, RN.launches_bwd) == (before[0] + 1,
+                                                     before[1] + 1)
+        ok = ok_y and max(r) <= 1.0 and counted
+        log(f"rms_norm [64, {h}] bf16 ({'/'.join(RN.kernel_path(h, x.dtype))}"
+            f" forward, {'/'.join(RN.kernel_path(h, x.dtype, True))} "
+            f"gradient): forward within 2**-7 |ref| {ok_y}, gradient worst "
+            f"error / tol gx {r[0]:.3f} gw {r[1]:.3f}, launches counted "
+            f"{counted} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"rms_norm kernels fail at h={h}")
 
 
 def _worst_of_tol(got, ref, rtol, floor):
@@ -1026,6 +1194,7 @@ def phase_training(dev):
         f"{warm:.4f}")
     # no input of the step's kernels needs a copy to a 16-byte boundary
     expect = {"rms_norm": 4 * cfg.num_hidden_layers + 1,
+              "rms_norm_bwd": 2 * cfg.num_hidden_layers + 1,
               "flash_attention_fwd": 2 * cfg.num_hidden_layers,
               "flash_attention_bwd_dkv": cfg.num_hidden_layers,
               "flash_attention_bwd_dq": cfg.num_hidden_layers,
@@ -1478,6 +1647,9 @@ def phase_serving(dev):
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"serving path")
+    if counts["rms_norm_bwd"]:
+        raise AssertionError("the serving run launched the rms_norm "
+                             "gradient kernel")
     if counts["aligned16_copies"]:
         raise AssertionError(f"the serving run copied "
                              f"{counts['aligned16_copies']} inputs to a "

@@ -46,6 +46,7 @@ def _counters():
     from . import _build, flash_attention, rms_norm, varlen_attention
 
     return {"rms_norm": (rms_norm, "launches"),
+            "rms_norm_bwd": (rms_norm, "launches_bwd"),
             "varlen_attention_fwd": (varlen_attention, "launches"),
             "varlen_attention_bwd_dkv": (varlen_attention,
                                          "launches_bwd_dkv"),

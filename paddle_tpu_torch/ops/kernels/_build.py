@@ -2,7 +2,10 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects are linked into one ``.so`` with a
-plain C interface, loaded with ctypes. The library lands in
+plain C interface, loaded with ctypes; the same library is also imported
+as the extension module ``_pt_kernels`` (csrc/pymodule.cu), whose entries
+skip ctypes' argument conversion for the wrappers on a host-bound path (its
+compile needs the interpreter's Python.h). The library lands in
 ``paddle_tpu_torch/build/`` under a name that hashes the sources and flags,
 so an edited source is rebuilt and an unchanged one is loaded as is. Nothing
 is compiled when a module is imported: the first kernel launch builds.
@@ -11,9 +14,12 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import importlib.machinery
+import importlib.util
 import os
 import shutil
 import subprocess
+import sysconfig
 import tempfile
 from pathlib import Path
 
@@ -22,9 +28,12 @@ import torch
 _CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                          "-I", sysconfig.get_paths()["include"]]
+PY_MODULE = "_pt_kernels"
 
 _lib = None
+_py = None
 # inputs copied by aligned16 since the last reset
 # (ops.kernels.reset_launch_counts)
 copies = 0
@@ -102,6 +111,20 @@ def library() -> ctypes.CDLL:
     if _lib is None:
         _lib = ctypes.CDLL(str(build()))
     return _lib
+
+
+def py_module():
+    """The library imported as the extension module ``_pt_kernels`` (built
+    on first call): csrc/pymodule.cu's METH_FASTCALL entries."""
+    global _py
+    if _py is None:
+        path = str(build())
+        loader = importlib.machinery.ExtensionFileLoader(PY_MODULE, path)
+        spec = importlib.util.spec_from_file_location(PY_MODULE, path,
+                                                      loader=loader)
+        _py = importlib.util.module_from_spec(spec)
+        loader.exec_module(_py)
+    return _py
 
 
 def entry(name: str, argtypes):

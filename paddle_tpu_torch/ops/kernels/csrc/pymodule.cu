@@ -1,0 +1,114 @@
+// Python entry points of the kernel library (module `_pt_kernels`).
+//
+// The library's C entries are bound with ctypes, whose argument conversion
+// costs ~2.4 us a call on the H100 host (tools/torch_rms_norm_probe.py:
+// pt_rms_norm refused before any launch). RMSNorm runs 33 times a decode
+// step on the host-bound serving path, so its wrapper calls the same C
+// entries through these METH_FASTCALL functions instead: the arguments are
+// Python ints (pointers, sizes, the stream handle; None for a null
+// pointer) and one float, converted here, and the C entry's cudaError_t
+// comes back as an int. Host code only; built into the same shared
+// library, which _build.py also imports as an extension module.
+#include <Python.h>
+#include <stdint.h>
+
+extern "C" int pt_rms_norm(const void* x, const void* w, void* y,
+                           int64_t rows, int h, float eps, int mode,
+                           void* stream);
+extern "C" int pt_rms_norm_bwd(const void* x, const void* g, const void* w,
+                               void* gx, void* part, void* gw, int64_t rows,
+                               int h, float eps, int mode, int blocks,
+                               void* stream);
+
+namespace {
+
+// A pointer argument: an int, or None for null. False with a Python error
+// set if it is neither.
+bool as_ptr(PyObject* o, void** out) {
+  if (o == Py_None) {
+    *out = nullptr;
+    return true;
+  }
+  *out = PyLong_AsVoidPtr(o);
+  return !PyErr_Occurred();
+}
+
+// An int argument that fits a C int.
+bool as_int(PyObject* o, int* out) {
+  const long v = PyLong_AsLong(o);
+  if (v == -1 && PyErr_Occurred()) return false;
+  if (v < INT32_MIN || v > INT32_MAX) {
+    PyErr_SetString(PyExc_OverflowError, "argument does not fit a C int");
+    return false;
+  }
+  *out = static_cast<int>(v);
+  return true;
+}
+
+bool as_int64(PyObject* o, int64_t* out) {
+  *out = PyLong_AsLongLong(o);
+  return !(*out == -1 && PyErr_Occurred());
+}
+
+bool as_float(PyObject* o, float* out) {
+  const double v = PyFloat_AsDouble(o);
+  if (v == -1.0 && PyErr_Occurred()) return false;
+  *out = static_cast<float>(v);
+  return true;
+}
+
+bool arity(const char* name, Py_ssize_t n, Py_ssize_t want) {
+  if (n == want) return true;
+  PyErr_Format(PyExc_TypeError, "%s takes %zd arguments (%zd given)", name,
+               want, n);
+  return false;
+}
+
+// rms_norm(x, w, y, rows, h, eps, mode, stream) -> cudaError_t
+PyObject* rms_norm(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  void *x, *w, *y, *stream;
+  int64_t rows;
+  int h, mode;
+  float eps;
+  if (!arity("rms_norm", n, 8) || !as_ptr(a[0], &x) || !as_ptr(a[1], &w) ||
+      !as_ptr(a[2], &y) || !as_int64(a[3], &rows) || !as_int(a[4], &h) ||
+      !as_float(a[5], &eps) || !as_int(a[6], &mode) ||
+      !as_ptr(a[7], &stream))
+    return nullptr;
+  return PyLong_FromLong(pt_rms_norm(x, w, y, rows, h, eps, mode, stream));
+}
+
+// rms_norm_bwd(x, g, w, gx, part, gw, rows, h, eps, mode, blocks, stream)
+// -> cudaError_t
+PyObject* rms_norm_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  void *x, *g, *w, *gx, *part, *gw, *stream;
+  int64_t rows;
+  int h, mode, blocks;
+  float eps;
+  if (!arity("rms_norm_bwd", n, 12) || !as_ptr(a[0], &x) ||
+      !as_ptr(a[1], &g) || !as_ptr(a[2], &w) || !as_ptr(a[3], &gx) ||
+      !as_ptr(a[4], &part) || !as_ptr(a[5], &gw) ||
+      !as_int64(a[6], &rows) || !as_int(a[7], &h) || !as_float(a[8], &eps) ||
+      !as_int(a[9], &mode) || !as_int(a[10], &blocks) ||
+      !as_ptr(a[11], &stream))
+    return nullptr;
+  return PyLong_FromLong(pt_rms_norm_bwd(x, g, w, gx, part, gw, rows, h, eps,
+                                         mode, blocks, stream));
+}
+
+PyMethodDef methods[] = {
+    {"rms_norm", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(
+                     rms_norm)),
+     METH_FASTCALL, "pt_rms_norm; returns its cudaError_t"},
+    {"rms_norm_bwd",
+     reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(rms_norm_bwd)),
+     METH_FASTCALL, "pt_rms_norm_bwd; returns its cudaError_t"},
+    {nullptr, nullptr, 0, nullptr}};
+
+PyModuleDef module = {PyModuleDef_HEAD_INIT, "_pt_kernels",
+                      "The kernel library's Python entry points.", -1,
+                      methods};
+
+}  // namespace
+
+PyMODINIT_FUNC PyInit__pt_kernels() { return PyModule_Create(&module); }

@@ -5,7 +5,8 @@ Imports only torch and the port, so it runs on a machine without JAX:
 Every test skips where there is no CUDA device.
 
 Tolerances: RMSNorm in bf16 one bf16 ulp (2**-7 relative; both round the
-same f32 value up to its last bits), in f32 1e-5 relative. Attention
+same f32 value up to its last bits), in f32 1e-5 relative; its gradient as
+stated above RMS_BWD_PAIRS. Attention
 outputs and gradients are held element by element (``_worst_of_tol``) to
 rtol * (|ref| + the RMS of ref's row over D) + floor, so each row answers
 for its own size and not for the tensor's largest value: in bf16 rtol
@@ -52,12 +53,127 @@ def test_rms_norm_kernel_matches_plain(rows, h, dtype, cuda_device):
 
 
 def test_rms_norm_kernel_rejects_what_it_cannot_take(cuda_device):
+    """Every width computes (h = 100 is not a multiple of 8: element
+    loads); only a dtype other than f32 and bf16 is refused, forward and
+    gradient, and a weight of another dtype or shape."""
     x = torch.ones(4, 100, device=cuda_device, dtype=torch.bfloat16)
-    with pytest.raises(ValueError):
-        TR.rms_norm(x)                     # 100 is not a multiple of 8
+    y = TR.rms_norm(x)
+    torch.cuda.synchronize()
+    assert bool((y.float() - 1.0).abs().max() <= 2.0 ** -7)
+    half = torch.ones(4, 64, device=cuda_device, dtype=torch.float16)
     with pytest.raises(TypeError):
-        TR.rms_norm(torch.ones(4, 64, device=cuda_device,
-                               dtype=torch.float16))
+        TR.rms_norm(half)
+    with pytest.raises(TypeError):
+        TR._launch_bwd(half, None, 1e-6, half)
+    with pytest.raises(ValueError):
+        TR.rms_norm(x, torch.ones(100, device=cuda_device,
+                                  dtype=torch.float16))
+    with pytest.raises(ValueError):
+        TR.rms_norm(x, torch.ones(64, device=cuda_device))
+
+
+# the gradient kernel's tolerances (element by element, each row of gx held
+# to its own RMS: gx has cancellations): gx bf16 2**-7 * (|ref| + row RMS)
+# + 1e-6, f32 1e-5 * (|ref| + row RMS) + 1e-7; gw per column within
+# 1e-4 * sum over rows of |g * xhat| + 1e-6, plus one bf16 ulp
+# (2**-7 * |ref|) for a bf16 gw (both round f32 sums taken in other orders)
+RMS_BWD_PAIRS = [(torch.bfloat16, torch.bfloat16),
+                 (torch.bfloat16, torch.float32),
+                 (torch.float32, torch.float32)]
+
+
+def _rms_bwd_worst(x, w, g, gx, gw, eps=1e-6):
+    """Worst ratios of the gradient kernel's errors to their tolerances
+    (gx, gw) against TR._rms_norm_bwd; at most 1 passes."""
+    gxr, gwr = TR._rms_norm_bwd(x, w, eps, g)
+    rtol, floor = (2.0 ** -7, 1e-6) if x.dtype == torch.bfloat16 \
+        else (1e-5, 1e-7)
+    rx = _worst_of_tol(gx, gxr, rtol, floor)
+    if w is None:
+        return rx, 0.0
+    xf = x.float().reshape(-1, x.shape[-1])
+    xhat = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
+    scale = (g.float().reshape(xf.shape) * xhat).abs().sum(0)
+    gwr = gwr.float()
+    tol = 1e-4 * scale + 1e-6 + (2.0 ** -7 * gwr.abs()
+                                 if w.dtype == torch.bfloat16 else 0.0)
+    return rx, float(((gw.float() - gwr).abs() / tol).max())
+
+
+@pytest.mark.parametrize("pair", RMS_BWD_PAIRS,
+                         ids=["bf16-bf16", "bf16-f32", "f32-f32"])
+@pytest.mark.parametrize("h", [64, 100, 2048, 40000])
+@pytest.mark.parametrize("rows", [1, 3, 8, 256, 4097])
+def test_rms_norm_bwd_kernel_matches_plain(rows, h, pair, cuda_device):
+    """The gradient kernel (and the forward) at every path: vector and
+    element units, resident and two-pass rows; row counts below, at and
+    above the gradient's grid, and not divisible by it."""
+    dtype, wdtype = pair
+    gen = torch.Generator(device=cuda_device).manual_seed(rows * 7 + h)
+    x = (torch.randn(rows, h, device=cuda_device, generator=gen) * 3) \
+        .to(dtype)
+    g = torch.randn(rows, h, device=cuda_device, generator=gen).to(dtype)
+    w = torch.randn(h, device=cuda_device, generator=gen).to(wdtype)
+    for weight in (w, None):
+        before = (TR.launches, TR.launches_bwd)
+        y = TR.rms_norm(x, weight)
+        gx, gw = TR._backward(x, weight, 1e-6, g)
+        torch.cuda.synchronize()
+        assert (TR.launches, TR.launches_bwd) == (before[0] + 1,
+                                                  before[1] + 1)
+        yr = TR._rms_norm_ref(x, weight, 1e-6)
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 1e-5
+        assert bool(((y.float() - yr.float()).abs()
+                     <= rel * yr.float().abs() + 1e-6).all())
+        assert gx.dtype == dtype and gx.shape == x.shape
+        assert (gw is None) == (weight is None)
+        if weight is not None:
+            assert gw.dtype == wdtype and gw.shape == (h,)
+        rx, rw = _rms_bwd_worst(x, weight, g, gx, gw)
+        assert rx <= 1.0 and rw <= 1.0, (rx, rw)
+
+
+def test_rms_norm_bwd_kernel_takes_views_and_repeats(cuda_device):
+    """An odd-offset g is copied once to a 16-byte boundary (counted), a
+    transposed x is made contiguous; two calls give the same bits, gw
+    included; a bf16 weight beside f32 x gets a bf16 gw; autograd runs the
+    kernel."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    rows, h = 300, 2048
+    x = (torch.randn(h, rows, device=cuda_device, generator=gen) * 3) \
+        .to(torch.bfloat16).t()
+    buf = torch.randn(rows * h + 4, device=cuda_device,
+                      generator=gen).to(torch.bfloat16)
+    g = buf[4:].view(rows, h)
+    assert not x.is_contiguous() and g.data_ptr() % 16 == 8
+    w = torch.randn(h, device=cuda_device, generator=gen)
+    reset_launch_counts()
+    a = TR._launch_bwd(x, w, 1e-5, g)
+    assert launch_counts()["aligned16_copies"] == 1
+    b = TR._launch_bwd(x.contiguous(), w, 1e-5, g.clone())
+    torch.cuda.synchronize()
+    assert launch_counts()["rms_norm_bwd"] == 2
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    rx, rw = _rms_bwd_worst(x, w, g, *a, eps=1e-5)
+    assert rx <= 1.0 and rw <= 1.0, (rx, rw)
+    xf = x.float()
+    wb = w.to(torch.bfloat16)
+    y = TR.rms_norm(xf, wb, 1e-5)        # the weight is cast to f32 first
+    yr = TR._rms_norm_ref(xf, wb, 1e-5)
+    assert bool(((y - yr).abs() <= 1e-5 * yr.abs() + 1e-6).all())
+    gx, gw = TR._launch_bwd(xf, wb, 1e-5, g.float())
+    assert gw.dtype == torch.bfloat16
+    rx, rw = _rms_bwd_worst(xf, wb, g.float(), gx, gw, eps=1e-5)
+    assert rx <= 1.0 and rw <= 1.0, (rx, rw)
+    xl = x.detach().requires_grad_(True)
+    wl = w.detach().requires_grad_(True)
+    reset_launch_counts()
+    TR.rms_norm(xl, wl, 1e-5).backward(g)
+    torch.cuda.synchronize()
+    assert launch_counts()["rms_norm_bwd"] == 1
+    assert torch.equal(xl.grad, a[0]) and torch.equal(wl.grad, a[1])
 
 
 def _tol(dtype):
@@ -238,13 +354,16 @@ def test_forward_kernels_reject_unaligned_bf16(cuda_device):
         err = TV._bwd_entry(name)(*ptrs, 1, 2, 256, 256, 64, 1, 0.125, 1,
                                   stream)
         assert err != 0, name
-    rms = _build.entry("pt_rms_norm", [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p])
+    rms = _build.py_module()
     y = torch.empty(512, 64, device=cuda_device, dtype=torch.bfloat16)
-    assert rms(q.data_ptr(), None, y.data_ptr(), 512, 64, 1e-6, 1, 1,
-               stream) != 0
+    mode = TR._mode(64, torch.bfloat16, None, False)
+    assert mode & TR._MODE_VECTOR
+    assert rms.rms_norm(q.data_ptr(), None, y.data_ptr(), 512, 64, 1e-6,
+                        mode, stream) != 0
+    assert rms.rms_norm_bwd(qa.data_ptr(), q.data_ptr(), None, y.data_ptr(),
+                            None, None, 512, 64, 1e-6,
+                            TR._mode(64, torch.bfloat16, None, True), 8,
+                            stream) != 0
     torch.cuda.synchronize()
 
 
