@@ -24,13 +24,26 @@ Phases, each of which fails the run with a non-zero exit:
      log only), and the TFLOP/s over the within-segment pairs;
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
-     ServingEngine.from_model / add_request / step / decode_run; the
-     serving kernels' launch counters must rise during that run, the
-     RMSNorm gradient must not launch, and no input be copied to a 16-byte
-     boundary;
-  4. parity: a 2-layer full-width f32 engine's greedy streams equal its
-     forward_dense greedy decode, and the bf16 16-layer engine's first-step
-     logits are close to forward_dense;
+     ServingEngine.from_model / add_request / step / decode_run, twice on
+     one engine: the first drive captures the decode windows' CUDA graphs
+     (their count and capture ms are printed; its decode is the all-in
+     figure), the second is measured over windows whose graphs exist; the
+     serving kernels' launch counters (RMSNorm, the varlen forward, paged
+     attention) must rise during that run, the RMSNorm gradient must not
+     launch, and no input be copied to a 16-byte boundary; then 8 more
+     requests decode through the graphs and, in turns, through the eager
+     runner of the same window body on a second engine: each window's
+     tokens must be equal bit for bit, and a replayed window must count
+     RMSNorm 33 and paged attention 16 launches a step;
+  3b. paged attention: the kernel against its plain version in bf16 and
+     f32 at the flagship decode shape (8 rows at the positions the serving
+     phase's decode started from) and at a 256-token chunked step, then
+     timed (over the 16 layers' pools in turn, so each call finds its
+     pages cold) beside its plain version and SDPA on the gathered view;
+  4. parity: a 2-layer full-width f32 engine's greedy streams through
+     decode_run's replayed graphs equal its forward_dense greedy decode,
+     and the bf16 16-layer engine's first-step logits are close to
+     forward_dense;
   5. training: the flagship Llama row (vocab 32000, hidden 2048, ffn 5632,
      16 layers, 16 heads, bf16, recompute; batch 4, seq 4096) takes one
      warm-up and 3 timed HybridTrainer steps; every step must launch the
@@ -54,7 +67,8 @@ Phases, each of which fails the run with a non-zero exit:
      flash_attn_varlen_qkvpacked; then the same path in f32 at a small
      size on the card against the CPU;
   7. profile, last: each kernel's device time and the device time of a
-     fresh-prefill step, a decode window, a training step and a packed
+     fresh-prefill step, a decode window (16 replays of its graph, after
+     an unprofiled window that captured it), a training step and a packed
      training step, by torch.profiler.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
@@ -86,7 +100,8 @@ PACKED_SEED = 2026                 # document lengths
 # worth of packed documents with a padding tail
 VARLEN_CHECK_TOKENS = 4096
 # the kernels each path must launch
-SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd")
+SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd",
+                   "paged_attention")
 TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd",
                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
@@ -1572,13 +1587,186 @@ def phase_packed_parity(dev):
                              "the CPU")
 
 
+def _paged_inputs(dev, cfg, rows, dtype, gen):
+    """The paged-attention kernel's inputs at the serving config's widths
+    for rows [(tokens, start position)], each on its own pages, no padding:
+    q [T, HQ, D], the stacked caches [L, num_blocks, HKV, bs, D] (random)
+    and the step's metadata (t2b, pos) from IF.paged_metadata."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    mb, bs = cfg.max_blocks_per_seq, cfg.block_size
+    B1 = len(rows) + 1
+    enc = torch.zeros(B1, dtype=torch.int64)
+    dec = torch.zeros(B1, dtype=torch.int64)
+    this = torch.zeros(B1, dtype=torch.int64)
+    bt = torch.zeros(B1, mb, dtype=torch.int64)
+    for i, (n, start) in enumerate(rows):
+        dec[i], this[i] = start, n
+        bt[i] = torch.arange(1 + i * mb, 1 + (i + 1) * mb)
+    cu = torch.zeros(B1 + 1, dtype=torch.int64)
+    cu[1:] = torch.cumsum(this, 0)
+    T = int(cu[-1])
+    shape = (cfg.num_layers, cfg.num_blocks, cfg.num_kv_heads, bs,
+             cfg.head_dim)
+    kc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    vc = torch.randn(shape, device=dev, generator=gen).to(dtype)
+    q = torch.randn(T, cfg.num_heads, cfg.head_dim, device=dev,
+                    generator=gen).to(dtype)
+    rope = torch.zeros(2, B1, 1, mb * bs, cfg.head_dim // 2, device=dev)
+    md = IF.paged_metadata(T, enc.to(dev), dec.to(dev), cu.to(dev),
+                           bt.to(dev), bs, rope)
+    return q, kc, vc, md.t2b, md.pos, bt.to(dev)
+
+
+def _paged_bound(q, kc, t2b, pos, bt):
+    """(bound ms, bound_by) of one paged-attention call: the K and V
+    positions its tokens read, each once (a row's tokens share its keys:
+    per row, the most any of its tokens reads), plus q, out and the
+    metadata, over the memory rate; against 4 D operations a (token,
+    query head, key) at the card's peak for the cache's type: the bf16
+    tensor-core rate for bf16 operands (the least time the card could take,
+    though the kernel runs on the CUDA cores), the f32 CUDA-core rate for
+    f32."""
+    T, HQ, D = q.shape
+    HKV, esz = kc.shape[2], kc.element_size()
+    max_seq = bt.shape[1] * kc.shape[3]
+    keys = torch.clamp(pos + 1, max=max_seq)
+    per_row = torch.zeros(bt.shape[0], dtype=torch.int64, device=q.device)
+    per_row.scatter_reduce_(0, t2b, keys, "amax")
+    kv_bytes = 2 * int(per_row.sum()) * HKV * D * esz
+    nb = kv_bytes + 2 * nbytes(q) + nbytes(t2b, pos, bt)
+    rate = BF16_OPS_PER_S if kc.dtype == torch.bfloat16 else F32_OPS_PER_S
+    return bound(nb, 4 * D * HQ * int(keys.sum()), rate)
+
+
+def phase_paged_kernel(dev, results, probes, serving):
+    """The paged-attention kernel (decode and chunked-prefill steps)
+    against its plain version in bf16 and f32 at the serving config's
+    widths: the flagship decode shape (8 rows, one token each, at the
+    positions the serving phase's first decode window started from) and a
+    256-token chunked step; then timed beside its plain version and one
+    F.scaled_dot_product_attention call on the already-gathered dense view
+    (kd[t2b], vd[t2b]; the gather is not timed) with a bool mask and GQA
+    (enable_gqa). The timed calls cycle over the 16 layers' pools (134 MB
+    of K and V in all, beyond the 50 MB L2), so each call finds its pages
+    cold, as in a decode step."""
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    cfg = serving["cfg"]
+    gen = torch.Generator(device=dev).manual_seed(17)
+    L = cfg.num_layers
+    shapes = {
+        "decode": [(1, p) for p in serving["run"]["decode_positions"]],
+        # a chunked-prefill step: chunks appended at several depths
+        "chunked": [(120, 64), (100, 90), (1, 170), (35, 0)],
+    }
+    errs = {}
+    rows = {}
+    for label, spec in shapes.items():
+        for dtype, tol in ((torch.bfloat16, (2.0 ** -6, 1e-5)),
+                           (torch.float32, (1e-4, 1e-6))):
+            q, kc, vc, t2b, pos, bt = _paged_inputs(dev, cfg, spec, dtype,
+                                                    gen)
+            worst = 0.0
+            for layer in (0, L - 1):
+                got = PA.paged_attention(q, kc, vc, layer, t2b, pos, bt)
+                ref = PA._paged_attention_ref(q, kc[layer], vc[layer], t2b,
+                                              pos, bt)
+                torch.cuda.synchronize()
+                ratio = _worst_of_tol(got, ref, *tol)
+                ok = ratio <= 1.0 and bool(torch.isfinite(got.float()).all())
+                worst = max(worst, ratio)
+                errs[(label, dtype)] = max(errs.get((label, dtype), 0.0),
+                                           _max_err(got, ref))
+                if not ok:
+                    raise AssertionError(
+                        f"paged_attention {label} {dtype} layer {layer}: "
+                        f"{ratio:.3f} x its tolerance")
+            log(f"paged_attention {label} T={q.shape[0]} {dtype}: max_abs_err "
+                f"{errs[(label, dtype)]:.3e}, worst error / tol {worst:.3f} "
+                f"(tol {tol[0]:.3g} * (|ref| + row RMS) + {tol[1]:g}; RMS "
+                f"of out {_rms(ref):.3e}) ok")
+            if dtype == torch.bfloat16:          # the serving path's dtype
+                rows[label] = (q, kc, vc, t2b, pos, bt)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed, calls = {}, {}
+    for label, (q, kc, vc, t2b, pos, bt) in rows.items():
+        T, HQ, D = q.shape
+        turn = [0]
+
+        def call(q=q, kc=kc, vc=vc, t2b=t2b, pos=pos, bt=bt):
+            turn[0] = (turn[0] + 1) % L
+            return PA.paged_attention(q, kc, vc, turn[0], t2b, pos, bt)
+
+        def plain(q=q, kc=kc, vc=vc, t2b=t2b, pos=pos, bt=bt):
+            turn[0] = (turn[0] + 1) % L
+            return PA._paged_attention_ref(q, kc[turn[0]], vc[turn[0]], t2b,
+                                           pos, bt)
+
+        # the library call's inputs: each token's row gathered densely
+        max_seq = bt.shape[1] * cfg.block_size
+        kd = kc[0][bt].permute(0, 2, 1, 3, 4).reshape(
+            bt.shape[0], cfg.num_kv_heads, max_seq, D)[t2b]
+        vd = vc[0][bt].permute(0, 2, 1, 3, 4).reshape(
+            bt.shape[0], cfg.num_kv_heads, max_seq, D)[t2b]
+        mask = (torch.arange(max_seq, device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        qd = q[:, :, None, :]
+
+        def library():
+            return sdpa(qd, kd, vd, attn_mask=mask, enable_gqa=True)
+
+        calls[label] = call
+        lib_err = _max_err(library()[:, :, 0], PA._paged_attention_ref(
+            q, kc[0], vc[0], t2b, pos, bt))
+        b, by = _paged_bound(q, kc, t2b, pos, bt)
+        timed[label] = dict(
+            shape=f"q [{T}, {HQ}, {D}] {q.dtype}, pools [{cfg.num_blocks}, "
+                  f"{cfg.num_kv_heads}, {cfg.block_size}, {D}] a layer, "
+                  f"positions {sorted(set(pos.tolist()))[:8]}...",
+            ms=time_ms(call), plain_ms=time_ms(plain, calls=20, windows=5),
+            bound_ms=b, bound_by=by,
+            library_ms=time_ms(library),
+            library_note="SDPA on the gathered dense view [T, HKV, "
+                         f"{max_seq}, D] with a bool mask (gather not "
+                         f"timed); its max_abs_err against the plain "
+                         f"version {lib_err:.3e}")
+        log(f"paged_attention {label}: {timed[label]}")
+    row = dict(name="paged_attention", route="cuda",
+               source="paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
+               replaces="paddle_tpu/incubate/nn/functional/__init__.py:733 "
+                        "(no Pallas kernel; XLA-fused jnp in the reference)",
+               max_abs_err=max(v for (_, dt), v in errs.items()
+                               if dt == torch.bfloat16),
+               max_abs_err_f32=max(v for (_, dt), v in errs.items()
+                                   if dt == torch.float32),
+               **timed["decode"], at_chunked_shape=timed["chunked"])
+    results["paged_attention"] = row
+    for label, target in (("decode", row),
+                          ("chunked", row["at_chunked_shape"])):
+        probes[f"paged_attention {label}"] = (
+            calls[label], "paged_attention_kernel", 48, target)
+
+
 def _prompts(rng, lens, vocab):
     return [list(rng.randint(1, vocab, n)) for n in lens]
 
 
+def _graph_count(eng):
+    return sum(w.graph is not None for w in eng._window_fns.values())
+
+
 def phase_serving(dev):
-    """llama_1b at full width serves 8 requests; returns metrics, the
-    kernels' launch counts of the measured run, the engine and prompts."""
+    """llama_1b at full width serves 8 requests, twice on one engine: the
+    first drive captures the decode windows' CUDA graphs (its decode is
+    the all-in figure), the second is measured (decode over windows whose
+    graphs exist already); in it the counts are set to 0 just before its
+    first replayed decode window and read just after, which must launch
+    RMSNorm 2L + 1 and paged_attention L times a step. Then the graphs
+    against the eager runner of the same body in turns on 8 more requests,
+    token for token. Returns metrics, the kernels' launch counts of the
+    measured run, the engine and prompts."""
     from paddle_tpu_torch import launch_counts, reset_launch_counts
     from paddle_tpu_torch.inference import (PagedCausalLM,
                                             PagedServingConfig,
@@ -1598,9 +1786,9 @@ def phase_serving(dev):
                 SamplingParams(1.0, 0, 0.95), SamplingParams(0.7, 20, 1.0),
                 None, SamplingParams(0.9, 40, 0.8), None]
     max_new = 48
+    eng = ServingEngine.from_model(model, cfg, seed=7, device=dev)
 
-    def drive():
-        eng = ServingEngine.from_model(model, cfg, seed=7, device=dev)
+    def drive(measure):
         rids = [eng.add_request(p, max_new_tokens=max_new,
                                 sampling=sampling[i])
                 for i, p in enumerate(first)]
@@ -1622,27 +1810,59 @@ def phase_serving(dev):
             n_steps += 1
         torch.cuda.synchronize()
         t_fill = time.perf_counter() - t
-        t = time.perf_counter()
-        dec_steps = dec_tokens = 0
+        positions = [r.cached for r in eng.pending()]
+        windows = []                     # (s, steps, tokens, captured)
+        # the launches counted before the decode window's reset
+        carried, window = Counter(), None
         while eng.pending():
+            graphs = _graph_count(eng)
+            if measure and window is None:
+                carried.update(launch_counts())
+                reset_launch_counts()
+            t = time.perf_counter()
             got = eng.decode_run(32)
+            dt = time.perf_counter() - t
             if not got:
                 raise AssertionError("decode_run made no progress")
-            dec_tokens += len(got)
-            dec_steps += max(Counter(rid for rid, _ in got).values())
-        t_dec = time.perf_counter() - t
-        outs = {rid: list(r.generated) for rid, r in eng._requests.items()}
-        return dict(eng=eng, rids=rids, outs=outs, t_fresh=t_fresh,
-                    t_fill=t_fill, fill_steps=n_steps, t_dec=t_dec,
-                    dec_steps=dec_steps, dec_tokens=dec_tokens,
-                    per_step=per_step, first_logits=first_logits)
+            steps = max(Counter(r for r, _ in got).values())
+            captured = _graph_count(eng) > graphs
+            if measure and window is None and not captured:
+                window = (steps, len(got), launch_counts())
+            windows.append((dt, steps, len(got), captured))
+        outs = {rid: list(eng._requests[rid].generated) for rid in rids}
+        return dict(rids=rids, outs=outs, t_fresh=t_fresh, t_fill=t_fill,
+                    fill_steps=n_steps, windows=windows, per_step=per_step,
+                    first_logits=first_logits, decode_positions=positions,
+                    carried=carried, window=window)
 
-    drive()                              # warm-up: allocator, cuBLAS, lib
+    warm = drive(False)           # captures the graphs (and warms the rest)
+    graphs = {f"{k[0]} rows, {k[1]}": w.capture_ms
+              for k, w in eng._window_fns.items() if w.graph is not None}
+    log(f"decode window graphs captured: {len(graphs)}, capture ms "
+        f"{graphs}")
+    if not graphs or len(graphs) != len(eng._window_fns):
+        raise AssertionError("decode_run did not capture a CUDA graph for "
+                             "each of its windows")
     reset_launch_counts()
-    run = drive()
-    counts = launch_counts()
+    run = drive(True)
+    counts = {k: n + run["carried"][k] for k, n in launch_counts().items()}
     log(f"serving launch counts: {counts}; first (fresh-prefill) step: "
         f"{run['per_step']}")
+    if run["window"] is None:
+        raise AssertionError("every measured decode window captured")
+    steps, rows, made = run["window"]
+    L = cfg.num_layers
+    want = {k: 0 for k in made}
+    want.update(rms_norm=(2 * L + 1) * steps, paged_attention=L * steps)
+    if made != want:
+        raise AssertionError(f"a replayed decode window of {steps} steps "
+                             f"launched {made}, not {want}")
+    decode_step = {k: n // steps for k, n in made.items()}
+    log(f"measured decode window of {steps} steps over {rows // steps} "
+        f"rows, counts set to 0 just before it: rms_norm "
+        f"{made['rms_norm']}, paged_attention {made['paged_attention']} "
+        f"({decode_step['rms_norm']} and {decode_step['paged_attention']} "
+        f"a step, counted under replay)")
     for name in SERVING_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -1659,6 +1879,16 @@ def phase_serving(dev):
         toks = run["outs"][rid]
         if len(toks) != max_new or not all(0 <= t < V for t in toks):
             raise AssertionError(f"request {rid}: bad output {toks[:8]}")
+
+    def rate(windows):
+        t = sum(w[0] for w in windows)
+        steps = sum(w[1] for w in windows)
+        return t / steps * 1e3, sum(w[2] for w in windows) / t, steps
+
+    steady = [w for w in run["windows"] if not w[3]]
+    ms, tps, steps = rate(steady)
+    ms_all, tps_all, steps_all = rate(warm["windows"])
+    turns = _graph_against_eager(dev, eng, model, cfg, sampling)
     prompt_tokens = sum(map(len, first + later))
     metrics = {
         "requests": len(run["rids"]),
@@ -1667,10 +1897,18 @@ def phase_serving(dev):
         "prefill_tokens_per_s": prompt_tokens
         / (run["t_fresh"] + run["t_fill"]),
         "mixed_steps_to_decode_tip": run["fill_steps"],
-        "decode_steps": run["dec_steps"],
-        "decode_ms_per_step": run["t_dec"] / run["dec_steps"] * 1e3,
-        "decode_tokens_per_s": run["dec_tokens"] / run["t_dec"],
-        "decode_mean_batch": run["dec_tokens"] / run["dec_steps"],
+        "decode_window_graphs": len(graphs),
+        "decode_capture_ms": graphs,
+        "decode_steps": steps,
+        "decode_ms_per_step": ms,
+        "decode_tokens_per_s": tps,
+        "decode_mean_batch": sum(w[2] for w in steady) / steps,
+        "decode_windows_that_captured": len(run["windows"]) - len(steady),
+        "decode_ms_per_step_all_in": ms_all,
+        "decode_tokens_per_s_all_in": tps_all,
+        "decode_steps_all_in": steps_all,
+        "decode_launches_per_step": decode_step,
+        **turns,
         "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
     }
     log(json.dumps({"serving": metrics}))
@@ -1679,13 +1917,60 @@ def phase_serving(dev):
                 sampling=sampling)
 
 
+def _graph_against_eager(dev, eng, model, cfg, sampling):
+    """8 more requests (24-token prompts, 40 tokens each after the
+    first) on the serving engine, whose graphs exist, and the same requests
+    on a fresh engine run by the eager runner of the same window body
+    (``_decode_run_eager``); 8-step windows taken in turns, graph then
+    eager. Each window's tokens must be equal, bit for bit. Returns the
+    ms/step medians of each."""
+    from paddle_tpu_torch.inference import ServingEngine
+
+    eager = ServingEngine.from_model(model, cfg, seed=7, device=dev)
+    eager._next_rid = eng._next_rid          # the same request ids (salts)
+    prompts = _prompts(np.random.RandomState(3), [24] * 8, cfg.vocab_size)
+    for e in (eng, eager):
+        for i, p in enumerate(prompts):
+            e.add_request(p, max_new_tokens=41, sampling=sampling[i])
+        e.step()                          # 192 tokens: one fresh prefill
+    per = {"graph": [], "eager": []}
+    while eng.pending():
+        graphs = _graph_count(eng)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = eng.decode_run(8)
+        dt = time.perf_counter() - t
+        steps = max(Counter(r for r, _ in got).values())
+        if _graph_count(eng) != graphs:
+            raise AssertionError("the turns' graph window captured anew")
+        per["graph"].append(dt / steps * 1e3)
+        t = time.perf_counter()
+        ref = eager._decode_run_eager(8)
+        per["eager"].append((time.perf_counter() - t) / steps * 1e3)
+        if got != ref:
+            raise AssertionError("a decode window's tokens differ between "
+                                 "its CUDA graph and the eager runner")
+    if eager.pending():
+        raise AssertionError("the eager runner's engine did not finish")
+    log(f"parity: {len(per['graph'])} bf16 llama_1b decode windows (8 "
+        f"rows) equal the eager runner's tokens bit for bit; ms/step in "
+        f"turns: graph {per['graph']}, eager {per['eager']}")
+    return {"decode_turns_graph_ms_per_step": statistics.median(per["graph"]),
+            "decode_turns_eager_ms_per_step": statistics.median(per["eager"]),
+            "decode_turns_windows": len(per["graph"])}
+
+
 def phase_profile(dev, serving, training, packed, kernels, probes):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
     16-step decode window at batch 8, of one training step and of one
     packed training step, beside the wall times of the unprofiled runs —
-    the device's busy share and its top kernels."""
+    the device's busy share and its top kernels. The profiled decode
+    window's replays must show the RMSNorm and paged-attention kernels
+    launched 2L + 1 and L times a step on the device, as many as the
+    counters added for the replays."""
+    from paddle_tpu_torch import launch_counts
     from paddle_tpu_torch.inference import ServingEngine
 
     for name, (fn, symbol, calls, target) in probes.items():
@@ -1711,8 +1996,33 @@ def phase_profile(dev, serving, training, packed, kernels, probes):
         eng.step()
     if len(eng.pending()) != 8:
         raise AssertionError("profile: the decode batch is not 8 rows")
-    dec_ms, dec_top = summary(profile_kernels(lambda: eng.decode_run(16)),
-                              16)
+    # an unprofiled window first: it captures the window's graph, so the
+    # profile sees replays only
+    eng.decode_run(16)
+    graphs = _graph_count(eng)
+    before = launch_counts()
+    got = []
+    dec = profile_kernels(lambda: got.extend(eng.decode_run(16)))
+    counted = {k: n - before[k] for k, n in launch_counts().items()}
+    if _graph_count(eng) != graphs or len(eng.pending()) != 8 \
+            or len(got) != 16 * 8:
+        raise AssertionError("profile: the profiled decode window did not "
+                             "replay one graph 16 times over 8 rows")
+    L = cfg.num_layers
+    seen = {name: sum(n for key, (n, _) in dec.items()
+                      if any(f"::{sym}<" in key for sym in syms))
+            for name, syms in (("rms_norm", ("rms_norm_kernel",
+                                             "rms_norm_two_pass_kernel")),
+                               ("paged_attention",
+                                ("paged_attention_kernel",)))}
+    want = {"rms_norm": (2 * L + 1) * 16, "paged_attention": L * 16}
+    if seen != want or any(counted[k] != n for k, n in want.items()):
+        raise AssertionError(f"profile: 16 decode replays launched {seen} "
+                             f"on the device and counted {counted}, not "
+                             f"{want}")
+    log(f"profile: 16 decode replays launched {seen} on the device, as "
+        f"counted")
+    dec_ms, dec_top = summary(dec, 16)
     trainer, tm = training["trainer"], training["metrics"]
     train_ms, train_top = summary(profile_kernels(
         lambda: trainer.step(training["ids"], training["labels"])), 1)
@@ -1731,6 +2041,8 @@ def phase_profile(dev, serving, training, packed, kernels, probes):
         "fresh_prefill_top": fresh_top,
         "decode_step_device_ms": dec_ms,
         "decode_device_busy": dec_ms / metrics["decode_ms_per_step"],
+        "decode_device_busy_all_in": dec_ms
+        / metrics["decode_ms_per_step_all_in"],
         "decode_top": dec_top,
     }
     log(json.dumps({"profile": prof}))
@@ -1738,8 +2050,10 @@ def phase_profile(dev, serving, training, packed, kernels, probes):
 
 
 def phase_parity(dev, serving):
-    """(a) 2-layer f32 engine greedy == forward_dense greedy, token for
-    token; (b) bf16 16-layer first-step logits near forward_dense."""
+    """(a) 2-layer f32 engine greedy through decode_run's CUDA graphs ==
+    forward_dense greedy, token for token; (b) bf16 16-layer first-step
+    logits near forward_dense. (The bf16 windows' tokens against the
+    eager runner's, bit for bit, are held in the serving phase.)"""
     run, model, first = serving["run"], serving["model"], serving["first"]
     from paddle_tpu_torch.inference import (PagedCausalLM,
                                             PagedServingConfig,
@@ -1754,7 +2068,15 @@ def phase_parity(dev, serving):
     rids = [eng.add_request(p, max_new_tokens=n_new) for p in prompts[:2]]
     eng.step()                                  # fresh prefill (kernels)
     rids.append(eng.add_request(prompts[2], max_new_tokens=n_new))
-    outs = eng.run_to_completion()
+    while any(r.length - r.cached > 1 for r in eng.pending()):
+        eng.step()                              # to every decode tip
+    while eng.pending():                        # replayed window graphs
+        if not eng.decode_run(4):
+            raise AssertionError("f32 decode_run made no progress")
+    if not eng._window_fns or any(w.graph is None
+                                  for w in eng._window_fns.values()):
+        raise AssertionError("f32 parity: decode_run took no CUDA graph")
+    outs = {rid: list(eng._requests[rid].generated) for rid in rids}
     for rid, p in zip(rids, prompts):
         ids = list(p)
         with torch.inference_mode():
@@ -1765,7 +2087,8 @@ def phase_parity(dev, serving):
             raise AssertionError(f"f32 greedy parity: request {rid} "
                                  f"{outs[rid]} != dense {ids[len(p):]}")
     log(f"parity (a) f32 2-layer full width: {len(rids)} greedy streams "
-        f"equal forward_dense token for token")
+        f"through decode_run's replayed graphs ({len(eng._window_fns)} "
+        f"windows) equal forward_dense token for token")
 
     served = model._serving_shared[1]           # the bf16 serving copy
     worst = 0.0
@@ -1809,6 +2132,7 @@ def main():
     phase_flash_kernels(dev, kernels, probes)
     phase_varlen_bwd_kernels(dev, kernels, probes)
     serving = phase_serving(dev)
+    phase_paged_kernel(dev, kernels, probes, serving)
     phase_parity(dev, serving)
     training = phase_training(dev)
     phase_training_parity(dev)
@@ -1817,7 +2141,11 @@ def main():
     phase_profile(dev, serving, training, packed, kernels, probes)
     by_path = {"serving": serving["counts"], "training": training["counts"],
                "packed_training": packed["counts"]}
-    per_step = {"serving": serving["run"]["per_step"],
+    decode_step = serving["metrics"]["decode_launches_per_step"]
+    per_step = {"serving": {
+                    k: {"fresh_prefill_step": n,
+                        "decode_step": decode_step[k]}
+                    for k, n in serving["run"]["per_step"].items()},
                 "training": training["metrics"]["launches_per_step"],
                 "packed_training": packed["metrics"]["launches_per_step"]}
     line = []

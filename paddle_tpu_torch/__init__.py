@@ -6,10 +6,10 @@ path is a CUDA C++ kernel written for sm_90a (ops/kernels/csrc), built at
 first use. Entry points run on "cuda" unless the caller passes a device;
 device="cpu" runs the kernels' plain PyTorch versions.
 
-Ported so far: the paged-KV serving path (inference.serving), one Llama
-training step (distributed.fleet.HybridTrainer over models.llama) and
-packed-sequence attention training (incubate.nn.functional.
-flash_attn_unpadded).
+Ported so far: the paged-KV serving path (inference.serving, its decode
+windows replayed as CUDA graphs), one Llama training step
+(distributed.fleet.HybridTrainer over models.llama) and packed-sequence
+attention training (incubate.nn.functional.flash_attn_unpadded).
 """
 from . import distributed, incubate, inference, models, nn, ops, utils
 from .ops.kernels import launch_counts, reset_launch_counts, resolve_device

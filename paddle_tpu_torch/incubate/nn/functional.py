@@ -2,10 +2,14 @@
 
 ``block_multihead_attention`` is the paged-KV attention of the serving
 step. Its fresh-prefill route runs the varlen flash-attention kernel; its
-decode and chunked-prefill route is tensor code, as the reference's is.
-The stacked caches are updated IN PLACE (the reference returns new
+decode and chunked-prefill route runs the paged-attention kernel
+(ops/kernels/paged_attention.py), which reads K and V through the block
+table. The stacked caches are updated IN PLACE (the reference returns new
 arrays): a serving step writes each layer's new K/V straight into the one
 [L, num_blocks, HKV, block_size, D] buffer pair, with no copy of the pool.
+``paged_metadata`` computes what every layer of a step shares (each
+token's row, position, page, slot and RoPE angles) once a step; a model
+passes it to each layer's call.
 
 ``flash_attn_unpadded`` and ``flash_attn_varlen_qkvpacked`` are the
 packed-sequence entry points, differentiable: their kernel route runs the
@@ -13,17 +17,19 @@ varlen flash-attention forward and its two backward kernels.
 """
 from __future__ import annotations
 
-import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ...ops.kernels.paged_attention import paged_attention
 from ...ops.kernels.varlen_attention import (segment_ids_from_cu_seqlens,
                                              varlen_flash_attention,
                                              varlen_flash_attention_packed)
 
-__all__ = ["swiglu", "block_multihead_attention", "flash_attn_unpadded",
+__all__ = ["swiglu", "block_multihead_attention", "paged_metadata",
+           "PagedMetadata", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked"]
 
 
@@ -43,12 +49,55 @@ def _rope(t, cos_h, sin_h):
                         t2 * cos_h + t1 * sin_h], dim=-1).reshape(t.shape)
 
 
+class PagedMetadata(NamedTuple):
+    """What every layer of one paged step shares: for each of the T packed
+    tokens its batch row ``t2b``, cache position ``pos``, page and slot
+    (where its new K/V go), and the RoPE ``cos`` / ``sin`` at its position
+    ([T, 1, D/2], f32). All index tensors are int64 [T]."""
+    t2b: torch.Tensor
+    pos: torch.Tensor
+    page: torch.Tensor
+    slot: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+
+
+def paged_metadata(num_tokens, seq_lens_encoder, seq_lens_decoder,
+                   cu_seqlens_q, block_tables, block_size, rope_emb):
+    """The per-step metadata of ``block_multihead_attention``
+    (incubate/nn/functional/__init__.py:682-701): token -> (batch row,
+    position), the page and slot each token writes, and the RoPE angles
+    from rope_emb [2, B, 1, max_seq, D/2] at each position. Out-of-range
+    lookups clamp as the reference's gathers do (the trash row's padding
+    can run past max_seq). Tensor code only: no host sync, so it runs
+    inside a CUDA graph's capture."""
+    bt = block_tables.long()
+    B, max_blocks = bt.shape
+    cu_q = cu_seqlens_q.long()
+    tok = torch.arange(num_tokens, device=cu_q.device)
+    t2b = torch.searchsorted(cu_q[1:].contiguous(), tok, right=True) \
+        .clamp(max=B - 1)
+    tok_in_seq = tok - cu_q[t2b]
+    start = torch.where(seq_lens_encoder.reshape(-1) > 0,
+                        torch.zeros_like(seq_lens_decoder.reshape(-1)),
+                        seq_lens_decoder.reshape(-1)).long()
+    pos = start[t2b] + tok_in_seq
+    re = rope_emb.reshape(2, B, -1, rope_emb.shape[-1])
+    pos_r = pos.clamp(max=re.shape[2] - 1)
+    cos = re[0][t2b, pos_r][:, None, :]
+    sin = re[1][t2b, pos_r][:, None, :]
+    page = bt[t2b, (pos // block_size).clamp(max=max_blocks - 1)]
+    slot = pos % block_size
+    return PagedMetadata(t2b, pos, page, slot, cos, sin)
+
+
 def block_multihead_attention(qkv, key_cache, value_cache,
                               seq_lens_encoder, seq_lens_decoder,
                               seq_lens_this_time, cu_seqlens_q,
                               block_tables, rope_emb, *, layer_idx,
                               fresh_prefill=False,
-                              use_dynamic_cachekv_quant=False):
+                              use_dynamic_cachekv_quant=False,
+                              metadata=None):
     """Paged-KV attention (incubate/nn/functional/__init__.py:544-772).
 
     qkv [T, (HQ + 2 HKV) D] packs each batch row's tokens of this step: row
@@ -59,8 +108,13 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     maps each row's logical blocks to pages. HKV divides HQ (GQA).
     rope_emb [2, B, 1, max_seq, D/2] holds (cos, sin) for interleaved
     RoPE. New K/V are scattered into their pages in place, then each token
-    attends its row's filled prefix (causal). Returns (out [T, HQ D], qkv,
-    key_cache, value_cache).
+    attends its row's filled prefix (causal) through the paged-attention
+    kernel (its plain version for CPU tensors). Returns (out [T, HQ D],
+    qkv, key_cache, value_cache).
+
+    ``metadata``: this step's ``paged_metadata`` (the same for every
+    layer), computed here from the arguments when None; the results are
+    the same bits either way.
 
     fresh_prefill=True asserts every scheduled row starts at position 0:
     attention then runs as block-diagonal varlen flash over the packed
@@ -75,65 +129,33 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     pool_k = key_cache[layer_idx]                        # views
     pool_v = value_cache[layer_idx]
     num_blocks, HKV, bs, D = pool_k.shape
-    bt = block_tables.long()
-    B, max_blocks = bt.shape
-    max_seq = max_blocks * bs
+    B = block_tables.shape[0]
     HQ = qkv.shape[1] // D - 2 * HKV
     q = qkv[:, :HQ * D].reshape(T, HQ, D)
     k = qkv[:, HQ * D:(HQ + HKV) * D].reshape(T, HKV, D)
     v = qkv[:, (HQ + HKV) * D:].reshape(T, HKV, D)
 
-    # token -> (batch row, position); out-of-range lookups clamp as the
-    # reference's gathers do (the trash row's padding can run past max_seq)
-    cu_q = cu_seqlens_q.long()
-    tok = torch.arange(T, device=qkv.device)
-    t2b = torch.searchsorted(cu_q[1:].contiguous(), tok, right=True) \
-        .clamp(max=B - 1)
-    tok_in_seq = tok - cu_q[t2b]
-    start = torch.where(seq_lens_encoder.reshape(-1) > 0,
-                        torch.zeros_like(seq_lens_decoder.reshape(-1)),
-                        seq_lens_decoder.reshape(-1)).long()
-    pos = start[t2b] + tok_in_seq
-    re = rope_emb.reshape(2, B, -1, rope_emb.shape[-1])
-    pos_r = pos.clamp(max=re.shape[2] - 1)
-    cos_h = re[0][t2b, pos_r][:, None, :]
-    sin_h = re[1][t2b, pos_r][:, None, :]
+    md = metadata if metadata is not None else paged_metadata(
+        T, seq_lens_encoder, seq_lens_decoder, cu_seqlens_q, block_tables,
+        bs, rope_emb)
     # rope runs in f32; the cast back precedes the cache scatter
-    q = _rope(q, cos_h, sin_h).to(qkv.dtype)
-    k = _rope(k, cos_h, sin_h).to(qkv.dtype)
+    q = _rope(q, md.cos, md.sin).to(qkv.dtype)
+    k = _rope(k, md.cos, md.sin).to(qkv.dtype)
 
-    page = bt[t2b, (pos // bs).clamp(max=max_blocks - 1)]
-    slot = pos % bs
     # in place: [pages, HKV, bs, D] viewed as [pages, bs, HKV, D]
-    pool_k.transpose(1, 2)[page, slot] = k.to(pool_k.dtype)
-    pool_v.transpose(1, 2)[page, slot] = v.to(pool_v.dtype)
+    pool_k.transpose(1, 2)[md.page, md.slot] = k.to(pool_k.dtype)
+    pool_v.transpose(1, 2)[md.page, md.slot] = v.to(pool_v.dtype)
 
     if fresh_prefill:
-        seg = torch.where(t2b == B - 1, -1, t2b).to(torch.int32)[None]
+        seg = torch.where(md.t2b == B - 1, -1, md.t2b).to(torch.int32)[None]
         o, _ = varlen_flash_attention_packed(
             q.transpose(0, 1)[None], k.transpose(0, 1)[None],
             v.transpose(0, 1)[None], seg, seg, is_causal=True)
         out = o[0].transpose(0, 1).reshape(T, HQ * D)
         return out, qkv, key_cache, value_cache
 
-    # decode / chunked prefill: gather whole pages into each row's dense
-    # view, then attend over ALL rows' views at once with every column of
-    # another row masked to -inf. That equals the reference's per-token
-    # gather kd[t2b] ([T, HKV, S, D], ~100 MB a layer at T=256) without
-    # materialising it: a masked column adds exactly 0.
-    kd = pool_k[bt].permute(2, 0, 1, 3, 4).reshape(HKV, B * max_seq, D)
-    vd = pool_v[bt].permute(2, 0, 1, 3, 4).reshape(HKV, B * max_seq, D)
-    G = HQ // HKV
-    qg = q.reshape(T, HKV, G, D)
-    logits = torch.einsum("tkgd,kcd->tkgc", qg.float(), kd.float()) \
-        / math.sqrt(D)
-    col = torch.arange(B * max_seq, device=qkv.device)
-    valid = ((col // max_seq)[None, :] == t2b[:, None]) \
-        & ((col % max_seq)[None, :] <= pos[:, None])          # [T, B*S]
-    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
-    out = torch.einsum("tkgc,kcd->tkgd", probs.to(qkv.dtype).float(),
-                       vd.float()).to(qkv.dtype)
+    out = paged_attention(q, key_cache, value_cache, layer_idx, md.t2b,
+                          md.pos, block_tables.long())
     return out.reshape(T, HQ * D), qkv, key_cache, value_cache
 
 

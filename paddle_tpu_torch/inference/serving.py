@@ -11,17 +11,25 @@ the dense reference path token for token. Padding tokens go to a reserved
 trash page, so a step's fixed token budget never touches live pages.
 
 On a CUDA device the step runs through the port's hand-written kernels:
-RMSNorm 2L + 1 times a step and, on fresh-prefill steps, the varlen
-flash-attention forward once per layer.
+RMSNorm 2L + 1 times a step, the varlen flash-attention forward once per
+layer on fresh-prefill steps, and the paged-attention kernel once per layer
+on decode and chunked-prefill steps. ``decode_run`` replays one CUDA graph
+a (row bucket, sampling mode) once a step, the counterpart of the
+reference's fused decode window (``_decode_window_fn``): one host sync a
+window and no per-op dispatch.
 
 Not ported yet (ROADMAP.md): the prefix cache, speculative decoding,
 weight streaming and publishing, chaos fault sites, metrics and tracing,
-disk artifacts, the backend handle and the int8 KV cache.
+disk artifacts and the StableHLO artifact of the decode step
+(``lower_fused_decode``), the backend handle and the int8 KV cache.
+The window's graphs hold the weights' and caches' addresses: weights must
+be updated in place, or the windows captured again.
 """
 from __future__ import annotations
 
 import copy
 import math
+import time
 
 import numpy as np
 import torch
@@ -29,7 +37,8 @@ from torch import nn
 
 from ..incubate.nn import functional as IF
 from ..nn import Embedding, Linear, RMSNorm
-from ..ops.kernels import resolve_device
+from ..ops.kernels import (add_launch_counts, launch_counts,
+                           resolve_device)
 
 __all__ = ["PagedServingConfig", "PagedCausalLM", "ServingEngine",
            "SamplingParams", "sampling_salt", "sample_logits",
@@ -43,7 +52,9 @@ class EngineOverloadedError(RuntimeError):
 
 class PagedServingConfig:
     """Engine and model dims for the paged-KV serving path
-    (serving.py:126-204). ``cache_quant="int8"`` is not ported yet."""
+    (serving.py:126-204). ``cache_quant="int8"`` (the int8 cache-KV path)
+    is not ported yet, nor are the prefix cache, speculative decoding and
+    weight versions."""
 
     def __init__(self, vocab_size=256, hidden_size=64, num_layers=2,
                  num_heads=4, ffn_size=128, block_size=16, num_blocks=64,
@@ -255,6 +266,19 @@ class PagedCausalLM(nn.Module):
         self.ln_f = RMSNorm(h, device=dev)
         self.head = lin(h, cfg.vocab_size)
 
+    def rope_cos_sin(self, device):
+        """(cos, sin) [2, max_seq, D/2] at positions 0..max_seq-1, in f32
+        on ``device``: made once a device, not a step. It is not state, so
+        a cast of the model (serving copies are cast to cfg.dtype) leaves
+        it f32."""
+        table = self.__dict__.get("_rope_cos_sin")
+        if table is None or table.device != device:
+            cos, sin = self._rope_table(
+                torch.arange(self.cfg.max_seq, device=device))
+            table = torch.stack([cos, sin])
+            self.__dict__["_rope_cos_sin"] = table
+        return table
+
     def load_paddle_tpu_params(self, named):
         """Load the TPU package's parameters: ``named`` maps its parameter
         names (``current_params``) to numpy arrays; see
@@ -308,11 +332,18 @@ class PagedCausalLM(nn.Module):
         cfg = self.cfg
         x = self.embed(tokens)
         B1 = int(seq_lens_encoder.shape[0])
+        if block_tables.shape[1] > cfg.max_blocks_per_seq:
+            raise ValueError(f"block_tables [{B1}, {block_tables.shape[1]}]"
+                             f" wider than max_blocks_per_seq "
+                             f"{cfg.max_blocks_per_seq}")
         max_seq = int(block_tables.shape[1]) * cfg.block_size
-        cos, sin = self._rope_table(
-            torch.arange(max_seq, device=x.device))          # [S, D/2]
-        rope = torch.stack([cos, sin])[:, None, None] \
-            .expand(2, B1, 1, max_seq, cfg.head_dim // 2)
+        table = self.rope_cos_sin(x.device)                  # [2, S, D/2]
+        rope = table[:, None, None, :max_seq].expand(
+            2, B1, 1, max_seq, cfg.head_dim // 2)
+        # what every layer shares, once a step
+        md = IF.paged_metadata(tokens.shape[0], seq_lens_encoder,
+                               seq_lens_decoder, cu_seqlens_q, block_tables,
+                               cfg.block_size, rope)
         for li in range(cfg.num_layers):
             h = self.ln1[li](x)
             qkv = self.qkv[li](h)
@@ -321,7 +352,7 @@ class PagedCausalLM(nn.Module):
                     qkv, key_caches, value_caches, seq_lens_encoder,
                     seq_lens_decoder, seq_lens_this_time, cu_seqlens_q,
                     block_tables, rope, layer_idx=li,
-                    fresh_prefill=fresh_prefill)
+                    fresh_prefill=fresh_prefill, metadata=md)
             x = x + self.proj[li](out)
             h = self.ln2[li](x)
             x = x + self._mlp(li, h)
@@ -407,6 +438,130 @@ class _Request:
         return len(self.prompt) + len(self.generated)
 
 
+class _DecodeWindow:
+    """One decode window's static buffers and its step body: the
+    counterpart of the reference's ``_decode_window_fn`` (serving.py:
+    1746-1801), one per (row bucket ``Bb``, sampling mode).
+
+    Every input of a window lives in one int64 device buffer ``buf``
+    (tokens [Bb], enc, dec, this, cu, the block table, top-k, the per-row
+    salts, temperatures and top-p as float32 views, the step counter), so
+    one copy from a pinned host buffer stages a window. The body runs the
+    model on those buffers, samples in the window's mode, feeds the Bb
+    bucket rows' samples back as the next tokens, advances ``dec`` and the
+    live rows' salts by one ((s + 1) & 0x7FFFFFFF is the salt of the next
+    token, ``sampling_salt``), and writes the step's samples into row
+    ``step`` of ``samples`` [n_max, B+1]. No host sync: on a CUDA device
+    the body is captured once into a CUDA graph and replayed n times a
+    window; on the CPU it runs eagerly n times."""
+
+    def __init__(self, engine, Bb, mode):
+        cfg = engine.cfg
+        dev = engine.device
+        self.engine, self.Bb, self.mode = engine, Bb, mode
+        B1 = cfg.max_batch + 1
+        self.n_max = cfg.max_seq     # no request decodes more tokens
+        fields = (("tokens", Bb), ("enc", B1), ("dec", B1), ("this", B1),
+                  ("cu", B1 + 1), ("bt", B1 * cfg.max_blocks_per_seq),
+                  ("topks", B1), ("salts", B1), ("step", 1),
+                  ("temps", (B1 + 1) // 2), ("topps", (B1 + 1) // 2))
+        self._slices, o = {}, 0
+        for name, n in fields:
+            self._slices[name] = (o, o + n)
+            o += n
+        self.buf = torch.zeros(o, dtype=torch.int64, device=dev)
+        # the pinned staging buffer (on the CPU the buffer itself)
+        self._host = (torch.zeros(o, dtype=torch.int64, pin_memory=True)
+                      if dev.type == "cuda" else self.buf)
+        self._host_np = self._host.numpy()
+        for name, _ in fields[:-2]:
+            setattr(self, name, self.buf[slice(*self._slices[name])])
+        self.bt = self.bt.view(B1, cfg.max_blocks_per_seq)
+        self.temps = self._float_view("temps", B1)
+        self.topps = self._float_view("topps", B1)
+        self.live = (torch.arange(B1, device=dev) < Bb).long()
+        self.samples = torch.zeros((self.n_max, B1), dtype=torch.int32,
+                                   device=dev)
+        self.graph = None
+        self.capture_ms = None
+        self.graph_launches = {}     # launch counts one replay makes
+
+    def _float_view(self, name, n):
+        return self.buf[slice(*self._slices[name])].view(torch.float32)[:n]
+
+    def stage(self, tokens, enc, dec, this, cu, bt, temps, topks, topps,
+              salts):
+        """Write one window's host inputs (numpy) into the buffers, step
+        counter at 0: one copy from the pinned staging buffer."""
+        h = self._host_np
+        for name, a in (("tokens", tokens), ("enc", enc), ("dec", dec),
+                        ("this", this), ("cu", cu), ("bt", bt.reshape(-1)),
+                        ("topks", topks), ("salts", salts)):
+            lo, hi = self._slices[name]
+            h[lo:hi] = a
+        lo, hi = self._slices["step"]
+        h[lo:hi] = 0
+        for name, a in (("temps", temps), ("topps", topps)):
+            lo, hi = self._slices[name]
+            h[lo:hi].view(np.float32)[:len(a)] = a
+        if self._host is not self.buf:
+            self.buf.copy_(self._host, non_blocking=True)
+
+    def body(self):
+        eng = self.engine
+        logits, _, _ = eng._model(self.tokens, self.enc, self.dec, self.this,
+                                  self.cu, self.bt, eng._kc, eng._vc)
+        sampled = _sample(logits, self.mode, self.temps, self.topks,
+                          self.topps, self.salts)
+        self.tokens.copy_(sampled[:self.Bb])
+        self.dec.add_(self.live)
+        self.salts.add_(self.live).bitwise_and_(0x7FFFFFFF)
+        self.samples.index_copy_(0, self.step, sampled[None])
+        self.step.add_(1)
+
+    def capture(self, pool):
+        """Capture the body into a CUDA graph in ``pool``. The warm-up run
+        PyTorch wants before a capture executes for real, so it runs with
+        every row's block table on the trash page 0, and the buffers are
+        put back as they were afterwards: no live page, token or position
+        changes. The launch counts the capture's Python made are taken
+        back and kept in ``graph_launches``, added on each replay. A
+        failed capture raises."""
+        dev = self.engine.device
+        t0 = time.perf_counter()
+        saved = self.buf.clone()
+        self.bt.zero_()
+        self.step.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self.step.zero_()
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool):
+            self.body()
+        made = {k: v - before[k] for k, v in launch_counts().items()}
+        add_launch_counts(made, -1)
+        self.buf.copy_(saved)
+        torch.cuda.synchronize(dev)
+        self.graph, self.graph_launches = graph, made
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+
+    def run(self, n, graph):
+        """n steps of the staged window (graph replays, or the body run
+        eagerly); returns the samples [n, B+1] (one host sync)."""
+        if graph:
+            for _ in range(n):
+                self.graph.replay()
+            add_launch_counts(self.graph_launches, n)
+        else:
+            for _ in range(n):
+                self.body()
+        return self.samples[:n].cpu().numpy()
+
+
 class ServingEngine:
     """Continuous-batching scheduler over a PagedCausalLM step.
 
@@ -435,6 +590,10 @@ class ServingEngine:
         self._free_pages = list(range(1, cfg.num_blocks))
         self._requests = {}
         self._next_rid = 0
+        # decode windows by (row bucket, sampling mode); on a CUDA device
+        # each holds its CUDA graph, all graphs in one memory pool
+        self._window_fns = {}
+        self._graph_pool = None
         # logits [B+1, V] of the last step() (for parity checks)
         self.last_logits = None
 
@@ -627,7 +786,37 @@ class ServingEngine:
         batch with ONE host sync: each step's sampled tokens feed the next
         step's inputs on the device. Requests must be at their decode tip;
         pages for the whole window are reserved up front so block tables
-        stay fixed. Returns the produced (rid, token) list in step order."""
+        stay fixed. Returns the produced (rid, token) list in step order.
+
+        The counterpart of the reference's ``_decode_run`` over
+        ``_decode_window_fn``: on a CUDA device one CUDA graph a (row
+        bucket, sampling mode), kept in ``self._window_fns``, is replayed
+        once a step; on the CPU the same body runs eagerly. The reference
+        keys its executables by the window length too; replays make the
+        length free, so the key drops it."""
+        return self._decode_window_run(n_steps,
+                                       graph=self.device.type == "cuda")
+
+    def _decode_run_eager(self, n_steps):
+        """``decode_run`` with the window's body run eagerly on the device
+        instead of replaying its graph: the yardstick that chip_smoke.py
+        and the GPU tests compare the graphs with. ``decode_run`` never
+        takes it."""
+        return self._decode_window_run(n_steps, graph=False)
+
+    def _window(self, Bb, mode, graph):
+        win = self._window_fns.get((Bb, mode))
+        if win is None:
+            win = _DecodeWindow(self, Bb, mode)
+        if graph and win.graph is None:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            with torch.inference_mode():
+                win.capture(self._graph_pool)
+        self._window_fns[(Bb, mode)] = win
+        return win
+
+    def _decode_window_run(self, n_steps, graph):
         cfg = self.cfg
         rows = [r for r in self.pending()
                 if r.length - r.cached == 1][:cfg.max_batch]
@@ -668,36 +857,23 @@ class ServingEngine:
             bt[i, :len(r.pages)] = r.pages
         dec = np.zeros(B1, np.int64)
         dec[:B] = [r.cached for r in rows]
-        ngen0 = [len(r.generated) for r in rows]
         tokens = np.asarray([(r.prompt + r.generated)[-1] for r in rows]
                             + [0] * n_pad, np.int64)
         temps = np.zeros(B1, np.float32)
         topks = np.zeros(B1, np.int64)
         topps = np.ones(B1, np.float32)
+        salts = np.zeros(B1, np.int64)
         for i, r in enumerate(rows):
             temps[i] = r.sampling.temperature
             topks[i] = r.sampling.top_k
             topps[i] = r.sampling.top_p
-        mode = _sample_mode(temps, topks)
-        salts = np.zeros((n, B1), np.int64)
-        for j in range(n):
-            for i, r in enumerate(rows):
-                salts[j, i] = self._salt(r, ngen0[i] + j)
-
-        tok_d, enc_d, dec_d, this_d, cu_d, bt_d, salts_d = self._tensors(
-            tokens, enc, dec, this, cu, bt, salts)
-        t_d, k_d, p_d = self._sampling_tensors(temps, topks, topps)
-        live = (torch.arange(B1, device=self.device) < Bb).long()
-        samples = []
+            # the first step's salts; the body advances them on the device
+            salts[i] = self._salt(r, len(r.generated))
+        win = self._window(Bb, _sample_mode(temps, topks), graph)
         with torch.inference_mode():
-            for j in range(n):
-                logits, _, _ = self._model(tok_d, enc_d, dec_d, this_d,
-                                           cu_d, bt_d, self._kc, self._vc)
-                sampled = _sample(logits, mode, t_d, k_d, p_d, salts_d[j])
-                samples.append(sampled)
-                tok_d = sampled[:Bb].long()
-                dec_d = dec_d + live
-            fetched = torch.stack(samples).cpu().numpy()      # host sync
+            win.stage(tokens, enc, dec, this, cu, bt, temps, topks, topps,
+                      salts)
+            fetched = win.run(n, graph)                       # host sync
         produced = []
         for j in range(n):
             for i, r in enumerate(rows):

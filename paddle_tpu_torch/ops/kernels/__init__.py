@@ -12,13 +12,17 @@ module-level integer (``launches``, or one ``launches_*`` a kernel where a
 module holds several); ``launch_counts()`` reads them all and
 ``reset_launch_counts()`` sets them to 0. Beside them,
 ``aligned16_copies`` counts the inputs the wrappers copied to a 16-byte
-boundary (``_build.aligned16``).
+boundary (``_build.aligned16``). The wrappers count in Python, which a
+CUDA graph's replay does not run: the serving decode window records what
+its graph's capture counted and adds it back on every replay
+(``add_launch_counts``).
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device", "launch_counts", "reset_launch_counts"]
+__all__ = ["resolve_device", "launch_counts", "reset_launch_counts",
+           "add_launch_counts"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -43,7 +47,8 @@ def resolve_device(device=None) -> torch.device:
 
 def _counters():
     """{kernel name: (module, name of its launch counter)}."""
-    from . import _build, flash_attention, rms_norm, varlen_attention
+    from . import (_build, flash_attention, paged_attention, rms_norm,
+                   varlen_attention)
 
     return {"rms_norm": (rms_norm, "launches"),
             "rms_norm_bwd": (rms_norm, "launches_bwd"),
@@ -54,6 +59,7 @@ def _counters():
             "flash_attention_fwd": (flash_attention, "launches_fwd"),
             "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
             "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq"),
+            "paged_attention": (paged_attention, "launches"),
             "aligned16_copies": (_build, "copies")}
 
 
@@ -67,3 +73,12 @@ def launch_counts() -> dict:
 def reset_launch_counts():
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
+
+
+def add_launch_counts(counts: dict, times: int = 1):
+    """Add ``times`` x ``counts`` ({kernel name: launches}, as
+    ``launch_counts`` gives them) to the counters."""
+    table = _counters()
+    for name, n in counts.items():
+        mod, attr = table[name]
+        setattr(mod, attr, getattr(mod, attr) + times * n)

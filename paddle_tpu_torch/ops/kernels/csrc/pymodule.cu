@@ -7,8 +7,10 @@
 // entries through these METH_FASTCALL functions instead: the arguments are
 // Python ints (pointers, sizes, the stream handle; None for a null
 // pointer) and one float, converted here, and the C entry's cudaError_t
-// comes back as an int. Host code only; built into the same shared
-// library, which _build.py also imports as an extension module.
+// comes back as an int. The paged attention of the decode and
+// chunked-prefill steps (16 calls a step) is called the same way. Host code
+// only; built into the same shared library, which _build.py also imports as
+// an extension module.
 #include <Python.h>
 #include <stdint.h>
 
@@ -19,6 +21,11 @@ extern "C" int pt_rms_norm_bwd(const void* x, const void* g, const void* w,
                                void* gx, void* part, void* gw, int64_t rows,
                                int h, float eps, int mode, int blocks,
                                void* stream);
+extern "C" int pt_paged_attention(const void* q, const void* k, const void* v,
+                                  void* out, const void* t2b, const void* pos,
+                                  const void* bt, int T, int HQ, int HKV,
+                                  int D, int bs, int max_blocks, int dtype,
+                                  float scale_div, void* stream);
 
 namespace {
 
@@ -96,6 +103,25 @@ PyObject* rms_norm_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
                                          mode, blocks, stream));
 }
 
+// paged_attention(q, k, v, out, t2b, pos, bt, T, HQ, HKV, D, bs, max_blocks,
+// dtype, scale_div, stream) -> cudaError_t
+PyObject* paged_attention(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  void *q, *k, *v, *out, *t2b, *pos, *bt, *stream;
+  int T, HQ, HKV, D, bs, max_blocks, dtype;
+  float scale_div;
+  if (!arity("paged_attention", n, 16) || !as_ptr(a[0], &q) ||
+      !as_ptr(a[1], &k) || !as_ptr(a[2], &v) || !as_ptr(a[3], &out) ||
+      !as_ptr(a[4], &t2b) || !as_ptr(a[5], &pos) || !as_ptr(a[6], &bt) ||
+      !as_int(a[7], &T) || !as_int(a[8], &HQ) || !as_int(a[9], &HKV) ||
+      !as_int(a[10], &D) || !as_int(a[11], &bs) ||
+      !as_int(a[12], &max_blocks) || !as_int(a[13], &dtype) ||
+      !as_float(a[14], &scale_div) || !as_ptr(a[15], &stream))
+    return nullptr;
+  return PyLong_FromLong(pt_paged_attention(q, k, v, out, t2b, pos, bt, T, HQ,
+                                            HKV, D, bs, max_blocks, dtype,
+                                            scale_div, stream));
+}
+
 PyMethodDef methods[] = {
     {"rms_norm", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(
                      rms_norm)),
@@ -103,6 +129,10 @@ PyMethodDef methods[] = {
     {"rms_norm_bwd",
      reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(rms_norm_bwd)),
      METH_FASTCALL, "pt_rms_norm_bwd; returns its cudaError_t"},
+    {"paged_attention",
+     reinterpret_cast<PyCFunction>(
+         reinterpret_cast<void (*)()>(paged_attention)),
+     METH_FASTCALL, "pt_paged_attention; returns its cudaError_t"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef module = {PyModuleDef_HEAD_INIT, "_pt_kernels",

@@ -1,0 +1,136 @@
+"""Paged-KV attention of the serving decode and chunked-prefill steps: the
+CUDA kernel (csrc/paged_attention.cu) and its plain version.
+
+Replaces the non-fresh route of paddle_tpu/incubate/nn/functional/
+__init__.py::block_multihead_attention (:733-761), which the TPU package
+writes as jnp for XLA to fuse (no Pallas kernel). Each token t of batch row
+t2b[t], at cache position pos[t], attends its own row's cache positions
+0..pos[t] (at most max_seq) in its kv-head group, K and V read from the
+stacked page pools through the block table. Logits take the cache dtype's
+operands with f32 accumulation, scaled by 1/sqrt(D); softmax in f32; the
+probabilities are rounded to the cache dtype after normalisation, P V
+accumulates in f32 and is cast to the cache dtype: the reference's
+rounding, which the plain version keeps. Bound by bytes; the source note
+gives the bound and the design.
+
+The kernel takes float32 and bfloat16 caches, D a multiple of 8 up to 256
+and HKV dividing HQ; other inputs raise. Padding tokens (the engine's
+trash row, whose block-table row is all page 0) may sit at positions past
+max_seq: their keys stop at max_seq, so no read leaves the pool.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build
+
+__all__ = ["paged_attention"]
+
+# kernel launches since the last reset (ops.kernels.reset_launch_counts)
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # pt::kFloat32, kBFloat16
+_MAX_D = 256
+
+
+def _paged_attention_ref(q, pool_k, pool_v, t2b, pos, block_tables):
+    """Plain PyTorch version over one layer's pools [num_blocks, HKV, bs,
+    D]: gather whole pages into each row's dense view, then attend over ALL
+    rows' views at once with every column of another row masked to -inf.
+    That equals the reference's per-token gather kd[t2b] ([T, HKV, S, D])
+    without materialising it: a masked column adds exactly 0."""
+    T, HQ, D = q.shape
+    HKV = pool_k.shape[1]
+    bt = block_tables.long()
+    B, max_blocks = bt.shape
+    max_seq = max_blocks * pool_k.shape[2]
+    kd = pool_k[bt].permute(2, 0, 1, 3, 4).reshape(HKV, B * max_seq, D)
+    vd = pool_v[bt].permute(2, 0, 1, 3, 4).reshape(HKV, B * max_seq, D)
+    qg = q.reshape(T, HKV, HQ // HKV, D)
+    logits = torch.einsum("tkgd,kcd->tkgc", qg.float(), kd.float()) \
+        / math.sqrt(D)
+    col = torch.arange(B * max_seq, device=q.device)
+    valid = ((col // max_seq)[None, :] == t2b[:, None]) \
+        & ((col % max_seq)[None, :] <= pos[:, None])          # [T, B*S]
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("tkgc,kcd->tkgd", probs.to(q.dtype).float(),
+                       vd.float()).to(q.dtype)
+    return out.reshape(T, HQ, D)
+
+
+def _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables):
+    if q.dim() != 3 or key_cache.dim() != 5 \
+            or value_cache.shape != key_cache.shape:
+        raise ValueError("paged_attention: q [T, HQ, D] and stacked caches "
+                         "[L, num_blocks, HKV, block_size, D] of one shape")
+    T, HQ, D = q.shape
+    L, _, HKV, _, Dc = key_cache.shape
+    if Dc != D or HQ % HKV:
+        raise ValueError(f"paged_attention: q's D={D} must match the "
+                         f"caches' {Dc}, and HKV={HKV} divide HQ={HQ}")
+    if not 0 <= layer_idx < L:
+        raise ValueError(f"paged_attention: layer_idx {layer_idx} not in "
+                         f"[0, {L})")
+    if t2b.shape != (T,) or pos.shape != (T,) or block_tables.dim() != 2 \
+            or any(t.dtype is not torch.int64
+                   for t in (t2b, pos, block_tables)):
+        raise ValueError("paged_attention: t2b and pos [T] and "
+                         "block_tables [B, max_blocks], all int64")
+    dev = q.device
+    if any(t.device != dev for t in (key_cache, value_cache, t2b, pos,
+                                     block_tables)):
+        raise ValueError("paged_attention: every input on q's device")
+
+
+def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables):
+    global launches
+    T, HQ, D = q.shape
+    _, _, HKV, bs, _ = key_cache.shape
+    if q.dtype not in _DTYPES or key_cache.dtype is not q.dtype \
+            or value_cache.dtype is not q.dtype:
+        raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
+                        f"q and caches of one dtype, not {q.dtype}, "
+                        f"{key_cache.dtype}, {value_cache.dtype}")
+    if D % 8 or D > _MAX_D:
+        raise ValueError(f"paged_attention kernel: D={D} must be a multiple "
+                         f"of 8 up to {_MAX_D}")
+    pool_k, pool_v = key_cache[layer_idx], value_cache[layer_idx]
+    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
+        raise ValueError("paged_attention kernel: the caches must be "
+                         "contiguous")
+    q = _build.aligned16(q.contiguous())
+    t2b, pos = t2b.contiguous(), pos.contiguous()
+    bt = block_tables.contiguous()
+    out = torch.empty_like(q)
+    if T == 0:
+        return out
+    err = _build.py_module().paged_attention(
+        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
+        t2b.data_ptr(), pos.data_ptr(), bt.data_ptr(), T, HQ, HKV, D, bs,
+        bt.shape[1], _DTYPES[q.dtype], math.sqrt(D),
+        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    _build.check(err, "paged_attention")
+    launches += 1
+    return out
+
+
+def paged_attention(q, key_cache, value_cache, layer_idx, t2b, pos,
+                    block_tables):
+    """out [T, HQ, D] in the cache dtype: q [T, HQ, D] (RoPE applied,
+    rounded to the cache dtype) against layer ``layer_idx`` of the stacked
+    page pools [L, num_blocks, HKV, block_size, D]; t2b and pos [T] int64
+    (each token's batch row and cache position), block_tables [B,
+    max_blocks] int64. A CPU tensor takes the plain version, a CUDA tensor
+    the kernel."""
+    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables)
+    if q.is_cuda:
+        return _launch(q, key_cache, value_cache, layer_idx, t2b, pos,
+                       block_tables)
+    if q.device.type == "cpu":
+        return _paged_attention_ref(q, key_cache[layer_idx],
+                                    value_cache[layer_idx], t2b, pos,
+                                    block_tables)
+    raise ValueError(f"paged_attention: no path for device {q.device}")

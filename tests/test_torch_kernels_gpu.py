@@ -14,12 +14,19 @@ for its own size and not for the tensor's largest value: in bf16 rtol
 kernels round P, p_used and dS to bf16 before their products, as the TPU
 kernels do, the dense plain versions do not), in f32 rtol 1e-4, floor
 1e-6. LSE 1e-3 absolute (f32 on both sides; |LSE| ~ 1-9 on live rows).
+The paged-attention kernel takes the same tolerances (both sides round P
+to the cache dtype after normalising, from f32 sums taken in other
+orders). The serving decode window's CUDA graphs are held to the eager run
+of the same body bit for bit.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.incubate.nn import functional as IF
+from paddle_tpu_torch.inference import serving as TS
 from paddle_tpu_torch.ops.kernels import flash_attention as FA
+from paddle_tpu_torch.ops.kernels import paged_attention as PA
 from paddle_tpu_torch.ops.kernels import rms_norm as TR
 from paddle_tpu_torch.ops.kernels import varlen_attention as TV
 
@@ -615,3 +622,188 @@ def test_varlen_backward_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(TypeError):
         TV._launch_bwd(q.half(), q.half(), q.half(), seg, seg, q.half(),
                        lse, q.half(), True)
+
+
+# -- paged attention (the serving decode and chunked-prefill steps) ---------
+
+def _paged_case(rows, n_pad, hq, hkv, d, bs, max_blocks, dtype, device,
+                seed, layers=2):
+    """Stacked random caches, q and the step's metadata for rows
+    [(n_tokens, start_pos)], each row on its own pages, and n_pad padding
+    tokens in the trash row (block-table row all page 0, positions from 0,
+    which run past max_seq when n_pad > max_seq)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    B1 = len(rows) + 1
+    nb = 1 + len(rows) * max_blocks
+    kc = torch.randn(layers, nb, hkv, bs, d, device=device,
+                     generator=g).to(dtype)
+    vc = torch.randn(layers, nb, hkv, bs, d, device=device,
+                     generator=g).to(dtype)
+    enc = torch.zeros(B1, dtype=torch.int64)
+    dec = torch.zeros(B1, dtype=torch.int64)
+    this = torch.zeros(B1, dtype=torch.int64)
+    bt = torch.zeros(B1, max_blocks, dtype=torch.int64)
+    pages = torch.randperm(nb - 1, generator=torch.Generator()
+                           .manual_seed(seed))[:len(rows) * max_blocks] + 1
+    for i, (n, start) in enumerate(rows):
+        dec[i], this[i] = start, n
+        bt[i] = pages[i * max_blocks:(i + 1) * max_blocks]
+    this[-1] = enc[-1] = n_pad
+    cu = torch.zeros(B1 + 1, dtype=torch.int64)
+    cu[1:] = torch.cumsum(this, 0)
+    T = int(cu[-1])
+    q = torch.randn(T, hq, d, device=device, generator=g).to(dtype)
+    rope = torch.zeros(2, B1, 1, max_blocks * bs, d // 2, device=device)
+    md = IF.paged_metadata(T, enc.to(device), dec.to(device), cu.to(device),
+                           bt.to(device), bs, rope)
+    return q, kc, vc, md, bt.to(device)
+
+
+# (rows [(tokens, start)], padding tokens, block size, blocks a row): decode
+# rows up to position 4,095, the same over 512 blocks a row (beyond the 256
+# table entries a block keeps in shared memory, so the kernel reads the
+# table from global memory), and a chunked step with a chunk crossing pages
+# and padding past max_seq = 256
+_PAGED_CASES = {
+    "decode": ([(1, 4095), (1, 0), (1, 31), (1, 1000), (1, 2047)], 3, 32,
+               128),
+    "decode_wide_table": ([(1, 4095), (1, 2100), (1, 7)], 2, 8, 512),
+    "chunked": ([(40, 30), (1, 200), (100, 0), (7, 249)], 300, 16, 16),
+}
+
+
+# every width class of the kernel (8 * P lanes a key covering D: P = 4, 8,
+# 16 and 32), a D that leaves part of its class's lanes idle (72), and
+# every head grouping (G = 3 leaves a block of 4 query heads one short)
+@pytest.mark.parametrize("case", sorted(_PAGED_CASES))
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", [256, 128, 72, 64, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_kernel_matches_plain(case, g, d, dtype,
+                                              cuda_device):
+    rows, n_pad, bs, mb = _PAGED_CASES[case]
+    hkv = 2
+    q, kc, vc, md, bt = _paged_case(rows, n_pad, hkv * g, hkv, d, bs, mb,
+                                    dtype, cuda_device, seed=d + g)
+    before = PA.launches
+    for layer in (0, 1):
+        got = PA.paged_attention(q, kc, vc, layer, md.t2b, md.pos, bt)
+        ref = PA._paged_attention_ref(q, kc[layer], vc[layer], md.t2b,
+                                      md.pos, bt)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert _worst_of_tol(got, ref, *_tol(dtype)) <= 1.0, layer
+    assert PA.launches == before + 2
+    again = PA.paged_attention(q, kc, vc, 1, md.t2b, md.pos, bt)
+    assert torch.equal(again, got)                     # the same bits
+
+
+def test_paged_attention_kernel_rejects_what_it_cannot_take(cuda_device):
+    for d, dtype, err in ((12, torch.bfloat16, ValueError),
+                          (264, torch.bfloat16, ValueError),
+                          (64, torch.float16, TypeError)):
+        q, kc, vc, md, bt = _paged_case([(1, 5)], 1, 2, 2, d, 16, 2,
+                                        torch.float32, cuda_device, seed=1)
+        with pytest.raises(err):
+            PA.paged_attention(q.to(dtype), kc.to(dtype), vc.to(dtype), 0,
+                               md.t2b, md.pos, bt)
+
+
+# -- the serving decode window: CUDA graphs against the eager body -----------
+
+_WINDOW_CFG = dict(vocab_size=512, hidden_size=256, num_layers=2,
+                   num_heads=4, num_kv_heads=2, ffn_size=512, block_size=16,
+                   num_blocks=64, max_batch=4, max_blocks_per_seq=8,
+                   token_budget=64, dtype="bfloat16")
+_MODES = {"greedy": [None, None, None],
+          "topk": [TS.SamplingParams(0.8, 20, 0.9), None,
+                   TS.SamplingParams(1.1, 5, 1.0)],
+          "full": [TS.SamplingParams(1.0, 0, 0.95), None,
+                   TS.SamplingParams(0.7, 20, 0.8)]}
+
+
+@pytest.fixture(scope="module")
+def window_model():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    cfg = TS.PagedServingConfig(**_WINDOW_CFG)
+    return TS.PagedCausalLM(cfg, device="cuda", seed=5), cfg
+
+
+def _at_decode_tip(model, cfg, sampling, seed=3):
+    eng = TS.ServingEngine.from_model(model, cfg, seed=seed, device="cuda")
+    rng = np.random.RandomState(11)
+    for i, sp in enumerate(sampling):
+        eng.add_request(list(rng.randint(1, cfg.vocab_size, 9 + 7 * i)),
+                        max_new_tokens=24, sampling=sp)
+    while any(r.length - r.cached > 1 for r in eng.pending()):
+        eng.step()
+    return eng
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+def test_decode_window_graph_replay_equals_eager(mode, window_model):
+    model, cfg = window_model
+    graph = _at_decode_tip(model, cfg, _MODES[mode])
+    eager = _at_decode_tip(model, cfg, _MODES[mode])
+    while graph.pending():
+        got = graph.decode_run(8)
+        assert got == eager._decode_run_eager(8)
+    assert not eager.pending()
+    assert {k[1] for k in graph._window_fns} == {mode}
+    assert all(w.graph is not None for w in graph._window_fns.values())
+    assert all(w.graph is None for w in eager._window_fns.values())
+
+
+def test_decode_window_reuses_its_graph_and_counts_replays(window_model):
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    model, cfg = window_model
+    L = cfg.num_layers
+    eng = _at_decode_tip(model, cfg, _MODES["topk"])
+    reset_launch_counts()
+    eng.decode_run(4)                        # capture: one warm-up body
+    assert len(eng._window_fns) == 1
+    (key, win), = eng._window_fns.items()
+    graph = win.graph
+    assert launch_counts()["rms_norm"] == 5 * (2 * L + 1)
+    assert launch_counts()["paged_attention"] == 5 * L
+    assert win.graph_launches["rms_norm"] == 2 * L + 1
+    assert win.graph_launches["paged_attention"] == L
+    reset_launch_counts()
+    eng.decode_run(4)                        # the same key: replays only
+    assert eng._window_fns == {key: win} and win.graph is graph
+    counts = launch_counts()
+    assert counts["rms_norm"] == 4 * (2 * L + 1)
+    assert counts["paged_attention"] == 4 * L
+    assert counts["varlen_attention_fwd"] == 0
+    assert counts["aligned16_copies"] == 0
+
+
+def test_decode_window_capture_leaves_pages_and_buffers(window_model):
+    model, cfg = window_model
+    eng = _at_decode_tip(model, cfg, _MODES["full"])
+    rows = [r for r in eng.pending()]
+    win = TS._DecodeWindow(eng, 4, "full")
+    B1 = cfg.max_batch + 1
+    bt = np.zeros((B1, cfg.max_blocks_per_seq), np.int64)
+    for i, r in enumerate(rows):
+        eng._ensure_pages(r, r.cached + 4)
+        bt[i, :len(r.pages)] = r.pages
+    this = np.array([1, 1, 1, 0, 1])
+    cu = np.concatenate([[0], np.cumsum(this)])
+    dec = np.array([r.cached for r in rows] + [0, 0])
+    with torch.inference_mode():
+        win.stage(np.array([5, 6, 7, 0]), np.array([0, 0, 0, 0, 1]), dec,
+                  this, cu, bt, np.full(B1, 0.9, np.float32),
+                  np.zeros(B1, np.int64), np.ones(B1, np.float32),
+                  np.arange(B1) + 100)
+        torch.cuda.synchronize()
+        buf, kc, vc = win.buf.clone(), eng._kc.clone(), eng._vc.clone()
+        win.capture(torch.cuda.graph_pool_handle())
+    assert win.graph is not None
+    assert torch.equal(win.buf, buf)
+    # every page but the trash page 0 as it was
+    assert torch.equal(eng._kc[:, 1:], kc[:, 1:])
+    assert torch.equal(eng._vc[:, 1:], vc[:, 1:])

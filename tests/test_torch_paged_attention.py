@@ -1,0 +1,200 @@
+"""The port's paged attention (the plain version of the paged-attention
+kernel, ops/kernels/paged_attention.py, reached through
+incubate.nn.functional.block_multihead_attention's decode and
+chunked-prefill route) against the JAX reference's non-fresh route
+(paddle_tpu/incubate/nn/functional/__init__.py:733-761), on the CPU, with
+GQA (4 query heads over 2 kv heads of 16) on stacked [L, pool] caches.
+
+The step mixes a decode row, a chunk crossing a page, a row at position 0,
+a row at the last slot of a page, and a padding tail in the trash row that
+runs past max_seq (its positions reach 39 against max_seq 32; its page
+index clamps, as the reference's gathers do). Live tokens' outputs and
+every page but the trash page 0 must agree: in f32 to 1e-5 (the same
+arithmetic, sums in another order); in bf16 each element within
+2**-6 * (|ref| + the RMS of ref's row) + 1e-5 (both round P to bf16 after
+normalising and the output to bf16, from f32 sums taken in other orders).
+The trash page and the padding tokens' outputs are not compared: padding
+tokens past max_seq write the same trash slots twice, in an order neither
+framework fixes.
+
+The per-step metadata (``paged_metadata``, hoisted out of the layers by
+the model) must give the same bits as the function's own.
+"""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import paddle_tpu as paddle
+from paddle_tpu.incubate.nn import functional as JF
+
+from paddle_tpu_torch.incubate.nn import functional as TF
+from paddle_tpu_torch.inference import serving as TS
+from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+L, NB, HQ, HKV, BS, D, MB = 2, 20, 4, 2, 8, 16, 4
+MAX_SEQ = MB * BS
+# (tokens, start position, pages): decode at 13; 9 tokens from 20 (pages
+# 2 and 3 of the row); position 0; the last slot (7) of a page
+ROWS = [(1, 13, [3, 4]), (9, 20, [5, 6, 7, 8]), (1, 0, [9]), (1, 7, [10])]
+N_PAD = MAX_SEQ + 8                   # trash-row positions 0..39
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    # one PyTorch thread while the test runs, restored after: in a fresh
+    # process with two or more threads, the first float exp after MKL's
+    # first GEMM sometimes computes one thread's share with a low-accuracy
+    # exp (relative error up to 1.5e-4); see test_torch_varlen_attention.py
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _rope(B1):
+    half = D // 2
+    inv = 1.0 / (10000.0 ** (np.arange(half, dtype=np.float32) * 2.0 / D))
+    ang = np.arange(MAX_SEQ, dtype=np.float32)[:, None] * inv
+    cs = np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
+    return np.ascontiguousarray(np.broadcast_to(
+        cs[:, None, None], (2, B1, 1, MAX_SEQ, half)))
+
+
+def _inputs(seed):
+    rng = np.random.RandomState(seed)
+    B1 = len(ROWS) + 1
+    enc = np.zeros(B1, np.int64)
+    dec = np.zeros(B1, np.int64)
+    this = np.zeros(B1, np.int64)
+    bt = np.zeros((B1, MB), np.int64)
+    for i, (n, start, pages) in enumerate(ROWS):
+        dec[i], this[i] = start, n
+        bt[i, :len(pages)] = pages
+    this[-1] = enc[-1] = N_PAD
+    cu = np.zeros(B1 + 1, np.int64)
+    cu[1:] = np.cumsum(this)
+    T = int(cu[-1])
+    qkv = rng.randn(T, (HQ + 2 * HKV) * D).astype(np.float32)
+    kc = rng.randn(L, NB, HKV, BS, D).astype(np.float32)
+    vc = rng.randn(L, NB, HKV, BS, D).astype(np.float32)
+    return qkv, kc, vc, enc, dec, this, cu, bt, _rope(B1)
+
+
+def _torch_step(ins, layer, dtype, metadata=False):
+    qkv, kc, vc, enc, dec, this, cu, bt, rope = [torch.tensor(a)
+                                                 for a in ins]
+    qkv, kc, vc = qkv.to(dtype), kc.to(dtype), vc.to(dtype)
+    md = None
+    if metadata:
+        md = TF.paged_metadata(qkv.shape[0], enc, dec, cu, bt, BS, rope)
+    out, _, kc2, vc2 = TF.block_multihead_attention(
+        qkv, kc, vc, enc, dec, this, cu, bt, rope, layer_idx=layer,
+        metadata=md)
+    assert kc2 is kc and vc2 is vc                  # updated in place
+    return out, kc, vc
+
+
+def _jax_step(ins, layer, dtype):
+    qkv, kc, vc, enc, dec, this, cu, bt, rope = ins
+    jd = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    pt = paddle.to_tensor
+    jo = JF.block_multihead_attention(
+        pt(qkv).astype(jd), pt(kc).astype(jd), pt(vc).astype(jd), pt(enc),
+        pt(dec), pt(this), None, None, pt(cu), None, pt(bt),
+        rope_emb=pt(rope), layer_idx=layer, max_seq_len=MAX_SEQ,
+        block_size=BS)
+    return [torch.tensor(np.asarray(t.astype("float32").numpy()))
+            for t in (jo[0], jo[2], jo[3])]
+
+
+def _worst_of_tol(got, ref, rtol, floor):
+    got, ref = got.float(), ref.float()
+    rms = ref.square().mean(-1, keepdim=True).sqrt()
+    return float(((got - ref).abs()
+                  / (rtol * (ref.abs() + rms) + floor)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_plain_version_matches_jax_non_fresh_route(layer, dtype):
+    ins = _inputs(layer)
+    out, kc, vc = _torch_step(ins, layer, dtype)
+    j_out, j_kc, j_vc = _jax_step(ins, layer, dtype)
+    live = int(ins[6][-2])                  # tokens before the trash row
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        np.testing.assert_allclose(out[:live].numpy(), j_out[:live].numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(kc[:, 1:].numpy(), j_kc[:, 1:].numpy(),
+                                   atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(vc[:, 1:].numpy(), j_vc[:, 1:].numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        o = out[:live].float().reshape(live, HQ, D)
+        jo = j_out[:live].reshape(live, HQ, D)
+        assert _worst_of_tol(o, jo, 2.0 ** -6, 1e-5) <= 1.0
+        # the pages hold RoPE'd K and V rounded to bf16 on both sides
+        assert _worst_of_tol(kc[:, 1:], j_kc[:, 1:], 2.0 ** -7, 0) <= 1.0
+        assert torch.equal(vc[:, 1:].float(), j_vc[:, 1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_hoisted_metadata_gives_the_same_bits(dtype):
+    ins = _inputs(3)
+    for layer in (0, 1):
+        a = _torch_step(ins, layer, dtype, metadata=False)
+        b = _torch_step(ins, layer, dtype, metadata=True)
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
+def test_plain_version_is_the_functions_route():
+    """The function's decode route is the plain version of the kernel on
+    the layer's pools, after RoPE and the page scatter."""
+    ins = _inputs(4)
+    qkv, kc, vc, enc, dec, this, cu, bt, rope = [torch.tensor(a)
+                                                 for a in ins]
+    md = TF.paged_metadata(qkv.shape[0], enc, dec, cu, bt, BS, rope)
+    out, _, kc, vc = TF.block_multihead_attention(
+        qkv, kc, vc, enc, dec, this, cu, bt, rope, layer_idx=1,
+        metadata=md)
+    q = TF._rope(qkv[:, :HQ * D].reshape(-1, HQ, D), md.cos, md.sin)
+    ref = PA._paged_attention_ref(q, kc[1], vc[1], md.t2b, md.pos, bt)
+    assert torch.equal(out, ref.reshape(out.shape))
+    assert PA.paged_attention(q, kc, vc, 1, md.t2b, md.pos, bt) \
+        .equal(ref)
+
+
+def test_model_rope_table_stays_f32_when_cast():
+    cfg = TS.PagedServingConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                                num_heads=2, block_size=4,
+                                max_blocks_per_seq=3)
+    m = TS.PagedCausalLM(cfg, device="cpu")
+    cpu = torch.device("cpu")
+    want = torch.stack(m._rope_table(torch.arange(cfg.max_seq)))
+    table = m.rope_cos_sin(cpu)
+    assert torch.equal(table, want)
+    assert m.rope_cos_sin(cpu) is table                # made once
+    m = m.to(dtype=torch.bfloat16)
+    assert m.rope_cos_sin(cpu).dtype == torch.float32
+    assert torch.equal(m.rope_cos_sin(cpu), want)
+    assert m.qkv[0].weight.dtype == torch.bfloat16
+    assert not any("rope" in k for k in m.state_dict())
+
+
+def test_model_refuses_block_tables_wider_than_its_config():
+    cfg = TS.PagedServingConfig(vocab_size=64, hidden_size=32, num_layers=1,
+                                num_heads=2, block_size=4,
+                                max_blocks_per_seq=3, num_blocks=8)
+    m = TS.PagedCausalLM(cfg, device="cpu")
+    kc = torch.zeros(1, cfg.num_blocks, cfg.num_kv_heads, cfg.block_size,
+                     cfg.head_dim)
+    z = torch.zeros(2, dtype=torch.int64)
+    with pytest.raises(ValueError, match="max_blocks_per_seq"):
+        m(torch.zeros(1, dtype=torch.int64), z, z, torch.tensor([1, 0]),
+          torch.tensor([0, 1, 1]), torch.zeros(2, 4, dtype=torch.int64),
+          kc, kc.clone())
