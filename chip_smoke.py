@@ -40,10 +40,33 @@ Phases, each of which fails the run with a non-zero exit:
      phase's decode started from) and at a 256-token chunked step, then
      timed (over the 16 layers' pools in turn, so each call finds its
      pages cold) beside its plain version and SDPA on the gathered view;
+  3c. the int8 cache-KV kernels: kv_quant against its plain version, codes
+     and scales bit for bit, at the decode shape (8 tokens) and the
+     256-token step, bf16 and f32, with a tie head and an all-zero head;
+     the int8 paged-attention kernel against its plain version at 3b's two
+     shapes (bf16 and f32 q), and bit for bit against the float kernel over
+     pages holding the same dequantized values; both timed (the int8 paged
+     kernel in turns with the bf16 kernel on the same rows and SDPA on the
+     dequantized gathered view);
   4. parity: a 2-layer full-width f32 engine's greedy streams through
-     decode_run's replayed graphs equal its forward_dense greedy decode,
-     and the bf16 16-layer engine's first-step logits are close to
-     forward_dense;
+     decode_run's replayed graphs equal its forward_dense greedy decode;
+     through speculative verify steps, prefix-cache hits and int8 pools
+     (the last held to the plain versions run on the card's tensors) they
+     equal the plain engine's; and the bf16 16-layer engine's first-step
+     logits are close to forward_dense;
+  4b. int8 serving: llama_1b(cache_quant="int8") drives the serving phase's
+     requests twice (captures, then measured): a replayed decode step must
+     count RMSNorm 33, int8 paged attention 16, kv_quant 16 and bf16 paged
+     attention 0; its tokens against the bf16 engine's (equal count and
+     first divergence, printed), its pools' bytes and peak memory, and its
+     windows' graphs against the eager runner, token for token;
+  4c. prefix cache: 8 requests sharing a 96-token prefix, with and without
+     the cache: prefill tokens computed, time to first token of requests
+     2-8, every page back in the pool or the cache with refcounts 0;
+  4d. speculative decoding: NGramDrafter, k = 4, prompts of a repeated
+     random segment: acceptance, tokens a row a verify step and ms an
+     emitted token, in turns with plain eager step() and the graph
+     windows of the same engine;
   5. training: the flagship Llama row (vocab 32000, hidden 2048, ffn 5632,
      16 layers, 16 heads, bf16, recompute; batch 4, seq 4096) takes one
      warm-up and 3 timed HybridTrainer steps; every step must launch the
@@ -68,8 +91,9 @@ Phases, each of which fails the run with a non-zero exit:
      size on the card against the CPU;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
-     an unprofiled window that captured it), a training step and a packed
-     training step, by torch.profiler.
+     an unprofiled window that captured it) of the bf16 and of the int8
+     engine, a training step and a packed training step, by
+     torch.profiler.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
@@ -102,12 +126,14 @@ VARLEN_CHECK_TOKENS = 4096
 # the kernels each path must launch
 SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd",
                    "paged_attention")
+INT8_SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd",
+                        "paged_attention_int8", "kv_quant")
 TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd",
                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
                   "varlen_attention_bwd_dq")
-PATHS = {"serving": SERVING_KERNELS, "training": TRAINING_KERNELS,
-         "packed_training": PACKED_KERNELS}
+PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
+         "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS}
 # the bf16 tensor-core kernels whose SASS is searched for HGMMA
 SASS_SYMBOLS = {"flash_attention_fwd": "flash_fwd_kernel",
                 "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
@@ -1621,21 +1647,23 @@ def _paged_inputs(dev, cfg, rows, dtype, gen):
 def _paged_bound(q, kc, t2b, pos, bt):
     """(bound ms, bound_by) of one paged-attention call: the K and V
     positions its tokens read, each once (a row's tokens share its keys:
-    per row, the most any of its tokens reads), plus q, out and the
-    metadata, over the memory rate; against 4 D operations a (token,
-    query head, key) at the card's peak for the cache's type: the bf16
-    tensor-core rate for bf16 operands (the least time the card could take,
-    though the kernel runs on the CUDA cores), the f32 CUDA-core rate for
-    f32."""
+    per row, the most any of its tokens reads; for int8 pages a byte an
+    element plus the slot's f32 scale), plus q, out and the metadata, over
+    the memory rate; against 4 D operations a (token, query head, key) at
+    the card's peak for the operands' type, q's (int8 pages are
+    dequantized to it): the bf16 tensor-core rate for bf16 (the least time
+    the card could take, though the kernel runs on the CUDA cores), the
+    f32 CUDA-core rate for f32."""
     T, HQ, D = q.shape
     HKV, esz = kc.shape[2], kc.element_size()
     max_seq = bt.shape[1] * kc.shape[3]
     keys = torch.clamp(pos + 1, max=max_seq)
     per_row = torch.zeros(bt.shape[0], dtype=torch.int64, device=q.device)
     per_row.scatter_reduce_(0, t2b, keys, "amax")
-    kv_bytes = 2 * int(per_row.sum()) * HKV * D * esz
+    scale_bytes = 4 if kc.dtype == torch.int8 else 0
+    kv_bytes = 2 * int(per_row.sum()) * HKV * (D * esz + scale_bytes)
     nb = kv_bytes + 2 * nbytes(q) + nbytes(t2b, pos, bt)
-    rate = BF16_OPS_PER_S if kc.dtype == torch.bfloat16 else F32_OPS_PER_S
+    rate = BF16_OPS_PER_S if q.dtype == torch.bfloat16 else F32_OPS_PER_S
     return bound(nb, 4 * D * HQ * int(keys.sum()), rate)
 
 
@@ -1757,6 +1785,71 @@ def _graph_count(eng):
     return sum(w.graph is not None for w in eng._window_fns.values())
 
 
+def _serving_drive(eng, first, later, sampling, max_new, measure):
+    """8 requests on ``eng``: the ``first`` two prompts alone (one fresh
+    prefill step of 256 tokens, timed and its launches counted), then the
+    ``later`` six joining, steps until every request is at its decode tip,
+    then decode_run(32) windows to the end. With ``measure``, the counts
+    are set to 0 just before the first decode window that does not capture
+    and read just after it (``window``: steps, tokens, counts); the counts
+    made before that reset are kept in ``carried``."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    rids = [eng.add_request(p, max_new_tokens=max_new,
+                            sampling=sampling[i])
+            for i, p in enumerate(first)]
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    eng.step()                       # fresh prefill: exactly 256 tokens
+    torch.cuda.synchronize()
+    t_fresh = time.perf_counter() - t
+    per_step = {k: v - before[k] for k, v in launch_counts().items()}
+    first_logits = eng.last_logits[:2].float().clone()
+    rids += [eng.add_request(p, max_new_tokens=max_new,
+                             sampling=sampling[2 + i])
+             for i, p in enumerate(later)]
+    t = time.perf_counter()
+    n_steps = 0
+    while any(r.length - r.cached > 1 for r in eng.pending()):
+        eng.step()
+        n_steps += 1
+    torch.cuda.synchronize()
+    t_fill = time.perf_counter() - t
+    positions = [r.cached for r in eng.pending()]
+    windows = []                     # (s, steps, tokens, captured)
+    # the launches counted before the decode window's reset
+    carried, window = Counter(), None
+    while eng.pending():
+        graphs = _graph_count(eng)
+        if measure and window is None:
+            carried.update(launch_counts())
+            reset_launch_counts()
+        t = time.perf_counter()
+        got = eng.decode_run(32)
+        dt = time.perf_counter() - t
+        if not got:
+            raise AssertionError("decode_run made no progress")
+        steps = max(Counter(r for r, _ in got).values())
+        captured = _graph_count(eng) > graphs
+        if measure and window is None and not captured:
+            window = (steps, len(got), launch_counts())
+        windows.append((dt, steps, len(got), captured))
+    outs = {rid: list(eng._requests[rid].generated) for rid in rids}
+    return dict(rids=rids, outs=outs, t_fresh=t_fresh, t_fill=t_fill,
+                fill_steps=n_steps, windows=windows, per_step=per_step,
+                first_logits=first_logits, decode_positions=positions,
+                carried=carried, window=window)
+
+
+def _window_rate(windows):
+    """(ms a step, tokens/s, steps) over decode windows (s, steps, tokens,
+    captured)."""
+    t = sum(w[0] for w in windows)
+    steps = sum(w[1] for w in windows)
+    return t / steps * 1e3, sum(w[2] for w in windows) / t, steps
+
+
 def phase_serving(dev):
     """llama_1b at full width serves 8 requests, twice on one engine: the
     first drive captures the decode windows' CUDA graphs (its decode is
@@ -1789,51 +1882,7 @@ def phase_serving(dev):
     eng = ServingEngine.from_model(model, cfg, seed=7, device=dev)
 
     def drive(measure):
-        rids = [eng.add_request(p, max_new_tokens=max_new,
-                                sampling=sampling[i])
-                for i, p in enumerate(first)]
-        before = launch_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.step()                       # fresh prefill: exactly 256 tokens
-        torch.cuda.synchronize()
-        t_fresh = time.perf_counter() - t
-        per_step = {k: v - before[k] for k, v in launch_counts().items()}
-        first_logits = eng.last_logits[:2].float().clone()
-        rids += [eng.add_request(p, max_new_tokens=max_new,
-                                 sampling=sampling[2 + i])
-                 for i, p in enumerate(later)]
-        t = time.perf_counter()
-        n_steps = 0
-        while any(r.length - r.cached > 1 for r in eng.pending()):
-            eng.step()
-            n_steps += 1
-        torch.cuda.synchronize()
-        t_fill = time.perf_counter() - t
-        positions = [r.cached for r in eng.pending()]
-        windows = []                     # (s, steps, tokens, captured)
-        # the launches counted before the decode window's reset
-        carried, window = Counter(), None
-        while eng.pending():
-            graphs = _graph_count(eng)
-            if measure and window is None:
-                carried.update(launch_counts())
-                reset_launch_counts()
-            t = time.perf_counter()
-            got = eng.decode_run(32)
-            dt = time.perf_counter() - t
-            if not got:
-                raise AssertionError("decode_run made no progress")
-            steps = max(Counter(r for r, _ in got).values())
-            captured = _graph_count(eng) > graphs
-            if measure and window is None and not captured:
-                window = (steps, len(got), launch_counts())
-            windows.append((dt, steps, len(got), captured))
-        outs = {rid: list(eng._requests[rid].generated) for rid in rids}
-        return dict(rids=rids, outs=outs, t_fresh=t_fresh, t_fill=t_fill,
-                    fill_steps=n_steps, windows=windows, per_step=per_step,
-                    first_logits=first_logits, decode_positions=positions,
-                    carried=carried, window=window)
+        return _serving_drive(eng, first, later, sampling, max_new, measure)
 
     warm = drive(False)           # captures the graphs (and warms the rest)
     graphs = {f"{k[0]} rows, {k[1]}": w.capture_ms
@@ -1880,14 +1929,9 @@ def phase_serving(dev):
         if len(toks) != max_new or not all(0 <= t < V for t in toks):
             raise AssertionError(f"request {rid}: bad output {toks[:8]}")
 
-    def rate(windows):
-        t = sum(w[0] for w in windows)
-        steps = sum(w[1] for w in windows)
-        return t / steps * 1e3, sum(w[2] for w in windows) / t, steps
-
     steady = [w for w in run["windows"] if not w[3]]
-    ms, tps, steps = rate(steady)
-    ms_all, tps_all, steps_all = rate(warm["windows"])
+    ms, tps, steps = _window_rate(steady)
+    ms_all, tps_all, steps_all = _window_rate(warm["windows"])
     turns = _graph_against_eager(dev, eng, model, cfg, sampling)
     prompt_tokens = sum(map(len, first + later))
     metrics = {
@@ -1960,7 +2004,7 @@ def _graph_against_eager(dev, eng, model, cfg, sampling):
             "decode_turns_windows": len(per["graph"])}
 
 
-def phase_profile(dev, serving, training, packed, kernels, probes):
+def phase_profile(dev, serving, training, packed, kernels, probes, int8):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
@@ -2023,6 +2067,28 @@ def phase_profile(dev, serving, training, packed, kernels, probes):
     log(f"profile: 16 decode replays launched {seen} on the device, as "
         f"counted")
     dec_ms, dec_top = summary(dec, 16)
+    # the int8 engine's decode window: 8 more requests to their tips, an
+    # unprofiled window (its graph exists from the int8 phase), then 16
+    # profiled replays
+    eng8 = int8["engine"]
+    for i, p in enumerate(prompts):
+        eng8.add_request(p, max_new_tokens=40, sampling=sampling[i])
+    while any(r.length - r.cached > 1 for r in eng8.pending()):
+        eng8.step()
+    eng8.decode_run(16)
+    graphs8 = _graph_count(eng8)
+    got8 = []
+    dec8 = profile_kernels(lambda: got8.extend(eng8.decode_run(16)))
+    seen8 = {name: sum(n for key, (n, _) in dec8.items()
+                       if f"::{sym}<" in key)
+             for name, sym in (("paged_attention_int8",
+                                "paged_attention_kernel"),
+                               ("kv_quant", "kv_quant_kernel"))}
+    if _graph_count(eng8) != graphs8 or len(got8) != 16 * 8 \
+            or seen8 != {"paged_attention_int8": L * 16, "kv_quant": L * 16}:
+        raise AssertionError(f"profile: 16 int8 decode replays over "
+                             f"{len(got8) // 16} rows launched {seen8}")
+    dec8_ms, dec8_top = summary(dec8, 16)
     trainer, tm = training["trainer"], training["metrics"]
     train_ms, train_top = summary(profile_kernels(
         lambda: trainer.step(training["ids"], training["labels"])), 1)
@@ -2044,16 +2110,596 @@ def phase_profile(dev, serving, training, packed, kernels, probes):
         "decode_device_busy_all_in": dec_ms
         / metrics["decode_ms_per_step_all_in"],
         "decode_top": dec_top,
+        "int8_decode_step_device_ms": dec8_ms,
+        "int8_decode_device_busy": dec8_ms
+        / int8["metrics"]["decode_ms_per_step"],
+        "int8_decode_top": dec8_top,
     }
     log(json.dumps({"profile": prof}))
     return prof
 
 
+def _kv_quant_inputs(dev, cfg, T, dtype, gen):
+    """kv_quant's inputs at the serving config's widths for a step of T
+    tokens: k [T, HKV, D] contiguous (as RoPE leaves it) and v a view of
+    the packed qkv, token 0's k head 0 all zero (scale 1e-8) and token 1's
+    a tie head (max 127, so the scale is 1, values n + 0.5, each x / s a
+    tie); each token on its own (page, slot), none on the trash page; the
+    engine's zeroed stacked int8 pools and f32 scale pools."""
+    HQ, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    L, NB, bs = cfg.num_layers, cfg.num_blocks, cfg.block_size
+    qkv = (torch.randn(T, (HQ + 2 * HKV) * D, device=dev, generator=gen)
+           * torch.exp(torch.randn(T, 1, device=dev, generator=gen)))
+    qkv = qkv.to(dtype)
+    k = qkv[:, HQ * D:(HQ + HKV) * D].reshape(T, HKV, D).contiguous()
+    v = qkv[:, (HQ + HKV) * D:].reshape(T, HKV, D)
+    k[0, 0] = 0
+    k[1, 0] = (torch.arange(D, device=dev) % 9 + 0.5).to(dtype)
+    k[1, 0, 0] = 127
+    idx = torch.randperm((NB - 1) * bs, device=dev, generator=gen)[:T]
+    page, slot = 1 + idx // bs, idx % bs
+    pools = [torch.zeros(L, NB, HKV, bs, D, dtype=torch.int8, device=dev)
+             for _ in range(2)]
+    pools += [torch.zeros(L, NB, HKV, bs, device=dev) for _ in range(2)]
+    return k, v, pools, page, slot
+
+
+def phase_int8_kernels(dev, results, probes, serving):
+    """The int8 cache-KV path's two kernels against their plain versions at
+    the serving config's widths, then timed.
+
+    kv_quant at the decode shape (8 tokens) and the 256-token step, bf16
+    and f32 inputs: codes and scales bit for bit (a tie head and an all-zero
+    head included); timed in turns with its plain version (no single
+    PyTorch call computes it: library null). paged_attention_int8 at PR 8's
+    two shapes (8 decode rows at the serving phase's decode positions; a
+    256-token chunked step), bf16 and f32 q, within the float kernel's
+    tolerance of its plain version and bit for bit equal to the float
+    kernel over pages of q's dtype that hold the same dequantized values;
+    then timed in turns with that bf16 kernel on the same rows and with SDPA
+    on the dequantized gathered view (the gather not timed), each call on
+    the next layer's pools, as in a decode step."""
+    from paddle_tpu_torch.ops.kernels import kv_quant as KQ
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+
+    cfg = serving["cfg"]
+    L = cfg.num_layers
+    gen = torch.Generator(device=dev).manual_seed(23)
+    HQ, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+
+    # -- kv_quant
+    kq_err, kq_rows, kq_calls = 0.0, {}, {}
+    for label, T in (("decode", 8), ("step", cfg.token_budget)):
+        for dtype in (torch.bfloat16, torch.float32):
+            k, v, pools, page, slot = _kv_quant_inputs(dev, cfg, T, dtype,
+                                                       gen)
+            ref = [p.clone() for p in pools]
+            KQ.kv_quant(k, v, *pools, L - 1, page, slot)
+            KQ._kv_quant_ref(k, v, *ref, L - 1, page, slot)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(pools, ref))
+            sk = ref[2][L - 1].transpose(1, 2)[page, slot]     # [T, HKV]
+            ties = int(((k.float() / sk[..., None]).frac().abs()
+                        == 0.5).sum())
+            zero = float(sk[0, 0])
+            tie_scale = float(sk[1, 0])
+            ok = equal and zero == float(np.float32(1e-8)) \
+                and tie_scale == 1.0 and ties > 0
+            log(f"kv_quant {label} T={T} {dtype}: codes and scales "
+                f"{'bit for bit' if equal else 'DIFFER'} against the plain "
+                f"version; {ties} elements at x/s = n + 0.5 exactly; zero "
+                f"head's scale {zero:.3g}, tie head's {tie_scale} "
+                f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("kv_quant kernel disagrees with its "
+                                     "plain version")
+            if dtype == torch.bfloat16:            # the serving dtype
+                turn = [0]
+
+                def call(k=k, v=v, pools=pools, page=page, slot=slot):
+                    turn[0] = (turn[0] + 1) % L
+                    KQ.kv_quant(k, v, *pools, turn[0], page, slot)
+
+                def plain(k=k, v=v, pools=pools, page=page, slot=slot):
+                    turn[0] = (turn[0] + 1) % L
+                    KQ._kv_quant_ref(k, v, *pools, turn[0], page, slot)
+
+                n_el = 2 * T * HKV * D
+                b, by = bound(nbytes(k, v) + n_el + 2 * T * HKV * 4
+                              + nbytes(page, slot), 6 * n_el,
+                              F32_OPS_PER_S)
+                turns = time_ms_turns({"ms": call, "plain_ms": plain})
+                kq_rows[label] = dict(
+                    shape=f"k, v [{T}, {HKV}, {D}] bf16 (v a view of the "
+                          f"packed qkv) into int8 pools [{L}, "
+                          f"{cfg.num_blocks}, {HKV}, {cfg.block_size}, {D}]"
+                          f" and f32 scale pools",
+                    ms=turns["ms"], plain_ms=turns["plain_ms"], bound_ms=b,
+                    bound_by=by, library_ms=None,
+                    library_note="none: no single PyTorch call computes "
+                                 "the quantize-and-scatter")
+                kq_calls[label] = call
+    row = dict(name="kv_quant", route="cuda",
+               source="paddle_tpu_torch/ops/kernels/csrc/kv_quant.cu",
+               replaces="paddle_tpu/incubate/nn/functional/__init__.py:687 "
+                        "(q8 and the page scatters; no Pallas kernel, "
+                        "XLA-fused jnp in the reference)",
+               max_abs_err=kq_err, **kq_rows["decode"],
+               at_step_shape=kq_rows["step"])
+    results["kv_quant"] = row
+    log(f"kv_quant: {row}")
+    probes["kv_quant decode"] = (kq_calls["decode"], "kv_quant_kernel", 48,
+                                 row)
+    probes["kv_quant step"] = (kq_calls["step"], "kv_quant_kernel", 48,
+                               row["at_step_shape"])
+
+    # -- paged attention over int8 pages
+    shapes = {
+        "decode": [(1, p) for p in serving["run"]["decode_positions"]],
+        "chunked": [(120, 64), (100, 90), (1, 170), (35, 0)],
+    }
+    errs, rows = {}, {}
+    for label, spec in shapes.items():
+        for dtype, tol in ((torch.bfloat16, (2.0 ** -6, 1e-5)),
+                           (torch.float32, (1e-4, 1e-6))):
+            q, kc, _, t2b, pos, bt = _paged_inputs(dev, cfg, spec, dtype,
+                                                   gen)
+            del kc
+            k8, v8 = [torch.randint(-127, 128, (L, cfg.num_blocks, HKV,
+                                                cfg.block_size, D),
+                                    device=dev, generator=gen,
+                                    dtype=torch.int8) for _ in range(2)]
+            ks, vs = [torch.rand(L, cfg.num_blocks, HKV, cfg.block_size,
+                                 device=dev, generator=gen) * 0.03 + 1e-3
+                      for _ in range(2)]
+            kd = (k8.float() * ks[..., None]).to(dtype)
+            vd = (v8.float() * vs[..., None]).to(dtype)
+            worst, same = 0.0, True
+            for layer in (0, L - 1):
+                got = PA.paged_attention(q, k8, v8, layer, t2b, pos, bt, ks,
+                                         vs)
+                ref = PA._paged_attention_ref(q, k8[layer], v8[layer], t2b,
+                                              pos, bt, ks[layer], vs[layer])
+                flt = PA.paged_attention(q, kd, vd, layer, t2b, pos, bt)
+                torch.cuda.synchronize()
+                ratio = _worst_of_tol(got, ref, *tol)
+                worst = max(worst, ratio)
+                same &= torch.equal(got, flt)
+                errs[(label, dtype)] = max(errs.get((label, dtype), 0.0),
+                                           _max_err(got, ref))
+                if ratio > 1.0 or not same \
+                        or not bool(torch.isfinite(got.float()).all()):
+                    raise AssertionError(
+                        f"paged_attention_int8 {label} {dtype} layer "
+                        f"{layer}: {ratio:.3f} x its tolerance, bits equal "
+                        f"to the float kernel on the dequantized pages: "
+                        f"{same}")
+            log(f"paged_attention_int8 {label} T={q.shape[0]} q {dtype}: "
+                f"max_abs_err {errs[(label, dtype)]:.3e}, worst error / tol "
+                f"{worst:.3f} (tol {tol[0]:.3g} * (|ref| + row RMS) + "
+                f"{tol[1]:g}; RMS of out {_rms(ref):.3e}); bit for bit the "
+                f"float kernel over the dequantized pages: {same} ok")
+            if dtype == torch.bfloat16:
+                rows[label] = (q, k8, v8, ks, vs, kd, vd, t2b, pos, bt)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    timed, calls = {}, {}
+    for label, (q, k8, v8, ks, vs, kd, vd, t2b, pos, bt) in rows.items():
+        T = q.shape[0]
+        turn = [0]
+
+        def call(q=q, k8=k8, v8=v8, ks=ks, vs=vs, t2b=t2b, pos=pos, bt=bt):
+            turn[0] = (turn[0] + 1) % L
+            return PA.paged_attention(q, k8, v8, turn[0], t2b, pos, bt, ks,
+                                      vs)
+
+        def bf16(q=q, kd=kd, vd=vd, t2b=t2b, pos=pos, bt=bt):
+            turn[0] = (turn[0] + 1) % L
+            return PA.paged_attention(q, kd, vd, turn[0], t2b, pos, bt)
+
+        def plain(q=q, k8=k8, v8=v8, ks=ks, vs=vs, t2b=t2b, pos=pos, bt=bt):
+            turn[0] = (turn[0] + 1) % L
+            return PA._paged_attention_ref(q, k8[turn[0]], v8[turn[0]], t2b,
+                                           pos, bt, ks[turn[0]],
+                                           vs[turn[0]])
+
+        max_seq = bt.shape[1] * cfg.block_size
+        kg = kd[0][bt].permute(0, 2, 1, 3, 4).reshape(
+            bt.shape[0], HKV, max_seq, D)[t2b]
+        vg = vd[0][bt].permute(0, 2, 1, 3, 4).reshape(
+            bt.shape[0], HKV, max_seq, D)[t2b]
+        mask = (torch.arange(max_seq, device=dev)[None, :]
+                <= pos[:, None])[:, None, None, :]
+        qd = q[:, :, None, :]
+
+        def library(qd=qd, kg=kg, vg=vg, mask=mask):
+            return sdpa(qd, kg, vg, attn_mask=mask, enable_gqa=True)
+
+        calls[label] = call
+        lib_err = _max_err(library()[:, :, 0], PA._paged_attention_ref(
+            q, k8[0], v8[0], t2b, pos, bt, ks[0], vs[0]))
+        b, by = _paged_bound(q, k8, t2b, pos, bt)
+        bf_b, _ = _paged_bound(q, kd, t2b, pos, bt)
+        turns = time_ms_turns({"ms": call, "bf16_kernel_ms": bf16,
+                               "library_ms": library})
+        timed[label] = dict(
+            shape=f"q [{T}, {HQ}, {D}] bf16, int8 pools [{cfg.num_blocks}, "
+                  f"{HKV}, {cfg.block_size}, {D}] + f32 scales a layer, "
+                  f"positions {sorted(set(pos.tolist()))[:8]}...",
+            ms=turns["ms"], plain_ms=time_ms(plain, calls=20, windows=5),
+            bound_ms=b, bound_by=by, library_ms=turns["library_ms"],
+            bf16_kernel_ms=turns["bf16_kernel_ms"], bf16_bound_ms=bf_b,
+            library_note="SDPA on the dequantized gathered dense view [T, "
+                         f"HKV, {max_seq}, D] bf16 with a bool mask (the "
+                         f"gather and the dequant not timed); its "
+                         f"max_abs_err against the plain version "
+                         f"{lib_err:.3e}")
+        log(f"paged_attention_int8 {label}: {timed[label]}")
+    row = dict(name="paged_attention_int8", route="cuda",
+               source="paddle_tpu_torch/ops/kernels/csrc/paged_attention.cu",
+               replaces="paddle_tpu/incubate/nn/functional/__init__.py:738 "
+                        "(the int8 dequant of the paged route; no Pallas "
+                        "kernel, XLA-fused jnp in the reference)",
+               max_abs_err=max(v for (_, dt), v in errs.items()
+                               if dt == torch.bfloat16),
+               max_abs_err_f32=max(v for (_, dt), v in errs.items()
+                                   if dt == torch.float32),
+               **timed["decode"], at_chunked_shape=timed["chunked"])
+    results["paged_attention_int8"] = row
+    for label, target in (("decode", row),
+                          ("chunked", row["at_chunked_shape"])):
+        probes[f"paged_attention_int8 {label}"] = (
+            calls[label], "paged_attention_kernel", 48, target)
+
+
+def phase_int8_serving(dev, serving):
+    """PagedServingConfig.llama_1b(cache_quant="int8") over the serving
+    phase's model and requests, driven as that phase drives the bf16
+    engine: twice on one engine (the first drive captures the windows'
+    graphs), the second measured; its first replayed decode window, counts
+    set to 0 just before it, must launch RMSNorm 2L + 1, the int8 paged
+    kernel L and kv_quant L times a step and the bf16 paged kernel not at
+    all. The int8 greedy and sampled streams against the bf16 engine's (the
+    same request ids, so the same salts): the tokens equal and each
+    request's first divergence, printed, not required equal. Then the int8
+    windows' graphs against the eager runner, token for token."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.inference import PagedServingConfig, ServingEngine
+
+    model = serving["model"]
+    cfg = PagedServingConfig.llama_1b(cache_quant="int8")
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats(dev)
+    at_start = torch.cuda.memory_allocated(dev)
+    eng = ServingEngine.from_model(model, cfg, seed=7, device=dev)
+    first, sampling = serving["first"], serving["sampling"]
+    later = serving["prompts"][len(first):]
+
+    def drive(measure):
+        return _serving_drive(eng, first, later, sampling, 48, measure)
+
+    warm = drive(False)
+    graphs = {f"{k[0]} rows, {k[1]}": w.capture_ms
+              for k, w in eng._window_fns.items() if w.graph is not None}
+    if not graphs or len(graphs) != len(eng._window_fns):
+        raise AssertionError("int8 decode_run did not capture a CUDA graph "
+                             "for each of its windows")
+    reset_launch_counts()
+    run = drive(True)
+    counts = {k: n + run["carried"][k] for k, n in launch_counts().items()}
+    if run["window"] is None:
+        raise AssertionError("every measured int8 decode window captured")
+    steps, n_tok, made = run["window"]
+    want = {k: 0 for k in made}
+    want.update(rms_norm=(2 * L + 1) * steps,
+                paged_attention_int8=L * steps, kv_quant=L * steps)
+    if made != want:
+        raise AssertionError(f"a replayed int8 decode window of {steps} "
+                             f"steps launched {made}, not {want}")
+    decode_step = {k: n // steps for k, n in made.items()}
+    fresh = run["per_step"]
+    want_fresh = {k: 0 for k in fresh}
+    want_fresh.update(rms_norm=2 * L + 1, varlen_attention_fwd=L,
+                      kv_quant=L)
+    if fresh != want_fresh:
+        raise AssertionError(f"the int8 fresh-prefill step launched {fresh},"
+                             f" not {want_fresh}")
+    log(f"int8 serving launch counts: {counts}; fresh-prefill step "
+        f"{fresh}; measured decode window of {steps} steps over "
+        f"{n_tok // steps} rows, counts set to 0 just before it: "
+        f"{ {k: n for k, n in made.items() if n} } ({decode_step['rms_norm']}"
+        f", {decode_step['paged_attention_int8']} and "
+        f"{decode_step['kv_quant']} a step, counted under replay)")
+    for name in INT8_SERVING_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"kernel {name} was not launched on the "
+                                 f"int8 serving path")
+    for name in ("paged_attention", "rms_norm_bwd", "aligned16_copies"):
+        if counts[name]:
+            raise AssertionError(f"the int8 serving run counted {name} "
+                                 f"{counts[name]}")
+    V = cfg.vocab_size
+    bf_outs = serving["run"]["outs"]
+    equal = total = 0
+    diverge = {}
+    for rid in run["rids"]:
+        toks = run["outs"][rid]
+        if len(toks) != 48 or not all(0 <= t < V for t in toks):
+            raise AssertionError(f"int8 request {rid}: bad output "
+                                 f"{toks[:8]}")
+        ref = bf_outs[rid]
+        same = [a == b for a, b in zip(toks, ref)]
+        equal += sum(same)
+        total += len(ref)
+        diverge[rid] = same.index(False) if not all(same) else None
+    steady = [w for w in run["windows"] if not w[3]]
+    ms, tps, n_steps = _window_rate(steady)
+    ms_all, _, _ = _window_rate(warm["windows"])
+    pools = nbytes(eng._kc, eng._vc, eng._ks, eng._vs)
+    bf_pools = 2 * L * cfg.num_blocks * cfg.num_kv_heads * cfg.block_size \
+        * cfg.head_dim * 2
+    turns = _graph_against_eager(dev, eng, model, cfg, sampling)
+    bm = serving["metrics"]
+    metrics = {
+        "fresh_prefill_step_ms": run["t_fresh"] * 1e3,
+        "bf16_fresh_prefill_step_ms": bm["fresh_prefill_step_ms"],
+        "decode_steps": n_steps,
+        "decode_ms_per_step": ms,
+        "decode_tokens_per_s": tps,
+        "bf16_decode_ms_per_step": bm["decode_ms_per_step"],
+        "decode_ms_per_step_all_in": ms_all,
+        "decode_capture_ms": graphs,
+        "decode_launches_per_step": decode_step,
+        **turns,
+        "tokens_equal_to_bf16": equal, "tokens": total,
+        "first_divergence_by_request": diverge,
+        "pools_bytes": pools, "bf16_pools_bytes": bf_pools,
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+        "peak_over_start_gb": (torch.cuda.max_memory_allocated(dev)
+                               - at_start) / 1e9,
+        "bf16_peak_memory_gb": bm["peak_memory_gb"],
+    }
+    log(json.dumps({"int8_serving": metrics}))
+    return dict(metrics=metrics, counts=counts, run=run, cfg=cfg, engine=eng)
+
+
+def _conserved(eng):
+    """Every page is free or owned by the prefix cache, once, and no cache
+    node holds a ref; raises otherwise."""
+    cache = eng._prefix_cache
+    owned = list(cache.owned_pages()) if cache is not None else []
+    if sorted(eng._free_pages + owned) != list(range(1, eng.cfg.num_blocks)):
+        raise AssertionError("pages lost or doubled: free "
+                             f"{len(eng._free_pages)}, cache {len(owned)}, "
+                             f"pool {eng.cfg.num_blocks - 1}")
+    if cache is not None and any(n.refs for n in cache._nodes.values()):
+        raise AssertionError("a prefix-cache node still holds a ref")
+    return len(owned)
+
+
+def phase_prefix_cache(dev, serving):
+    """llama_1b (bf16) with and without the prefix cache: 8 requests that
+    share a 96-token prefix (3 pages) with distinct suffixes of 16-64
+    tokens (numpy seed 9), 16 new tokens each, greedy; request 0 alone to
+    its first token, then the other 7 together. The prefill tokens
+    computed and the time to first token of requests 1-7 (admission to
+    first token, host clock; each step that samples syncs), with and
+    without the cache; every page back in the pool or the cache with every
+    refcount 0; the equal tokens of the two engines' streams, printed."""
+    from paddle_tpu_torch.inference import PagedServingConfig, ServingEngine
+
+    model = serving["model"]
+    rng = np.random.RandomState(9)
+    V = serving["cfg"].vocab_size
+    prefix = list(rng.randint(1, V, 96))
+    prompts = [prefix + list(rng.randint(1, V, n))
+               for n in rng.randint(16, 65, 8)]
+    out = {}
+    for label, over in (("cache", dict(prefix_cache=True)),
+                        ("no_cache", {})):
+        cfg = PagedServingConfig.llama_1b(**over)
+        eng = ServingEngine.from_model(model, cfg, seed=11, device=dev)
+        computed, ttft = 0, {}
+        torch.cuda.synchronize()
+        r0 = eng.add_request(prompts[0], max_new_tokens=16)
+        computed += len(prompts[0]) - eng._requests[r0].cached
+        while not eng._requests[r0].generated:
+            eng.step()
+        t1 = time.perf_counter()
+        rids = [eng.add_request(p, max_new_tokens=16) for p in prompts[1:]]
+        computed += sum(len(p) - eng._requests[r].cached
+                        for r, p in zip(rids, prompts[1:]))
+        hits = [eng._requests[r].cached for r in rids]
+        while len(ttft) < len(rids):
+            eng.step()
+            now = time.perf_counter()
+            for r in rids:
+                if r not in ttft and eng._requests[r].generated:
+                    ttft[r] = (now - t1) * 1e3
+        while eng.pending():
+            if not eng.decode_run(16):
+                eng.step()
+        resident = _conserved(eng)
+        out[label] = dict(
+            prefill_tokens_computed=computed,
+            prompt_tokens=sum(map(len, prompts)), cached_at_admission=hits,
+            ttft_ms_requests_1_7=[ttft[r] for r in rids],
+            ttft_ms_mean=statistics.mean(ttft.values()),
+            cache_pages_resident=resident,
+            streams={r: list(eng._requests[r].generated)
+                     for r in [r0] + rids})
+        if label == "cache":
+            if hits != [96] * 7:
+                raise AssertionError(f"prefix hits at admission {hits}, not "
+                                     f"96 tokens each")
+            out[label]["hit_rate"] = eng._prefix_cache.hit_rate()
+    a, b = out["cache"]["streams"], out["no_cache"]["streams"]
+    equal = sum(x == y for r in a for x, y in zip(a[r], b[r]))
+    total = sum(len(v) for v in b.values())
+    metrics = {k: {kk: vv for kk, vv in v.items() if kk != "streams"}
+               for k, v in out.items()}
+    metrics["tokens_equal_with_and_without_cache"] = equal
+    metrics["tokens"] = total
+    log(json.dumps({"prefix_cache": metrics}))
+    return metrics
+
+
+def phase_speculative(dev, serving):
+    """llama_1b (bf16) with NGramDrafter, k = 4: 8 prompts, each a random
+    16-token segment repeated 6 times (96 tokens, numpy seed 13), 48 new
+    tokens each, greedy. A teach wave through the verify steps first (the
+    drafter observes what is served); then waves of the same prompts in
+    turns, each timed from the decode tip to the end: speculative (verify
+    steps), the same engine's plain eager step() and its decode_run graph
+    windows, in the order spec, step, graph, graph, step, spec. The
+    acceptance rate and tokens emitted a row a verify step over the
+    measured speculative waves, ms an emitted token of each mode (median
+    of its waves), and the equal tokens of the speculative and graph
+    streams against the plain step() streams, printed."""
+    from paddle_tpu_torch.inference import (NGramDrafter, PagedServingConfig,
+                                            ServingEngine)
+
+    model = serving["model"]
+    cfg = PagedServingConfig.llama_1b()
+    rng = np.random.RandomState(13)
+    prompts = [list(np.tile(rng.randint(1, cfg.vocab_size, 16), 6))
+               for _ in range(8)]
+    eng = ServingEngine.from_model(model, cfg, seed=5, device=dev)
+    drafter = NGramDrafter(block_size=cfg.block_size)
+
+    def wave(mode):
+        eng.set_drafter(drafter if mode == "spec" else None, k=4)
+        rids = [eng.add_request(p, max_new_tokens=48) for p in prompts]
+        while any(r.length - r.cached > 1 for r in eng.pending()):
+            eng.step()                       # prefill: not timed
+        n0 = sum(len(eng._requests[r].generated) for r in rids)
+        before = eng.spec_stats()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        while eng.pending():
+            if mode == "graph":
+                if not eng.decode_run(32):
+                    eng.step()
+            else:
+                eng.step()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        n = sum(len(eng._requests[r].generated) for r in rids) - n0
+        after = eng.spec_stats()
+        _conserved(eng)
+        return dict(ms_per_token=dt * 1e3 / n, tokens=n,
+                    drafted=after["drafted"] - before["drafted"],
+                    accepted=after["accepted"] - before["accepted"],
+                    steps=after["steps"] - before["steps"],
+                    rows=after["rows"] - before["rows"],
+                    streams=[list(eng._requests[r].generated)
+                             for r in rids])
+
+    teach = wave("spec")
+    wave("graph")              # captures the windows' graphs: not measured
+    waves = {m: [] for m in ("spec", "step", "graph")}
+    for mode in ("spec", "step", "graph", "graph", "step", "spec"):
+        waves[mode].append(wave(mode))
+    ref = waves["step"][0]["streams"]
+
+    def equal(streams):
+        return sum(a == b for s, r in zip(streams, ref)
+                   for a, b in zip(s, r))
+
+    drafted = sum(w["drafted"] for w in waves["spec"])
+    accepted = sum(w["accepted"] for w in waves["spec"])
+    vsteps = sum(w["steps"] for w in waves["spec"])
+    vrows = sum(w["rows"] for w in waves["spec"])
+    emitted = sum(w["tokens"] for w in waves["spec"])
+    metrics = {
+        "accept_rate": accepted / drafted if drafted else 0.0,
+        "teach_wave_accept_rate": teach["accepted"] / teach["drafted"]
+        if teach["drafted"] else 0.0,
+        "verify_steps": vsteps,
+        "tokens_per_row_verify_step": emitted / vrows if vrows else 0.0,
+        "tokens_per_verify_step": emitted / vsteps if vsteps else 0.0,
+        **{f"{m}_ms_per_token": statistics.median(
+            w["ms_per_token"] for w in ws) for m, ws in waves.items()},
+        **{f"{m}_ms_per_token_waves": [w["ms_per_token"] for w in ws]
+           for m, ws in waves.items()},
+        "tokens": waves["step"][0]["tokens"],
+        "stream_tokens": sum(map(len, ref)),
+        "spec_tokens_equal_to_step": equal(waves["spec"][0]["streams"]),
+        "graph_tokens_equal_to_step": equal(waves["graph"][0]["streams"]),
+        "step_waves_equal": waves["step"][1]["streams"] == ref,
+    }
+    if vsteps == 0 or accepted == 0:
+        raise AssertionError("the speculative waves accepted no draft")
+    metrics["gemm_rows_by_m"] = _gemm_by_m_probe(dev, eng._model)
+    log(json.dumps({"speculative": metrics}))
+    return metrics
+
+
+def _gemm_by_m_probe(dev, served):
+    """Why bf16 streams of one request differ between step shapes: the
+    same 8 rows through one layer's qkv projection and the LM head as part
+    of an M-row product, M = 8 (a decode window's bucket), 64 (a verify
+    step's padded length) and 256 (an eager step's token budget): are rows
+    0-7 the same bits as at M = 8? In bf16 (the served weights) and f32."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    out = {}
+    with torch.inference_mode():
+        for name, lin in (("qkv", served.qkv[0]), ("head", served.head)):
+            w = lin.weight
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn(256, w.shape[1], device=dev, generator=gen)
+                wt = w.to(dt)
+                ref = torch.nn.functional.linear(x[:8].to(dt), wt)
+                for m in (64, 256):
+                    got = torch.nn.functional.linear(x[:m].to(dt), wt)[:8]
+                    out[f"{name} {str(dt)[6:]} M={m}"] = dict(
+                        equal_to_m8=bool(torch.equal(got, ref)),
+                        max_abs_diff=_max_err(got, ref))
+    log(f"GEMM rows by M (rows 0-7 of an M-row product against M = 8): "
+        f"{out}")
+    return out
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Inside, the kernels' wrappers run their plain PyTorch versions on
+    the card's tensors: the route the exactness checks hold the kernels'
+    route to. Patches the module attributes the serving path calls."""
+    from paddle_tpu_torch.ops.kernels import kv_quant as KQ
+    from paddle_tpu_torch.ops.kernels import paged_attention as PA
+    from paddle_tpu_torch.ops.kernels import rms_norm as RN
+    from paddle_tpu_torch.ops.kernels import varlen_attention as VA
+
+    def paged(q, kc, vc, layer, t2b, pos, bt, ks=None, vs=None):
+        return PA._paged_attention_ref(
+            q, kc[layer], vc[layer], t2b, pos, bt,
+            None if ks is None else ks[layer],
+            None if vs is None else vs[layer])
+
+    saved = (RN.rms_norm, VA._on_kernels, PA.paged_attention, KQ.kv_quant)
+    RN.rms_norm = lambda x, weight=None, eps=1e-6: RN._rms_norm_ref(
+        x, weight, eps)
+    VA._on_kernels = lambda q: False
+    PA.paged_attention = paged
+    KQ.kv_quant = KQ._kv_quant_ref
+    try:
+        yield
+    finally:
+        (RN.rms_norm, VA._on_kernels, PA.paged_attention,
+         KQ.kv_quant) = saved
+
+
 def phase_parity(dev, serving):
     """(a) 2-layer f32 engine greedy through decode_run's CUDA graphs ==
-    forward_dense greedy, token for token; (b) bf16 16-layer first-step
-    logits near forward_dense. (The bf16 windows' tokens against the
-    eager runner's, bit for bit, are held in the serving phase.)"""
+    forward_dense greedy, token for token; the same engine's model, f32,
+    token for token equal to the plain engine's greedy streams, through
+    (c) speculative verify steps (NGramDrafter taught the streams, k = 4),
+    (d) prefix-cache hits (the suffixes as chunked steps over the cached
+    pages) and (e) int8 pools, held to the int8 engine run with the plain
+    kernels called directly on the card's tensors (TF32 is off); (b) bf16
+    16-layer first-step logits near forward_dense. (The bf16 windows'
+    tokens against the eager runner's, bit for bit, are held in the
+    serving phase.)"""
     run, model, first = serving["run"], serving["model"], serving["first"]
     from paddle_tpu_torch.inference import (PagedCausalLM,
                                             PagedServingConfig,
@@ -2077,18 +2723,21 @@ def phase_parity(dev, serving):
                                   for w in eng._window_fns.values()):
         raise AssertionError("f32 parity: decode_run took no CUDA graph")
     outs = {rid: list(eng._requests[rid].generated) for rid in rids}
+    dense = []
     for rid, p in zip(rids, prompts):
         ids = list(p)
         with torch.inference_mode():
             for _ in range(n_new):
                 lg = m.forward_dense(torch.tensor([ids], device=dev))
                 ids.append(int(lg[0, -1].argmax()))
+        dense.append(ids[len(p):])
         if outs[rid] != ids[len(p):]:
             raise AssertionError(f"f32 greedy parity: request {rid} "
                                  f"{outs[rid]} != dense {ids[len(p):]}")
     log(f"parity (a) f32 2-layer full width: {len(rids)} greedy streams "
         f"through decode_run's replayed graphs ({len(eng._window_fns)} "
         f"windows) equal forward_dense token for token")
+    _parity_features(dev, m, cfg, prompts, dense, n_new)
 
     served = model._serving_shared[1]           # the bf16 serving copy
     worst = 0.0
@@ -2106,6 +2755,86 @@ def phase_parity(dev, serving):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("bf16 paged logits too far from dense")
+
+
+def _parity_features(dev, m, cfg, prompts, dense, n_new):
+    """(c), (d) and (e) of phase_parity, on the f32 2-layer model."""
+    from paddle_tpu_torch.inference import (NGramDrafter,
+                                            PagedServingConfig,
+                                            ServingEngine)
+
+    # (c) speculative: verify steps of up to 5 tokens a row
+    d = NGramDrafter(block_size=cfg.block_size)
+    for p, r in zip(prompts, dense):
+        d.observe(list(p) + r)
+    spec = ServingEngine.from_model(m, cfg, seed=0, device=dev)
+    spec.set_drafter(d, k=4)
+    rids = [spec.add_request(p, max_new_tokens=n_new) for p in prompts]
+    got = spec.run_to_completion()
+    st = spec.spec_stats()
+    if [got[r] for r in rids] != dense or not st["accepted"]:
+        raise AssertionError(f"f32 speculative streams {got} != the plain "
+                             f"engine's {dense} (accepted {st['accepted']})")
+    _conserved(spec)
+    log(f"parity (c) f32 speculative: {len(rids)} streams through "
+        f"{st['steps']} verify steps ({st['accepted']} of {st['drafted']} "
+        f"drafts accepted) equal the plain engine's token for token")
+
+    # (d) prefix hits: a 96-token prefix (3 pages) shared, suffixes run as
+    # chunked steps over the cached pages
+    rng = np.random.RandomState(6)
+    shared = list(rng.randint(1, cfg.vocab_size, 96))
+    pp = [shared + list(rng.randint(1, cfg.vocab_size, n))
+          for n in (20, 33, 50)]
+    streams, hits = {}, []
+    for label, c in (("plain", cfg),
+                     ("prefix", PagedServingConfig.llama_1b(
+                         num_layers=2, dtype="float32", prefix_cache=True))):
+        e = ServingEngine.from_model(m, c, seed=0, device=dev)
+        streams[label] = []
+        for p in pp:                       # one after another: warm hits
+            rid = e.add_request(p, max_new_tokens=n_new)
+            if label == "prefix":
+                hits.append(e._requests[rid].cached)
+            streams[label].append(e.run_to_completion()[rid])
+        _conserved(e)
+    if streams["prefix"] != streams["plain"] or hits != [0, 96, 96]:
+        raise AssertionError(f"f32 prefix-hit streams {streams['prefix']} "
+                             f"!= the plain engine's {streams['plain']} "
+                             f"(hits {hits})")
+    log(f"parity (d) f32 prefix cache: {len(pp)} streams, hits at admission"
+        f" {hits} tokens, equal the plain engine's token for token")
+
+    # (e) int8 pools: the kernels' route (decode through the windows'
+    # graphs) against the plain versions on the card's tensors (eager)
+    cfg8 = PagedServingConfig.llama_1b(num_layers=2, dtype="float32",
+                                       cache_quant="int8")
+    outs = []
+    for plain in (False, True):
+        e = ServingEngine.from_model(m, cfg8, seed=0, device=dev)
+        with plain_kernels() if plain else contextlib.nullcontext():
+            rids = [e.add_request(p, max_new_tokens=n_new)
+                    for p in prompts[:2]]
+            e.step()                            # fresh prefill
+            rids.append(e.add_request(prompts[2], max_new_tokens=n_new))
+            while any(r.length - r.cached > 1 for r in e.pending()):
+                e.step()
+            while e.pending():
+                run = e._decode_run_eager if plain else e.decode_run
+                if not run(4):
+                    raise AssertionError("int8 decode made no progress")
+        if not plain and any(w.graph is None for w in e._window_fns.values()):
+            raise AssertionError("int8 parity: decode_run took no graph")
+        outs.append([list(e._requests[r].generated) for r in rids])
+    equal_dense = sum(a == b for s, r in zip(outs[0], dense)
+                      for a, b in zip(s, r))
+    if outs[0] != outs[1]:
+        raise AssertionError(f"f32 int8 streams {outs[0]} != the plain "
+                             f"versions' {outs[1]}")
+    log(f"parity (e) f32 int8 pools: {len(outs[0])} streams through the "
+        f"kernels (decode_run's graphs) equal the plain versions' on the "
+        f"card token for token; {equal_dense} of "
+        f"{sum(map(len, dense))} tokens equal the f32 pools' streams")
 
 
 def main():
@@ -2133,21 +2862,27 @@ def main():
     phase_varlen_bwd_kernels(dev, kernels, probes)
     serving = phase_serving(dev)
     phase_paged_kernel(dev, kernels, probes, serving)
+    phase_int8_kernels(dev, kernels, probes, serving)
     phase_parity(dev, serving)
+    int8 = phase_int8_serving(dev, serving)
+    phase_prefix_cache(dev, serving)
+    phase_speculative(dev, serving)
     training = phase_training(dev)
     phase_training_parity(dev)
     packed = phase_packed_training(dev)
     phase_packed_parity(dev)
-    phase_profile(dev, serving, training, packed, kernels, probes)
-    by_path = {"serving": serving["counts"], "training": training["counts"],
+    phase_profile(dev, serving, training, packed, kernels, probes, int8)
+    by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
+               "training": training["counts"],
                "packed_training": packed["counts"]}
-    decode_step = serving["metrics"]["decode_launches_per_step"]
-    per_step = {"serving": {
-                    k: {"fresh_prefill_step": n,
-                        "decode_step": decode_step[k]}
-                    for k, n in serving["run"]["per_step"].items()},
+    per_step = {p: {k: {"fresh_prefill_step": n,
+                        "decode_step": r["metrics"]["decode_launches_per_step"]
+                        [k]}
+                    for k, n in r["run"]["per_step"].items()}
+                for p, r in (("serving", serving), ("int8_serving", int8))}
+    per_step.update({
                 "training": training["metrics"]["launches_per_step"],
-                "packed_training": packed["metrics"]["launches_per_step"]}
+                "packed_training": packed["metrics"]["launches_per_step"]})
     line = []
     for name, r in kernels.items():
         r = dict(r)

@@ -7,6 +7,10 @@ decode and chunked-prefill route runs the paged-attention kernel
 table. The stacked caches are updated IN PLACE (the reference returns new
 arrays): a serving step writes each layer's new K/V straight into the one
 [L, num_blocks, HKV, block_size, D] buffer pair, with no copy of the pool.
+Its int8 mode (``use_dynamic_cachekv_quant``) writes int8 pages and their
+per-slot scales through the quantize-on-append kernel
+(ops/kernels/kv_quant.py) and reads them through the paged-attention
+kernel's int8 instantiations.
 ``paged_metadata`` computes what every layer of a step shares (each
 token's row, position, page, slot and RoPE angles) once a step; a model
 passes it to each layer's call.
@@ -23,7 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from ...ops.kernels.paged_attention import paged_attention
+from ...ops.kernels import kv_quant as KQ
+from ...ops.kernels import paged_attention as PA
 from ...ops.kernels.varlen_attention import (segment_ids_from_cu_seqlens,
                                              varlen_flash_attention,
                                              varlen_flash_attention_packed)
@@ -96,7 +101,10 @@ def block_multihead_attention(qkv, key_cache, value_cache,
                               seq_lens_this_time, cu_seqlens_q,
                               block_tables, rope_emb, *, layer_idx,
                               fresh_prefill=False,
+                              cache_k_quant_scales=None,
+                              cache_v_quant_scales=None,
                               use_dynamic_cachekv_quant=False,
+                              pre_key_cache=None, mask=None, tgt_mask=None,
                               metadata=None):
     """Paged-KV attention (incubate/nn/functional/__init__.py:544-772).
 
@@ -120,11 +128,34 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     attention then runs as block-diagonal varlen flash over the packed
     step, and the LAST batch row (B - 1) is the engine's trash row, whose
     tokens get segment id -1 and attend nothing.
+
+    Int8 cache (use_dynamic_cachekv_quant=True, :577-587): the caches are
+    int8 page pools and cache_k_quant_scales / cache_v_quant_scales the
+    stacked per-slot f32 scale pools [L, num_blocks, HKV, block_size]; each
+    written (token, head) stores its codes and scale (ops/kernels/
+    kv_quant.py), and the paged route dequantizes what it reads to qkv's
+    dtype. A fresh-prefill step attends over the step's unquantized k and
+    v, as the reference does, and writes only the int8 pages. Returns
+    (out, qkv, key_cache, value_cache, k_scales, v_scales). The reference's
+    refusals stay: static per-tensor scales, pre_key_cache and explicit
+    masks raise.
     """
-    if use_dynamic_cachekv_quant:
-        raise NotImplementedError(
-            "block_multihead_attention: the int8 dynamic cache-KV path is "
-            "not ported yet")
+    if cache_k_quant_scales is not None and not use_dynamic_cachekv_quant:
+        raise NotImplementedError("block_multihead_attention: static "
+                                  "per-tensor cache scales are CUDA-"
+                                  "specific; use dynamic cachekv quant")
+    if use_dynamic_cachekv_quant and (cache_k_quant_scales is None
+                                      or cache_v_quant_scales is None):
+        raise ValueError("dynamic cachekv quant needs k/v scale pools")
+    if pre_key_cache is not None:
+        raise NotImplementedError("pre_caches not supported")
+    if mask is not None or tgt_mask is not None:
+        raise NotImplementedError("block_multihead_attention: explicit "
+                                  "masks beyond the built-in causal/"
+                                  "length masking are not supported")
+    quant = bool(use_dynamic_cachekv_quant)
+    ks = cache_k_quant_scales if quant else None
+    vs = cache_v_quant_scales if quant else None
     T = qkv.shape[0]
     pool_k = key_cache[layer_idx]                        # views
     pool_v = value_cache[layer_idx]
@@ -142,9 +173,14 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     q = _rope(q, md.cos, md.sin).to(qkv.dtype)
     k = _rope(k, md.cos, md.sin).to(qkv.dtype)
 
-    # in place: [pages, HKV, bs, D] viewed as [pages, bs, HKV, D]
-    pool_k.transpose(1, 2)[md.page, md.slot] = k.to(pool_k.dtype)
-    pool_v.transpose(1, 2)[md.page, md.slot] = v.to(pool_v.dtype)
+    if quant:
+        KQ.kv_quant(k, v, key_cache, value_cache, ks, vs, layer_idx,
+                    md.page, md.slot)
+    else:
+        # in place: [pages, HKV, bs, D] viewed as [pages, bs, HKV, D]
+        pool_k.transpose(1, 2)[md.page, md.slot] = k.to(pool_k.dtype)
+        pool_v.transpose(1, 2)[md.page, md.slot] = v.to(pool_v.dtype)
+    caches = (key_cache, value_cache) + ((ks, vs) if quant else ())
 
     if fresh_prefill:
         seg = torch.where(md.t2b == B - 1, -1, md.t2b).to(torch.int32)[None]
@@ -152,11 +188,11 @@ def block_multihead_attention(qkv, key_cache, value_cache,
             q.transpose(0, 1)[None], k.transpose(0, 1)[None],
             v.transpose(0, 1)[None], seg, seg, is_causal=True)
         out = o[0].transpose(0, 1).reshape(T, HQ * D)
-        return out, qkv, key_cache, value_cache
+        return (out, qkv) + caches
 
-    out = paged_attention(q, key_cache, value_cache, layer_idx, md.t2b,
-                          md.pos, block_tables.long())
-    return out.reshape(T, HQ * D), qkv, key_cache, value_cache
+    out = PA.paged_attention(q, key_cache, value_cache, layer_idx, md.t2b,
+                             md.pos, block_tables.long(), ks, vs)
+    return (out.reshape(T, HQ * D), qkv) + caches
 
 
 def _host_offsets(cu):

@@ -18,17 +18,28 @@ a (row bucket, sampling mode) once a step, the counterpart of the
 reference's fused decode window (``_decode_window_fn``): one host sync a
 window and no per-op dispatch.
 
-Not ported yet (ROADMAP.md): the prefix cache, speculative decoding,
-weight streaming and publishing, chaos fault sites, metrics and tracing,
-disk artifacts and the StableHLO artifact of the decode step
-(``lower_fused_decode``), the backend handle and the int8 KV cache.
-The window's graphs hold the weights' and caches' addresses: weights must
-be updated in place, or the windows captured again.
+``cache_quant="int8"`` keeps int8 pages with per-slot f32 scales: every
+layer writes them through the quantize-on-append kernel and reads them
+through the paged kernel's int8 instantiations. ``prefix_cache=True``
+shares full prompt blocks between requests (inference/prefix_cache.py):
+a hit moves ``cached`` past the shared tokens, and the suffix runs as a
+chunked step. ``set_drafter`` turns on speculative decoding
+(inference/speculative.py): a pure decode-tip step drafts up to k tokens a
+row and verifies them in one eager paged step with logits at every
+position.
+
+Not ported yet (ROADMAP.md): weight streaming and publishing, chaos fault
+sites, deadlines, metrics and tracing, disk artifacts and the StableHLO
+artifact of the decode step (``lower_fused_decode``), and the backend
+handle. The window's graphs hold the weights', caches' and scale pools'
+addresses: weights must be updated in place, or the windows captured
+again.
 """
 from __future__ import annotations
 
 import copy
 import math
+import os
 import time
 
 import numpy as np
@@ -39,6 +50,7 @@ from ..incubate.nn import functional as IF
 from ..nn import Embedding, Linear, RMSNorm
 from ..ops.kernels import (add_launch_counts, launch_counts,
                            resolve_device)
+from .prefix_cache import PrefixCache, restore_snapshot, save_snapshot
 
 __all__ = ["PagedServingConfig", "PagedCausalLM", "ServingEngine",
            "SamplingParams", "sampling_salt", "sample_logits",
@@ -52,20 +64,26 @@ class EngineOverloadedError(RuntimeError):
 
 class PagedServingConfig:
     """Engine and model dims for the paged-KV serving path
-    (serving.py:126-204). ``cache_quant="int8"`` (the int8 cache-KV path)
-    is not ported yet, nor are the prefix cache, speculative decoding and
-    weight versions."""
+    (serving.py:126-204).
+
+    ``cache_quant="int8"`` stores KV pages as int8 with a dynamic f32 scale
+    a (token, head). ``prefix_cache=True`` shares full prompt blocks
+    between requests; ``prefix_snapshot_root`` is a directory of
+    ``cache_<seq>`` snapshots, the newest of which an engine restores at
+    start and ``save_prefix_cache()`` writes to; ``prefix_page_quota``
+    caps the cache pages one tenant namespace owns (None: no cap). Weight
+    versions are not ported."""
 
     def __init__(self, vocab_size=256, hidden_size=64, num_layers=2,
                  num_heads=4, ffn_size=128, block_size=16, num_blocks=64,
                  max_batch=4, max_blocks_per_seq=8, token_budget=64,
                  num_kv_heads=None, dtype="float32", cache_quant=None,
-                 max_queue=None):
+                 max_queue=None, prefix_cache=False,
+                 prefix_snapshot_root=None, prefix_page_quota=None):
         if dtype not in ("float32", "bfloat16"):
             raise ValueError("dtype must be 'float32' or 'bfloat16'")
-        if cache_quant is not None:
-            raise NotImplementedError(
-                "cache_quant='int8' is not ported yet (ROADMAP.md)")
+        if cache_quant not in (None, "int8"):
+            raise ValueError("cache_quant must be None or 'int8'")
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_layers = num_layers
@@ -83,6 +101,9 @@ class PagedServingConfig:
         # load shedding: admission raises EngineOverloadedError once this
         # many requests are live; None admits everything
         self.max_queue = max_queue
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_snapshot_root = prefix_snapshot_root
+        self.prefix_page_quota = prefix_page_quota
         self.max_seq = max_blocks_per_seq * block_size
 
     @property
@@ -318,16 +339,23 @@ class PagedCausalLM(nn.Module):
 
     def forward(self, tokens, seq_lens_encoder, seq_lens_decoder,
                 seq_lens_this_time, cu_seqlens_q, block_tables,
-                key_caches, value_caches, fresh_prefill=False):
+                key_caches, value_caches, k_scales=None, v_scales=None,
+                fresh_prefill=False, all_logits=False):
         """One engine step (serving.py:392-491).
 
         tokens [T] packed (row b contributes seq_lens_this_time[b] tokens
         starting at cache position seq_lens_decoder[b]; padding goes to
         the trash row); seq_lens_* [B+1] (the last row is the padding
         row); cu_seqlens_q [B+2]; block_tables [B+1, max_blocks];
-        key/value_caches [L, num_blocks, HKV, bs, D], updated in place.
+        key/value_caches [L, num_blocks, HKV, bs, D], updated in place;
+        k_scales / v_scales [L, num_blocks, HKV, bs] the f32 scale pools
+        of int8 caches (None otherwise), updated in place too.
         fresh_prefill=True when every scheduled row starts at position 0.
-        Returns (last-token logits [B+1, V], key_caches, value_caches).
+        all_logits=True returns the logits of every packed position [T, V]
+        (the speculative verify step, the reference's ``_step_mode ==
+        "spec_verify"``) instead of each row's last token's [B+1, V].
+        Returns (logits, key_caches, value_caches), and the scale pools
+        after them for int8 caches.
         """
         cfg = self.cfg
         x = self.embed(tokens)
@@ -344,23 +372,30 @@ class PagedCausalLM(nn.Module):
         md = IF.paged_metadata(tokens.shape[0], seq_lens_encoder,
                                seq_lens_decoder, cu_seqlens_q, block_tables,
                                cfg.block_size, rope)
+        quant = k_scales is not None
         for li in range(cfg.num_layers):
             h = self.ln1[li](x)
             qkv = self.qkv[li](h)
-            out, _, key_caches, value_caches = \
-                IF.block_multihead_attention(
-                    qkv, key_caches, value_caches, seq_lens_encoder,
-                    seq_lens_decoder, seq_lens_this_time, cu_seqlens_q,
-                    block_tables, rope, layer_idx=li,
-                    fresh_prefill=fresh_prefill, metadata=md)
+            out = IF.block_multihead_attention(
+                qkv, key_caches, value_caches, seq_lens_encoder,
+                seq_lens_decoder, seq_lens_this_time, cu_seqlens_q,
+                block_tables, rope, layer_idx=li,
+                fresh_prefill=fresh_prefill, cache_k_quant_scales=k_scales,
+                cache_v_quant_scales=v_scales,
+                use_dynamic_cachekv_quant=quant, metadata=md)[0]
             x = x + self.proj[li](out)
             h = self.ln2[li](x)
             x = x + self._mlp(li, h)
         x = self.ln_f(x)
-        # last token of each row: cu_q[i+1]-1 (rows with 0 tokens this
-        # step read their previous row's last token — masked host-side)
-        idx = (cu_seqlens_q[1:].long() - 1).clamp(min=0)
-        logits = self.head(x[idx])                           # [B+1, V]
+        if all_logits:
+            logits = self.head(x)                            # [T, V]
+        else:
+            # last token of each row: cu_q[i+1]-1 (rows with 0 tokens this
+            # step read their previous row's last token — masked host-side)
+            idx = (cu_seqlens_q[1:].long() - 1).clamp(min=0)
+            logits = self.head(x[idx])                       # [B+1, V]
+        if quant:
+            return logits, key_caches, value_caches, k_scales, v_scales
         return logits, key_caches, value_caches
 
     def _attn_dense(self, qkv):
@@ -405,9 +440,10 @@ class PagedCausalLM(nn.Module):
 
 def _serving_copy(model, cfg, device):
     """The model with floating params cast to cfg.dtype on ``device``,
-    made once and shared by every engine over the same model, dtype and
-    device (weights are snapshotted at the first call)."""
-    key = (cfg.dtype, str(device))
+    made once and shared by every engine over the same model, dtype, cache
+    quantization and device, as the reference keys its executables
+    (serving.py:771; weights are snapshotted at the first call)."""
+    key = (cfg.dtype, cfg.cache_quant, str(device))
     cached = getattr(model, "_serving_shared", None)
     if cached is not None and cached[0] == key:
         return cached[1]
@@ -420,9 +456,12 @@ def _serving_copy(model, cfg, device):
 
 class _Request:
     __slots__ = ("rid", "prompt", "generated", "max_new", "pages",
-                 "cached", "done", "sampling", "eos_token_id")
+                 "cached", "done", "sampling", "eos_token_id",
+                 "shared_keys", "prefix_registered", "tenant",
+                 "spec_observed")
 
-    def __init__(self, rid, prompt, max_new, sampling, eos_token_id):
+    def __init__(self, rid, prompt, max_new, sampling, eos_token_id,
+                 tenant=None):
         self.rid = rid
         self.prompt = list(int(t) for t in prompt)
         self.generated = []
@@ -432,6 +471,14 @@ class _Request:
         self.done = False
         self.sampling = sampling or GREEDY
         self.eos_token_id = eos_token_id
+        # prefix cache: the trie keys this request holds a ref on, and
+        # whether its full prompt blocks were registered after prefill
+        self.shared_keys = []
+        self.prefix_registered = False
+        # the prefix cache's namespace (None: the shared default)
+        self.tenant = tenant
+        # how much of prompt + generated the drafter has observed
+        self.spec_observed = 0
 
     @property
     def length(self):
@@ -509,8 +556,9 @@ class _DecodeWindow:
 
     def body(self):
         eng = self.engine
-        logits, _, _ = eng._model(self.tokens, self.enc, self.dec, self.this,
-                                  self.cu, self.bt, eng._kc, eng._vc)
+        logits = eng._model(self.tokens, self.enc, self.dec, self.this,
+                            self.cu, self.bt, eng._kc, eng._vc, eng._ks,
+                            eng._vs)[0]
         sampled = _sample(logits, self.mode, self.temps, self.topks,
                           self.topps, self.salts)
         self.tokens.copy_(sampled[:self.Bb])
@@ -523,9 +571,9 @@ class _DecodeWindow:
         """Capture the body into a CUDA graph in ``pool``. The warm-up run
         PyTorch wants before a capture executes for real, so it runs with
         every row's block table on the trash page 0, and the buffers are
-        put back as they were afterwards: no live page, token or position
-        changes. The launch counts the capture's Python made are taken
-        back and kept in ``graph_launches``, added on each replay. A
+        put back as they were afterwards: no live page, scale, token or
+        position changes. The launch counts the capture's Python made are
+        taken back and kept in ``graph_launches``, added on each replay. A
         failed capture raises."""
         dev = self.engine.device
         t0 = time.perf_counter()
@@ -579,9 +627,18 @@ class ServingEngine:
         self.seed = seed
         self.device = resolve_device(device)
         self._model = None          # set by from_model
-        self._cache_dt = cfg.torch_dtype
         shape = (cfg.num_layers, cfg.num_blocks, cfg.num_kv_heads,
                  cfg.block_size, cfg.head_dim)
+        if cfg.cache_quant == "int8":
+            # int8 pages and an f32 scale a (page, head, slot)
+            self._cache_dt = torch.int8
+            self._ks = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=self.device)
+            self._vs = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=self.device)
+        else:
+            self._cache_dt = cfg.torch_dtype
+            self._ks = self._vs = None
         self._kc = torch.zeros(shape, dtype=self._cache_dt,
                                device=self.device)
         self._vc = torch.zeros(shape, dtype=self._cache_dt,
@@ -594,8 +651,25 @@ class ServingEngine:
         # each holds its CUDA graph, all graphs in one memory pool
         self._window_fns = {}
         self._graph_pool = None
-        # logits [B+1, V] of the last step() (for parity checks)
+        # logits of the last step() or verify step (for parity checks)
         self.last_logits = None
+        # speculative decoding (inference/speculative.py), set by
+        # set_drafter: while a drafter is set, _step runs pure decode-tip
+        # batches through _spec_step
+        self._drafter = None
+        self._spec_k = 0
+        self._spec_steps = 0
+        self._spec_drafted_total = 0
+        self._spec_accepted_total = 0
+        self._spec_emitted_total = 0
+        self._spec_rows_total = 0
+        # shared-prefix KV reuse: a refcounted trie over the page pool,
+        # consulted at admission
+        self._prefix_cache = PrefixCache(
+            cfg.block_size, page_quota=cfg.prefix_page_quota) \
+            if cfg.prefix_cache else None
+        if self._prefix_cache is not None and cfg.prefix_snapshot_root:
+            restore_snapshot(self, cfg.prefix_snapshot_root)
 
     @classmethod
     def from_model(cls, model: PagedCausalLM, cfg: PagedServingConfig,
@@ -610,9 +684,10 @@ class ServingEngine:
 
     # -- scheduling ------------------------------------------------------
     def add_request(self, prompt_tokens, max_new_tokens=8, sampling=None,
-                    eos_token_id=None):
-        """Admit one request. Raises EngineOverloadedError when
-        cfg.max_queue live requests already exist."""
+                    eos_token_id=None, tenant=None):
+        """Admit one request. ``tenant`` scopes its prefix-cache reads and
+        writes to that tenant's namespace. Raises EngineOverloadedError
+        when cfg.max_queue live requests already exist."""
         if len(prompt_tokens) == 0:
             raise ValueError("prompt must contain at least one token "
                              "(an empty row would read another request's "
@@ -627,9 +702,103 @@ class ServingEngine:
                 f"(retry later or on another replica)")
         rid = self._next_rid
         self._next_rid += 1
-        self._requests[rid] = _Request(rid, prompt_tokens, max_new_tokens,
-                                       sampling, eos_token_id)
+        req = _Request(rid, prompt_tokens, max_new_tokens, sampling,
+                       eos_token_id, tenant=tenant)
+        self._requests[rid] = req
+        self._try_prefix_match(req)
         return rid
+
+    def set_drafter(self, drafter, k=None):
+        """Attach a speculative drafter (inference/speculative.py;
+        serving.py:900-926). While one is set, a step whose scheduled rows
+        are all at their decode tip runs as one verify step: the drafter
+        proposes up to ``k`` tokens a row, the model scores them in one
+        paged step, and each position is sampled under the salt the plain
+        path would use there, so the stream is the non-speculative one
+        token for token; pages holding only rejected tokens go back to the
+        pool. ``k`` defaults to ``PT_SPEC_K`` (environment) or 4;
+        ``set_drafter(None)`` turns speculation off."""
+        if drafter is not None and self._model is None:
+            raise ValueError("speculative decoding needs a from_model "
+                             "engine: the verify step runs its model")
+        self._drafter = drafter
+        if k is not None:
+            self._spec_k = int(k)
+        elif self._spec_k <= 0:
+            self._spec_k = int(os.environ.get("PT_SPEC_K", "4"))
+        if self._spec_k < 1:
+            raise ValueError("speculative draft length k must be >= 1")
+        return drafter
+
+    def spec_stats(self):
+        """The speculative counters: verify steps, rows verified, tokens
+        emitted, drafted and accepted, the acceptance rate and tokens
+        emitted a row a verify step (the reference's serving/spec_*
+        series)."""
+        return {"steps": self._spec_steps,
+                "rows": self._spec_rows_total,
+                "emitted": self._spec_emitted_total,
+                "drafted": self._spec_drafted_total,
+                "accepted": self._spec_accepted_total,
+                "accept_rate": (self._spec_accepted_total
+                                / self._spec_drafted_total
+                                if self._spec_drafted_total else 0.0),
+                "tokens_per_row_step": (self._spec_emitted_total
+                                        / self._spec_rows_total
+                                        if self._spec_rows_total else 0.0)}
+
+    def _spec_observe(self, r):
+        """Feed the drafter what it has not seen of this request (the
+        prompt on first contact, then each newly emitted suffix)."""
+        seq = r.prompt + r.generated
+        if r.spec_observed < len(seq):
+            self._drafter.observe(seq, start=r.spec_observed)
+            r.spec_observed = len(seq)
+
+    def _try_prefix_match(self, req):
+        """Map the request's leading full prompt blocks onto cached pages:
+        a hit moves ``cached`` past the shared tokens, so scheduling skips
+        their prefill."""
+        cache = self._prefix_cache
+        if cache is None or req.pages:
+            return
+        pages, keys, n_tok = cache.match(req.prompt, namespace=req.tenant)
+        if n_tok:
+            req.pages = list(pages)
+            req.shared_keys = keys
+            req.cached = n_tok
+
+    def _maybe_register_prefix(self, req):
+        """Once a request's prompt is fully prefilled, publish its full
+        prompt blocks into the prefix cache (the pages pass to the cache;
+        the request keeps a ref)."""
+        cache = self._prefix_cache
+        if cache is None or req.prefix_registered \
+                or req.cached < len(req.prompt):
+            return
+        req.prefix_registered = True
+        req.shared_keys.extend(cache.insert(req.prompt, req.pages,
+                                            namespace=req.tenant))
+
+    def _snapshot_root(self, root):
+        root = root or self.cfg.prefix_snapshot_root
+        if root is None:
+            raise ValueError("no snapshot root: pass root= or set "
+                             "cfg.prefix_snapshot_root")
+        return root
+
+    def save_prefix_cache(self, root=None, keep=None):
+        """Snapshot the prefix cache (trie + its KV pages, and their
+        scales for int8 pools) under ``root`` (default
+        cfg.prefix_snapshot_root); returns the snapshot path, or None when
+        the cache is empty."""
+        return save_snapshot(self, self._snapshot_root(root), keep=keep)
+
+    def restore_prefix_cache(self, root=None):
+        """Restore the newest complete snapshot under ``root`` (default
+        cfg.prefix_snapshot_root) into this engine's cache, after sweeping
+        torn snapshot dirs. Returns the blocks restored."""
+        return restore_snapshot(self, self._snapshot_root(root))
 
     def pending(self):
         return [r for r in self._requests.values() if not r.done]
@@ -638,9 +807,20 @@ class ServingEngine:
         return sampling_salt(self.seed, r.rid, n_generated)
 
     def _take_free_page(self):
+        """Pop one free page, reclaiming a zero-ref prefix-cache page when
+        the pool is dry (cache residency never blocks live traffic)."""
+        if not self._free_pages and self._prefix_cache is not None:
+            self._free_pages.extend(self._prefix_cache.evict(1))
         if not self._free_pages:
             raise RuntimeError("KV page pool exhausted")
         return self._free_pages.pop()
+
+    def _available_pages(self):
+        """Free pages, and the zero-ref cache pages eviction can take."""
+        n = len(self._free_pages)
+        if self._prefix_cache is not None:
+            n += self._prefix_cache.evictable_count()
+        return n
 
     def _ensure_pages(self, req, upto_len):
         need = math.ceil(upto_len / self.cfg.block_size)
@@ -648,7 +828,15 @@ class ServingEngine:
             req.pages.append(self._take_free_page())
 
     def _release(self, req):
-        self._free_pages.extend(req.pages)
+        cache = self._prefix_cache
+        if req.shared_keys:
+            cache.release(req.shared_keys)
+            req.shared_keys = []
+        if cache is not None:
+            owned = cache.owned_pages()
+            self._free_pages.extend(p for p in req.pages if p not in owned)
+        else:
+            self._free_pages.extend(req.pages)
         req.pages = []
 
     def _schedule(self):
@@ -658,7 +846,7 @@ class ServingEngine:
         cfg = self.cfg
         rows = []
         budget = cfg.token_budget
-        avail = len(self._free_pages)
+        avail = self._available_pages()
         for r in self.pending():
             if len(rows) == cfg.max_batch or budget == 0:
                 break
@@ -679,13 +867,14 @@ class ServingEngine:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, torch.int64) for a in arrays]
 
-    def _run(self, tokens, enc, dec, this, cu, bt, fresh=False):
+    def _run(self, tokens, enc, dec, this, cu, bt, fresh=False,
+             all_logits=False):
         """One forward step over the engine's caches (updated in place)."""
         ins = self._tensors(tokens, enc, dec, this, cu, bt)
         with torch.inference_mode():
-            logits, _, _ = self._model(*ins, self._kc, self._vc,
-                                       fresh_prefill=fresh)
-        return logits
+            return self._model(*ins, self._kc, self._vc, self._ks, self._vs,
+                               fresh_prefill=fresh,
+                               all_logits=all_logits)[0]
 
     def step(self):
         """One engine iteration: schedule <= max_batch live requests
@@ -694,6 +883,7 @@ class ServingEngine:
         Returns the produced (rid, token) pairs."""
         cfg = self.cfg
         rows = self._schedule()
+        preempted = set()
         while not rows and self.pending():
             # pool deadlock: in-flight requests hold pages but none can
             # grow — preempt the NEWEST holder (the oldest always makes
@@ -707,9 +897,20 @@ class ServingEngine:
             victim = max(holders, key=lambda r: r.rid)
             self._release(victim)
             victim.cached = 0
+            victim.prefix_registered = False
+            if victim.rid not in preempted:
+                # its shared prefix may still be cached: match again, once
+                # a sweep (a matched prefix makes it a holder again)
+                self._try_prefix_match(victim)
+            preempted.add(victim.rid)
             rows = self._schedule()
         if not rows:
             return []
+        # a pure decode-tip batch runs as one draft + verify step
+        if self._drafter is not None and all(
+                chunk == 1 and r.cached == r.length - 1
+                for r, chunk in rows):
+            return self._spec_step(rows)
 
         B1 = cfg.max_batch + 1
         enc = np.zeros(B1, np.int64)
@@ -754,6 +955,7 @@ class ServingEngine:
             # pure prefill-chunk step: nothing to sample, no host sync
             for r, chunk in rows:
                 r.cached += chunk
+                self._maybe_register_prefix(r)
             return []
         with torch.inference_mode():
             sampled = _sample(logits, _sample_mode(temps, topks),
@@ -764,6 +966,7 @@ class ServingEngine:
         produced = []
         for i, (r, chunk) in enumerate(rows):
             r.cached += chunk
+            self._maybe_register_prefix(r)
             if not tip[i]:
                 continue
             nxt = int(sampled[i])
@@ -823,9 +1026,10 @@ class ServingEngine:
         if not rows:
             return []
         n = min([n_steps] + [r.max_new - len(r.generated) for r in rows])
-        # clamp the window to what the free page pool can hold; callers
-        # fall back to step() (which can preempt) when not one step fits
-        free = len(self._free_pages)
+        # clamp the window to what the page pool can hold (free pages and
+        # the zero-ref cache pages _take_free_page may evict); callers fall
+        # back to step() (which can preempt) when not one step fits
+        free = self._available_pages()
         while n > 0 and sum(
                 max(math.ceil((r.cached + n) / cfg.block_size)
                     - len(r.pages), 0) for r in rows) > free:
@@ -840,6 +1044,7 @@ class ServingEngine:
         B1 = cfg.max_batch + 1
         for r in rows:
             self._ensure_pages(r, r.cached + n)
+            self._maybe_register_prefix(r)
         # the row count is bucketed to a power of two (the reference's
         # executable-reuse rule); the bucket's spare slots are padding
         # routed to the trash row like any other
@@ -888,6 +1093,131 @@ class ServingEngine:
                             and nxt == r.eos_token_id):
                     r.done = True
                     self._release(r)
+        return produced
+
+    # -- speculative decode (draft k, verify in one paged step) ----------
+    def _spec_step(self, rows):
+        """One speculative iteration over decode-tip rows (serving.py:
+        1579-1743): the drafter proposes up to ``_spec_k`` tokens a row
+        (clamped to the remaining max_new, the token budget and the page
+        pool), the model scores tip + drafts in one paged step shaped as a
+        chunked-prefill continuation with logits at every position, and
+        position j of a row is sampled under the salt of its generated
+        index g0 + j. A draft is accepted only when it equals the token
+        sampled at the position before it; the first mismatch still emits
+        its own (correct) sample. Each row is left at its decode tip:
+        pages that hold only rejected positions go back to the pool. Runs
+        eagerly (no CUDA graph)."""
+        cfg = self.cfg
+        B1 = cfg.max_batch + 1
+        drafter = self._drafter
+        budget = cfg.token_budget
+        avail = self._available_pages()
+        plans = []
+        for idx, (r, _chunk) in enumerate(rows):
+            self._spec_observe(r)
+            rows_after = len(rows) - idx - 1
+            cap = min(self._spec_k, r.max_new - len(r.generated) - 1,
+                      budget - 1 - rows_after)
+            drafts = []
+            if cap > 0:
+                for t in list(drafter.propose(r.prompt + r.generated,
+                                              cap))[:cap]:
+                    t = int(t)
+                    if not 0 <= t < cfg.vocab_size:
+                        break      # a draft outside the vocabulary
+                    drafts.append(t)
+
+            def pages_needed(n_drafts):
+                return max(math.ceil((r.cached + 1 + n_drafts)
+                                     / cfg.block_size) - len(r.pages), 0)
+
+            while drafts and pages_needed(len(drafts)) > avail:
+                drafts.pop()       # page-limited: shorten the proposal
+            avail -= pages_needed(len(drafts))
+            budget -= 1 + len(drafts)
+            plans.append((r, drafts))
+
+        enc = np.zeros(B1, np.int64)
+        dec = np.zeros(B1, np.int64)
+        this = np.zeros(B1, np.int64)
+        bt = np.zeros((B1, cfg.max_blocks_per_seq), np.int64)
+        packed = []
+        spans = []
+        for i, (r, drafts) in enumerate(plans):
+            n_feed = 1 + len(drafts)
+            dec[i] = r.cached
+            this[i] = n_feed
+            self._ensure_pages(r, r.cached + n_feed)
+            bt[i, :len(r.pages)] = r.pages
+            spans.append((len(packed), n_feed))
+            packed.append((r.prompt + r.generated)[-1])
+            packed.extend(drafts)
+        # padding to a power of two (the trash row takes it), as the
+        # reference bounds its verify shapes
+        tok_len = min(_next_pow2(len(packed)), cfg.token_budget)
+        n_pad = tok_len - len(packed)
+        this[B1 - 1] = n_pad
+        enc[B1 - 1] = n_pad
+        tokens = np.asarray(packed + [0] * n_pad, np.int64)
+        cu = np.zeros(B1 + 1, np.int64)
+        cu[1:] = np.cumsum(this)
+        logits = self._run(tokens, enc, dec, this, cu, bt,
+                           all_logits=True)                   # [tok_len, V]
+        self.last_logits = logits
+
+        P = len(packed)
+        temps = np.zeros(P, np.float32)
+        topks = np.zeros(P, np.int64)
+        topps = np.ones(P, np.float32)
+        salts = np.zeros(P, np.int64)
+        for i, (r, _drafts) in enumerate(plans):
+            p0, n_feed = spans[i]
+            sp = r.sampling
+            g0 = len(r.generated)
+            for j in range(n_feed):
+                temps[p0 + j] = sp.temperature
+                topks[p0 + j] = sp.top_k
+                topps[p0 + j] = sp.top_p
+                salts[p0 + j] = self._salt(r, g0 + j)
+        with torch.inference_mode():
+            sampled = _sample(logits[:P], _sample_mode(temps, topks),
+                              *self._sampling_tensors(temps, topks, topps),
+                              *self._tensors(salts))
+        sampled = sampled.cpu().numpy()                       # host sync
+
+        produced = []
+        for i, (r, drafts) in enumerate(plans):
+            p0, n_feed = spans[i]
+            emitted = [int(sampled[p0])]
+            for j in range(1, n_feed):
+                if drafts[j - 1] != emitted[-1]:
+                    break
+                emitted.append(int(sampled[p0 + j]))
+            self._spec_drafted_total += len(drafts)
+            self._spec_accepted_total += len(emitted) - 1
+            for t in emitted:
+                r.generated.append(t)
+                produced.append((r.rid, t))
+                if len(r.generated) >= r.max_new \
+                        or (r.eos_token_id is not None
+                            and t == r.eos_token_id):
+                    r.done = True
+                    break
+            # back to the decode tip: the accepted run's KV is in place;
+            # pages holding only rejected positions return to the pool
+            r.cached = r.length - 1
+            self._maybe_register_prefix(r)
+            if r.done:
+                self._release(r)
+            else:
+                keep = math.ceil(r.cached / cfg.block_size)
+                if len(r.pages) > keep:
+                    self._free_pages.extend(r.pages[keep:])
+                    del r.pages[keep:]
+        self._spec_steps += 1
+        self._spec_emitted_total += len(produced)
+        self._spec_rows_total += len(plans)
         return produced
 
     def run_to_completion(self, max_steps=1000):

@@ -47,8 +47,8 @@ def resolve_device(device=None) -> torch.device:
 
 def _counters():
     """{kernel name: (module, name of its launch counter)}."""
-    from . import (_build, flash_attention, paged_attention, rms_norm,
-                   varlen_attention)
+    from . import (_build, flash_attention, kv_quant, paged_attention,
+                   rms_norm, varlen_attention)
 
     return {"rms_norm": (rms_norm, "launches"),
             "rms_norm_bwd": (rms_norm, "launches_bwd"),
@@ -60,6 +60,8 @@ def _counters():
             "flash_attention_bwd_dkv": (flash_attention, "launches_bwd_dkv"),
             "flash_attention_bwd_dq": (flash_attention, "launches_bwd_dq"),
             "paged_attention": (paged_attention, "launches"),
+            "paged_attention_int8": (paged_attention, "launches_int8"),
+            "kv_quant": (kv_quant, "launches"),
             "aligned16_copies": (_build, "copies")}
 
 

@@ -41,8 +41,18 @@
 // summed over the groups in shared memory in a fixed order: the same bits
 // every run. The row's block table is copied to shared memory once, so a
 // key costs one dependent load, not two.
+//
+// Int8 pages (the dynamic int8 cache-KV path, functional/__init__.py:
+// 738-746): the pools hold int8 codes with one f32 scale a (page, head,
+// slot) in scale pools [num_blocks, HKV, bs]. The reference dequantizes the
+// gathered view as (int8 as f32 * s) rounded to the compute dtype (q's)
+// BEFORE the products, so each K and V element read here is that same
+// value: the code times its slot's scale in f32, rounded to q's dtype.
+// Everything after is as above. Those instantiations read 8 codes (8 bytes)
+// where the others read 8 elements, plus one scale a key.
 #include <cmath>
 #include <initializer_list>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -65,6 +75,10 @@ template <>
 struct Raw<float> {
   float4 a, b;
 };
+template <>
+struct Raw<int8_t> {
+  uint2 u;
+};
 
 __device__ __forceinline__ Raw<__nv_bfloat16> load8(const __nv_bfloat16* p) {
   return {__ldg(reinterpret_cast<const uint4*>(p))};
@@ -73,6 +87,10 @@ __device__ __forceinline__ Raw<__nv_bfloat16> load8(const __nv_bfloat16* p) {
 __device__ __forceinline__ Raw<float> load8(const float* p) {
   return {__ldg(reinterpret_cast<const float4*>(p)),
           __ldg(reinterpret_cast<const float4*>(p) + 1)};
+}
+
+__device__ __forceinline__ Raw<int8_t> load8(const int8_t* p) {
+  return {__ldg(reinterpret_cast<const uint2*>(p))};
 }
 
 __device__ __forceinline__ void unpack(const Raw<__nv_bfloat16>& r, float* f) {
@@ -95,6 +113,23 @@ __device__ __forceinline__ Raw<T> zero_raw() {
   return Raw<T>{};
 }
 
+// 8 elements of K or V as the products take them: the cache's own values,
+// or (int8 pages) each code times the slot's scale s in f32, rounded to T,
+// q's dtype, as the reference's dequantized view.
+template <typename T>
+__device__ __forceinline__ void kv_values(const Raw<T>& r, float, float* f) {
+  unpack(r, f);
+}
+
+template <typename T>
+__device__ __forceinline__ void kv_values(const Raw<int8_t>& r, float s,
+                                          float* f) {
+  const int8_t* c = reinterpret_cast<const int8_t*>(&r.u);
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    f[i] = pt::round_to<T>(static_cast<float>(c[i]) * s);
+}
+
 // Merge (m2, l2) into the running (m, l) of an online softmax: l sums
 // exp(logit - m) over the keys seen.
 __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
@@ -104,16 +139,19 @@ __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
   m = mn;
 }
 
-// T: the cache dtype; P: lanes a key in P V; GH: query heads a block
-// (1, 2, 4).
-template <typename T, int P, int GH>
+// T: q's and out's dtype; C: the pools' (T, or int8_t with the scale pools
+// ksc, vsc); P: lanes a key in P V; GH: query heads a block (1, 2, 4).
+template <typename T, typename C, int P, int GH>
 __global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ kp,
-                           const T* __restrict__ vp, T* __restrict__ out,
+    paged_attention_kernel(const T* __restrict__ q, const C* __restrict__ kp,
+                           const C* __restrict__ vp,
+                           const float* __restrict__ ksc,
+                           const float* __restrict__ vsc, T* __restrict__ out,
                            const int64_t* __restrict__ t2b,
                            const int64_t* __restrict__ pos,
                            const int64_t* __restrict__ bt, int HQ, int HKV,
                            int D, int bs, int max_blocks, float scale_div) {
+  constexpr bool kInt8 = std::is_same<C, int8_t>::value;
   constexpr int kSlotsPerWarp = 32 / P;
   constexpr int kSlots = kWarps * kSlotsPerWarp;  // keys a step of P V
   constexpr int U = GH == 4 ? 2 : 4;               // steps in flight
@@ -150,25 +188,25 @@ __global__ void __launch_bounds__(kThreads)
         g < nh ? pt::to_float(q[(static_cast<size_t>(t) * HQ + h0) * D + i])
                : 0.f;
   }
-  const size_t page_stride = static_cast<size_t>(HKV) * bs * D;
-  const size_t head_off = static_cast<size_t>(kvh) * bs * D;
   __syncthreads();
 
-  // the element offset of key j's row in the pool
-  auto offset = [&](int j) {
+  // the (page, head, slot) index of key j: its scale's in the scale pool,
+  // times D its row's element offset in the pool
+  auto slot_of = [&](int j) {
     const int64_t page = shared_table ? table[j / bs] : row[j / bs];
-    return static_cast<size_t>(page) * page_stride + head_off +
-           static_cast<size_t>(j % bs) * D;
+    return (static_cast<size_t>(page) * HKV + kvh) * bs + j % bs;
   };
   // the logits of key j for the block's query heads, by one thread
   auto logits = [&](int j, float* s) {
-    const T* k = kp + offset(j);
+    const size_t sl = slot_of(j);
+    const C* k = kp + sl * D;
+    const float ks = kInt8 ? ksc[sl] : 1.f;
 #pragma unroll
     for (int g = 0; g < GH; ++g) s[g] = 0.f;
 #pragma unroll 4
     for (int c = 0; c < D; c += 8) {
       float kf[8];
-      unpack(load8(k + c), kf);
+      kv_values<T>(load8(k + c), ks, kf);
 #pragma unroll
       for (int g = 0; g < GH; ++g)
 #pragma unroll
@@ -234,19 +272,22 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const int cn = min(kThreads, n - k0);
     for (int base = slot; base < cn; base += U * kSlots) {
-      Raw<T> vr[U];
+      Raw<C> vr[U];
+      float vsu[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int jj = base + u * kSlots;
-        vr[u] = has && jj < cn ? load8(vp + offset(k0 + jj) + c0)
-                               : zero_raw<T>();
+        const bool in = has && jj < cn;
+        const size_t sl = in ? slot_of(k0 + jj) : 0;
+        vr[u] = in ? load8(vp + sl * D + c0) : zero_raw<C>();
+        vsu[u] = kInt8 && in ? vsc[sl] : 1.f;
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int jj = base + u * kSlots;
         if (jj < cn) {
           float vf[8];
-          unpack(vr[u], vf);
+          kv_values<T>(vr[u], vsu[u], vf);
 #pragma unroll
           for (int g = 0; g < GH; ++g) {
             const float pr = ps[jj][g];
@@ -274,56 +315,82 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int P, int GH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+// The pool arguments of a launch: K and V pages of C, and (C int8) their
+// scale pools.
+template <typename C>
+struct Pools {
+  const C* k;
+  const C* v;
+  const float* ks;
+  const float* vs;
+};
+
+template <typename T, typename C, int P, int GH>
+cudaError_t launch(const void* q, const Pools<C>& pl, void* out,
                    const int64_t* t2b, const int64_t* pos, const int64_t* bt,
                    int T_, int HQ, int HKV, int D, int bs, int max_blocks,
                    float scale_div, cudaStream_t s) {
   const int G = HQ / HKV;
   const dim3 grid(T_, HKV * ((G + GH - 1) / GH));
-  paged_attention_kernel<T, P, GH><<<grid, kThreads, 0, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), t2b, pos, bt, HQ, HKV,
-      D, bs, max_blocks, scale_div);
+  paged_attention_kernel<T, C, P, GH><<<grid, kThreads, 0, s>>>(
+      static_cast<const T*>(q), pl.k, pl.v, pl.ks, pl.vs, static_cast<T*>(out),
+      t2b, pos, bt, HQ, HKV, D, bs, max_blocks, scale_div);
   return cudaGetLastError();
 }
 
-template <typename T, int P>
-cudaError_t by_heads(int G, const void* q, const void* k, const void* v,
-                     void* out, const int64_t* t2b, const int64_t* pos,
+template <typename T, typename C, int P>
+cudaError_t by_heads(int G, const void* q, const Pools<C>& pl, void* out,
+                     const int64_t* t2b, const int64_t* pos,
                      const int64_t* bt, int T_, int HQ, int HKV, int D, int bs,
                      int max_blocks, float scale_div, cudaStream_t s) {
   if (G == 1)
-    return launch<T, P, 1>(q, k, v, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
-                           max_blocks, scale_div, s);
+    return launch<T, C, P, 1>(q, pl, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                              max_blocks, scale_div, s);
   if (G == 2)
-    return launch<T, P, 2>(q, k, v, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
-                           max_blocks, scale_div, s);
-  return launch<T, P, 4>(q, k, v, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
-                         max_blocks, scale_div, s);
+    return launch<T, C, P, 2>(q, pl, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                              max_blocks, scale_div, s);
+  return launch<T, C, P, 4>(q, pl, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                            max_blocks, scale_div, s);
 }
 
-template <typename T>
-cudaError_t by_width(const void* q, const void* k, const void* v, void* out,
+template <typename T, typename C>
+cudaError_t by_width(const void* q, const Pools<C>& pl, void* out,
                      const int64_t* t2b, const int64_t* pos, const int64_t* bt,
                      int T_, int HQ, int HKV, int D, int bs, int max_blocks,
                      float scale_div, cudaStream_t s) {
   const int G = HQ / HKV;
   if (D <= 32)
-    return by_heads<T, 4>(G, q, k, v, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
-                          max_blocks, scale_div, s);
+    return by_heads<T, C, 4>(G, q, pl, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                             max_blocks, scale_div, s);
   if (D <= 64)
-    return by_heads<T, 8>(G, q, k, v, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
-                          max_blocks, scale_div, s);
+    return by_heads<T, C, 8>(G, q, pl, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                             max_blocks, scale_div, s);
   if (D <= 128)
-    return by_heads<T, 16>(G, q, k, v, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
-                           max_blocks, scale_div, s);
-  return by_heads<T, 32>(G, q, k, v, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
-                         max_blocks, scale_div, s);
+    return by_heads<T, C, 16>(G, q, pl, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                              max_blocks, scale_div, s);
+  return by_heads<T, C, 32>(G, q, pl, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                            max_blocks, scale_div, s);
 }
 
-bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+bool aligned(const void* p, uintptr_t n) {
+  return reinterpret_cast<uintptr_t>(p) % n == 0;
+}
+
+// The checks both entries share: cudaSuccess when the sizes are valid and
+// q, out and the index pointers are set (q and out 16-byte aligned).
+cudaError_t check_args(const void* q, const void* out, const void* t2b,
+                       const void* pos, const void* bt, int T_, int HQ,
+                       int HKV, int D, int bs, int max_blocks,
+                       float scale_div) {
+  if (T_ <= 0 || HQ <= 0 || HKV <= 0 || HQ % HKV != 0 || D <= 0 ||
+      D % 8 != 0 || D > kMaxD || bs <= 0 || max_blocks <= 0 ||
+      !(scale_div > 0.f))
+    return cudaErrorInvalidValue;
+  for (const void* ptr : {q, out})
+    if (ptr == nullptr || !aligned(ptr, 16)) return cudaErrorInvalidValue;
+  if (t2b == nullptr || pos == nullptr || bt == nullptr)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -340,22 +407,62 @@ extern "C" int pt_paged_attention(const void* q, const void* k, const void* v,
                                   int D, int bs, int max_blocks, int dtype,
                                   float scale_div, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (T_ <= 0 || HQ <= 0 || HKV <= 0 || HQ % HKV != 0 || D <= 0 ||
-      D % 8 != 0 || D > kMaxD || bs <= 0 || max_blocks <= 0 ||
-      !(scale_div > 0.f))
-    return cudaErrorInvalidValue;
-  for (const void* ptr : {q, k, v, static_cast<const void*>(out)})
-    if (ptr == nullptr || !aligned16(ptr)) return cudaErrorInvalidValue;
-  if (t2b == nullptr || pos == nullptr || bt == nullptr)
-    return cudaErrorInvalidValue;
+  const cudaError_t bad = check_args(q, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                                     max_blocks, scale_div);
+  if (bad != cudaSuccess) return bad;
+  for (const void* ptr : {k, v})
+    if (ptr == nullptr || !aligned(ptr, 16)) return cudaErrorInvalidValue;
   const int64_t* tb = static_cast<const int64_t*>(t2b);
   const int64_t* ps = static_cast<const int64_t*>(pos);
   const int64_t* tab = static_cast<const int64_t*>(bt);
+  if (dtype == pt::kBFloat16) {
+    const Pools<__nv_bfloat16> pl{static_cast<const __nv_bfloat16*>(k),
+                                  static_cast<const __nv_bfloat16*>(v),
+                                  nullptr, nullptr};
+    return by_width<__nv_bfloat16>(q, pl, out, tb, ps, tab, T_, HQ, HKV, D,
+                                   bs, max_blocks, scale_div, s);
+  }
+  if (dtype == pt::kFloat32) {
+    const Pools<float> pl{static_cast<const float*>(k),
+                          static_cast<const float*>(v), nullptr, nullptr};
+    return by_width<float>(q, pl, out, tb, ps, tab, T_, HQ, HKV, D, bs,
+                           max_blocks, scale_div, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The same over int8 pools k, v [num_blocks, HKV, bs, D] with f32 scale
+// pools ks, vs [num_blocks, HKV, bs]: q and out of `dtype` (pt::kFloat32 or
+// pt::kBFloat16), each K and V element dequantized to it before its
+// product. The pools must be 8-byte aligned, the scale pools 4-byte.
+extern "C" int pt_paged_attention_int8(const void* q, const void* k,
+                                       const void* v, const void* ks,
+                                       const void* vs, void* out,
+                                       const void* t2b, const void* pos,
+                                       const void* bt, int T_, int HQ,
+                                       int HKV, int D, int bs, int max_blocks,
+                                       int dtype, float scale_div,
+                                       void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t bad = check_args(q, out, t2b, pos, bt, T_, HQ, HKV, D, bs,
+                                     max_blocks, scale_div);
+  if (bad != cudaSuccess) return bad;
+  for (const void* ptr : {k, v})
+    if (ptr == nullptr || !aligned(ptr, 8)) return cudaErrorInvalidValue;
+  for (const void* ptr : {ks, vs})
+    if (ptr == nullptr || !aligned(ptr, 4)) return cudaErrorInvalidValue;
+  const int64_t* tb = static_cast<const int64_t*>(t2b);
+  const int64_t* ps = static_cast<const int64_t*>(pos);
+  const int64_t* tab = static_cast<const int64_t*>(bt);
+  const Pools<int8_t> pl{static_cast<const int8_t*>(k),
+                         static_cast<const int8_t*>(v),
+                         static_cast<const float*>(ks),
+                         static_cast<const float*>(vs)};
   if (dtype == pt::kBFloat16)
-    return by_width<__nv_bfloat16>(q, k, v, out, tb, ps, tab, T_, HQ, HKV, D,
+    return by_width<__nv_bfloat16>(q, pl, out, tb, ps, tab, T_, HQ, HKV, D,
                                    bs, max_blocks, scale_div, s);
   if (dtype == pt::kFloat32)
-    return by_width<float>(q, k, v, out, tb, ps, tab, T_, HQ, HKV, D, bs,
+    return by_width<float>(q, pl, out, tb, ps, tab, T_, HQ, HKV, D, bs,
                            max_blocks, scale_div, s);
   return cudaErrorInvalidValue;
 }

@@ -8,9 +8,10 @@
 // Python ints (pointers, sizes, the stream handle; None for a null
 // pointer) and one float, converted here, and the C entry's cudaError_t
 // comes back as an int. The paged attention of the decode and
-// chunked-prefill steps (16 calls a step) is called the same way. Host code
-// only; built into the same shared library, which _build.py also imports as
-// an extension module.
+// chunked-prefill steps (16 calls a step, over bf16, f32 or int8 pages) and
+// the int8 path's quantize-on-append (16 a step) are called the same way.
+// Host code only; built into the same shared library, which _build.py also
+// imports as an extension module.
 #include <Python.h>
 #include <stdint.h>
 
@@ -26,6 +27,19 @@ extern "C" int pt_paged_attention(const void* q, const void* k, const void* v,
                                   const void* bt, int T, int HQ, int HKV,
                                   int D, int bs, int max_blocks, int dtype,
                                   float scale_div, void* stream);
+extern "C" int pt_paged_attention_int8(const void* q, const void* k,
+                                       const void* v, const void* ks,
+                                       const void* vs, void* out,
+                                       const void* t2b, const void* pos,
+                                       const void* bt, int T, int HQ, int HKV,
+                                       int D, int bs, int max_blocks,
+                                       int dtype, float scale_div,
+                                       void* stream);
+extern "C" int pt_kv_quant(const void* k, const void* v, int64_t k_stride,
+                           int64_t v_stride, const void* page,
+                           const void* slot, void* kc, void* vc, void* ks,
+                           void* vs, int T, int HKV, int D, int bs, int dtype,
+                           void* stream);
 
 namespace {
 
@@ -122,6 +136,46 @@ PyObject* paged_attention(PyObject*, PyObject* const* a, Py_ssize_t n) {
                                             scale_div, stream));
 }
 
+// paged_attention_int8(q, k, v, ks, vs, out, t2b, pos, bt, T, HQ, HKV, D, bs,
+// max_blocks, dtype, scale_div, stream) -> cudaError_t
+PyObject* paged_attention_int8(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  void *q, *k, *v, *ks, *vs, *out, *t2b, *pos, *bt, *stream;
+  int T, HQ, HKV, D, bs, max_blocks, dtype;
+  float scale_div;
+  if (!arity("paged_attention_int8", n, 18) || !as_ptr(a[0], &q) ||
+      !as_ptr(a[1], &k) || !as_ptr(a[2], &v) || !as_ptr(a[3], &ks) ||
+      !as_ptr(a[4], &vs) || !as_ptr(a[5], &out) || !as_ptr(a[6], &t2b) ||
+      !as_ptr(a[7], &pos) || !as_ptr(a[8], &bt) || !as_int(a[9], &T) ||
+      !as_int(a[10], &HQ) || !as_int(a[11], &HKV) || !as_int(a[12], &D) ||
+      !as_int(a[13], &bs) || !as_int(a[14], &max_blocks) ||
+      !as_int(a[15], &dtype) || !as_float(a[16], &scale_div) ||
+      !as_ptr(a[17], &stream))
+    return nullptr;
+  return PyLong_FromLong(pt_paged_attention_int8(q, k, v, ks, vs, out, t2b,
+                                                 pos, bt, T, HQ, HKV, D, bs,
+                                                 max_blocks, dtype, scale_div,
+                                                 stream));
+}
+
+// kv_quant(k, v, k_stride, v_stride, page, slot, kc, vc, ks, vs, T, HKV, D,
+// bs, dtype, stream) -> cudaError_t
+PyObject* kv_quant(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  void *k, *v, *page, *slot, *kc, *vc, *ks, *vs, *stream;
+  int64_t k_stride, v_stride;
+  int T, HKV, D, bs, dtype;
+  if (!arity("kv_quant", n, 16) || !as_ptr(a[0], &k) || !as_ptr(a[1], &v) ||
+      !as_int64(a[2], &k_stride) || !as_int64(a[3], &v_stride) ||
+      !as_ptr(a[4], &page) || !as_ptr(a[5], &slot) || !as_ptr(a[6], &kc) ||
+      !as_ptr(a[7], &vc) || !as_ptr(a[8], &ks) || !as_ptr(a[9], &vs) ||
+      !as_int(a[10], &T) || !as_int(a[11], &HKV) || !as_int(a[12], &D) ||
+      !as_int(a[13], &bs) || !as_int(a[14], &dtype) ||
+      !as_ptr(a[15], &stream))
+    return nullptr;
+  return PyLong_FromLong(pt_kv_quant(k, v, k_stride, v_stride, page, slot, kc,
+                                     vc, ks, vs, T, HKV, D, bs, dtype,
+                                     stream));
+}
+
 PyMethodDef methods[] = {
     {"rms_norm", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(
                      rms_norm)),
@@ -133,6 +187,13 @@ PyMethodDef methods[] = {
      reinterpret_cast<PyCFunction>(
          reinterpret_cast<void (*)()>(paged_attention)),
      METH_FASTCALL, "pt_paged_attention; returns its cudaError_t"},
+    {"paged_attention_int8",
+     reinterpret_cast<PyCFunction>(
+         reinterpret_cast<void (*)()>(paged_attention_int8)),
+     METH_FASTCALL, "pt_paged_attention_int8; returns its cudaError_t"},
+    {"kv_quant",
+     reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(kv_quant)),
+     METH_FASTCALL, "pt_kv_quant; returns its cudaError_t"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef module = {PyModuleDef_HEAD_INIT, "_pt_kernels",

@@ -17,6 +17,13 @@ The kernel takes float32 and bfloat16 caches, D a multiple of 8 up to 256
 and HKV dividing HQ; other inputs raise. Padding tokens (the engine's
 trash row, whose block-table row is all page 0) may sit at positions past
 max_seq: their keys stop at max_seq, so no read leaves the pool.
+
+Int8 pages (the dynamic int8 cache-KV path, :738-746): int8 pools with
+f32 scale pools [L, num_blocks, HKV, bs], q float32 or bfloat16. The
+reference dequantizes the gathered view, (code as f32 * scale) rounded to
+q's dtype, before the products; the kernel's int8 instantiations and the
+plain version do the same, and the rest is as above. Their launches are
+counted apart (``launches_int8``).
 """
 from __future__ import annotations
 
@@ -28,19 +35,24 @@ from . import _build
 
 __all__ = ["paged_attention"]
 
-# kernel launches since the last reset (ops.kernels.reset_launch_counts)
+# kernel launches since the last reset (ops.kernels.reset_launch_counts):
+# over float32 / bfloat16 pages, and over int8 pages
 launches = 0
+launches_int8 = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # pt::kFloat32, kBFloat16
 _MAX_D = 256
 
 
-def _paged_attention_ref(q, pool_k, pool_v, t2b, pos, block_tables):
+def _paged_attention_ref(q, pool_k, pool_v, t2b, pos, block_tables,
+                         scales_k=None, scales_v=None):
     """Plain PyTorch version over one layer's pools [num_blocks, HKV, bs,
     D]: gather whole pages into each row's dense view, then attend over ALL
     rows' views at once with every column of another row masked to -inf.
     That equals the reference's per-token gather kd[t2b] ([T, HKV, S, D])
-    without materialising it: a masked column adds exactly 0."""
+    without materialising it: a masked column adds exactly 0. Int8 pools
+    come with their layer's scale pools [num_blocks, HKV, bs]: the gathered
+    view is dequantized to q's dtype first, as the reference's."""
     T, HQ, D = q.shape
     HKV = pool_k.shape[1]
     bt = block_tables.long()
@@ -48,6 +60,11 @@ def _paged_attention_ref(q, pool_k, pool_v, t2b, pos, block_tables):
     max_seq = max_blocks * pool_k.shape[2]
     kd = pool_k[bt].permute(2, 0, 1, 3, 4).reshape(HKV, B * max_seq, D)
     vd = pool_v[bt].permute(2, 0, 1, 3, 4).reshape(HKV, B * max_seq, D)
+    if scales_k is not None:
+        sk = scales_k[bt].permute(2, 0, 1, 3).reshape(HKV, B * max_seq, 1)
+        sv = scales_v[bt].permute(2, 0, 1, 3).reshape(HKV, B * max_seq, 1)
+        kd = (kd.float() * sk).to(q.dtype)
+        vd = (vd.float() * sv).to(q.dtype)
     qg = q.reshape(T, HKV, HQ // HKV, D)
     logits = torch.einsum("tkgd,kcd->tkgc", qg.float(), kd.float()) \
         / math.sqrt(D)
@@ -61,13 +78,26 @@ def _paged_attention_ref(q, pool_k, pool_v, t2b, pos, block_tables):
     return out.reshape(T, HQ, D)
 
 
-def _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables):
+def _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+           k_scales, v_scales):
     if q.dim() != 3 or key_cache.dim() != 5 \
             or value_cache.shape != key_cache.shape:
         raise ValueError("paged_attention: q [T, HQ, D] and stacked caches "
                          "[L, num_blocks, HKV, block_size, D] of one shape")
     T, HQ, D = q.shape
-    L, _, HKV, _, Dc = key_cache.shape
+    L, nb, HKV, bs, Dc = key_cache.shape
+    if (k_scales is None) != (v_scales is None) \
+            or (k_scales is None) != (key_cache.dtype is not torch.int8):
+        raise ValueError("paged_attention: int8 caches come with both scale "
+                         "pools, and only they do")
+    if k_scales is not None and (
+            k_scales.shape != (L, nb, HKV, bs)
+            or v_scales.shape != k_scales.shape
+            or k_scales.dtype is not torch.float32
+            or v_scales.dtype is not torch.float32
+            or k_scales.device != q.device or v_scales.device != q.device):
+        raise ValueError("paged_attention: scale pools [L, num_blocks, HKV, "
+                         "block_size] float32 on q's device")
     if Dc != D or HQ % HKV:
         raise ValueError(f"paged_attention: q's D={D} must match the "
                          f"caches' {Dc}, and HKV={HKV} divide HQ={HQ}")
@@ -85,14 +115,16 @@ def _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables):
         raise ValueError("paged_attention: every input on q's device")
 
 
-def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables):
-    global launches
+def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+            k_scales=None, v_scales=None):
+    global launches, launches_int8
     T, HQ, D = q.shape
     _, _, HKV, bs, _ = key_cache.shape
-    if q.dtype not in _DTYPES or key_cache.dtype is not q.dtype \
-            or value_cache.dtype is not q.dtype:
+    int8 = key_cache.dtype is torch.int8
+    if q.dtype not in _DTYPES or value_cache.dtype is not key_cache.dtype \
+            or not (int8 or key_cache.dtype is q.dtype):
         raise TypeError(f"paged_attention kernel takes float32 or bfloat16 "
-                        f"q and caches of one dtype, not {q.dtype}, "
+                        f"q with caches of its dtype or int8, not {q.dtype}, "
                         f"{key_cache.dtype}, {value_cache.dtype}")
     if D % 8 or D > _MAX_D:
         raise ValueError(f"paged_attention kernel: D={D} must be a multiple "
@@ -107,6 +139,20 @@ def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables):
     out = torch.empty_like(q)
     if T == 0:
         return out
+    if int8:
+        ks, vs = k_scales[layer_idx], v_scales[layer_idx]
+        if not (ks.is_contiguous() and vs.is_contiguous()):
+            raise ValueError("paged_attention kernel: the scale pools must "
+                             "be contiguous")
+        err = _build.py_module().paged_attention_int8(
+            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
+            ks.data_ptr(), vs.data_ptr(), out.data_ptr(), t2b.data_ptr(),
+            pos.data_ptr(), bt.data_ptr(), T, HQ, HKV, D, bs, bt.shape[1],
+            _DTYPES[q.dtype], math.sqrt(D),
+            torch._C._cuda_getCurrentRawStream(q.get_device()))
+        _build.check(err, "paged_attention_int8")
+        launches_int8 += 1
+        return out
     err = _build.py_module().paged_attention(
         q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
         t2b.data_ptr(), pos.data_ptr(), bt.data_ptr(), T, HQ, HKV, D, bs,
@@ -118,19 +164,23 @@ def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables):
 
 
 def paged_attention(q, key_cache, value_cache, layer_idx, t2b, pos,
-                    block_tables):
-    """out [T, HQ, D] in the cache dtype: q [T, HQ, D] (RoPE applied,
-    rounded to the cache dtype) against layer ``layer_idx`` of the stacked
-    page pools [L, num_blocks, HKV, block_size, D]; t2b and pos [T] int64
-    (each token's batch row and cache position), block_tables [B,
-    max_blocks] int64. A CPU tensor takes the plain version, a CUDA tensor
-    the kernel."""
-    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables)
+                    block_tables, k_scales=None, v_scales=None):
+    """out [T, HQ, D] in q's dtype: q [T, HQ, D] (RoPE applied, rounded to
+    the compute dtype) against layer ``layer_idx`` of the stacked page pools
+    [L, num_blocks, HKV, block_size, D] (q's dtype, or int8 with the f32
+    scale pools ``k_scales``, ``v_scales`` [L, num_blocks, HKV,
+    block_size]); t2b and pos [T] int64 (each token's batch row and cache
+    position), block_tables [B, max_blocks] int64. A CPU tensor takes the
+    plain version, a CUDA tensor the kernel."""
+    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+           k_scales, v_scales)
     if q.is_cuda:
         return _launch(q, key_cache, value_cache, layer_idx, t2b, pos,
-                       block_tables)
+                       block_tables, k_scales, v_scales)
     if q.device.type == "cpu":
-        return _paged_attention_ref(q, key_cache[layer_idx],
-                                    value_cache[layer_idx], t2b, pos,
-                                    block_tables)
+        quant = k_scales is not None
+        return _paged_attention_ref(
+            q, key_cache[layer_idx], value_cache[layer_idx], t2b, pos,
+            block_tables, k_scales[layer_idx] if quant else None,
+            v_scales[layer_idx] if quant else None)
     raise ValueError(f"paged_attention: no path for device {q.device}")

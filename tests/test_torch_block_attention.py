@@ -133,10 +133,21 @@ def test_swiglu_matches_jax():
 
 
 def test_int8_cache_path_not_ported_yet():
+    # the int8 path is ported (tests/test_torch_kv_int8.py); what stays
+    # refused is what the reference refuses (functional/__init__.py:
+    # 602-614): the int8 mode without its scale pools, static per-tensor
+    # scales, pre_key_cache and explicit masks
     ins = _inputs([(1, 3, [3])], 1, 0)
     qkv, kc, vc, enc, dec, this, cu, bt, rope = [torch.tensor(a)
                                                  for a in ins]
-    with pytest.raises(NotImplementedError):
-        TF.block_multihead_attention(qkv, kc, vc, enc, dec, this, cu, bt,
-                                     rope, layer_idx=0,
+    scales = torch.zeros(kc.shape[:-1])
+    args = (qkv, kc, vc, enc, dec, this, cu, bt, rope)
+    with pytest.raises(ValueError, match="scale pools"):
+        TF.block_multihead_attention(*args, layer_idx=0,
                                      use_dynamic_cachekv_quant=True)
+    for kw, err in ((dict(cache_k_quant_scales=scales), NotImplementedError),
+                    (dict(pre_key_cache=kc), NotImplementedError),
+                    (dict(mask=qkv), NotImplementedError),
+                    (dict(tgt_mask=qkv), NotImplementedError)):
+        with pytest.raises(err):
+            TF.block_multihead_attention(*args, layer_idx=0, **kw)

@@ -17,7 +17,10 @@ kernels do, the dense plain versions do not), in f32 rtol 1e-4, floor
 The paged-attention kernel takes the same tolerances (both sides round P
 to the cache dtype after normalising, from f32 sums taken in other
 orders). The serving decode window's CUDA graphs are held to the eager run
-of the same body bit for bit.
+of the same body bit for bit. The int8 cache-KV path: kv_quant's codes and
+scales bit for bit against its plain version; the int8 paged kernel within
+the tolerances above of its plain version and bit for bit equal to the
+float kernel over pages of q's dtype holding the same dequantized values.
 """
 import numpy as np
 import pytest
@@ -807,3 +810,199 @@ def test_decode_window_capture_leaves_pages_and_buffers(window_model):
     # every page but the trash page 0 as it was
     assert torch.equal(eng._kc[:, 1:], kc[:, 1:])
     assert torch.equal(eng._vc[:, 1:], vc[:, 1:])
+
+
+# -- the int8 cache-KV path: quantize-on-append and int8 paged attention -----
+
+def _kv_quant_case(T, hkv, d, dtype, device, seed, layers=2, nb=40, bs=16):
+    """k [T, hkv, d] contiguous and v a strided view of a packed qkv, token
+    0's k head 0 all zero, token 1's a tie head (max 127, so the scale is 1,
+    and values n + 0.5); distinct (page, slot) per token, none on page 0;
+    zeroed int8 pools and f32 scale pools."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    qkv = torch.randn(T, 6 * hkv * d, device=device, generator=g) \
+        * torch.exp(torch.randn(T, 1, device=device, generator=g) * 2)
+    qkv = qkv.to(dtype)
+    k = qkv[:, 4 * hkv * d:5 * hkv * d].reshape(T, hkv, d).contiguous()
+    v = qkv[:, 5 * hkv * d:].reshape(T, hkv, d)
+    k[0, 0] = 0
+    if T > 1:
+        k[1, 0] = (torch.arange(d, device=device) % 9 + 0.5).to(dtype)
+        k[1, 0, 0] = 127
+    idx = torch.randperm((nb - 1) * bs, generator=torch.Generator()
+                         .manual_seed(seed))[:T].to(device)
+    page, slot = 1 + idx // bs, idx % bs
+    pools = [torch.zeros(layers, nb, hkv, bs, d, dtype=torch.int8,
+                         device=device) for _ in range(2)]
+    pools += [torch.zeros(layers, nb, hkv, bs, device=device)
+              for _ in range(2)]
+    return k, v, pools, page, slot
+
+
+@pytest.mark.parametrize("hkv", [1, 2, 8])
+@pytest.mark.parametrize("d", [256, 128, 72, 64, 32])
+@pytest.mark.parametrize("T", [8, 256])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_kv_quant_kernel_matches_plain_bit_for_bit(T, d, hkv, dtype,
+                                                   cuda_device):
+    from paddle_tpu_torch.ops.kernels import kv_quant as KQ
+
+    k, v, pools, page, slot = _kv_quant_case(T, hkv, d, dtype, cuda_device,
+                                             seed=T + d + hkv)
+    ref = [p.clone() for p in pools]
+    before = KQ.launches
+    KQ.kv_quant(k, v, *pools, 1, page, slot)
+    KQ._kv_quant_ref(k, v, *ref, 1, page, slot)
+    torch.cuda.synchronize()
+    assert KQ.launches == before + 1
+    for got, want in zip(pools, ref):
+        assert torch.equal(got, want)
+    assert not pools[0][0].any() and not pools[2][0].any()   # layer 0
+    # the zero head and the tie head
+    assert float(pools[2][1, page[0], 0, slot[0]]) == float(np.float32(1e-8))
+    if T > 1:
+        assert float(pools[2][1, page[1], 0, slot[1]]) == 1.0
+        ties = (torch.arange(1, d) % 9 + 0.5).double()
+        assert torch.equal(pools[0][1, page[1], 0, slot[1], 1:].cpu(),
+                           torch.round(ties).to(torch.int8))
+
+
+def test_kv_quant_kernel_rejects_what_it_cannot_take(cuda_device):
+    from paddle_tpu_torch.ops.kernels import kv_quant as KQ
+
+    k, v, pools, page, slot = _kv_quant_case(4, 2, 64, torch.float32,
+                                             cuda_device, seed=1)
+    with pytest.raises(TypeError):
+        KQ.kv_quant(k.half(), v.half(), *pools, 0, page, slot)
+    with pytest.raises(TypeError):
+        KQ.kv_quant(k, v, pools[0].float(), pools[1].float(), pools[2],
+                    pools[3], 0, page, slot)
+    with pytest.raises(ValueError):
+        KQ.kv_quant(k, v, *pools, 2, page, slot)
+
+
+def _int8_pools(kc, seed):
+    """int8 pools and f32 scale pools beside the float pools kc's shape."""
+    g = torch.Generator(device=kc.device).manual_seed(seed)
+    codes = [torch.randint(-127, 128, kc.shape, generator=g,
+                           device=kc.device, dtype=torch.int8)
+             for _ in range(2)]
+    scales = [torch.rand(kc.shape[:-1], generator=g, device=kc.device)
+              * 0.05 for _ in range(2)]
+    return codes + scales
+
+
+# every width class and head grouping of the float kernel, over int8 pages:
+# against the plain version, and bit for bit against the kernel over pages
+# of q's dtype holding the same dequantized values
+@pytest.mark.parametrize("case", sorted(_PAGED_CASES))
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+@pytest.mark.parametrize("d", [256, 128, 72, 64, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_attention_int8_kernel_matches_plain(case, g, d, dtype,
+                                                   cuda_device):
+    rows, n_pad, bs, mb = _PAGED_CASES[case]
+    hkv = 2
+    q, kc, vc, md, bt = _paged_case(rows, n_pad, hkv * g, hkv, d, bs, mb,
+                                    dtype, cuda_device, seed=d + g)
+    k8, v8, ks, vs = _int8_pools(kc, seed=d * g)
+    before = (PA.launches, PA.launches_int8)
+    for layer in (0, 1):
+        got = PA.paged_attention(q, k8, v8, layer, md.t2b, md.pos, bt, ks,
+                                 vs)
+        ref = PA._paged_attention_ref(q, k8[layer], v8[layer], md.t2b,
+                                      md.pos, bt, ks[layer], vs[layer])
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert bool(torch.isfinite(got.float()).all())
+        assert _worst_of_tol(got, ref, *_tol(dtype)) <= 1.0, layer
+    assert (PA.launches, PA.launches_int8) == (before[0], before[1] + 2)
+    kd = (k8.float() * ks[..., None]).to(dtype)
+    vd = (v8.float() * vs[..., None]).to(dtype)
+    same = PA.paged_attention(q, kd, vd, 1, md.t2b, md.pos, bt)
+    assert torch.equal(got, same)
+
+
+def test_paged_attention_int8_rejects_what_it_cannot_take(cuda_device):
+    q, kc, vc, md, bt = _paged_case([(1, 5)], 1, 2, 2, 64, 16, 2,
+                                    torch.float32, cuda_device, seed=1)
+    k8, v8, ks, vs = _int8_pools(kc, seed=1)
+    with pytest.raises(ValueError):                     # scales missing
+        PA.paged_attention(q, k8, v8, 0, md.t2b, md.pos, bt)
+    with pytest.raises(ValueError):                     # scales on floats
+        PA.paged_attention(q, kc, vc, 0, md.t2b, md.pos, bt, ks, vs)
+    with pytest.raises(TypeError):
+        PA.paged_attention(q.half(), k8, v8, 0, md.t2b, md.pos, bt, ks, vs)
+
+
+@pytest.fixture(scope="module")
+def window_model8():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    cfg = TS.PagedServingConfig(**_WINDOW_CFG, cache_quant="int8")
+    return TS.PagedCausalLM(cfg, device="cuda", seed=5), cfg
+
+
+@pytest.mark.parametrize("mode", sorted(_MODES))
+def test_int8_decode_window_graph_replay_equals_eager(mode, window_model8):
+    model, cfg = window_model8
+    graph = _at_decode_tip(model, cfg, _MODES[mode])
+    eager = _at_decode_tip(model, cfg, _MODES[mode])
+    assert graph._kc.dtype == torch.int8
+    while graph.pending():
+        got = graph.decode_run(8)
+        assert got == eager._decode_run_eager(8)
+    assert not eager.pending()
+    assert all(w.graph is not None for w in graph._window_fns.values())
+    assert torch.equal(graph._ks[:, 1:], eager._ks[:, 1:])
+    assert torch.equal(graph._kc[:, 1:], eager._kc[:, 1:])
+
+
+def test_int8_decode_window_counts_replays(window_model8):
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    model, cfg = window_model8
+    L = cfg.num_layers
+    eng = _at_decode_tip(model, cfg, _MODES["topk"])
+    eng.decode_run(4)                        # captures
+    (key, win), = eng._window_fns.items()
+    assert win.graph_launches["paged_attention_int8"] == L
+    assert win.graph_launches["kv_quant"] == L
+    reset_launch_counts()
+    eng.decode_run(4)                        # replays only
+    counts = launch_counts()
+    assert counts["rms_norm"] == 4 * (2 * L + 1)
+    assert counts["paged_attention_int8"] == 4 * L
+    assert counts["kv_quant"] == 4 * L
+    assert counts["paged_attention"] == 0
+    assert counts["varlen_attention_fwd"] == 0
+    assert counts["aligned16_copies"] == 0
+
+
+def test_int8_decode_window_capture_leaves_pages_and_scales(window_model8):
+    model, cfg = window_model8
+    eng = _at_decode_tip(model, cfg, _MODES["full"])
+    rows = [r for r in eng.pending()]
+    win = TS._DecodeWindow(eng, 4, "full")
+    B1 = cfg.max_batch + 1
+    bt = np.zeros((B1, cfg.max_blocks_per_seq), np.int64)
+    for i, r in enumerate(rows):
+        eng._ensure_pages(r, r.cached + 4)
+        bt[i, :len(r.pages)] = r.pages
+    this = np.array([1, 1, 1, 0, 1])
+    cu = np.concatenate([[0], np.cumsum(this)])
+    dec = np.array([r.cached for r in rows] + [0, 0])
+    with torch.inference_mode():
+        win.stage(np.array([5, 6, 7, 0]), np.array([0, 0, 0, 0, 1]), dec,
+                  this, cu, bt, np.full(B1, 0.9, np.float32),
+                  np.zeros(B1, np.int64), np.ones(B1, np.float32),
+                  np.arange(B1) + 100)
+        torch.cuda.synchronize()
+        before = [t.clone() for t in (win.buf, eng._kc, eng._vc, eng._ks,
+                                      eng._vs)]
+        win.capture(torch.cuda.graph_pool_handle())
+    assert win.graph is not None
+    assert torch.equal(win.buf, before[0])
+    # every page and every scale but the trash page 0's as they were
+    for now, was in zip((eng._kc, eng._vc, eng._ks, eng._vs), before[1:]):
+        assert torch.equal(now[:, 1:], was[:, 1:])
