@@ -1613,11 +1613,13 @@ def phase_packed_parity(dev):
                              "the CPU")
 
 
-def _paged_inputs(dev, cfg, rows, dtype, gen):
+def _paged_inputs(dev, cfg, rows, dtype, gen, n_pad=0):
     """The paged-attention kernel's inputs at the serving config's widths
-    for rows [(tokens, start position)], each on its own pages, no padding:
-    q [T, HQ, D], the stacked caches [L, num_blocks, HKV, bs, D] (random)
-    and the step's metadata (t2b, pos) from IF.paged_metadata."""
+    for rows [(tokens, start position)], each on its own pages, and n_pad
+    padding tokens in the trash row (last, block-table row all page 0,
+    positions from 0): q [T, HQ, D], the stacked caches [L, num_blocks,
+    HKV, bs, D] (random) and the step's metadata (t2b, pos) from
+    IF.paged_metadata."""
     from paddle_tpu_torch.incubate.nn import functional as IF
 
     mb, bs = cfg.max_blocks_per_seq, cfg.block_size
@@ -1629,6 +1631,7 @@ def _paged_inputs(dev, cfg, rows, dtype, gen):
     for i, (n, start) in enumerate(rows):
         dec[i], this[i] = start, n
         bt[i] = torch.arange(1 + i * mb, 1 + (i + 1) * mb)
+    this[-1] = enc[-1] = n_pad
     cu = torch.zeros(B1 + 1, dtype=torch.int64)
     cu[1:] = torch.cumsum(this, 0)
     T = int(cu[-1])
@@ -1642,6 +1645,18 @@ def _paged_inputs(dev, cfg, rows, dtype, gen):
     md = IF.paged_metadata(T, enc.to(dev), dec.to(dev), cu.to(dev),
                            bt.to(dev), bs, rope)
     return q, kc, vc, md.t2b, md.pos, bt.to(dev)
+
+
+# the paged-attention kernel's timed shapes besides decode (whose positions
+# the serving phase gives): (rows [(tokens, start position)], trash-row
+# padding tokens). A chunked-prefill step (chunks appended at several
+# depths, 256 tokens), and a speculative verify step (8 rows of 1 + k = 5
+# tokens at positions 96-184, padded to 64 tokens as _spec_step pads to a
+# power of two)
+PAGED_SHAPES = {
+    "chunked": ([(120, 64), (100, 90), (1, 170), (35, 0)], 0),
+    "verify": ([(5, 96 + 12 * i) for i in range(8)], 24),
+}
 
 
 def _paged_bound(q, kc, t2b, pos, bt):
@@ -1671,8 +1686,9 @@ def phase_paged_kernel(dev, results, probes, serving):
     """The paged-attention kernel (decode and chunked-prefill steps)
     against its plain version in bf16 and f32 at the serving config's
     widths: the flagship decode shape (8 rows, one token each, at the
-    positions the serving phase's first decode window started from) and a
-    256-token chunked step; then timed beside its plain version and one
+    positions the serving phase's first decode window started from), a
+    256-token chunked step and a speculative verify step (PAGED_SHAPES);
+    then timed beside its plain version and one
     F.scaled_dot_product_attention call on the already-gathered dense view
     (kd[t2b], vd[t2b]; the gather is not timed) with a bool mask and GQA
     (enable_gqa). The timed calls cycle over the 16 layers' pools (134 MB
@@ -1684,17 +1700,16 @@ def phase_paged_kernel(dev, results, probes, serving):
     gen = torch.Generator(device=dev).manual_seed(17)
     L = cfg.num_layers
     shapes = {
-        "decode": [(1, p) for p in serving["run"]["decode_positions"]],
-        # a chunked-prefill step: chunks appended at several depths
-        "chunked": [(120, 64), (100, 90), (1, 170), (35, 0)],
+        "decode": ([(1, p) for p in serving["run"]["decode_positions"]], 0),
+        **PAGED_SHAPES,
     }
     errs = {}
     rows = {}
-    for label, spec in shapes.items():
+    for label, (spec, n_pad) in shapes.items():
         for dtype, tol in ((torch.bfloat16, (2.0 ** -6, 1e-5)),
                            (torch.float32, (1e-4, 1e-6))):
             q, kc, vc, t2b, pos, bt = _paged_inputs(dev, cfg, spec, dtype,
-                                                    gen)
+                                                    gen, n_pad)
             worst = 0.0
             for layer in (0, L - 1):
                 got = PA.paged_attention(q, kc, vc, layer, t2b, pos, bt)
@@ -1769,12 +1784,14 @@ def phase_paged_kernel(dev, results, probes, serving):
                                if dt == torch.bfloat16),
                max_abs_err_f32=max(v for (_, dt), v in errs.items()
                                    if dt == torch.float32),
-               **timed["decode"], at_chunked_shape=timed["chunked"])
+               **timed["decode"], at_chunked_shape=timed["chunked"],
+               at_verify_shape=timed["verify"])
     results["paged_attention"] = row
     for label, target in (("decode", row),
-                          ("chunked", row["at_chunked_shape"])):
+                          ("chunked", row["at_chunked_shape"]),
+                          ("verify", row["at_verify_shape"])):
         probes[f"paged_attention {label}"] = (
-            calls[label], "paged_attention_kernel", 48, target)
+            calls[label], "paged_attention_tc_kernel", 48, target)
 
 
 def _prompts(rng, lens, vocab):
@@ -2058,7 +2075,7 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8):
             for name, syms in (("rms_norm", ("rms_norm_kernel",
                                              "rms_norm_two_pass_kernel")),
                                ("paged_attention",
-                                ("paged_attention_kernel",)))}
+                                ("paged_attention_tc_kernel",)))}
     want = {"rms_norm": (2 * L + 1) * 16, "paged_attention": L * 16}
     if seen != want or any(counted[k] != n for k, n in want.items()):
         raise AssertionError(f"profile: 16 decode replays launched {seen} "
@@ -2082,7 +2099,7 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8):
     seen8 = {name: sum(n for key, (n, _) in dec8.items()
                        if f"::{sym}<" in key)
              for name, sym in (("paged_attention_int8",
-                                "paged_attention_kernel"),
+                                "paged_attention_tc_kernel"),
                                ("kv_quant", "kv_quant_kernel"))}
     if _graph_count(eng8) != graphs8 or len(got8) != 16 * 8 \
             or seen8 != {"paged_attention_int8": L * 16, "kv_quant": L * 16}:
@@ -2151,9 +2168,10 @@ def phase_int8_kernels(dev, results, probes, serving):
     kv_quant at the decode shape (8 tokens) and the 256-token step, bf16
     and f32 inputs: codes and scales bit for bit (a tie head and an all-zero
     head included); timed in turns with its plain version (no single
-    PyTorch call computes it: library null). paged_attention_int8 at PR 8's
-    two shapes (8 decode rows at the serving phase's decode positions; a
-    256-token chunked step), bf16 and f32 q, within the float kernel's
+    PyTorch call computes it: library null). paged_attention_int8 at the
+    float kernel's three shapes (8 decode rows at the serving phase's decode
+    positions; PAGED_SHAPES' 256-token chunked step and speculative verify
+    step), bf16 and f32 q, within the float kernel's
     tolerance of its plain version and bit for bit equal to the float
     kernel over pages of q's dtype that hold the same dequantized values;
     then timed in turns with that bf16 kernel on the same rows and with SDPA
@@ -2235,15 +2253,15 @@ def phase_int8_kernels(dev, results, probes, serving):
 
     # -- paged attention over int8 pages
     shapes = {
-        "decode": [(1, p) for p in serving["run"]["decode_positions"]],
-        "chunked": [(120, 64), (100, 90), (1, 170), (35, 0)],
+        "decode": ([(1, p) for p in serving["run"]["decode_positions"]], 0),
+        **PAGED_SHAPES,
     }
     errs, rows = {}, {}
-    for label, spec in shapes.items():
+    for label, (spec, n_pad) in shapes.items():
         for dtype, tol in ((torch.bfloat16, (2.0 ** -6, 1e-5)),
                            (torch.float32, (1e-4, 1e-6))):
             q, kc, _, t2b, pos, bt = _paged_inputs(dev, cfg, spec, dtype,
-                                                   gen)
+                                                   gen, n_pad)
             del kc
             k8, v8 = [torch.randint(-127, 128, (L, cfg.num_blocks, HKV,
                                                 cfg.block_size, D),
@@ -2344,12 +2362,14 @@ def phase_int8_kernels(dev, results, probes, serving):
                                if dt == torch.bfloat16),
                max_abs_err_f32=max(v for (_, dt), v in errs.items()
                                    if dt == torch.float32),
-               **timed["decode"], at_chunked_shape=timed["chunked"])
+               **timed["decode"], at_chunked_shape=timed["chunked"],
+               at_verify_shape=timed["verify"])
     results["paged_attention_int8"] = row
     for label, target in (("decode", row),
-                          ("chunked", row["at_chunked_shape"])):
+                          ("chunked", row["at_chunked_shape"]),
+                          ("verify", row["at_verify_shape"])):
         probes[f"paged_attention_int8 {label}"] = (
-            calls[label], "paged_attention_kernel", 48, target)
+            calls[label], "paged_attention_tc_kernel", 48, target)
 
 
 def phase_int8_serving(dev, serving):

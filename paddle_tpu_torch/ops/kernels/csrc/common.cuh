@@ -106,6 +106,82 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// As cp_async_wait<n> for a count known only at run time (0..7; a larger n
+// waits for all but 7).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
+}
+
+// 8 and 4 bytes from global to shared memory, asynchronously (L1 and L2),
+// or zeros and no read when !in. Both addresses aligned to the size.
+__device__ __forceinline__ void cp_async8_zfill(void* smem, const void* gmem,
+                                                bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(in ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4_zfill(void* smem, const void* gmem,
+                                                bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(smem)),
+               "l"(gmem), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// mma.sync (sm_80 and later): a warp's 16 x 8 f32 tile d += a b over a
+// depth of 16, bf16 operands. a: the A fragment of 16 x 16 (row-major),
+// b: the B fragment of 16 x 8 (k-major), as ldmatrix leaves them; d's
+// lane l holds rows l/4 and l/4 + 8, columns 2 (l%4) and 2 (l%4) + 1.
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
+                                          const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix: 8 x 8 tiles of 16-bit elements from shared memory, each lane
+// giving one 16-byte row address (lanes 0-7 the first tile's rows, 8-15
+// the second's, ...); lane l receives row l/4, elements 2 (l%4) and +1 of
+// each tile (.trans: column l/4, rows 2 (l%4) and +1).
+// The address is a shared-memory one (smem_addr), so that a loop can keep
+// its addresses in registers.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
 // wgmma (sm_90a): a warpgroup of 4 warps starts an asynchronous product of
 // a 64-row tile. Shared-memory operands are described by a descriptor;
 // these kernels keep every operand tile in the 128-byte swizzled layout: a

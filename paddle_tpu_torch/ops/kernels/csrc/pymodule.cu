@@ -25,14 +25,14 @@ extern "C" int pt_rms_norm_bwd(const void* x, const void* g, const void* w,
 extern "C" int pt_paged_attention(const void* q, const void* k, const void* v,
                                   void* out, const void* t2b, const void* pos,
                                   const void* bt, int T, int HQ, int HKV,
-                                  int D, int bs, int max_blocks, int dtype,
-                                  float scale_div, void* stream);
+                                  int D, int bs, int max_blocks, int B,
+                                  int dtype, float scale_div, void* stream);
 extern "C" int pt_paged_attention_int8(const void* q, const void* k,
                                        const void* v, const void* ks,
                                        const void* vs, void* out,
                                        const void* t2b, const void* pos,
                                        const void* bt, int T, int HQ, int HKV,
-                                       int D, int bs, int max_blocks,
+                                       int D, int bs, int max_blocks, int B,
                                        int dtype, float scale_div,
                                        void* stream);
 extern "C" int pt_kv_quant(const void* k, const void* v, int64_t k_stride,
@@ -118,43 +118,44 @@ PyObject* rms_norm_bwd(PyObject*, PyObject* const* a, Py_ssize_t n) {
 }
 
 // paged_attention(q, k, v, out, t2b, pos, bt, T, HQ, HKV, D, bs, max_blocks,
-// dtype, scale_div, stream) -> cudaError_t
+// B, dtype, scale_div, stream) -> cudaError_t
 PyObject* paged_attention(PyObject*, PyObject* const* a, Py_ssize_t n) {
   void *q, *k, *v, *out, *t2b, *pos, *bt, *stream;
-  int T, HQ, HKV, D, bs, max_blocks, dtype;
+  int T, HQ, HKV, D, bs, max_blocks, B, dtype;
   float scale_div;
-  if (!arity("paged_attention", n, 16) || !as_ptr(a[0], &q) ||
+  if (!arity("paged_attention", n, 17) || !as_ptr(a[0], &q) ||
       !as_ptr(a[1], &k) || !as_ptr(a[2], &v) || !as_ptr(a[3], &out) ||
       !as_ptr(a[4], &t2b) || !as_ptr(a[5], &pos) || !as_ptr(a[6], &bt) ||
       !as_int(a[7], &T) || !as_int(a[8], &HQ) || !as_int(a[9], &HKV) ||
       !as_int(a[10], &D) || !as_int(a[11], &bs) ||
-      !as_int(a[12], &max_blocks) || !as_int(a[13], &dtype) ||
-      !as_float(a[14], &scale_div) || !as_ptr(a[15], &stream))
+      !as_int(a[12], &max_blocks) || !as_int(a[13], &B) ||
+      !as_int(a[14], &dtype) || !as_float(a[15], &scale_div) ||
+      !as_ptr(a[16], &stream))
     return nullptr;
   return PyLong_FromLong(pt_paged_attention(q, k, v, out, t2b, pos, bt, T, HQ,
-                                            HKV, D, bs, max_blocks, dtype,
+                                            HKV, D, bs, max_blocks, B, dtype,
                                             scale_div, stream));
 }
 
 // paged_attention_int8(q, k, v, ks, vs, out, t2b, pos, bt, T, HQ, HKV, D, bs,
-// max_blocks, dtype, scale_div, stream) -> cudaError_t
+// max_blocks, B, dtype, scale_div, stream) -> cudaError_t
 PyObject* paged_attention_int8(PyObject*, PyObject* const* a, Py_ssize_t n) {
   void *q, *k, *v, *ks, *vs, *out, *t2b, *pos, *bt, *stream;
-  int T, HQ, HKV, D, bs, max_blocks, dtype;
+  int T, HQ, HKV, D, bs, max_blocks, B, dtype;
   float scale_div;
-  if (!arity("paged_attention_int8", n, 18) || !as_ptr(a[0], &q) ||
+  if (!arity("paged_attention_int8", n, 19) || !as_ptr(a[0], &q) ||
       !as_ptr(a[1], &k) || !as_ptr(a[2], &v) || !as_ptr(a[3], &ks) ||
       !as_ptr(a[4], &vs) || !as_ptr(a[5], &out) || !as_ptr(a[6], &t2b) ||
       !as_ptr(a[7], &pos) || !as_ptr(a[8], &bt) || !as_int(a[9], &T) ||
       !as_int(a[10], &HQ) || !as_int(a[11], &HKV) || !as_int(a[12], &D) ||
       !as_int(a[13], &bs) || !as_int(a[14], &max_blocks) ||
-      !as_int(a[15], &dtype) || !as_float(a[16], &scale_div) ||
-      !as_ptr(a[17], &stream))
+      !as_int(a[15], &B) || !as_int(a[16], &dtype) ||
+      !as_float(a[17], &scale_div) || !as_ptr(a[18], &stream))
     return nullptr;
   return PyLong_FromLong(pt_paged_attention_int8(q, k, v, ks, vs, out, t2b,
                                                  pos, bt, T, HQ, HKV, D, bs,
-                                                 max_blocks, dtype, scale_div,
-                                                 stream));
+                                                 max_blocks, B, dtype,
+                                                 scale_div, stream));
 }
 
 // kv_quant(k, v, k_stride, v_stride, page, slot, kc, vc, ks, vs, T, HKV, D,

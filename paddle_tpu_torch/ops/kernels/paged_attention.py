@@ -1,5 +1,6 @@
-"""Paged-KV attention of the serving decode and chunked-prefill steps: the
-CUDA kernel (csrc/paged_attention.cu) and its plain version.
+"""Paged-KV attention of the serving decode, chunked-prefill, prefix-hit
+and speculative-verify steps: the CUDA kernel (csrc/paged_attention.cu)
+and its plain version.
 
 Replaces the non-fresh route of paddle_tpu/incubate/nn/functional/
 __init__.py::block_multihead_attention (:733-761), which the TPU package
@@ -8,10 +9,12 @@ t2b[t], at cache position pos[t], attends its own row's cache positions
 0..pos[t] (at most max_seq) in its kv-head group, K and V read from the
 stacked page pools through the block table. Logits take the cache dtype's
 operands with f32 accumulation, scaled by 1/sqrt(D); softmax in f32; the
-probabilities are rounded to the cache dtype after normalisation, P V
+probabilities are rounded to the cache dtype after normalising, P V
 accumulates in f32 and is cast to the cache dtype: the reference's
-rounding, which the plain version keeps. Bound by bytes; the source note
-gives the bound and the design.
+rounding, which the plain version keeps. bf16 runs on the tensor cores, a
+block a query tile of up to 32 tokens of one row sharing one read of its
+pages; f32 keeps the CUDA-core kernel. The source note gives the bound and
+the design.
 
 The kernel takes float32 and bfloat16 caches, D a multiple of 8 up to 256
 and HKV dividing HQ; other inputs raise. Padding tokens (the engine's
@@ -24,6 +27,10 @@ reference dequantizes the gathered view, (code as f32 * scale) rounded to
 q's dtype, before the products; the kernel's int8 instantiations and the
 plain version do the same, and the rest is as above. Their launches are
 counted apart (``launches_int8``).
+
+A step calls the kernel once a layer with the same caches, metadata and
+block tables, so the wrapper checks those once a step (``_launch``) and
+calls the library through its extension module (csrc/pymodule.cu).
 """
 from __future__ import annotations
 
@@ -115,11 +122,16 @@ def _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
         raise ValueError("paged_attention: every input on q's device")
 
 
-def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
-            k_scales=None, v_scales=None):
-    global launches, launches_int8
+def _validate(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+              k_scales, v_scales):
+    """Every check of a kernel call, and what its launches share while the
+    step's inputs stay the same objects: (the C entry, the int8 flag, the
+    pools' base pointers and layer strides in bytes, the index tensors'
+    pointers, the sizes, the dtype code, sqrt(D)), or raise."""
+    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+           k_scales, v_scales)
     T, HQ, D = q.shape
-    _, _, HKV, bs, _ = key_cache.shape
+    L, _, HKV, bs, _ = key_cache.shape
     int8 = key_cache.dtype is torch.int8
     if q.dtype not in _DTYPES or value_cache.dtype is not key_cache.dtype \
             or not (int8 or key_cache.dtype is q.dtype):
@@ -129,35 +141,68 @@ def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
     if D % 8 or D > _MAX_D:
         raise ValueError(f"paged_attention kernel: D={D} must be a multiple "
                          f"of 8 up to {_MAX_D}")
-    pool_k, pool_v = key_cache[layer_idx], value_cache[layer_idx]
-    if not (pool_k.is_contiguous() and pool_v.is_contiguous()):
-        raise ValueError("paged_attention kernel: the caches must be "
-                         "contiguous")
-    q = _build.aligned16(q.contiguous())
-    t2b, pos = t2b.contiguous(), pos.contiguous()
-    bt = block_tables.contiguous()
+    pools = (key_cache, value_cache) + ((k_scales, v_scales) if int8 else ())
+    if not all(t.is_contiguous() for t in pools):
+        raise ValueError("paged_attention kernel: the caches and scale "
+                         "pools must be contiguous")
+    index = (t2b.contiguous(), pos.contiguous(), block_tables.contiguous())
+    mod = _build.py_module()
+    return (mod.paged_attention_int8 if int8 else mod.paged_attention, int8,
+            tuple((t.data_ptr(), t.stride(0) * t.element_size())
+                  for t in pools),
+            tuple(t.data_ptr() for t in index), index, L,
+            (T, HQ, HKV, D, bs, block_tables.shape[1],
+             block_tables.shape[0], _DTYPES[q.dtype], math.sqrt(D)),
+            (q.shape, q.dtype, q.get_device()))
+
+
+# the last validated call: the ids of its step inputs (kept alive with it,
+# so an id is not reused) and _validate's result
+_step = None
+
+
+def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+            k_scales=None, v_scales=None):
+    """The kernel's call. The step's inputs (caches, scale pools, t2b, pos,
+    block tables) are the same objects for every layer of a step, so their
+    checks run once: a call whose inputs are the last validated call's, q
+    of the same shape, dtype and device, checks only layer_idx and q's
+    layout; any other call is checked in full."""
+    global launches, launches_int8, _step
+    inputs = (key_cache, value_cache, t2b, pos, block_tables, k_scales,
+              v_scales)
+    ids = tuple(map(id, inputs))
+    st = _step
+    if st is None or st[0] != ids or st[2] != (q.shape, q.dtype,
+                                               q.get_device()):
+        shared = _validate(q, key_cache, value_cache, layer_idx, t2b, pos,
+                           block_tables, k_scales, v_scales)
+        st = (ids, inputs, shared[-1], shared[:-1])
+        # an index tensor copied to be contiguous would go stale: no reuse
+        _step = st if all(a is b for a, b in zip(
+            shared[4], (t2b, pos, block_tables))) else None
+    fn, int8, pools, index, _, L, sizes = st[3]
+    if not 0 <= layer_idx < L:
+        raise ValueError(f"paged_attention: layer_idx {layer_idx} not in "
+                         f"[0, {L})")
+    if not q.is_contiguous():
+        q = q.contiguous()
+    q = _build.aligned16(q)
     out = torch.empty_like(q)
-    if T == 0:
+    if sizes[0] == 0:
         return out
+    stream = torch._C._cuda_getCurrentRawStream(st[2][2])
     if int8:
-        ks, vs = k_scales[layer_idx], v_scales[layer_idx]
-        if not (ks.is_contiguous() and vs.is_contiguous()):
-            raise ValueError("paged_attention kernel: the scale pools must "
-                             "be contiguous")
-        err = _build.py_module().paged_attention_int8(
-            q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(),
-            ks.data_ptr(), vs.data_ptr(), out.data_ptr(), t2b.data_ptr(),
-            pos.data_ptr(), bt.data_ptr(), T, HQ, HKV, D, bs, bt.shape[1],
-            _DTYPES[q.dtype], math.sqrt(D),
-            torch._C._cuda_getCurrentRawStream(q.get_device()))
+        (k, ks), (v, vs), (sk, ss), (sv, _) = pools
+        err = fn(q.data_ptr(), k + layer_idx * ks, v + layer_idx * vs,
+                 sk + layer_idx * ss, sv + layer_idx * ss, out.data_ptr(),
+                 *index, *sizes, stream)
         _build.check(err, "paged_attention_int8")
         launches_int8 += 1
         return out
-    err = _build.py_module().paged_attention(
-        q.data_ptr(), pool_k.data_ptr(), pool_v.data_ptr(), out.data_ptr(),
-        t2b.data_ptr(), pos.data_ptr(), bt.data_ptr(), T, HQ, HKV, D, bs,
-        bt.shape[1], _DTYPES[q.dtype], math.sqrt(D),
-        torch._C._cuda_getCurrentRawStream(q.get_device()))
+    (k, ks), (v, vs) = pools
+    err = fn(q.data_ptr(), k + layer_idx * ks, v + layer_idx * vs,
+             out.data_ptr(), *index, *sizes, stream)
     _build.check(err, "paged_attention")
     launches += 1
     return out
@@ -172,11 +217,11 @@ def paged_attention(q, key_cache, value_cache, layer_idx, t2b, pos,
     block_size]); t2b and pos [T] int64 (each token's batch row and cache
     position), block_tables [B, max_blocks] int64. A CPU tensor takes the
     plain version, a CUDA tensor the kernel."""
-    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
-           k_scales, v_scales)
     if q.is_cuda:
         return _launch(q, key_cache, value_cache, layer_idx, t2b, pos,
                        block_tables, k_scales, v_scales)
+    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+           k_scales, v_scales)
     if q.device.type == "cpu":
         quant = k_scales is not None
         return _paged_attention_ref(

@@ -664,14 +664,16 @@ def _paged_case(rows, n_pad, hq, hkv, d, bs, max_blocks, dtype, device,
 
 # (rows [(tokens, start)], padding tokens, block size, blocks a row): decode
 # rows up to position 4,095, the same over 512 blocks a row (beyond the 256
-# table entries a block keeps in shared memory, so the kernel reads the
-# table from global memory), and a chunked step with a chunk crossing pages
-# and padding past max_seq = 256
+# table entries the f32 kernel keeps in shared memory, so it reads the
+# table from global memory), a chunked step with a chunk crossing pages
+# and padding past max_seq = 256, and chunks deep in a 512-block table
+# (rows far longer than the bf16 kernel keeps S for, so it streams K and V)
 _PAGED_CASES = {
     "decode": ([(1, 4095), (1, 0), (1, 31), (1, 1000), (1, 2047)], 3, 32,
                128),
     "decode_wide_table": ([(1, 4095), (1, 2100), (1, 7)], 2, 8, 512),
     "chunked": ([(40, 30), (1, 200), (100, 0), (7, 249)], 300, 16, 16),
+    "chunked_wide_table": ([(40, 4000), (33, 2000), (1, 4095)], 5, 8, 512),
 }
 
 
@@ -700,6 +702,89 @@ def test_paged_attention_kernel_matches_plain(case, g, d, dtype,
     assert PA.launches == before + 2
     again = PA.paged_attention(q, kc, vc, 1, md.t2b, md.pos, bt)
     assert torch.equal(again, got)                     # the same bits
+
+
+# The bf16 kernel's query tiles (up to 32 consecutive tokens of a row): a row of 1, 5, 31, 32, 33 or 120 tokens of the step at
+# depths 0, 31, 32, 96 and max_seq - 1 (= 127: 16-slot pages, 8 a row),
+# beside a decode row, a 7-token row, and trash-row padding whose positions
+# run past max_seq. D 256 takes 32-key chunks, so its rows past 96 keys
+# stream K and V through the ring instead of keeping S whole.
+_TILE_MAX_SEQ = 128
+_TILE_ROWS = [(n, depth) for n in (1, 5, 31, 32, 33, 120)
+              for depth in (0, 31, 32, 96, _TILE_MAX_SEQ - 1)
+              if n + depth <= _TILE_MAX_SEQ]
+
+
+@pytest.mark.parametrize("tokens,depth", _TILE_ROWS)
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("d", [256, 128, 64])
+def test_paged_attention_tiles_match_plain(tokens, depth, g, d, cuda_device):
+    rows = [(1, 50), (tokens, depth), (7, 3)]
+    q, kc, vc, md, bt = _paged_case(rows, _TILE_MAX_SEQ + 20, 2 * g, 2, d,
+                                    16, _TILE_MAX_SEQ // 16, torch.bfloat16,
+                                    cuda_device, seed=tokens + depth + d + g)
+    got = PA.paged_attention(q, kc, vc, 1, md.t2b, md.pos, bt)
+    ref = PA._paged_attention_ref(q, kc[1], vc[1], md.t2b, md.pos, bt)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got.float()).all())
+    assert _worst_of_tol(got, ref, *_tol(torch.bfloat16)) <= 1.0
+    k8, v8, ks, vs = _int8_pools(kc, seed=tokens + depth)
+    got8 = PA.paged_attention(q, k8, v8, 1, md.t2b, md.pos, bt, ks, vs)
+    ref8 = PA._paged_attention_ref(q, k8[1], v8[1], md.t2b, md.pos, bt,
+                                   ks[1], vs[1])
+    kd = (k8.float() * ks[..., None]).to(torch.bfloat16)
+    vd = (v8.float() * vs[..., None]).to(torch.bfloat16)
+    deq = PA.paged_attention(q, kd, vd, 1, md.t2b, md.pos, bt)
+    torch.cuda.synchronize()
+    assert _worst_of_tol(got8, ref8, *_tol(torch.bfloat16)) <= 1.0
+    assert torch.equal(got8, deq)
+
+
+def test_paged_attention_takes_rows_in_any_order(cuda_device):
+    """Tokens of a row need not be contiguous: each run of a row's tokens
+    is its own tile, and when the runs outnumber the grid's blocks the
+    blocks take several tiles each."""
+    q, kc, vc, md, bt = _paged_case([(20, 40), (9, 0), (1, 77)], 0, 4, 2,
+                                    128, 16, 8, torch.bfloat16, cuda_device,
+                                    seed=3)
+    perm = torch.randperm(q.shape[0], generator=torch.Generator()
+                          .manual_seed(3)).to(cuda_device)
+    t2b, pos, qp = md.t2b[perm], md.pos[perm], q[perm].contiguous()
+    got = PA.paged_attention(qp, kc, vc, 0, t2b, pos, bt)
+    ref = PA._paged_attention_ref(qp, kc[0], vc[0], t2b, pos, bt)
+    torch.cuda.synchronize()
+    assert _worst_of_tol(got, ref, *_tol(torch.bfloat16)) <= 1.0
+
+
+@pytest.mark.parametrize("pages", ["bf16", "int8"])
+def test_paged_attention_graph_replay_and_repeats_to_the_bit(pages,
+                                                             cuda_device):
+    """No atomics and a grid fixed by the shapes: calls repeat to the bit,
+    and a call captured in a CUDA graph replays the eager call's bits
+    (decode rows and a chunked row, with padding)."""
+    q, kc, vc, md, bt = _paged_case([(1, 90), (40, 60), (1, 5)], 9, 4, 2,
+                                    128, 32, 6, torch.bfloat16, cuda_device,
+                                    seed=8)
+    scales = ()
+    if pages == "int8":
+        k8, v8, ks, vs = _int8_pools(kc, seed=8)
+        kc, vc, scales = k8, v8, (ks, vs)
+    eager = [PA.paged_attention(q, kc, vc, 1, md.t2b, md.pos, bt, *scales)
+             for _ in range(3)]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        PA.paged_attention(q, kc, vc, 1, md.t2b, md.pos, bt, *scales)
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = PA.paged_attention(q, kc, vc, 1, md.t2b, md.pos, bt, *scales)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for e in eager[1:]:
+        assert torch.equal(e, eager[0])
+    assert torch.equal(out, eager[0])
 
 
 def test_paged_attention_kernel_rejects_what_it_cannot_take(cuda_device):

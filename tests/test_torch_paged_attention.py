@@ -141,6 +141,88 @@ def test_plain_version_matches_jax_non_fresh_route(layer, dtype):
         assert torch.equal(vc[:, 1:].float(), j_vc[:, 1:])
 
 
+# Serving steps that run the paged route with several tokens a row, at
+# block size 8 and 16 blocks a row (max_seq 128): a speculative verify step
+# (ServingEngine._spec_step: each row's tip and k = 4 drafts, the step
+# padded to a power of two, 32 tokens, by the trash row), and a prefix-cache
+# hit (a 20-token suffix after a 96-token cached prefix) beside a decode
+# row. (rows [(tokens, start position)], trash-row padding tokens)
+SERVING_BS, SERVING_MB = 8, 16
+SERVING_SHAPES = {
+    "verify": ([(5, 9), (5, 40), (5, 63), (5, 90)], 12),
+    "prefix_hit": ([(20, 96), (1, 57)], 0),
+}
+
+
+def _serving_inputs(rows, n_pad, seed):
+    rng = np.random.RandomState(seed)
+    max_seq = SERVING_BS * SERVING_MB
+    B1 = len(rows) + 1
+    nb = 1 + len(rows) * SERVING_MB
+    enc = np.zeros(B1, np.int64)
+    dec = np.zeros(B1, np.int64)
+    this = np.zeros(B1, np.int64)
+    bt = np.zeros((B1, SERVING_MB), np.int64)
+    pages = rng.permutation(nb - 1) + 1
+    for i, (n, start) in enumerate(rows):
+        dec[i], this[i] = start, n
+        bt[i] = pages[i * SERVING_MB:(i + 1) * SERVING_MB]
+    this[-1] = enc[-1] = n_pad
+    cu = np.zeros(B1 + 1, np.int64)
+    cu[1:] = np.cumsum(this)
+    T = int(cu[-1])
+    half = D // 2
+    inv = 1.0 / (10000.0 ** (np.arange(half, dtype=np.float32) * 2.0 / D))
+    ang = np.arange(max_seq, dtype=np.float32)[:, None] * inv
+    cs = np.stack([np.cos(ang), np.sin(ang)]).astype(np.float32)
+    rope = np.ascontiguousarray(np.broadcast_to(
+        cs[:, None, None], (2, B1, 1, max_seq, half)))
+    qkv = rng.randn(T, (HQ + 2 * HKV) * D).astype(np.float32)
+    kc = rng.randn(L, nb, HKV, SERVING_BS, D).astype(np.float32)
+    vc = rng.randn(L, nb, HKV, SERVING_BS, D).astype(np.float32)
+    return qkv, kc, vc, enc, dec, this, cu, bt, rope
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape", sorted(SERVING_SHAPES))
+def test_plain_version_matches_jax_at_serving_shapes(shape, dtype):
+    """The verify and prefix-hit steps: the port's route (RoPE, the page
+    scatter, then the plain version of the paged kernel) against the JAX
+    reference's non-fresh route, live tokens and every page but the trash
+    page, to the tolerances of the module docstring."""
+    rows, n_pad = SERVING_SHAPES[shape]
+    ins = _serving_inputs(rows, n_pad, seed=len(rows))
+    qkv, kc, vc, enc, dec, this, cu, bt, rope = [torch.tensor(a)
+                                                 for a in ins]
+    qkv, kc, vc = qkv.to(dtype), kc.to(dtype), vc.to(dtype)
+    out, _, kc, vc = TF.block_multihead_attention(
+        qkv, kc, vc, enc, dec, this, cu, bt, rope, layer_idx=1)
+    jd = "bfloat16" if dtype == torch.bfloat16 else "float32"
+    pt = paddle.to_tensor
+    a = ins
+    jo = JF.block_multihead_attention(
+        pt(a[0]).astype(jd), pt(a[1]).astype(jd), pt(a[2]).astype(jd),
+        pt(a[3]), pt(a[4]), pt(a[5]), None, None, pt(a[6]), None, pt(a[7]),
+        rope_emb=pt(a[8]), layer_idx=1, max_seq_len=SERVING_BS * SERVING_MB,
+        block_size=SERVING_BS)
+    j_out, j_kc, j_vc = [torch.tensor(np.asarray(t.astype("float32")
+                                                 .numpy()))
+                         for t in (jo[0], jo[2], jo[3])]
+    live = int(a[6][-2])                    # tokens before the trash row
+    o = out[:live].float().reshape(live, HQ, D)
+    jout = j_out[:live].reshape(live, HQ, D)
+    if dtype == torch.float32:
+        np.testing.assert_allclose(o.numpy(), jout.numpy(), atol=1e-5,
+                                   rtol=1e-5)
+        np.testing.assert_allclose(kc[:, 1:].numpy(), j_kc[:, 1:].numpy(),
+                                   atol=1e-5, rtol=1e-5)
+    else:
+        assert _worst_of_tol(o, jout, 2.0 ** -6, 1e-5) <= 1.0
+        assert _worst_of_tol(kc[:, 1:], j_kc[:, 1:], 2.0 ** -7, 0) <= 1.0
+    assert torch.equal(vc[:, 1:].float(), j_vc[:, 1:].to(vc.dtype).float())
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 def test_hoisted_metadata_gives_the_same_bits(dtype):
@@ -198,3 +280,71 @@ def test_model_refuses_block_tables_wider_than_its_config():
         m(torch.zeros(1, dtype=torch.int64), z, z, torch.tensor([1, 0]),
           torch.tensor([0, 1, 1]), torch.zeros(2, 4, dtype=torch.int64),
           kc, kc.clone())
+
+
+class _Entries:
+    """Stand-in for the kernel library's extension module: records each
+    call's arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def paged_attention(self, *args):
+        self.calls.append(("paged_attention",) + args)
+        return 0
+
+    def paged_attention_int8(self, *args):
+        self.calls.append(("paged_attention_int8",) + args)
+        return 0
+
+
+def test_kernel_call_checks_a_step_once(monkeypatch):
+    """The kernel's wrapper validates a step's inputs (caches, scale pools,
+    t2b, pos, block tables) once: later calls with the same objects and q
+    of the same shape check only layer_idx, and pass each layer's pool
+    pointers and the step's sizes; anything else is checked in full, and
+    every refusal stands. CPU tensors through the launch path, the library
+    replaced by a recorder."""
+    entries = _Entries()
+    checks = []
+    check = PA._check
+    monkeypatch.setattr(PA._build, "py_module", lambda: entries)
+    monkeypatch.setattr(PA, "_check", lambda *a: checks.append(1) or
+                        check(*a))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda device: 7, raising=False)
+    monkeypatch.setattr(PA, "_step", None)
+    ins = _inputs(5)
+    qkv, kc, vc, enc, dec, this, cu, bt, rope = [torch.tensor(a)
+                                                 for a in ins]
+    kc, vc = kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+    md = TF.paged_metadata(qkv.shape[0], enc, dec, cu, bt, BS, rope)
+    q = qkv[:, :HQ * D].reshape(-1, HQ, D).to(torch.bfloat16).contiguous()
+    for layer in (0, 1, 1):
+        PA._launch(q.clone(), kc, vc, layer, md.t2b, md.pos, bt)
+    assert len(checks) == 1 and len(entries.calls) == 3
+    T = q.shape[0]
+    layer_bytes = kc.stride(0) * kc.element_size()
+    for (name, *args), layer in zip(entries.calls, (0, 1, 1)):
+        assert name == "paged_attention"
+        assert args[1] == kc.data_ptr() + layer * layer_bytes
+        assert args[2] == vc.data_ptr() + layer * layer_bytes
+        assert args[4:7] == [md.t2b.data_ptr(), md.pos.data_ptr(),
+                             bt.data_ptr()]
+        assert args[7:15] == [T, HQ, HKV, D, BS, MB, bt.shape[0], 1]
+        assert args[15] == pytest.approx(D ** 0.5) and args[16] == 7
+    with pytest.raises(ValueError, match="layer_idx"):   # the thin path's
+        PA._launch(q, kc, vc, L, md.t2b, md.pos, bt)
+    assert len(checks) == 1
+    with pytest.raises(TypeError):                  # q of another dtype
+        PA._launch(q.half(), kc, vc, 0, md.t2b, md.pos, bt)
+    with pytest.raises(ValueError):                 # another step: checked
+        PA._launch(q[:, :, :8].contiguous(), kc, vc, 0, md.t2b, md.pos, bt)
+    k8 = torch.zeros(kc.shape, dtype=torch.int8)
+    with pytest.raises(ValueError, match="scale pools"):
+        PA._launch(q, k8, k8, 0, md.t2b, md.pos, bt)
+    scales = torch.ones(kc.shape[:-1])
+    PA._launch(q, k8, k8, 1, md.t2b, md.pos, bt, scales, scales)
+    name, *args = entries.calls[-1]
+    assert name == "paged_attention_int8" and len(checks) == 5
+    assert args[3] == scales.data_ptr() + scales.stride(0) * 4
