@@ -67,6 +67,18 @@ Phases, each of which fails the run with a non-zero exit:
      random segment: acceptance, tokens a row a verify step and ms an
      emitted token, in turns with plain eager step() and the graph
      windows of the same engine;
+  4e. weight streaming and versions: the weight-dequant kernel bit for bit
+     against its plain version (the llama_1b layer group and an odd group,
+     int8 and int4, bf16 and f32 out), timed beside its plain version and
+     its bound; engines with weight_stream "int4", "int8" and
+     "int8-noprefetch" drive the serving phase's requests twice (a replayed
+     decode step must count RMSNorm 33, paged attention 16 and
+     weight_dequant 16), their tokens equal to a plain bf16 engine's over
+     the dequantized weights, their weights' bytes and peak memory;
+     measure_stream_win (prefetch against no prefetch, three turns); live
+     weight versions on the int8 engine (build, stage, probe, commit under
+     rows in flight, rollback, gc; every stream against a single-version
+     engine, memory back); and a dropped engine's memory returned;
   5. training: the flagship Llama row (vocab 32000, hidden 2048, ffn 5632,
      16 layers, 16 heads, bf16, recompute; batch 4, seq 4096) takes one
      warm-up and 3 timed HybridTrainer steps; every step must launch the
@@ -91,9 +103,9 @@ Phases, each of which fails the run with a non-zero exit:
      size on the card against the CPU;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
-     an unprofiled window that captured it) of the bf16 and of the int8
-     engine, a training step and a packed training step, by
-     torch.profiler.
+     an unprofiled window that captured it) of the bf16, the int8 and each
+     weight-streaming engine, a training step and a packed training step,
+     by torch.profiler.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
@@ -123,6 +135,10 @@ PACKED_SEED = 2026                 # document lengths
 # the kernels' correctness check of the varlen backward: one sequence's
 # worth of packed documents with a padding tail
 VARLEN_CHECK_TOKENS = 4096
+# spin kernels launched first in a profiled region (profile_kernels), and
+# the decode windows profiled at most for one exact count of launches
+PROFILE_PAD_LAUNCHES = 1024
+PROFILE_ATTEMPTS = 3
 # the kernels each path must launch
 SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd",
                    "paged_attention")
@@ -132,8 +148,14 @@ TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd",
                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
                   "varlen_attention_bwd_dq")
+STREAM_KERNELS = ("rms_norm", "varlen_attention_fwd", "paged_attention",
+                  "weight_dequant")
 PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
-         "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS}
+         "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
+         "weight_stream": STREAM_KERNELS}
+# the weight-streaming modes of phase 4e, int4 first so that the int8
+# engines' shared quantization is the model's current one for the versions
+STREAM_MODES = ("int4", "int8", "int8-noprefetch")
 # the bf16 tensor-core kernels whose SASS is searched for HGMMA
 SASS_SYMBOLS = {"flash_attention_fwd": "flash_fwd_kernel",
                 "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel",
@@ -193,11 +215,17 @@ def time_ms_turns(fns, calls=50, windows=7, warmup=10):
 
 def profile_kernels(fn, calls=1):
     """{kernel name: (launches, total device us)} of ``calls`` calls of
-    ``fn`` under torch.profiler (CUPTI), device-side kernel rows only."""
+    ``fn`` under torch.profiler (CUPTI), device-side kernel rows only.
+    The profiler may lose the first device records it takes (one more
+    every ~15 s of process life, now and then a few hundred:
+    tools/torch_profiler_window.py), so PROFILE_PAD_LAUNCHES one-cycle spin
+    kernels go first, and the result leaves them out."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_PAD_LAUNCHES):
+            torch.cuda._sleep(1)
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
@@ -206,7 +234,7 @@ def profile_kernels(fn, calls=1):
         if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
             continue
         us = evt.self_device_time_total
-        if us > 0:
+        if us > 0 and "spin_kernel" not in evt.key:
             n, tot = out.get(evt.key, (0, 0.0))
             out[evt.key] = (n + evt.count, tot + us)
     return out
@@ -216,10 +244,13 @@ def kernel_device_ms(fn, kernel_symbol, calls=50):
     """Mean device time of one launch of the kernel whose name contains
     ``kernel_symbol``; for a tuple of symbols (a wrapper that launches
     several kernels), the sum over them (None when the profiler records no
-    device time for one)."""
+    device time for one); for None, the device time of every kernel one
+    call of ``fn`` launches."""
     fn()
     torch.cuda.synchronize()
     prof = profile_kernels(fn, calls)
+    if kernel_symbol is None:
+        return sum(us for _, us in prof.values()) / calls / 1e3
     total = 0.0
     for symbol in ((kernel_symbol,) if isinstance(kernel_symbol, str)
                    else kernel_symbol):
@@ -2021,7 +2052,56 @@ def _graph_against_eager(dev, eng, model, cfg, sampling):
             "decode_turns_windows": len(per["graph"])}
 
 
-def phase_profile(dev, serving, training, packed, kernels, probes, int8):
+def _profiled_window(eng, prompts, sampling, label, want, seen_of,
+                     ready=False):
+    """Profile one 16-step decode window at batch 8 on ``eng``: the 8
+    ``prompts`` added (already, when ``ready``) and stepped to their decode
+    tips, an unprofiled window (it captures the window's graph, so the
+    profile sees replays only), then the profiled one. ``seen_of`` maps
+    the profile to {kernel: launches on the device}, which must equal
+    ``want``. The profiler loses records now and then (profile_kernels)
+    and never makes them up, and a graph replays the same launches every
+    time: so a window that reads short is profiled again, on 8 new
+    requests once the last ones are done, up to PROFILE_ATTEMPTS windows
+    in all, and one that reads more than ``want`` fails at once. Returns
+    the profile, what it saw and the launch counts the window added."""
+    from paddle_tpu_torch import launch_counts
+
+    for attempt in range(PROFILE_ATTEMPTS):
+        if attempt:
+            eng.run_to_completion()
+        if attempt or not ready:
+            for i, p in enumerate(prompts):
+                eng.add_request(p, max_new_tokens=40, sampling=sampling[i])
+        while any(r.length - r.cached > 1 for r in eng.pending()):
+            eng.step()
+        if len(eng.pending()) != 8:
+            raise AssertionError(f"profile: the {label} decode batch is not "
+                                 f"8 rows")
+        eng.decode_run(16)
+        graphs = _graph_count(eng)
+        before = launch_counts()
+        got = []
+        dec = profile_kernels(lambda: got.extend(eng.decode_run(16)))
+        counted = {k: n - before[k] for k, n in launch_counts().items()}
+        if _graph_count(eng) != graphs or len(eng.pending()) != 8 \
+                or len(got) != 16 * 8:
+            raise AssertionError(f"profile: the profiled {label} decode "
+                                 f"window did not replay one graph 16 "
+                                 f"times over 8 rows")
+        seen = seen_of(dec)
+        if seen == want:
+            return dec, seen, counted
+        if any(seen[k] > n for k, n in want.items()):
+            break
+        log(f"profile: {label} window {attempt + 1}: the profiler kept "
+            f"{seen} of {want} launches; profiling another window")
+    raise AssertionError(f"profile: 16 {label} decode replays launched "
+                         f"{seen} on the device, not {want}")
+
+
+def phase_profile(dev, serving, training, packed, kernels, probes, int8,
+                  stream):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
@@ -2030,8 +2110,9 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8):
     the device's busy share and its top kernels. The profiled decode
     window's replays must show the RMSNorm and paged-attention kernels
     launched 2L + 1 and L times a step on the device, as many as the
-    counters added for the replays."""
-    from paddle_tpu_torch import launch_counts
+    counters added for the replays; the int8 engine's, its paged-attention
+    and kv_quant kernels L times a step; each weight-streaming engine's,
+    its dequant kernel L times a step (_profiled_window)."""
     from paddle_tpu_torch.inference import ServingEngine
 
     for name, (fn, symbol, calls, target) in probes.items():
@@ -2053,59 +2134,50 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8):
     fresh_ms, fresh_top = summary(profile_kernels(eng.step), 1)
     for i, p in enumerate(prompts[2:]):
         eng.add_request(p, max_new_tokens=40, sampling=sampling[2 + i])
-    while any(r.length - r.cached > 1 for r in eng.pending()):
-        eng.step()
-    if len(eng.pending()) != 8:
-        raise AssertionError("profile: the decode batch is not 8 rows")
-    # an unprofiled window first: it captures the window's graph, so the
-    # profile sees replays only
-    eng.decode_run(16)
-    graphs = _graph_count(eng)
-    before = launch_counts()
-    got = []
-    dec = profile_kernels(lambda: got.extend(eng.decode_run(16)))
-    counted = {k: n - before[k] for k, n in launch_counts().items()}
-    if _graph_count(eng) != graphs or len(eng.pending()) != 8 \
-            or len(got) != 16 * 8:
-        raise AssertionError("profile: the profiled decode window did not "
-                             "replay one graph 16 times over 8 rows")
     L = cfg.num_layers
-    seen = {name: sum(n for key, (n, _) in dec.items()
-                      if any(f"::{sym}<" in key for sym in syms))
-            for name, syms in (("rms_norm", ("rms_norm_kernel",
-                                             "rms_norm_two_pass_kernel")),
-                               ("paged_attention",
-                                ("paged_attention_tc_kernel",)))}
+
+    def launched(dec, names):
+        return {name: sum(n for key, (n, _) in dec.items()
+                          if any(f"::{sym}<" in key for sym in syms))
+                for name, syms in names}
+
     want = {"rms_norm": (2 * L + 1) * 16, "paged_attention": L * 16}
-    if seen != want or any(counted[k] != n for k, n in want.items()):
+    dec, seen, counted = _profiled_window(
+        eng, prompts, sampling, "bf16", want, ready=True,
+        seen_of=lambda d: launched(d, (
+            ("rms_norm", ("rms_norm_kernel", "rms_norm_two_pass_kernel")),
+            ("paged_attention", ("paged_attention_tc_kernel",)))))
+    if any(counted[k] != n for k, n in want.items()):
         raise AssertionError(f"profile: 16 decode replays launched {seen} "
                              f"on the device and counted {counted}, not "
                              f"{want}")
     log(f"profile: 16 decode replays launched {seen} on the device, as "
         f"counted")
     dec_ms, dec_top = summary(dec, 16)
-    # the int8 engine's decode window: 8 more requests to their tips, an
-    # unprofiled window (its graph exists from the int8 phase), then 16
-    # profiled replays
-    eng8 = int8["engine"]
-    for i, p in enumerate(prompts):
-        eng8.add_request(p, max_new_tokens=40, sampling=sampling[i])
-    while any(r.length - r.cached > 1 for r in eng8.pending()):
-        eng8.step()
-    eng8.decode_run(16)
-    graphs8 = _graph_count(eng8)
-    got8 = []
-    dec8 = profile_kernels(lambda: got8.extend(eng8.decode_run(16)))
-    seen8 = {name: sum(n for key, (n, _) in dec8.items()
-                       if f"::{sym}<" in key)
-             for name, sym in (("paged_attention_int8",
-                                "paged_attention_tc_kernel"),
-                               ("kv_quant", "kv_quant_kernel"))}
-    if _graph_count(eng8) != graphs8 or len(got8) != 16 * 8 \
-            or seen8 != {"paged_attention_int8": L * 16, "kv_quant": L * 16}:
-        raise AssertionError(f"profile: 16 int8 decode replays over "
-                             f"{len(got8) // 16} rows launched {seen8}")
+    # the int8 engine's decode window (its graph exists from the int8
+    # phase)
+    dec8, _, _ = _profiled_window(
+        int8["engine"], prompts, sampling, "int8",
+        {"paged_attention_int8": L * 16, "kv_quant": L * 16},
+        seen_of=lambda d: launched(d, (
+            ("paged_attention_int8", ("paged_attention_tc_kernel",)),
+            ("kv_quant", ("kv_quant_kernel",)))))
     dec8_ms, dec8_top = summary(dec8, 16)
+    # each weight-streaming engine's decode window, as the int8 engine's
+    stream_prof = {}
+    for ws, eng_s in stream["engines"].items():
+        dec_s, _, _ = _profiled_window(
+            eng_s, prompts, sampling, ws, {"weight_dequant": L * 16},
+            seen_of=lambda d: launched(d, (
+                ("weight_dequant", ("weight_dequant_kernel",)),)))
+        ms_s, top_s = summary(dec_s, 16)
+        dequant_ms = sum(us for key, (_, us) in dec_s.items()
+                         if "weight_dequant_kernel<" in key) / 1e3 / 16
+        step_ms = stream["metrics"][ws]["decode_ms_per_step"]
+        stream_prof[ws] = {"decode_step_device_ms": ms_s,
+                           "decode_device_busy": ms_s / step_ms,
+                           "dequant_device_ms_per_step": dequant_ms,
+                           "decode_top": top_s}
     trainer, tm = training["trainer"], training["metrics"]
     train_ms, train_top = summary(profile_kernels(
         lambda: trainer.step(training["ids"], training["labels"])), 1)
@@ -2131,6 +2203,7 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8):
         "int8_decode_device_busy": dec8_ms
         / int8["metrics"]["decode_ms_per_step"],
         "int8_decode_top": dec8_top,
+        "weight_stream_decode": stream_prof,
     }
     log(json.dumps({"profile": prof}))
     return prof
@@ -2680,6 +2753,463 @@ def _gemm_by_m_probe(dev, served):
     return out
 
 
+def _stream_group_shapes(cfg):
+    """(in, out) of a layer's four streamed Linears: qkv, proj, gate_up,
+    down."""
+    h, f = cfg.hidden_size, cfg.ffn_size
+    kvw = cfg.num_kv_heads * cfg.head_dim
+    return [(h, h + 2 * kvw), (h, h), (h, 2 * f), (f, h)]
+
+
+def _quantized_group(dev, shapes, mode, gen):
+    """Random bf16 weights of ``shapes`` quantized as the engine does
+    (numpy on the host), codes and scales on the card."""
+    from paddle_tpu_torch.inference import weight_stream as TW
+
+    segs = []
+    for n_in, n_out in shapes:
+        w = (torch.randn(n_in, n_out, device=dev, generator=gen) * 0.02) \
+            .to(torch.bfloat16)
+        q, s = (TW.quantize_int4_grouped(w) if mode == "int4"
+                else TW.quantize_per_channel(w))
+        segs.append((torch.from_numpy(q).to(dev), torch.from_numpy(s).to(dev),
+                     n_in))
+    return segs
+
+
+def _dequant_plain(segs, outs):
+    from paddle_tpu_torch.ops.kernels import weight_dequant as WD
+
+    for (q, s, n_in), o in zip(segs, outs):
+        o.copy_(WD.dequantize(q, s, o.dtype) if q.dtype == torch.int8
+                else WD.dequantize_int4(q, s, o.dtype, n_in))
+
+
+def _bits_equal(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+
+
+def phase_weight_dequant_kernel(dev, results, probes, cfg):
+    """The weight-dequant kernel against its plain version, bit for bit: a
+    llama_1b layer group (qkv [2048, 4096], proj [2048, 2048], gate_up
+    [2048, 11264], down [5632, 2048]) and an odd group (inputs of 100, 33,
+    1 and 257 rows, outputs multiples of 8 only), int8 and int4, bf16 and
+    f32 out, the outputs in one workspace-like slot; then the llama_1b
+    group timed (one launch a layer) beside its plain version. Its bound:
+    the codes and scales read once and the bf16 outputs written once. No
+    single PyTorch call dequantizes (library null); beside it, for scale,
+    one decode layer's four bf16 GEMMs at M = 8 (their device time in the
+    profile phase)."""
+    from paddle_tpu_torch.inference import weight_stream as TW
+    from paddle_tpu_torch.ops.kernels import weight_dequant as WD
+
+    gen = torch.Generator(device=dev).manual_seed(41)
+    groups = {"llama_1b": _stream_group_shapes(cfg),
+              "odd": [(100, 64), (33, 200), (1, 16), (257, 48)]}
+    checked = []
+    timed, calls = {}, {}
+    for mode in ("int8", "int4"):
+        for label, shapes in groups.items():
+            segs = _quantized_group(dev, shapes, mode, gen)
+            for dtype in (torch.bfloat16, torch.float32):
+                ws = TW.WeightStreamer(1, dtype)
+                ws._shape = {(k, 0): sh for k, sh in zip(TW.STREAM_KINDS,
+                                                         shapes)}
+                (slot,) = ws.workspace(dev, 1)
+                views = ws.slot_views(slot)
+                outs = [views[k] for k in TW.STREAM_KINDS]
+                refs = [torch.empty_like(o) for o in outs]
+                WD.weight_dequant(segs, outs)
+                _dequant_plain(segs, refs)
+                torch.cuda.synchronize()
+                if not all(_bits_equal(a, b) for a, b in zip(outs, refs)):
+                    bad = sum(int((a.float() != b.float()).sum())
+                              for a, b in zip(outs, refs))
+                    worst = max(_max_err(a, b) for a, b in zip(outs, refs))
+                    raise AssertionError(f"weight_dequant {mode} {label} "
+                                         f"{dtype}: {bad} of "
+                                         f"{sum(o.numel() for o in outs)} "
+                                         f"outputs differ from the plain "
+                                         f"version (max abs {worst:.3e})")
+                checked.append(f"{mode} {label} {str(dtype)[6:]}")
+                if label != "llama_1b" or dtype != torch.bfloat16:
+                    continue
+
+                def call(segs=segs, outs=outs):
+                    WD.weight_dequant(segs, outs)
+
+                def plain(segs=segs, refs=refs):
+                    _dequant_plain(segs, refs)
+
+                nb = sum(nbytes(q, s) for q, s, _ in segs) + nbytes(*outs)
+                b, by = bound(nb, sum(o.numel() for o in outs),
+                              F32_OPS_PER_S)
+                calls[mode] = call
+                timed[mode] = dict(
+                    shape=f"{mode} codes of the llama_1b layer group "
+                          f"{shapes} -> bf16 [in, out] in one slot",
+                    ms=time_ms(call), plain_ms=time_ms(plain, calls=10,
+                                                       windows=5),
+                    bound_ms=b, bound_by=by, library_ms=None,
+                    bytes=nb)
+                log(f"weight_dequant {mode}: {timed[mode]}")
+    log(f"weight_dequant: bit for bit its plain version in {len(checked)} "
+        f"cases: {checked}")
+    # one decode layer's four bf16 GEMMs at M = 8, for scale
+    x = {n_in: torch.randn(8, n_in, device=dev, generator=gen)
+         .to(torch.bfloat16) for n_in, _ in groups["llama_1b"]}
+    ws_bf = [torch.randn(n_in, n_out, device=dev, generator=gen)
+             .to(torch.bfloat16) for n_in, n_out in groups["llama_1b"]]
+
+    def gemms():
+        for w in ws_bf:
+            x[w.shape[0]] @ w
+
+    gemm = {"shape": "x [8, in] @ w [in, out] bf16 for the four Linears of "
+                     "a llama_1b layer", "ms": time_ms(gemms)}
+    row = dict(name="weight_dequant", route="cuda",
+               source="paddle_tpu_torch/ops/kernels/csrc/weight_dequant.cu",
+               replaces="paddle_tpu/inference/weight_stream.py:61 "
+                        "(dequantize; no Pallas kernel, XLA-fused jnp in "
+                        "the jitted step)",
+               max_abs_err=0.0, bits_checked=checked, **timed["int8"],
+               int4=dict(timed["int4"], max_abs_err=0.0,
+                         replaces="paddle_tpu/inference/weight_stream.py:99 "
+                                  "(dequantize_int4)"),
+               decode_layer_gemms_m8=gemm)
+    results["weight_dequant"] = row
+    probes["weight_dequant int8"] = (calls["int8"], "weight_dequant_kernel",
+                                     20, row)
+    probes["weight_dequant int4"] = (calls["int4"], "weight_dequant_kernel",
+                                     20, row["int4"])
+    probes["decode layer GEMMs at M = 8"] = (gemms, None, 50, gemm)
+
+
+def _dequantized_model(dev, cfg, seed, streamer):
+    """A plain PagedCausalLM of ``seed`` whose streamed Linears hold the
+    values ``streamer`` dequantizes (bf16 values kept in the f32 model:
+    the serving cast gives them back exactly)."""
+    from paddle_tpu_torch.inference import PagedCausalLM
+    from paddle_tpu_torch.inference import weight_stream as TW
+
+    m = PagedCausalLM(cfg, device=dev, seed=seed)
+    with torch.no_grad():
+        for kind in TW.STREAM_KINDS:
+            for li, lin in enumerate(getattr(m, kind)):
+                d = streamer.dequant_layer(li)[kind]
+                lin.weight.copy_(d.float())
+    return m
+
+
+def _finish(eng, n=8):
+    while eng.pending():
+        if not eng.decode_run(n):
+            eng.step()
+
+
+def _all_graphs(eng):
+    return sum(w.graph is not None for wins in eng._windows.values()
+               for w in wins.values())
+
+
+def phase_weight_stream(dev, serving, results, probes):
+    """4e. Weight streaming and live weight versions at llama_1b (bf16).
+
+    (1) the dequant kernel (phase_weight_dequant_kernel). (2) Engines
+    with weight_stream "int4", "int8" and "int8-noprefetch" (the last two
+    share one quantization) over a model of the serving phase's seed, each
+    driving the serving phase's 8 requests twice (captures, then
+    measured): a replayed decode step must launch RMSNorm 33, paged
+    attention 16 and weight_dequant 16 times; each engine's tokens must
+    equal those of a plain bf16 engine whose weights are the dequantized
+    ones, through the same route; the weights' bytes on the card, and peak
+    memory. (3) measure_stream_win, prefetch against no prefetch, three
+    times. (4) Versions on the int8 engine: a second model's set built,
+    staged (timed), probed against a fresh engine over it; committed while
+    4 rows are in flight, which finish with the tokens of an engine that
+    never saw it, while new requests get a fresh version-1 engine's tokens
+    through windows captured for version 1; rollback under 4 more rows
+    gives version 0's streams; the freed version's windows gone and its
+    memory back. (5) Nothing keeps a dropped engine's pools: an engine
+    built, stepped and dropped gives its memory back."""
+    import gc
+
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.inference import (PagedCausalLM,
+                                            PagedServingConfig,
+                                            ServingEngine, build_weight_set,
+                                            measure_stream_win)
+
+    cfg = PagedServingConfig.llama_1b()
+    L = cfg.num_layers
+    phase_weight_dequant_kernel(dev, results, probes, cfg)
+    model = PagedCausalLM(cfg, device=dev, seed=1234)   # the serving model's
+    first, sampling = serving["first"], serving["sampling"]
+    later = serving["prompts"][len(first):]
+    bm = serving["metrics"]
+
+    def clean():
+        """Allocated bytes, after a collection and without the cuBLAS
+        workspaces PyTorch keeps a stream (a capture's side stream adds
+        one)."""
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated(dev)
+
+    engines, out = {}, {}
+    for ws in STREAM_MODES:
+        m0 = clean()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        eng = ServingEngine.from_model(model, cfg, seed=7, device=dev,
+                                       weight_stream=ws)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t
+        m1 = torch.cuda.memory_allocated(dev)
+        warm = _serving_drive(eng, first, later, sampling, 48, False)
+        reset_launch_counts()
+        run = _serving_drive(eng, first, later, sampling, 48, True)
+        counts = {k: n + run["carried"][k] for k, n in launch_counts().items()}
+        if run["window"] is None:
+            raise AssertionError(f"{ws}: every measured window captured")
+        steps, n_tok, made = run["window"]
+        want = {k: 0 for k in made}
+        want.update(rms_norm=(2 * L + 1) * steps,
+                    paged_attention=L * steps, weight_dequant=L * steps)
+        if made != want:
+            raise AssertionError(f"a replayed {ws} decode window of {steps} "
+                                 f"steps launched {made}, not {want}")
+        fresh = run["per_step"]
+        want_fresh = {k: 0 for k in fresh}
+        want_fresh.update(rms_norm=2 * L + 1, varlen_attention_fwd=L,
+                          weight_dequant=L)
+        if fresh != want_fresh:
+            raise AssertionError(f"the {ws} fresh-prefill step launched "
+                                 f"{fresh}, not {want_fresh}")
+        for name in STREAM_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on the "
+                                     f"{ws} streaming path")
+        if counts["aligned16_copies"] or counts["rms_norm_bwd"]:
+            raise AssertionError(f"the {ws} run counted {counts}")
+        steady = [w for w in run["windows"] if not w[3]]
+        ms, tps, n_steps = _window_rate(steady)
+        set_bytes = nbytes(*eng._params)
+        ws_bytes = nbytes(*eng._stream_ws.slots)
+        engines[ws] = eng
+        out[ws] = dict(
+            run=run, counts=counts,
+            metrics={
+                "from_model_s": t_build,
+                "decode_steps": n_steps, "decode_ms_per_step": ms,
+                "decode_tokens_per_s": tps,
+                "decode_ms_per_step_all_in": _window_rate(
+                    warm["windows"])[0],
+                "bf16_decode_ms_per_step": bm["decode_ms_per_step"],
+                "fresh_prefill_step_ms": run["t_fresh"] * 1e3,
+                "decode_launches_per_step": {k: n // steps
+                                             for k, n in made.items()},
+                "weight_set_bytes": set_bytes,
+                "workspace_bytes": ws_bytes,
+                "weights_bytes": set_bytes + ws_bytes,
+                "from_model_allocated_bytes": m1 - m0,
+                "kv_pool_bytes": nbytes(eng._kc, eng._vc),
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "peak_over_start_gb": (torch.cuda.max_memory_allocated(dev)
+                                       - m0) / 1e9,
+            })
+        log(f"weight_stream {ws}: {json.dumps(out[ws]['metrics'])}")
+    # the plain bf16 engine's weights: every parameter in bf16
+    bf16_weights = 2 * sum(p.numel() for p in model.parameters())
+    # each mode's tokens against a plain engine over its dequantized weights
+    equal = {}
+    for ws in STREAM_MODES:
+        quant = "int4" if ws == "int4" else "int8"
+        if quant not in equal:
+            dq = _dequantized_model(dev, cfg, 1234, engines[quant]._streamer)
+            plain = ServingEngine.from_model(dq, cfg, seed=7, device=dev)
+            _serving_drive(plain, first, later, sampling, 48, False)
+            equal[quant] = _serving_drive(plain, first, later, sampling, 48,
+                                          False)["outs"]
+            del plain, dq
+        if out[ws]["run"]["outs"] != equal[quant]:
+            same = sum(a == b for r, toks in out[ws]["run"]["outs"].items()
+                       for a, b in zip(toks, equal[quant][r]))
+            raise AssertionError(f"{ws}: the streamed engine's tokens differ "
+                                 f"from the plain engine's over the "
+                                 f"dequantized weights ({same} of "
+                                 f"{sum(map(len, equal[quant].values()))} "
+                                 f"equal)")
+    n_tok = sum(map(len, equal["int8"].values()))
+    log(f"weight_stream: int4, int8 and int8-noprefetch streams equal the "
+        f"plain bf16 engine over their dequantized weights, {n_tok} tokens "
+        f"each, through eager steps and window graphs")
+    clean()
+
+    # (3) the prefetch's price, in turns
+    rng = np.random.RandomState(21)
+    wprompts = _prompts(rng, [16] * 8, cfg.vocab_size)
+    for ws in ("int8", "int8-noprefetch"):
+        for p in wprompts:
+            engines[ws].add_request(p, max_new_tokens=150)
+        while any(r.length - r.cached > 1 for r in engines[ws].pending()):
+            engines[ws].step()
+    wins = []
+    for _ in range(3):
+        win_ms, t_s, t_b = measure_stream_win(
+            lambda: engines["int8"].decode_run(8),
+            lambda: engines["int8-noprefetch"].decode_run(8))
+        wins.append(dict(win_ms_per_window=win_ms,
+                         prefetch_ms_per_step=t_s * 1e3 / 8,
+                         noprefetch_ms_per_step=t_b * 1e3 / 8))
+    for ws in ("int8", "int8-noprefetch"):
+        _finish(engines[ws], 32)
+    log(f"measure_stream_win (8-step windows at batch 8, best of 3, "
+        f"3 turns): {wins}")
+
+    # (4) versions on the int8 engine
+    eng = engines["int8"]
+    model2 = PagedCausalLM(cfg, device=dev, seed=4321)
+    t = time.perf_counter()
+    arrays, crcs = build_weight_set(model2, None, cfg, weight_stream="int8")
+    t_build_set = time.perf_counter() - t
+    set_bytes = sum(a.numel() * a.element_size() for a in arrays)
+    mem0 = clean()
+    t = time.perf_counter()
+    eng.stage_weight_set(1, arrays, crcs=crcs)
+    torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t
+    mem_staged = torch.cuda.memory_allocated(dev)
+    del arrays
+    ref1 = ServingEngine.from_model(model2, cfg, seed=7, device=dev,
+                                    weight_stream="int8")
+    probe = first[0][:64]
+    if not np.array_equal(eng.probe_logits(probe, version=1),
+                          ref1.probe_logits(probe)):
+        raise AssertionError("probe_logits of the staged set differ from a "
+                             "fresh engine's over those weights")
+    if np.array_equal(eng.probe_logits(probe), ref1.probe_logits(probe)):
+        raise AssertionError("the two weight sets probe the same logits")
+    vp = _prompts(np.random.RandomState(22), [24, 40, 17, 33] * 3,
+                  cfg.vocab_size)
+    sp4 = sampling[:4]
+
+    def start(e, prompts, rid0):
+        e._next_rid = rid0
+        rids = [e.add_request(p, max_new_tokens=40, sampling=sp)
+                for p, sp in zip(prompts, sp4)]
+        e.step()                                   # fresh prefill
+        e.decode_run(8)
+        return rids
+
+    def streams(e, rids):
+        return [list(e._requests[r].generated) for r in rids]
+
+    rid0 = eng._next_rid
+    rids0 = start(eng, vp[:4], rid0)
+    t = time.perf_counter()
+    eng.commit_weight_set(1)
+    t_commit = time.perf_counter() - t
+    rid1 = eng._next_rid
+    rids1 = [eng.add_request(p, max_new_tokens=40, sampling=sp)
+             for p, sp in zip(vp[4:8], sp4)]
+    _finish(eng)
+    if 1 not in eng._windows or not all(
+            w.graph is not None for w in eng._windows[1].values()):
+        raise AssertionError("no decode window captured for version 1")
+    ref0 = ServingEngine.from_model(model, cfg, seed=7, device=dev,
+                                    weight_stream="int8")
+    start(ref0, vp[:4], rid0)
+    _finish(ref0)
+    ref1._next_rid = rid1
+    for p, sp in zip(vp[4:8], sp4):
+        ref1.add_request(p, max_new_tokens=40, sampling=sp)
+    _finish(ref1)
+    if streams(eng, rids0) != streams(ref0, rids0):
+        raise AssertionError("rows in flight at the commit did not finish "
+                             "with version 0's tokens")
+    if streams(eng, rids1) != streams(ref1, range(rid1, rid1 + 4)):
+        raise AssertionError("requests after the commit did not get "
+                             "version 1's tokens")
+    rid2 = eng._next_rid
+    rids2 = start(eng, vp[8:], rid2)
+    if {eng._requests[r].weight_version for r in rids2} != {1}:
+        raise AssertionError("new requests were not pinned to version 1")
+    t = time.perf_counter()
+    eng.rollback_weight_set()
+    t_rollback = time.perf_counter() - t
+    if 1 in eng._windows or 1 in eng._weight_sets:
+        raise AssertionError("rollback kept version 1's windows or set")
+    _finish(eng)
+    ref0._next_rid = rid2
+    for p, sp in zip(vp[8:], sp4):
+        ref0.add_request(p, max_new_tokens=40, sampling=sp)
+    _finish(ref0)
+    if streams(eng, rids2) != streams(ref0, rids2):
+        raise AssertionError("rollback did not give version 0's streams")
+    eng._gc_weight_sets()
+    if set(eng._weight_sets) - {0} or set(eng._windows) - {0}:
+        raise AssertionError(f"versions left after gc: sets "
+                             f"{set(eng._weight_sets)}, windows "
+                             f"{set(eng._windows)}")
+    del ref0, ref1
+    model2.__dict__.pop("_serving_shared", None)     # ref1's cast copy
+    mem_after = clean()
+    del model2
+    if mem_after - mem0 >= set_bytes:
+        raise AssertionError(f"memory after rollback and gc "
+                             f"{mem_after} is not within a set of its value "
+                             f"before staging {mem0}")
+    versions = {
+        "build_weight_set_s": t_build_set, "stage_s": t_stage,
+        "commit_ms": t_commit * 1e3, "rollback_ms": t_rollback * 1e3,
+        "set_bytes": set_bytes, "allocated_before_stage": mem0,
+        "allocated_staged": mem_staged, "allocated_after_gc": mem_after,
+        "streams_checked": 12,
+    }
+    log(f"weight versions (int8 engine): {json.dumps(versions)}")
+
+    # (5) a dropped engine frees its pools (a first engine makes what the
+    # model caches at first use: the cast copy and the rope table)
+    cfg_b = PagedServingConfig.llama_1b()
+    smodel = serving["model"]
+
+    def engine_through_a_window():
+        e = ServingEngine.from_model(smodel, cfg_b, seed=1, device=dev)
+        e.add_request(first[0], max_new_tokens=4)
+        e.step()
+        e.decode_run(2)
+        return e
+
+    engine_through_a_window()
+    before = clean()
+    e = engine_through_a_window()
+    held = clean() - before
+    del e
+    after = clean()
+    if after != before or held <= 0:
+        raise AssertionError(f"a dropped engine kept {after - before} bytes "
+                             f"allocated (held {held} while alive)")
+    log(f"repair: an engine holding {held} bytes after a step and a window "
+        f"gave all of them back when dropped")
+    metrics = {ws: o["metrics"] for ws, o in out.items()}
+    metrics.update(
+        bf16_weights_bytes=bf16_weights,
+        bf16_peak_memory_gb=bm["peak_memory_gb"],
+        prefetch_win=wins, versions=versions,
+        dropped_engine_bytes_held=held)
+    log(json.dumps({"weight_stream": metrics}))
+    main_run = out["int8"]
+    return dict(metrics=metrics, counts=main_run["counts"],
+                run=main_run["run"],
+                decode_launches_per_step=main_run["metrics"]
+                ["decode_launches_per_step"],
+                engines=engines, prompts=serving["prompts"],
+                sampling=sampling)
+
+
 @contextlib.contextmanager
 def plain_kernels():
     """Inside, the kernels' wrappers run their plain PyTorch versions on
@@ -2887,19 +3417,25 @@ def main():
     int8 = phase_int8_serving(dev, serving)
     phase_prefix_cache(dev, serving)
     phase_speculative(dev, serving)
+    stream = phase_weight_stream(dev, serving, kernels, probes)
     training = phase_training(dev)
     phase_training_parity(dev)
     packed = phase_packed_training(dev)
     phase_packed_parity(dev)
-    phase_profile(dev, serving, training, packed, kernels, probes, int8)
+    phase_profile(dev, serving, training, packed, kernels, probes, int8,
+                  stream)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
-               "packed_training": packed["counts"]}
+               "packed_training": packed["counts"],
+               "weight_stream": stream["counts"]}
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
                         [k]}
                     for k, n in r["run"]["per_step"].items()}
-                for p, r in (("serving", serving), ("int8_serving", int8))}
+                for p, r in (("serving", serving), ("int8_serving", int8),
+                             ("weight_stream", dict(stream, metrics={
+                                 "decode_launches_per_step":
+                                 stream["decode_launches_per_step"]})))}
     per_step.update({
                 "training": training["metrics"]["launches_per_step"],
                 "packed_training": packed["metrics"]["launches_per_step"]})

@@ -1,4 +1,4 @@
 """Distributed training of the ported slices (paddle_tpu/distributed)."""
-from . import fleet
+from . import fleet, resilience
 
-__all__ = ["fleet"]
+__all__ = ["fleet", "resilience"]

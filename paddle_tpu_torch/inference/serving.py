@@ -28,12 +28,20 @@ chunked step. ``set_drafter`` turns on speculative decoding
 row and verifies them in one eager paged step with logits at every
 position.
 
-Not ported yet (ROADMAP.md): weight streaming and publishing, chaos fault
-sites, deadlines, metrics and tracing, disk artifacts and the StableHLO
-artifact of the decode step (``lower_fused_decode``), and the backend
-handle. The window's graphs hold the weights', caches' and scale pools'
-addresses: weights must be updated in place, or the windows captured
-again.
+``from_model(..., weight_stream="int8" | "int8-noprefetch" | "int4")``
+streams the decoder Linears (inference/weight_stream.py): int8 or int4
+codes on the device, a layer's group dequantized into a workspace slot by
+the hand-written dequant kernel (16 launches a step), on a side stream one
+layer ahead under prefetch. Live weight versions: ``stage_weight_set``,
+``commit_weight_set``, ``rollback_weight_set``, ``probe_logits``; each
+request is pinned to the version serving at its admission and a step binds
+one version. A window's graph holds the addresses of the weights it read,
+so windows are kept a version and captured at a version's first use.
+
+Not ported yet (ROADMAP.md): the weight publisher's transport and fleet
+tier, chaos fault sites (``publish`` among them), deadlines, metrics and
+tracing, disk artifacts and the StableHLO artifact of the decode step
+(``lower_fused_decode``), and the backend handle.
 """
 from __future__ import annotations
 
@@ -48,9 +56,11 @@ from torch import nn
 
 from ..incubate.nn import functional as IF
 from ..nn import Embedding, Linear, RMSNorm
+from ..nn import functional as F
 from ..ops.kernels import (add_launch_counts, launch_counts,
                            resolve_device)
 from .prefix_cache import PrefixCache, restore_snapshot, save_snapshot
+from .weight_stream import STREAM_KINDS, WeightStreamer
 
 __all__ = ["PagedServingConfig", "PagedCausalLM", "ServingEngine",
            "SamplingParams", "sampling_salt", "sample_logits",
@@ -72,7 +82,8 @@ class PagedServingConfig:
     ``cache_<seq>`` snapshots, the newest of which an engine restores at
     start and ``save_prefix_cache()`` writes to; ``prefix_page_quota``
     caps the cache pages one tenant namespace owns (None: no cap). Weight
-    versions are not ported."""
+    streaming and versions are the engine's (``ServingEngine.from_model``'s
+    ``weight_stream``, ``stage_weight_set``)."""
 
     def __init__(self, vocab_size=256, hidden_size=64, num_layers=2,
                  num_heads=4, ffn_size=128, block_size=16, num_blocks=64,
@@ -256,6 +267,90 @@ def _sample_mode(temps, topks):
     return "topk" if _topk_fast_ok(temps, topks) else "full"
 
 
+class _WeightView:
+    """What ``PagedCausalLM.forward`` reads of one weight set
+    (``PagedCausalLM.weight_view``): the embedding, final norm and head,
+    each layer's two norm weights and its Linears ({kind: [in, out]}; empty
+    when they are streamed), and the streamer over the set's codes."""
+
+    __slots__ = ("embed", "ln_f", "head", "ln1", "ln2", "layers", "stream")
+
+    def __init__(self, embed, ln_f, head, ln1, ln2, layers, stream):
+        self.embed, self.ln_f, self.head = embed, ln_f, head
+        self.ln1, self.ln2, self.layers = ln1, ln2, layers
+        self.stream = stream
+
+
+class StreamWorkspace:
+    """A streaming engine's dequant workspace: two slots, each holding one
+    layer's group in the serving dtype ([in, out] views a kind), allocated
+    once with the engine and never inside a CUDA graph's capture; and on a
+    CUDA device the side stream the prefetched dequants run on, with an
+    event a layer for "group ready" and one for "group read"."""
+
+    def __init__(self, streamer: WeightStreamer, device):
+        self.slots = streamer.workspace(device, 2)
+        self.views = [streamer.slot_views(t) for t in self.slots]
+        self.cuda = torch.device(device).type == "cuda"
+        L = streamer.num_layers
+        if self.cuda:
+            self.side = torch.cuda.Stream(device)
+            self.ready = [torch.cuda.Event() for _ in range(L)]
+            self.read = [torch.cuda.Event() for _ in range(L)]
+
+
+class _StreamFeed:
+    """One forward's schedule of streamed groups (the reference's double
+    buffer, serving.py:451-468). Layer i's group goes to slot i % 2.
+    Without prefetch, ``group(i)`` dequantizes layer i at its use. With
+    prefetch, layer i+1's group is dequantized before layer i's compute:
+    on the CPU in program order; on the card on the workspace's side
+    stream, forked from the current stream at the start, which waits for
+    layer i-1's last product (the slot's last reader) before overwriting
+    its slot, while layer i+1's first product waits for the dequant; the
+    side stream joins the current stream in ``close``, so a CUDA graph
+    captures the fork and the join."""
+
+    def __init__(self, streamer, workspace):
+        self.ws, self.wk = streamer, workspace
+        self.L = streamer.num_layers
+        self.side = workspace.cuda and streamer.prefetch
+        if self.side:
+            self.main = torch.cuda.current_stream(workspace.slots[0].device)
+            workspace.side.wait_stream(self.main)
+        if streamer.prefetch:
+            self._dequant(0)
+
+    def _dequant(self, li):
+        views = self.wk.views[li % 2]
+        if not self.side:
+            self.ws.dequant_layer(li, out=views)
+            return
+        side = self.wk.side
+        with torch.cuda.stream(side):
+            if li >= 2:
+                side.wait_event(self.wk.read[li - 2])
+            self.ws.dequant_layer(li, out=views)
+            self.wk.ready[li].record(side)
+
+    def group(self, li):
+        """Layer li's group, {kind: [in, out]}, ready for its products."""
+        if not self.ws.prefetch:
+            self._dequant(li)
+            return self.wk.views[li % 2]
+        if self.side and li >= 1:
+            self.wk.read[li - 1].record(self.main)
+        if li + 1 < self.L:
+            self._dequant(li + 1)
+        if self.side:
+            self.main.wait_event(self.wk.ready[li])
+        return self.wk.views[li % 2]
+
+    def close(self):
+        if self.side:
+            self.main.wait_stream(self.wk.side)
+
+
 class PagedCausalLM(nn.Module):
     """A llama-architecture causal LM (RMSNorm -> GQA attention -> swiglu
     MLP, untied LM head, no biases) whose serving forward runs on paged KV
@@ -322,10 +417,36 @@ class PagedCausalLM(nn.Module):
                 p.copy_(src)
         return self
 
-    def _mlp(self, li, h):
-        gu = self.gate_up[li](h)
+    def _lin(self, kind, li, h, w=None):
+        """One decoder Linear (bias-free): the layer's own module, or, when
+        ``w`` holds the layer's weights ({kind: [in, out]}: a weight set's
+        tensors, or a streamed group dequantized into a workspace slot), a
+        plain product with them, the op the module computes
+        (serving.py:356-368)."""
+        if w is None:
+            return getattr(self, kind)[li](h)
+        return F.linear(h, w[kind])
+
+    def _mlp(self, li, h, w=None):
+        gu = self._lin("gate_up", li, h, w)
         half = self.cfg.ffn_size
-        return self.down[li](IF.swiglu(gu[..., :half], gu[..., half:]))
+        return self._lin("down", li, IF.swiglu(gu[..., :half],
+                                               gu[..., half:]), w)
+
+    def weight_view(self, named, stream=None):
+        """What ``forward`` reads of a weight set: ``named`` maps this
+        model's parameter names to tensors (a version's set, or the model's
+        own parameters); ``stream`` is a WeightStreamer over the set's codes
+        when the decoder Linears are streamed (their entries in ``named``
+        are then placeholders)."""
+        L = self.cfg.num_layers
+        kinds = () if stream is not None else STREAM_KINDS
+        return _WeightView(
+            named["embed.weight"], named["ln_f.weight"], named["head.weight"],
+            [named[f"ln1.{li}.weight"] for li in range(L)],
+            [named[f"ln2.{li}.weight"] for li in range(L)],
+            [{k: named[f"{k}.{li}.weight"] for k in kinds}
+             for li in range(L)], stream)
 
     def _rope_table(self, positions):
         """(cos, sin) [..., head_dim//2] at absolute positions, in f32."""
@@ -340,7 +461,8 @@ class PagedCausalLM(nn.Module):
     def forward(self, tokens, seq_lens_encoder, seq_lens_decoder,
                 seq_lens_this_time, cu_seqlens_q, block_tables,
                 key_caches, value_caches, k_scales=None, v_scales=None,
-                fresh_prefill=False, all_logits=False):
+                fresh_prefill=False, all_logits=False, weights=None,
+                workspace=None):
         """One engine step (serving.py:392-491).
 
         tokens [T] packed (row b contributes seq_lens_this_time[b] tokens
@@ -356,9 +478,20 @@ class PagedCausalLM(nn.Module):
         "spec_verify"``) instead of each row's last token's [B+1, V].
         Returns (logits, key_caches, value_caches), and the scale pools
         after them for int8 caches.
+
+        ``weights`` (``weight_view``) is the weight set to read, None for
+        the model's own parameters. When it streams the decoder Linears,
+        each layer's group is dequantized into a slot of ``workspace`` (a
+        StreamWorkspace; None makes one for this call), in the reference's
+        order (serving.py:427-478): with prefetch, layer i+1's group is
+        dequantized before layer i's compute, on the card on the
+        workspace's side stream (``_StreamFeed``); without, at its use.
         """
         cfg = self.cfg
-        x = self.embed(tokens)
+        w = weights if weights is not None \
+            else self.weight_view(dict(self.named_parameters()))
+        eps = self.ln_f._epsilon
+        x = F.embedding(tokens, w.embed)
         B1 = int(seq_lens_encoder.shape[0])
         if block_tables.shape[1] > cfg.max_blocks_per_seq:
             raise ValueError(f"block_tables [{B1}, {block_tables.shape[1]}]"
@@ -373,9 +506,14 @@ class PagedCausalLM(nn.Module):
                                seq_lens_decoder, cu_seqlens_q, block_tables,
                                cfg.block_size, rope)
         quant = k_scales is not None
+        feed = None
+        if w.stream is not None:
+            feed = _StreamFeed(w.stream, workspace
+                               or StreamWorkspace(w.stream, x.device))
         for li in range(cfg.num_layers):
-            h = self.ln1[li](x)
-            qkv = self.qkv[li](h)
+            lw = w.layers[li] if feed is None else feed.group(li)
+            h = F.rms_norm(x, w.ln1[li], eps)
+            qkv = self._lin("qkv", li, h, lw)
             out = IF.block_multihead_attention(
                 qkv, key_caches, value_caches, seq_lens_encoder,
                 seq_lens_decoder, seq_lens_this_time, cu_seqlens_q,
@@ -383,17 +521,19 @@ class PagedCausalLM(nn.Module):
                 fresh_prefill=fresh_prefill, cache_k_quant_scales=k_scales,
                 cache_v_quant_scales=v_scales,
                 use_dynamic_cachekv_quant=quant, metadata=md)[0]
-            x = x + self.proj[li](out)
-            h = self.ln2[li](x)
-            x = x + self._mlp(li, h)
-        x = self.ln_f(x)
+            x = x + self._lin("proj", li, out, lw)
+            h = F.rms_norm(x, w.ln2[li], eps)
+            x = x + self._mlp(li, h, lw)
+        if feed is not None:
+            feed.close()
+        x = F.rms_norm(x, w.ln_f, eps)
         if all_logits:
-            logits = self.head(x)                            # [T, V]
+            logits = F.linear(x, w.head)                     # [T, V]
         else:
             # last token of each row: cu_q[i+1]-1 (rows with 0 tokens this
             # step read their previous row's last token — masked host-side)
             idx = (cu_seqlens_q[1:].long() - 1).clamp(min=0)
-            logits = self.head(x[idx])                       # [B+1, V]
+            logits = F.linear(x[idx], w.head)                # [B+1, V]
         if quant:
             return logits, key_caches, value_caches, k_scales, v_scales
         return logits, key_caches, value_caches
@@ -438,27 +578,50 @@ class PagedCausalLM(nn.Module):
         return self.head(x).reshape(1, S, cfg.vocab_size)
 
 
-def _serving_copy(model, cfg, device):
-    """The model with floating params cast to cfg.dtype on ``device``,
-    made once and shared by every engine over the same model, dtype, cache
-    quantization and device, as the reference keys its executables
-    (serving.py:771; weights are snapshotted at the first call)."""
-    key = (cfg.dtype, cfg.cache_quant, str(device))
+def _serving_copy(model, cfg, device, weight_stream=None):
+    """The model with floating params cast to cfg.dtype on ``device`` and,
+    under ``weight_stream``, its decoder Linears quantized out (0-d
+    placeholders stand for them, so their full-precision copies do not
+    stay on the device), with the names of its parameters in sorted order
+    and version 0's flat weight set (``ServingEngine._params``): made once
+    and shared by every engine over the same model, dtype, cache
+    quantization, quantization and device, as the reference keys its
+    executables and staged weights (serving.py:771; weights are snapshotted
+    at the first call). "int8" and "int8-noprefetch" share one
+    quantization: prefetch is a property of each engine's schedule."""
+    quant = None if weight_stream is None \
+        else ("int4" if weight_stream == "int4" else "int8")
+    key = (cfg.dtype, cfg.cache_quant, quant, str(device))
     cached = getattr(model, "_serving_shared", None)
     if cached is not None and cached[0] == key:
-        return cached[1]
+        return cached[1:]
     model.__dict__.pop("_serving_shared", None)
     served = copy.deepcopy(model).to(device=device, dtype=cfg.torch_dtype)
     served.eval()
-    model.__dict__["_serving_shared"] = (key, served)
-    return served
+    streamer = None
+    if quant is not None:
+        params = dict(served.named_parameters())
+        streamer = WeightStreamer.build(served, params, cfg.torch_dtype,
+                                        mode=quant)
+        for kind in STREAM_KINDS:
+            for li, lin in enumerate(getattr(served, kind)):
+                lin.weight = nn.Parameter(params[f"{kind}.{li}.weight"],
+                                          requires_grad=False)
+    named = dict(served.named_parameters())
+    names = sorted(named)
+    flat = [named[n] for n in names]
+    if streamer is not None:
+        flat += streamer.flat()
+    shared = (key, served, streamer, names, flat)
+    model.__dict__["_serving_shared"] = shared
+    return shared[1:]
 
 
 class _Request:
     __slots__ = ("rid", "prompt", "generated", "max_new", "pages",
                  "cached", "done", "sampling", "eos_token_id",
                  "shared_keys", "prefix_registered", "tenant",
-                 "spec_observed")
+                 "spec_observed", "weight_version")
 
     def __init__(self, rid, prompt, max_new, sampling, eos_token_id,
                  tenant=None):
@@ -479,6 +642,10 @@ class _Request:
         self.tenant = tenant
         # how much of prompt + generated the drafter has observed
         self.spec_observed = 0
+        # the weight version the whole stream runs under, pinned at
+        # admission (KV depends on the weights); a step only batches rows
+        # of one version
+        self.weight_version = 0
 
     @property
     def length(self):
@@ -488,7 +655,9 @@ class _Request:
 class _DecodeWindow:
     """One decode window's static buffers and its step body: the
     counterpart of the reference's ``_decode_window_fn`` (serving.py:
-    1746-1801), one per (row bucket ``Bb``, sampling mode).
+    1746-1801), one per (weight version, row bucket ``Bb``, sampling mode):
+    a captured graph holds the addresses of the weights it read, so each
+    version has its own windows.
 
     Every input of a window lives in one int64 device buffer ``buf``
     (tokens [Bb], enc, dec, this, cu, the block table, top-k, the per-row
@@ -502,10 +671,11 @@ class _DecodeWindow:
     the body is captured once into a CUDA graph and replayed n times a
     window; on the CPU it runs eagerly n times."""
 
-    def __init__(self, engine, Bb, mode):
+    def __init__(self, engine, Bb, mode, version=0):
         cfg = engine.cfg
         dev = engine.device
         self.engine, self.Bb, self.mode = engine, Bb, mode
+        self.version = version
         B1 = cfg.max_batch + 1
         self.n_max = cfg.max_seq     # no request decodes more tokens
         fields = (("tokens", Bb), ("enc", B1), ("dec", B1), ("this", B1),
@@ -558,7 +728,8 @@ class _DecodeWindow:
         eng = self.engine
         logits = eng._model(self.tokens, self.enc, self.dec, self.this,
                             self.cu, self.bt, eng._kc, eng._vc, eng._ks,
-                            eng._vs)[0]
+                            eng._vs, weights=eng._view(self.version),
+                            workspace=eng._stream_ws)[0]
         sampled = _sample(logits, self.mode, self.temps, self.topks,
                           self.topps, self.salts)
         self.tokens.copy_(sampled[:self.Bb])
@@ -620,11 +791,19 @@ class ServingEngine:
     engine.step()                # one mixed prefill/decode batch step
     engine.decode_run(16)        # 16 decode steps, ONE host sync
     engine.run_to_completion() -> {rid: [generated tokens]}
+
+    Live weight versions (serving.py:1056-1301): ``stage_weight_set``
+    checks and copies a new flat weight set (``weight_publish.
+    build_weight_set``) to the device beside the serving one;
+    ``commit_weight_set`` swaps it in at a step boundary (new admissions pin
+    to it; streams admitted before finish under theirs);
+    ``rollback_weight_set`` swaps back. Every step binds one version.
     """
 
     def __init__(self, cfg: PagedServingConfig, device=None, seed=0):
         self.cfg = cfg
         self.seed = seed
+        self.name = f"engine{seed}"
         self.device = resolve_device(device)
         self._model = None          # set by from_model
         shape = (cfg.num_layers, cfg.num_blocks, cfg.num_kv_heads,
@@ -647,10 +826,28 @@ class ServingEngine:
         self._free_pages = list(range(1, cfg.num_blocks))
         self._requests = {}
         self._next_rid = 0
-        # decode windows by (row bucket, sampling mode); on a CUDA device
-        # each holds its CUDA graph, all graphs in one memory pool
-        self._window_fns = {}
-        self._graph_pool = None
+        # decode windows, {weight version: {(row bucket, sampling mode):
+        # window}}; on a CUDA device each holds its CUDA graph, a version's
+        # graphs in one memory pool of their own (``_graph_pools``), so a
+        # freed version's graphs and memory go with it
+        self._windows = {}
+        self._graph_pools = {}
+        # live weight versions (serving.py:1056-1301): _params is the flat
+        # weight set new admissions pin to (version _active_wv); sets still
+        # referenced (the active one, the previous one for rollback, any
+        # an in-flight stream is pinned to) are kept in _weight_sets;
+        # staged, not yet committed sets in _staged_weights. _views caches
+        # what the model reads of each version (PagedCausalLM.weight_view)
+        self._params = None
+        self._names = None
+        self._streamer = None
+        self._stream_ws = None
+        self._weight_stream_mode = None
+        self._active_wv = 0
+        self._prev_wv = None
+        self._weight_sets = {}
+        self._staged_weights = {}
+        self._views = {}
         # logits of the last step() or verify step (for parity checks)
         self.last_logits = None
         # speculative decoding (inference/speculative.py), set by
@@ -673,14 +870,272 @@ class ServingEngine:
 
     @classmethod
     def from_model(cls, model: PagedCausalLM, cfg: PagedServingConfig,
-                   seed=0, device=None):
+                   seed=0, device=None, weight_stream=None):
         """An engine over a live model, with floating params cast to
         cfg.dtype on ``device`` (None means "cuda"); engines over one
         model share the cast copy. Fresh-prefill steps take the varlen
-        flash-attention route."""
+        flash-attention route.
+
+        ``weight_stream`` streams the decoder Linear stacks
+        (inference/weight_stream.py; serving.py:739-843): ``"int8"``
+        per-channel int8, its group for layer i+1 dequantized while layer
+        i computes; ``"int8-noprefetch"`` the same codes dequantized at use;
+        ``"int4"`` two 4-bit codes a byte with a scale a (32-row group,
+        output channel), prefetched. Generations equal, bit for bit, those
+        of a plain engine over the dequantized weights."""
+        if weight_stream not in (None, "int8", "int8-noprefetch", "int4"):
+            raise ValueError(
+                f"weight_stream={weight_stream!r}: expected None, "
+                f"'int8', 'int8-noprefetch' or 'int4'")
         eng = cls(cfg, device=device, seed=seed)
-        eng._model = _serving_copy(model, cfg, eng.device)
+        eng._weight_stream_mode = weight_stream
+        served, streamer, names, flat = _serving_copy(model, cfg, eng.device,
+                                                      weight_stream)
+        eng._model, eng._names, eng._params = served, names, flat
+        if streamer is not None:
+            eng._streamer = streamer.over(flat[len(names):])
+            eng._streamer.prefetch = weight_stream != "int8-noprefetch"
+            eng._stream_ws = StreamWorkspace(streamer, eng.device)
         return eng
+
+    @property
+    def _window_fns(self):
+        """The active version's decode windows, {(row bucket, sampling
+        mode): window}."""
+        return self._windows.get(self._active_wv, {})
+
+    # -- live weight versions (double-buffered versioned hot swap) -------
+    @property
+    def active_weight_version(self):
+        """The version NEW admissions pin to (0 = the build-time set)."""
+        return self._active_wv
+
+    def has_weight_version(self, version):
+        """True when ``version`` can serve here: active, or kept (an
+        in-flight pinned stream can run under it). A staged, uncommitted
+        set does not count."""
+        return version == self._active_wv or version in self._weight_sets
+
+    def _params_for(self, version):
+        """The flat weight set of a pinned version. Every dispatch binds
+        through this (by ``_view``), so a step runs exactly the version its
+        rows are pinned to."""
+        if version == self._active_wv:
+            return self._params
+        try:
+            return self._weight_sets[version]
+        except KeyError:
+            raise KeyError(
+                f"weight version {version} is not resident on this engine "
+                f"(active={self._active_wv}, retained="
+                f"{sorted(self._weight_sets)})") from None
+
+    def _make_view(self, flat):
+        n = len(self._names)
+        return self._model.weight_view(
+            dict(zip(self._names, flat[:n])),
+            None if self._streamer is None else self._streamer.over(flat[n:]))
+
+    def _view(self, version):
+        """What the model reads of ``version``'s set, made once a
+        version."""
+        view = self._views.get(version)
+        if view is None:
+            view = self._views[version] = self._make_view(
+                self._params_for(version))
+        return view
+
+    def _drop_version(self, version):
+        """Forget a freed version's view, decode windows and their graphs'
+        memory pool."""
+        self._views.pop(version, None)
+        self._windows.pop(version, None)
+        self._graph_pools.pop(version, None)
+
+    def pin_weight_version(self, rid, version):
+        """Re-pin a just-admitted request to the version its stream started
+        under (a hand-off between engines): any prefix match taken under
+        the admission version is released and taken again under the pin.
+        Raises KeyError when ``version`` cannot serve here."""
+        r = self._requests[rid]
+        if version == r.weight_version:
+            return r
+        if not self.has_weight_version(version):
+            raise KeyError(f"this engine cannot serve weight version "
+                           f"{version} (active={self._active_wv})")
+        self._release(r)
+        r.cached = 0
+        r.prefix_registered = False
+        r.weight_version = version
+        self._try_prefix_match(r)
+        return r
+
+    def stage_weight_set(self, version, arrays, crcs=None):
+        """Stage version ``version`` WITHOUT serving it (serving.py:
+        1104-1169): check the tensor count, shapes and dtypes against the
+        serving flat set, the per-tensor CRC-32s when given (of each
+        tensor's bytes), then copy the set to the device. ``arrays`` are
+        host numpy arrays (bfloat16 as ml_dtypes' type, as the reference's
+        ``build_weight_set`` gives them) or tensors. Raises
+        WeightTransferError on any mismatch; nothing is staged then and the
+        engine serves as before."""
+        from ..distributed.resilience.errors import WeightTransferError
+        from .weight_publish import crc32, host_tensor
+
+        cur = self._params
+        host = [host_tensor(a) for a in arrays]
+        if len(host) != len(cur):
+            raise WeightTransferError(
+                version, self.name,
+                f"tensor count {len(host)} != expected {len(cur)}")
+        for i, (a, ref) in enumerate(zip(host, cur)):
+            if tuple(a.shape) != tuple(ref.shape) or a.dtype != ref.dtype:
+                raise WeightTransferError(
+                    version, self.name,
+                    f"tensor {i}: got {a.dtype}{tuple(a.shape)}, "
+                    f"expected {ref.dtype}{tuple(ref.shape)}")
+        # the reference consults its `publish` chaos site here (kill, drop,
+        # corrupt or delay the transfer; serving.py:1139-1157): it waits
+        # for the port of the chaos injector (ROADMAP.md, queue 1)
+        if crcs is not None:
+            if len(crcs) != len(host):
+                raise WeightTransferError(
+                    version, self.name,
+                    f"crc count {len(crcs)} != tensor count {len(host)}")
+            for i, a in enumerate(host):
+                got = crc32(a)
+                if got != (crcs[i] & 0xFFFFFFFF):
+                    raise WeightTransferError(
+                        version, self.name,
+                        f"tensor {i} CRC mismatch (got {got:#010x}, "
+                        f"manifest {crcs[i] & 0xFFFFFFFF:#010x})")
+        self._staged_weights[version] = [a.to(self.device, copy=True)
+                                         for a in host]
+        return version
+
+    def commit_weight_set(self, version):
+        """Swap a STAGED version in at a step boundary: a swap of
+        references, no copy of weights. The serving set is kept (rollback
+        buffer, and the set in-flight pinned streams finish under) and
+        ``version`` becomes what new admissions pin to; its decode windows
+        are captured at first use. Raises PublishRejectedError
+        ('stale_version') when ``version`` does not advance the active one,
+        ('not_staged') when it was never staged. Returns the previous
+        version."""
+        from ..distributed.resilience.errors import PublishRejectedError
+
+        if version <= self._active_wv:
+            raise PublishRejectedError(
+                "stale_version", version, fence_version=self._active_wv)
+        staged = self._staged_weights.pop(version, None)
+        if staged is None:
+            raise PublishRejectedError(
+                "not_staged", version,
+                detail=f"stage_weight_set({version}, ...) never completed "
+                       f"on engine {self.name}")
+        old = self._active_wv
+        self._weight_sets[old] = self._params
+        self._weight_sets[version] = staged
+        self._params = staged
+        self._prev_wv = old
+        self._active_wv = version
+        self._gc_weight_sets()
+        # the reference's serving/weight_swaps and weight_version gauges
+        # wait for the metrics registry's port (ROADMAP.md, queue 1)
+        return old
+
+    def discard_staged(self, version=None):
+        """Drop staged, uncommitted sets (all, or one version): a refused
+        candidate must not stay in device memory."""
+        if version is None:
+            self._staged_weights.clear()
+        else:
+            self._staged_weights.pop(version, None)
+
+    def rollback_weight_set(self):
+        """Roll back to the kept previous version, bit for bit as if it had
+        never been promoted: its set becomes active again, and every
+        in-flight stream pinned to the dropped version is RESET (pages
+        released, tokens discarded) and pinned to the previous one, so its
+        regeneration under the schedule-independent salts gives the stream
+        a never-promoted engine gives. The dropped version's set, windows
+        and their graphs go. Returns the version rolled back to."""
+        from ..distributed.resilience.errors import PublishRejectedError
+
+        if self._prev_wv is None or self._prev_wv not in self._weight_sets:
+            raise PublishRejectedError(
+                "no_previous", self._active_wv,
+                detail="nothing retained to roll back to")
+        bad, prev = self._active_wv, self._prev_wv
+        self._params = self._weight_sets[prev]
+        self._active_wv = prev
+        self._prev_wv = None          # a rollback cannot be rolled back
+        for r in self.pending():
+            if r.weight_version == bad:
+                self._release(r)
+                r.generated = []
+                r.cached = 0
+                r.prefix_registered = False
+                r.spec_observed = 0
+                r.weight_version = prev
+                self._try_prefix_match(r)
+        self._weight_sets.pop(bad, None)
+        self._staged_weights.pop(bad, None)
+        self._drop_version(bad)
+        return prev
+
+    def _gc_weight_sets(self):
+        """Free kept sets no stream can reach, with their decode windows
+        and graphs: keep the active version, the rollback buffer and every
+        version an in-flight stream is pinned to."""
+        keep = {self._active_wv}
+        if self._prev_wv is not None:
+            keep.add(self._prev_wv)
+        keep.update(r.weight_version for r in self.pending())
+        for v in [v for v in self._weight_sets if v not in keep]:
+            del self._weight_sets[v]
+        for v in [v for v in self._views.keys() | self._windows.keys()
+                  if v not in keep]:
+            self._drop_version(v)
+
+    def probe_logits(self, prompt, version=None):
+        """Stateless canary probe (serving.py:1258-1301): next-token logits
+        of ``prompt``'s last position under ``version`` (default: active;
+        a staged set can be scored before it is committed), without
+        touching a live page, the scheduler or any request: one packed row
+        through the fresh-prefill route, its KV written to the trash page
+        0. Returns a float32 numpy vector of vocabulary logits."""
+        if self._model is None:
+            raise ValueError("probe_logits needs a from_model engine")
+        cfg = self.cfg
+        n = len(prompt)
+        if not 0 < n <= cfg.token_budget:
+            raise ValueError(
+                f"probe prompt length {n} must be in [1, "
+                f"{cfg.token_budget}] (one fresh-prefill shot)")
+        wv = self._active_wv if version is None else version
+        if wv != self._active_wv and wv in self._staged_weights:
+            view = self._make_view(self._staged_weights[wv])
+        else:
+            view = self._view(wv)
+        B1 = cfg.max_batch + 1
+        enc = np.zeros(B1, np.int64)
+        dec = np.zeros(B1, np.int64)
+        this = np.zeros(B1, np.int64)
+        this[0] = n
+        n_pad = cfg.token_budget - n
+        this[B1 - 1] = n_pad
+        enc[B1 - 1] = n_pad
+        tokens = np.asarray(list(prompt) + [0] * n_pad, np.int64)
+        cu = np.zeros(B1 + 1, np.int64)
+        cu[1:] = np.cumsum(this)
+        bt = np.zeros((B1, cfg.max_blocks_per_seq), np.int64)
+        ins = self._tensors(tokens, enc, dec, this, cu, bt)
+        with torch.inference_mode():
+            logits = self._model(*ins, self._kc, self._vc, self._ks,
+                                 self._vs, fresh_prefill=True, weights=view,
+                                 workspace=self._stream_ws)[0]
+            return logits[0].float().cpu().numpy()
 
     # -- scheduling ------------------------------------------------------
     def add_request(self, prompt_tokens, max_new_tokens=8, sampling=None,
@@ -704,6 +1159,8 @@ class ServingEngine:
         self._next_rid += 1
         req = _Request(rid, prompt_tokens, max_new_tokens, sampling,
                        eos_token_id, tenant=tenant)
+        # the whole stream runs under the version serving at admission
+        req.weight_version = self._active_wv
         self._requests[rid] = req
         self._try_prefix_match(req)
         return rid
@@ -762,7 +1219,8 @@ class ServingEngine:
         cache = self._prefix_cache
         if cache is None or req.pages:
             return
-        pages, keys, n_tok = cache.match(req.prompt, namespace=req.tenant)
+        pages, keys, n_tok = cache.match(req.prompt, namespace=req.tenant,
+                                         version=req.weight_version)
         if n_tok:
             req.pages = list(pages)
             req.shared_keys = keys
@@ -778,7 +1236,8 @@ class ServingEngine:
             return
         req.prefix_registered = True
         req.shared_keys.extend(cache.insert(req.prompt, req.pages,
-                                            namespace=req.tenant))
+                                            namespace=req.tenant,
+                                            version=req.weight_version))
 
     def _snapshot_root(self, root):
         root = root or self.cfg.prefix_snapshot_root
@@ -847,9 +1306,14 @@ class ServingEngine:
         rows = []
         budget = cfg.token_budget
         avail = self._available_pages()
+        # one weight version a step: after a swap the step serves the
+        # OLDEST pending stream's version first (serving.py:1390-1411)
+        step_wv = None
         for r in self.pending():
             if len(rows) == cfg.max_batch or budget == 0:
                 break
+            if step_wv is not None and r.weight_version != step_wv:
+                continue
             chunk = min(r.length - r.cached, budget)
             cap = (len(r.pages) + avail) * cfg.block_size  # page-limited
             chunk = min(chunk, cap - r.cached)
@@ -861,20 +1325,23 @@ class ServingEngine:
             budget -= chunk
             avail -= pages_needed
             rows.append((r, chunk))
+            step_wv = r.weight_version
         return rows
 
     def _tensors(self, *arrays):
         return [torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, torch.int64) for a in arrays]
 
-    def _run(self, tokens, enc, dec, this, cu, bt, fresh=False,
+    def _run(self, version, tokens, enc, dec, this, cu, bt, fresh=False,
              all_logits=False):
-        """One forward step over the engine's caches (updated in place)."""
+        """One forward step over the engine's caches (updated in place),
+        under weight ``version``."""
         ins = self._tensors(tokens, enc, dec, this, cu, bt)
         with torch.inference_mode():
             return self._model(*ins, self._kc, self._vc, self._ks, self._vs,
-                               fresh_prefill=fresh,
-                               all_logits=all_logits)[0]
+                               fresh_prefill=fresh, all_logits=all_logits,
+                               weights=self._view(version),
+                               workspace=self._stream_ws)[0]
 
     def step(self):
         """One engine iteration: schedule <= max_batch live requests
@@ -935,7 +1402,8 @@ class ServingEngine:
         # fresh-prefill steps (every scheduled row starts at position 0)
         # run block-diagonal varlen flash over the packed tokens
         fresh = all(r.cached == 0 for r, _ in rows)
-        logits = self._run(tokens, enc, dec, this, cu, bt, fresh)
+        logits = self._run(rows[0][0].weight_version, tokens, enc, dec, this,
+                           cu, bt, fresh)
         self.last_logits = logits
 
         temps = np.zeros(B1, np.float32)
@@ -1007,22 +1475,30 @@ class ServingEngine:
         takes it."""
         return self._decode_window_run(n_steps, graph=False)
 
-    def _window(self, Bb, mode, graph):
-        win = self._window_fns.get((Bb, mode))
+    def _window(self, Bb, mode, graph, version):
+        wins = self._windows.setdefault(version, {})
+        win = wins.get((Bb, mode))
         if win is None:
-            win = _DecodeWindow(self, Bb, mode)
+            win = _DecodeWindow(self, Bb, mode, version)
         if graph and win.graph is None:
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
+            pool = self._graph_pools.get(version)
+            if pool is None:
+                pool = self._graph_pools[version] = \
+                    torch.cuda.graph_pool_handle()
             with torch.inference_mode():
-                win.capture(self._graph_pool)
-        self._window_fns[(Bb, mode)] = win
+                win.capture(pool)
+        wins[(Bb, mode)] = win
         return win
 
     def _decode_window_run(self, n_steps, graph):
         cfg = self.cfg
-        rows = [r for r in self.pending()
-                if r.length - r.cached == 1][:cfg.max_batch]
+        rows = [r for r in self.pending() if r.length - r.cached == 1]
+        if rows:
+            # one weight version a window, the oldest tip row's first
+            # (serving.py:1841-1847)
+            wv = rows[0].weight_version
+            rows = [r for r in rows
+                    if r.weight_version == wv][:cfg.max_batch]
         if not rows:
             return []
         n = min([n_steps] + [r.max_new - len(r.generated) for r in rows])
@@ -1074,7 +1550,8 @@ class ServingEngine:
             topps[i] = r.sampling.top_p
             # the first step's salts; the body advances them on the device
             salts[i] = self._salt(r, len(r.generated))
-        win = self._window(Bb, _sample_mode(temps, topks), graph)
+        win = self._window(Bb, _sample_mode(temps, topks), graph,
+                           rows[0].weight_version)
         with torch.inference_mode():
             win.stage(tokens, enc, dec, this, cu, bt, temps, topks, topps,
                       salts)
@@ -1162,8 +1639,8 @@ class ServingEngine:
         tokens = np.asarray(packed + [0] * n_pad, np.int64)
         cu = np.zeros(B1 + 1, np.int64)
         cu[1:] = np.cumsum(this)
-        logits = self._run(tokens, enc, dec, this, cu, bt,
-                           all_logits=True)                   # [tok_len, V]
+        logits = self._run(plans[0][0].weight_version, tokens, enc, dec,
+                           this, cu, bt, all_logits=True)     # [tok_len, V]
         self.last_logits = logits
 
         P = len(packed)

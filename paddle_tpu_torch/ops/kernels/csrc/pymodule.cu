@@ -9,7 +9,8 @@
 // pointer) and one float, converted here, and the C entry's cudaError_t
 // comes back as an int. The paged attention of the decode and
 // chunked-prefill steps (16 calls a step, over bf16, f32 or int8 pages) and
-// the int8 path's quantize-on-append (16 a step) are called the same way.
+// the int8 path's quantize-on-append (16 a step) and the streamed weights'
+// dequantization (16 a step) are called the same way.
 // Host code only; built into the same shared library, which _build.py also
 // imports as an extension module.
 #include <Python.h>
@@ -40,6 +41,11 @@ extern "C" int pt_kv_quant(const void* k, const void* v, int64_t k_stride,
                            const void* slot, void* kc, void* vc, void* ks,
                            void* vs, int T, int HKV, int D, int bs, int dtype,
                            void* stream);
+extern "C" int pt_weight_dequant(int mode, int dtype, int n,
+                                 const void* const* codes,
+                                 const void* const* scales,
+                                 void* const* outs, const int* in_dims,
+                                 const int* out_dims, void* stream);
 
 namespace {
 
@@ -177,6 +183,32 @@ PyObject* kv_quant(PyObject*, PyObject* const* a, Py_ssize_t n) {
                                      stream));
 }
 
+// weight_dequant(mode, dtype, n, then four (codes, scales, out, in_dim,
+// out_dim) segments, the unused ones (None, None, None, 0, 0), stream)
+// -> cudaError_t
+PyObject* weight_dequant(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  constexpr int kSegments = 4;
+  int mode, dtype, count;
+  void* codes[kSegments];
+  void* scales[kSegments];
+  void* outs[kSegments];
+  int in_dims[kSegments], out_dims[kSegments];
+  void* stream;
+  if (!arity("weight_dequant", n, 4 + 5 * kSegments) ||
+      !as_int(a[0], &mode) || !as_int(a[1], &dtype) || !as_int(a[2], &count))
+    return nullptr;
+  for (int i = 0; i < kSegments; ++i) {
+    PyObject* const* s = a + 3 + 5 * i;
+    if (!as_ptr(s[0], &codes[i]) || !as_ptr(s[1], &scales[i]) ||
+        !as_ptr(s[2], &outs[i]) || !as_int(s[3], &in_dims[i]) ||
+        !as_int(s[4], &out_dims[i]))
+      return nullptr;
+  }
+  if (!as_ptr(a[3 + 5 * kSegments], &stream)) return nullptr;
+  return PyLong_FromLong(pt_weight_dequant(mode, dtype, count, codes, scales,
+                                           outs, in_dims, out_dims, stream));
+}
+
 PyMethodDef methods[] = {
     {"rms_norm", reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(
                      rms_norm)),
@@ -195,6 +227,10 @@ PyMethodDef methods[] = {
     {"kv_quant",
      reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(kv_quant)),
      METH_FASTCALL, "pt_kv_quant; returns its cudaError_t"},
+    {"weight_dequant",
+     reinterpret_cast<PyCFunction>(
+         reinterpret_cast<void (*)()>(weight_dequant)),
+     METH_FASTCALL, "pt_weight_dequant; returns its cudaError_t"},
     {nullptr, nullptr, 0, nullptr}};
 
 PyModuleDef module = {PyModuleDef_HEAD_INIT, "_pt_kernels",

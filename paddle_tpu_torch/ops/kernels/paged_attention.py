@@ -35,6 +35,7 @@ calls the library through its extension module (csrc/pymodule.cu).
 from __future__ import annotations
 
 import math
+import weakref
 
 import torch
 
@@ -156,9 +157,20 @@ def _validate(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
             (q.shape, q.dtype, q.get_device()))
 
 
-# the last validated call: the ids of its step inputs (kept alive with it,
-# so an id is not reused) and _validate's result
+# the last validated call: weak references to its step inputs and
+# _validate's result. A weak reference does not keep an engine's pools
+# alive once the engine is dropped; a dead one, or one to another object,
+# fails the identity check, so such a call is checked in full
+# (ops.kernels.reset_launch_counts also clears it)
 _step = None
+
+
+def _same_inputs(refs, inputs):
+    """True when each weak reference still points at the very object of
+    ``inputs`` (None stands for None)."""
+    return all((r is None and t is None)
+               or (r is not None and t is not None and r() is t)
+               for r, t in zip(refs, inputs))
 
 
 def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
@@ -171,17 +183,18 @@ def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
     global launches, launches_int8, _step
     inputs = (key_cache, value_cache, t2b, pos, block_tables, k_scales,
               v_scales)
-    ids = tuple(map(id, inputs))
     st = _step
-    if st is None or st[0] != ids or st[2] != (q.shape, q.dtype,
-                                               q.get_device()):
+    if st is None or st[1] != (q.shape, q.dtype, q.get_device()) \
+            or not _same_inputs(st[0], inputs):
         shared = _validate(q, key_cache, value_cache, layer_idx, t2b, pos,
                            block_tables, k_scales, v_scales)
-        st = (ids, inputs, shared[-1], shared[:-1])
+        # the index tensors themselves are not kept: only their pointers
+        st = (tuple(None if t is None else weakref.ref(t) for t in inputs),
+              shared[-1], shared[:4] + shared[5:-1])
         # an index tensor copied to be contiguous would go stale: no reuse
         _step = st if all(a is b for a, b in zip(
             shared[4], (t2b, pos, block_tables))) else None
-    fn, int8, pools, index, _, L, sizes = st[3]
+    fn, int8, pools, index, L, sizes = st[2]
     if not 0 <= layer_idx < L:
         raise ValueError(f"paged_attention: layer_idx {layer_idx} not in "
                          f"[0, {L})")
@@ -191,7 +204,7 @@ def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
     out = torch.empty_like(q)
     if sizes[0] == 0:
         return out
-    stream = torch._C._cuda_getCurrentRawStream(st[2][2])
+    stream = torch._C._cuda_getCurrentRawStream(st[1][2])
     if int8:
         (k, ks), (v, vs), (sk, ss), (sv, _) = pools
         err = fn(q.data_ptr(), k + layer_idx * ks, v + layer_idx * vs,

@@ -1091,3 +1091,266 @@ def test_int8_decode_window_capture_leaves_pages_and_scales(window_model8):
     # every page and every scale but the trash page 0's as they were
     for now, was in zip((eng._kc, eng._vc, eng._ks, eng._vs), before[1:]):
         assert torch.equal(now[:, 1:], was[:, 1:])
+
+
+# -- weight streaming: the dequant kernel and streamed decode windows --------
+
+# (in, out) of llama_1b's four streamed Linears (qkv, proj, gate_up, down),
+# and groups with an input width that is not a multiple of 32 (int4 padding
+# rows) and output widths that are multiples of 8 only
+_DEQUANT_GROUPS = {
+    "llama_1b": [(2048, 4096), (2048, 2048), (2048, 11264), (5632, 2048)],
+    "odd_in": [(100, 64), (33, 200), (1, 16), (257, 48)],
+}
+
+
+def _dequant_group(shapes, mode, device, seed):
+    from paddle_tpu_torch.inference import weight_stream as TW
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    segs = []
+    for n_in, n_out in shapes:
+        w = (torch.randn(n_in, n_out, device=device, generator=g) * 0.05) \
+            .to(torch.bfloat16)
+        w[:, 3] = 0
+        q, s = (TW.quantize_int4_grouped(w) if mode == "int4"
+                else TW.quantize_per_channel(w))
+        segs.append((torch.from_numpy(q).to(device),
+                     torch.from_numpy(s).to(device), n_in))
+    return segs
+
+
+def _plain_dequant(seg, dtype):
+    from paddle_tpu_torch.ops.kernels import weight_dequant as WD
+
+    q, s, n_in = seg
+    return WD.dequantize(q, s, dtype) if q.dtype == torch.int8 \
+        else WD.dequantize_int4(q, s, dtype, n_in)
+
+
+def _same_bits(a, b):
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(a.view(view), b.view(view))
+
+
+@pytest.mark.parametrize("offset", [0, 8])
+@pytest.mark.parametrize("group", sorted(_DEQUANT_GROUPS))
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_weight_dequant_kernel_matches_plain_bit_for_bit(dtype, mode, group,
+                                                         offset,
+                                                         cuda_device):
+    """One launch a group, every output bit for bit its plain version's;
+    the segments sit in one flat buffer at 16-byte aligned offsets (and,
+    with ``offset``, 8 elements past a 512-byte boundary), the bytes between
+    them untouched; a second launch repeats the bits."""
+    from paddle_tpu_torch.ops.kernels import weight_dequant as WD
+
+    shapes = _DEQUANT_GROUPS[group]
+    segs = _dequant_group(shapes, mode, cuda_device, len(group))
+    esz = torch.empty((), dtype=dtype).element_size()
+    starts, o = [], 0
+    for n_in, n_out in shapes:
+        o += offset
+        starts.append(o)
+        o += n_in * n_out + 512 // esz
+        o = -(-o // (16 // esz)) * (16 // esz)
+    buf = torch.full((o,), 7.0, dtype=dtype, device=cuda_device)
+    outs = [buf[s:s + n_in * n_out].view(n_in, n_out)
+            for s, (n_in, n_out) in zip(starts, shapes)]
+    before = WD.launches
+    WD.weight_dequant(segs, outs)
+    torch.cuda.synchronize()
+    assert WD.launches == before + 1
+    for seg, out in zip(segs, outs):
+        assert _same_bits(out, _plain_dequant(seg, dtype))
+    mask = torch.ones(o, dtype=torch.bool, device=cuda_device)
+    for s, (n_in, n_out) in zip(starts, shapes):
+        mask[s:s + n_in * n_out] = False
+    assert bool((buf[mask] == 7.0).all())
+    first = [t.clone() for t in outs]
+    WD.weight_dequant(segs, outs)
+    torch.cuda.synchronize()
+    assert all(_same_bits(a, b) for a, b in zip(outs, first))
+
+
+def test_weight_dequant_kernel_rejects_what_it_cannot_take(cuda_device):
+    from paddle_tpu_torch.ops.kernels import weight_dequant as WD
+
+    (seg,) = _dequant_group([(64, 32)], "int8", cuda_device, 1)
+    out = torch.empty(64, 32, dtype=torch.bfloat16, device=cuda_device)
+    before = WD.launches
+    with pytest.raises(TypeError):
+        WD.weight_dequant([seg], [out.half()])
+    with pytest.raises(TypeError):
+        WD.weight_dequant([(seg[0].short(), seg[1], 64)], [out])
+    with pytest.raises(ValueError):             # width not a multiple of 8
+        (odd,) = _dequant_group([(64, 12)], "int8", cuda_device, 2)
+        WD.weight_dequant([odd], [torch.empty(64, 12, dtype=torch.bfloat16,
+                                              device=cuda_device)])
+    flat = torch.empty(64 * 32 + 1, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):             # 2 bytes past a boundary
+        WD.weight_dequant([seg], [flat[1:].view(64, 32)])
+    wide = torch.empty(64, 40, dtype=torch.bfloat16, device=cuda_device)
+    with pytest.raises(ValueError):             # strided output
+        WD.weight_dequant([seg], [wide[:, :32]])
+    with pytest.raises(ValueError):             # another device
+        WD.weight_dequant([seg], [out.cpu()])
+    assert WD.launches == before
+
+
+@pytest.fixture(scope="module")
+def stream_model():
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    cfg = TS.PagedServingConfig(**_WINDOW_CFG)
+    return TS.PagedCausalLM(cfg, device="cuda", seed=7), cfg
+
+
+def _stream_engine(model, cfg, ws, sampling, seed=3):
+    eng = TS.ServingEngine.from_model(model, cfg, seed=seed, device="cuda",
+                                      weight_stream=ws)
+    rng = np.random.RandomState(11)
+    for i, sp in enumerate(sampling):
+        eng.add_request(list(rng.randint(1, cfg.vocab_size, 9 + 7 * i)),
+                        max_new_tokens=24, sampling=sp)
+    while any(r.length - r.cached > 1 for r in eng.pending()):
+        eng.step()
+    return eng
+
+
+@pytest.mark.parametrize("ws", ["int8", "int8-noprefetch", "int4"])
+def test_streamed_decode_window_graph_replay_equals_eager(ws, stream_model):
+    """A streamed engine's window graphs (the dequant on the side stream
+    under prefetch, captured with the fork and the join) against the eager
+    runner of the same body, token for token, window after window; a
+    replayed step counts the dequant kernel once a layer."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    model, cfg = stream_model
+    L = cfg.num_layers
+    graph = _stream_engine(model, cfg, ws, _MODES["topk"])
+    eager = _stream_engine(model, cfg, ws, _MODES["topk"])
+    graph.decode_run(4)                              # captures
+    assert eager._decode_run_eager(4) is not None
+    (win,) = graph._window_fns.values()
+    assert win.graph_launches["weight_dequant"] == L
+    reset_launch_counts()
+    got = graph.decode_run(4)
+    counts = launch_counts()
+    assert counts["weight_dequant"] == 4 * L
+    assert counts["rms_norm"] == 4 * (2 * L + 1)
+    assert counts["paged_attention"] == 4 * L
+    assert got == eager._decode_run_eager(4)
+    while graph.pending():
+        assert graph.decode_run(8) == eager._decode_run_eager(8)
+    assert not eager.pending()
+
+
+def test_streamed_engines_equal_the_plain_engine_over_dequantized(
+        stream_model):
+    """Prefetch, no prefetch and a plain engine whose weights are the
+    dequantized ones give the same tokens through the same route (eager
+    steps, then window graphs), int8 and int4; repeated on the same
+    engine, the graphs give the same bits again."""
+    import copy
+
+    from paddle_tpu_torch.inference import weight_stream as TW
+
+    model, cfg = stream_model
+    sampling = _MODES["full"]
+
+    def streams(eng):
+        while eng.pending():
+            if not eng.decode_run(8):
+                eng.step()
+        return [list(r.generated) for r in eng._requests.values()]
+
+    for mode in ("int8", "int4"):
+        modes = ("int8", "int8-noprefetch") if mode == "int8" else ("int4",)
+        outs = [streams(_stream_engine(model, cfg, ws, sampling))
+                for ws in modes]
+        plain = copy.deepcopy(model)
+        with torch.no_grad():
+            for kind in TW.STREAM_KINDS:
+                for lin in getattr(plain, kind):
+                    w = lin.weight.to(torch.bfloat16)
+                    if mode == "int4":
+                        q, s = TW.quantize_int4_grouped(w)
+                        d = TW.dequantize_int4(torch.from_numpy(q).cuda(),
+                                               torch.from_numpy(s).cuda(),
+                                               torch.bfloat16, w.shape[0])
+                    else:
+                        q, s = TW.quantize_per_channel(w)
+                        d = TW.dequantize(torch.from_numpy(q).cuda(),
+                                          torch.from_numpy(s).cuda(),
+                                          torch.bfloat16)
+                    lin.weight.copy_(d.float())
+        ref = streams(_stream_engine(plain, cfg, None, sampling))
+        assert all(o == ref for o in outs), mode
+        again = _stream_engine(model, cfg, mode, sampling)
+        assert streams(again) == outs[0]
+
+
+def test_dropped_engine_frees_its_pools(window_model):
+    """An engine dropped after a step frees its pools and windows: nothing
+    (the paged wrapper's remembered step among it) keeps them allocated."""
+    import gc
+
+    model, cfg = window_model
+
+    def engine_after_a_window():
+        eng = _at_decode_tip(model, cfg, _MODES["greedy"])
+        eng.decode_run(4)
+        eng.step()
+        return eng
+
+    def allocated():
+        # without the cuBLAS workspace PyTorch keeps a stream (each
+        # capture's side stream adds one)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch._C._cuda_clearCublasWorkspaces()
+        return torch.cuda.memory_allocated()
+
+    engine_after_a_window()          # what the model caches at first use
+    before = allocated()
+    eng = engine_after_a_window()
+    assert allocated() > before
+    del eng
+    assert allocated() == before
+
+
+def test_streamed_full_width_windows_equal_plain_over_dequantized():
+    """At llama_1b's widths (4 of its 16 layers), where a layer's dequant
+    and its products take tens of microseconds, the prefetched int8
+    engine's window graphs give, window after window, the tokens of a plain
+    engine over the dequantized weights: a missing wait between the side
+    stream and a slot's last reader shows here as wrong tokens."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    cfg = TS.PagedServingConfig.llama_1b(num_layers=4)
+    model = TS.PagedCausalLM(cfg, device="cuda", seed=9)
+    eng = TS.ServingEngine.from_model(model, cfg, seed=3, device="cuda",
+                                      weight_stream="int8")
+    plain_model = TS.PagedCausalLM(cfg, device="cuda", seed=9)
+    with torch.no_grad():
+        for kind in ("qkv", "proj", "gate_up", "down"):
+            for li, lin in enumerate(getattr(plain_model, kind)):
+                lin.weight.copy_(eng._streamer.dequant_layer(li)[kind].float())
+    plain = TS.ServingEngine.from_model(plain_model, cfg, seed=3,
+                                        device="cuda")
+    rng = np.random.RandomState(5)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n))
+               for n in (20, 33, 41, 17, 25, 60, 12, 30)]
+    streams = []
+    for e in (eng, plain):
+        for p in prompts:
+            e.add_request(p, max_new_tokens=64)
+        while any(r.length - r.cached > 1 for r in e.pending()):
+            e.step()
+        windows = []
+        while e.pending():
+            windows.append(e.decode_run(8))
+        streams.append(windows)
+    assert streams[0] == streams[1]

@@ -348,3 +348,51 @@ def test_kernel_call_checks_a_step_once(monkeypatch):
     name, *args = entries.calls[-1]
     assert name == "paged_attention_int8" and len(checks) == 5
     assert args[3] == scales.data_ptr() + scales.stride(0) * 4
+
+
+def test_kernel_call_keeps_no_dropped_pools_alive(monkeypatch):
+    """The wrapper remembers a validated step by weak references: once the
+    step's pools are dropped and collected, nothing keeps them alive, and
+    the next call, with new pools, is checked in full. reset_launch_counts
+    forgets the step too. CPU tensors through the launch path, the library
+    replaced by a recorder."""
+    import gc
+    import weakref
+
+    from paddle_tpu_torch.ops.kernels import reset_launch_counts
+
+    entries = _Entries()
+    checks = []
+    check = PA._check
+    monkeypatch.setattr(PA._build, "py_module", lambda: entries)
+    monkeypatch.setattr(PA, "_check", lambda *a: checks.append(1) or
+                        check(*a))
+    monkeypatch.setattr(torch._C, "_cuda_getCurrentRawStream",
+                        lambda device: 7, raising=False)
+    monkeypatch.setattr(PA, "_step", None)
+    ins = _inputs(6)
+    qkv, kc, vc, enc, dec, this, cu, bt, rope = [torch.tensor(a)
+                                                 for a in ins]
+    md = TF.paged_metadata(qkv.shape[0], enc, dec, cu, bt, BS, rope)
+    q = qkv[:, :HQ * D].reshape(-1, HQ, D).to(torch.bfloat16).contiguous()
+
+    def pools():
+        return kc.to(torch.bfloat16), vc.to(torch.bfloat16)
+
+    k1, v1 = pools()
+    for layer in (0, 1):
+        PA._launch(q, k1, v1, layer, md.t2b, md.pos, bt)
+    assert len(checks) == 1
+    dead = (weakref.ref(k1), weakref.ref(v1))
+    del k1, v1
+    gc.collect()
+    assert dead[0]() is None and dead[1]() is None
+    k2, v2 = pools()
+    PA._launch(q, k2, v2, 0, md.t2b, md.pos, bt)      # new pools: in full
+    PA._launch(q, k2, v2, 1, md.t2b, md.pos, bt)      # the same step
+    assert len(checks) == 2 and len(entries.calls) == 4
+    assert entries.calls[-1][2] == k2.data_ptr() + k2.stride(0) * 2
+    reset_launch_counts()
+    assert PA._step is None
+    PA._launch(q, k2, v2, 0, md.t2b, md.pos, bt)
+    assert len(checks) == 3
