@@ -29,12 +29,13 @@ Phases, each of which fails the run with a non-zero exit:
      (their count and capture ms are printed; its decode is the all-in
      figure), the second is measured over windows whose graphs exist; the
      serving kernels' launch counters (RMSNorm, the varlen forward, paged
-     attention) must rise during that run, the RMSNorm gradient must not
-     launch, and no input be copied to a 16-byte boundary; then 8 more
-     requests decode through the graphs and, in turns, through the eager
-     runner of the same window body on a second engine: each window's
-     tokens must be equal bit for bit, and a replayed window must count
-     RMSNorm 33 and paged attention 16 launches a step;
+     attention, RoPE-and-append) must rise during that run, the RMSNorm
+     gradient must not launch, and no input be copied to a 16-byte
+     boundary; then 8 more requests decode through the graphs and, in
+     turns, through the eager runner of the same window body on a second
+     engine: each window's tokens must be equal bit for bit, and a replayed
+     window must count RMSNorm 33, paged attention 16 and rope_append 16
+     launches a step;
   3b. paged attention: the kernel against its plain version in bf16 and
      f32 at the flagship decode shape (8 rows at the positions the serving
      phase's decode started from) and at a 256-token chunked step, then
@@ -47,17 +48,27 @@ Phases, each of which fails the run with a non-zero exit:
      shapes (bf16 and f32 q), and bit for bit against the float kernel over
      pages holding the same dequantized values; both timed (the int8 paged
      kernel in turns with the bf16 kernel on the same rows and SDPA on the
-     dequantized gathered view);
+     dequantized gathered view); then rope_append (RoPE of q and k, k and
+     v cast or quantized into their pages, one launch a layer) against its
+     plain version bit for bit (q, k and v, and every pool byte outside the
+     trash page 0, whose slots the padding tokens share) at the decode
+     shape, the verify step and the 256-token chunked and fresh-prefill
+     steps, in both output layouts, bf16 and f32 q, float and int8 pages
+     (a tie head and an all-zero head), then timed in turns with its plain
+     version and with the composition it replaced (the plain version's
+     tensor ops with the page scatter, or with the old kv_quant kernel);
   4. parity: a 2-layer full-width f32 engine's greedy streams through
      decode_run's replayed graphs equal its forward_dense greedy decode;
      through speculative verify steps, prefix-cache hits and int8 pools
      (the last held to the plain versions run on the card's tensors) they
-     equal the plain engine's; and the bf16 16-layer engine's first-step
-     logits are close to forward_dense;
+     equal the plain engine's; the bf16 16-layer engine's first-step
+     logits are close to forward_dense; and its greedy streams over the
+     serving phase's 8 prompts through rope_append equal, token for token,
+     the same engine's with only rope_append patched to its plain version;
   4b. int8 serving: llama_1b(cache_quant="int8") drives the serving phase's
      requests twice (captures, then measured): a replayed decode step must
-     count RMSNorm 33, int8 paged attention 16, kv_quant 16 and bf16 paged
-     attention 0; its tokens against the bf16 engine's (equal count and
+     count RMSNorm 33, int8 paged attention 16, rope_append 16, kv_quant 0
+     and bf16 paged attention 0; its tokens against the bf16 engine's (equal count and
      first divergence, printed), its pools' bytes and peak memory, and its
      windows' graphs against the eager runner, token for token;
   4c. prefix cache: 8 requests sharing a 96-token prefix, with and without
@@ -72,8 +83,8 @@ Phases, each of which fails the run with a non-zero exit:
      int8 and int4, bf16 and f32 out), timed beside its plain version and
      its bound; engines with weight_stream "int4", "int8" and
      "int8-noprefetch" drive the serving phase's requests twice (a replayed
-     decode step must count RMSNorm 33, paged attention 16 and
-     weight_dequant 16), their tokens equal to a plain bf16 engine's over
+     decode step must count RMSNorm 33, paged attention 16, weight_dequant
+     16 and rope_append 16), their tokens equal to a plain bf16 engine's over
      the dequantized weights, their weights' bytes and peak memory;
      measure_stream_win (prefetch against no prefetch, three turns); live
      weight versions on the int8 engine (build, stage, probe, commit under
@@ -105,7 +116,9 @@ Phases, each of which fails the run with a non-zero exit:
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
      weight-streaming engine, a training step and a packed training step,
-     by torch.profiler.
+     by torch.profiler, with the device kernels a replayed decode step
+     launches in all; the composition rope_append replaced, its device
+     time and kernels a call.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
@@ -141,15 +154,15 @@ PROFILE_PAD_LAUNCHES = 1024
 PROFILE_ATTEMPTS = 3
 # the kernels each path must launch
 SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd",
-                   "paged_attention")
+                   "paged_attention", "rope_append")
 INT8_SERVING_KERNELS = ("rms_norm", "varlen_attention_fwd",
-                        "paged_attention_int8", "kv_quant")
+                        "paged_attention_int8", "rope_append")
 TRAINING_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_attention_fwd",
                     "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
 PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
                   "varlen_attention_bwd_dq")
 STREAM_KERNELS = ("rms_norm", "varlen_attention_fwd", "paged_attention",
-                  "weight_dequant")
+                  "weight_dequant", "rope_append")
 PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
          "weight_stream": STREAM_KERNELS}
@@ -240,15 +253,18 @@ def profile_kernels(fn, calls=1):
     return out
 
 
-def kernel_device_ms(fn, kernel_symbol, calls=50):
+def kernel_device_ms(fn, kernel_symbol, calls=50, kernels=None):
     """Mean device time of one launch of the kernel whose name contains
     ``kernel_symbol``; for a tuple of symbols (a wrapper that launches
     several kernels), the sum over them (None when the profiler records no
     device time for one); for None, the device time of every kernel one
-    call of ``fn`` launches."""
+    call of ``fn`` launches. ``kernels``, a list, gets the device kernels
+    a call launched in all."""
     fn()
     torch.cuda.synchronize()
     prof = profile_kernels(fn, calls)
+    if kernels is not None:
+        kernels.append(sum(n for n, _ in prof.values()) / calls)
     if kernel_symbol is None:
         return sum(us for _, us in prof.values()) / calls / 1e3
     total = 0.0
@@ -1904,7 +1920,7 @@ def phase_serving(dev):
     the all-in figure), the second is measured (decode over windows whose
     graphs exist already); in it the counts are set to 0 just before its
     first replayed decode window and read just after, which must launch
-    RMSNorm 2L + 1 and paged_attention L times a step. Then the graphs
+    RMSNorm 2L + 1, paged_attention L and rope_append L times a step. Then the graphs
     against the eager runner of the same body in turns on 8 more requests,
     token for token. Returns metrics, the kernels' launch counts of the
     measured run, the engine and prompts."""
@@ -1950,16 +1966,18 @@ def phase_serving(dev):
     steps, rows, made = run["window"]
     L = cfg.num_layers
     want = {k: 0 for k in made}
-    want.update(rms_norm=(2 * L + 1) * steps, paged_attention=L * steps)
+    want.update(rms_norm=(2 * L + 1) * steps, paged_attention=L * steps,
+                rope_append=L * steps)
     if made != want:
         raise AssertionError(f"a replayed decode window of {steps} steps "
                              f"launched {made}, not {want}")
     decode_step = {k: n // steps for k, n in made.items()}
     log(f"measured decode window of {steps} steps over {rows // steps} "
         f"rows, counts set to 0 just before it: rms_norm "
-        f"{made['rms_norm']}, paged_attention {made['paged_attention']} "
-        f"({decode_step['rms_norm']} and {decode_step['paged_attention']} "
-        f"a step, counted under replay)")
+        f"{made['rms_norm']}, paged_attention {made['paged_attention']}, "
+        f"rope_append {made['rope_append']} ({decode_step['rms_norm']}, "
+        f"{decode_step['paged_attention']} and {decode_step['rope_append']}"
+        f" a step, counted under replay)")
     for name in SERVING_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
@@ -2100,6 +2118,11 @@ def _profiled_window(eng, prompts, sampling, label, want, seen_of,
                          f"{seen} on the device, not {want}")
 
 
+def _kernels_a_step(prof, steps):
+    """Device kernels (and copies) a step of a profile over ``steps``."""
+    return sum(n for n, _ in prof.values()) / steps
+
+
 def phase_profile(dev, serving, training, packed, kernels, probes, int8,
                   stream):
     """Under torch.profiler, last (the profiler stays attached to the
@@ -2108,22 +2131,31 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
     16-step decode window at batch 8, of one training step and of one
     packed training step, beside the wall times of the unprofiled runs —
     the device's busy share and its top kernels. The profiled decode
-    window's replays must show the RMSNorm and paged-attention kernels
-    launched 2L + 1 and L times a step on the device, as many as the
-    counters added for the replays; the int8 engine's, its paged-attention
-    and kv_quant kernels L times a step; each weight-streaming engine's,
-    its dequant kernel L times a step (_profiled_window)."""
+    window's replays must show the RMSNorm, paged-attention and
+    RoPE-and-append kernels launched 2L + 1, L and L times a step on the
+    device, as many as the counters added for the replays; the int8
+    engine's, its paged-attention and RoPE-and-append kernels L times a
+    step; each weight-streaming engine's, its dequant and RoPE-and-append
+    kernels L times a step (_profiled_window). Each decode window's device
+    kernels a step, in all, are logged. A probe with no kernel symbol (a
+    composition of tensor ops) records its device kernels a call too."""
     from paddle_tpu_torch.inference import ServingEngine
 
     for name, (fn, symbol, calls, target) in probes.items():
-        target["device_ms"] = kernel_device_ms(fn, symbol, calls)
-        log(f"{name}: {target['device_ms']} ms on the device")
+        kernels = []
+        target["device_ms"] = kernel_device_ms(fn, symbol, calls, kernels)
+        if symbol is None:
+            target["device_kernels_a_call"] = kernels[0]
+        log(f"{name}: {target['device_ms']} ms on the device, "
+            f"{kernels[0]} device kernels a call")
     model, cfg = serving["model"], serving["cfg"]
     prompts, sampling = serving["prompts"], serving["sampling"]
     metrics = serving["metrics"]
 
     def summary(kernels, per):
         total = sum(us for _, us in kernels.values()) / 1e3 / per
+        log(f"profile: {sum(n for n, _ in kernels.values()) / per} device "
+            f"kernels, {total:.4f} ms of device time a step")
         top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:6]
         return total, [{"kernel": k[:70], "launches": n // per,
                         "ms": us / 1e3 / per} for k, (n, us) in top]
@@ -2141,12 +2173,14 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
                           if any(f"::{sym}<" in key for sym in syms))
                 for name, syms in names}
 
-    want = {"rms_norm": (2 * L + 1) * 16, "paged_attention": L * 16}
+    want = {"rms_norm": (2 * L + 1) * 16, "paged_attention": L * 16,
+            "rope_append": L * 16}
     dec, seen, counted = _profiled_window(
         eng, prompts, sampling, "bf16", want, ready=True,
         seen_of=lambda d: launched(d, (
             ("rms_norm", ("rms_norm_kernel", "rms_norm_two_pass_kernel")),
-            ("paged_attention", ("paged_attention_tc_kernel",)))))
+            ("paged_attention", ("paged_attention_tc_kernel",)),
+            ("rope_append", ("rope_append_kernel",)))))
     if any(counted[k] != n for k, n in want.items()):
         raise AssertionError(f"profile: 16 decode replays launched {seen} "
                              f"on the device and counted {counted}, not "
@@ -2158,23 +2192,29 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
     # phase)
     dec8, _, _ = _profiled_window(
         int8["engine"], prompts, sampling, "int8",
-        {"paged_attention_int8": L * 16, "kv_quant": L * 16},
+        {"paged_attention_int8": L * 16, "rope_append": L * 16,
+         "kv_quant": 0},
         seen_of=lambda d: launched(d, (
             ("paged_attention_int8", ("paged_attention_tc_kernel",)),
+            ("rope_append", ("rope_append_kernel",)),
             ("kv_quant", ("kv_quant_kernel",)))))
     dec8_ms, dec8_top = summary(dec8, 16)
     # each weight-streaming engine's decode window, as the int8 engine's
     stream_prof = {}
     for ws, eng_s in stream["engines"].items():
         dec_s, _, _ = _profiled_window(
-            eng_s, prompts, sampling, ws, {"weight_dequant": L * 16},
+            eng_s, prompts, sampling, ws,
+            {"weight_dequant": L * 16, "rope_append": L * 16},
             seen_of=lambda d: launched(d, (
-                ("weight_dequant", ("weight_dequant_kernel",)),)))
+                ("weight_dequant", ("weight_dequant_kernel",)),
+                ("rope_append", ("rope_append_kernel",)))))
         ms_s, top_s = summary(dec_s, 16)
         dequant_ms = sum(us for key, (_, us) in dec_s.items()
                          if "weight_dequant_kernel<" in key) / 1e3 / 16
         step_ms = stream["metrics"][ws]["decode_ms_per_step"]
         stream_prof[ws] = {"decode_step_device_ms": ms_s,
+                           "decode_device_kernels_a_step":
+                           _kernels_a_step(dec_s, 16),
                            "decode_device_busy": ms_s / step_ms,
                            "dequant_device_ms_per_step": dequant_ms,
                            "decode_top": top_s}
@@ -2195,11 +2235,13 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
         / metrics["fresh_prefill_step_ms"],
         "fresh_prefill_top": fresh_top,
         "decode_step_device_ms": dec_ms,
+        "decode_device_kernels_a_step": _kernels_a_step(dec, 16),
         "decode_device_busy": dec_ms / metrics["decode_ms_per_step"],
         "decode_device_busy_all_in": dec_ms
         / metrics["decode_ms_per_step_all_in"],
         "decode_top": dec_top,
         "int8_decode_step_device_ms": dec8_ms,
+        "int8_decode_device_kernels_a_step": _kernels_a_step(dec8, 16),
         "int8_decode_device_busy": dec8_ms
         / int8["metrics"]["decode_ms_per_step"],
         "int8_decode_top": dec8_top,
@@ -2445,14 +2487,246 @@ def phase_int8_kernels(dev, results, probes, serving):
             calls[label], "paged_attention_tc_kernel", 48, target)
 
 
+# the RoPE-and-append kernel's checked and timed steps besides decode (whose
+# positions the serving phase gives): (rows [(tokens, start position)],
+# trash-row padding tokens). The verify and 256-token chunked steps of
+# PAGED_SHAPES, and a 256-token fresh-prefill step whose trash row pads 66
+# tokens, more than a page: several of them write each slot of page 0
+ROPE_SHAPES = {
+    **PAGED_SHAPES,
+    "fresh": ([(100, 0), (90, 0)], 66),
+}
+
+
+def _rope_append_inputs(dev, cfg, table, rows, n_pad, dtype, int8, gen):
+    """rope_append's inputs at the serving config's widths: rows [(tokens,
+    start position)], each on its own pages, and n_pad padding tokens in
+    the trash row (last, block-table row all page 0); the packed qkv [T,
+    (HQ + 2 HKV) D] (k and v spanning magnitudes, token 0's k head 0 all
+    zero, token 1's v head 0 a tie head: max 127, so its int8 scale is 1,
+    and values n + 0.5), the stacked pools (random earlier contents: bf16
+    or f32 pages of q's dtype, or int8 with f32 scales) and the step's
+    metadata from the model's RoPE table."""
+    from paddle_tpu_torch.incubate.nn import functional as IF
+
+    HQ, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    mb, bs = cfg.max_blocks_per_seq, cfg.block_size
+    B1 = len(rows) + 1
+    enc = torch.zeros(B1, dtype=torch.int64)
+    dec = torch.zeros(B1, dtype=torch.int64)
+    this = torch.zeros(B1, dtype=torch.int64)
+    bt = torch.zeros(B1, mb, dtype=torch.int64)
+    for i, (n, start) in enumerate(rows):
+        dec[i], this[i] = start, n
+        bt[i] = torch.arange(1 + i * mb, 1 + (i + 1) * mb)
+    this[-1] = enc[-1] = n_pad
+    cu = torch.zeros(B1 + 1, dtype=torch.int64)
+    cu[1:] = torch.cumsum(this, 0)
+    T = int(cu[-1])
+    qkv = torch.randn(T, (HQ + 2 * HKV) * D, device=dev, generator=gen)
+    qkv[:, HQ * D:] *= torch.exp(torch.randn(T, 1, device=dev,
+                                             generator=gen))
+    qkv[0, HQ * D:(HQ + 1) * D] = 0
+    tie = (HQ + HKV) * D
+    qkv[1, tie:tie + D] = torch.arange(D, device=dev) % 9 + 0.5
+    qkv[1, tie] = 127
+    qkv = qkv.to(dtype)
+    shape = (cfg.num_layers, cfg.num_blocks, HKV, bs, D)
+    if int8:
+        pools = [torch.randint(-127, 128, shape, device=dev, generator=gen,
+                               dtype=torch.int8) for _ in range(2)]
+        pools += [torch.rand(shape[:-1], device=dev, generator=gen) * 0.05
+                  for _ in range(2)]
+    else:
+        pools = [torch.randn(shape, device=dev, generator=gen).to(dtype)
+                 for _ in range(2)] + [None, None]
+    rope = table[:, None, None, :mb * bs].expand(2, B1, 1, mb * bs, D // 2)
+    md = IF.paged_metadata(T, enc.to(dev), dec.to(dev), cu.to(dev),
+                           bt.to(dev), bs, rope)
+    return qkv, pools, md
+
+
+def _old_rope_append(qkv, kc, vc, ks, vs, layer, md, heads_first=False):
+    """The composition rope_append replaced in block_multihead_attention:
+    RoPE's tensor ops and the casts, then the page scatter (index_put_) for
+    float pages, or the old kv_quant kernel for int8 pages."""
+    from paddle_tpu_torch.ops.kernels import kv_quant as KQ
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    q, k, v = RA._split(qkv, kc.shape[2], kc.shape[-1])
+    q = RA._rope(q, md.cos, md.sin).to(qkv.dtype)
+    k = RA._rope(k, md.cos, md.sin).to(qkv.dtype)
+    if ks is not None:
+        KQ.kv_quant(k, v, kc, vc, ks, vs, layer, md.page, md.slot)
+    else:
+        kc[layer].transpose(1, 2)[md.page, md.slot] = k
+        vc[layer].transpose(1, 2)[md.page, md.slot] = v
+    if heads_first:
+        return tuple(t.transpose(0, 1).contiguous() for t in (q, k, v))
+    return q
+
+
+def _rope_append_bound(qkv, pools, heads_first):
+    """(bound ms, bound_by) of one rope_append call: qkv, the angles and
+    page/slot read once; q (and k, v heads first), the K/V rows and their
+    scales written once; against 3 f32 operations an element of q and k
+    (RoPE: 4 products and 2 sums a pair) and 4 an element of k and v for
+    int8 pages (abs-max, division, rounding, clamp) at the f32 rate."""
+    kc, ks = pools[0], pools[2]
+    T = qkv.shape[0]
+    HKV, D = kc.shape[2], kc.shape[-1]
+    HQ = qkv.shape[1] // D - 2 * HKV
+    esz = qkv.element_size()
+    kv_el = 2 * T * HKV * D
+    nb = (nbytes(qkv) + 2 * T * (D // 2) * 4 + 2 * T * 8
+          + T * HQ * D * esz + kv_el * kc.element_size()
+          + (2 * T * HKV * 4 if ks is not None else 0)
+          + (kv_el * esz if heads_first else 0))
+    ops = 3 * T * (HQ + HKV) * D + (4 * kv_el if ks is not None else 0)
+    return bound(nb, ops, F32_OPS_PER_S)
+
+
+def phase_rope_append_kernel(dev, results, probes, serving):
+    """rope_append against its plain version, then timed. At the decode
+    shape (8 rows at the serving phase's decode positions) and ROPE_SHAPES'
+    verify, 256-token chunked and fresh-prefill steps, each in both output
+    layouts (q [T, HQ, D]; q, k, v heads first), bf16 and f32 q, float
+    pages of q's dtype and int8 pages: q (and k, v) and every pool byte
+    outside the trash page 0 bit for bit (the fresh step's padding tokens
+    share page 0's slots, and which of them a scatter keeps is unordered,
+    in index_put_ as in the kernel; no live row reads page 0), the all-zero
+    head's int8 scale 1e-8 and the tie head's 1. Then, bf16 q, each shape
+    in its path's layout (heads first for the fresh step), timed in turns
+    with its plain version and with the composition it replaced in
+    block_multihead_attention (for float pages that composition is the
+    plain version; for int8 pages the old kv_quant kernel quantizes), each
+    call on the next layer's pools; the kernel's and the old composition's
+    device time and device kernels a call by the profile phase (no single
+    PyTorch call computes it: library null)."""
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    cfg, model = serving["cfg"], serving["model"]
+    L = cfg.num_layers
+    HQ, HKV, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    table = model.rope_cos_sin(dev)
+    gen = torch.Generator(device=dev).manual_seed(29)
+    shapes = {
+        "decode": ([(1, p) for p in serving["run"]["decode_positions"]], 0),
+        **ROPE_SHAPES,
+    }
+    checks, timed, calls = 0, {}, {}
+    for label, (rows, n_pad) in shapes.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for pages in ("float", "int8"):
+                qkv, pools, md = _rope_append_inputs(
+                    dev, cfg, table, rows, n_pad, dtype, pages == "int8",
+                    gen)
+                T = qkv.shape[0]
+                for heads_first in (False, True):
+                    got_pools = [None if p is None else p.clone()
+                                 for p in pools]
+                    ref_pools = [None if p is None else p.clone()
+                                 for p in pools]
+                    got = RA.rope_append(qkv, *got_pools, L - 1, md,
+                                         heads_first=heads_first)
+                    ref = RA._rope_append_ref(qkv, *ref_pools, L - 1, md,
+                                              heads_first=heads_first)
+                    torch.cuda.synchronize()
+                    got = got if heads_first else (got,)
+                    ref = ref if heads_first else (ref,)
+                    same = all(a.shape == b.shape and _bits_equal(a, b)
+                               for a, b in zip(got, ref))
+                    same &= all(
+                        torch.equal(a[:, 1:].view(torch.uint8),
+                                    b[:, 1:].view(torch.uint8))
+                        for a, b in zip(got_pools, ref_pools)
+                        if a is not None)
+                    if pages == "int8":
+                        ks, vs = ref_pools[2][L - 1], ref_pools[3][L - 1]
+                        same &= float(ks[md.page[0], 0, md.slot[0]]) \
+                            == float(np.float32(1e-8))
+                        same &= float(vs[md.page[1], 0, md.slot[1]]) == 1.0
+                    if not same:
+                        raise AssertionError(
+                            f"rope_append {label} T={T} {dtype} {pages} "
+                            f"pages heads_first={heads_first}: not bit for "
+                            f"bit its plain version")
+                    checks += 1
+                log(f"rope_append {label} T={T} q {dtype}, {pages} pages: "
+                    f"q, k, v and the pools outside page 0 bit for bit the "
+                    f"plain version's, both layouts; zero and tie heads' "
+                    f"int8 scales 1e-8 and 1 ok")
+                if dtype != torch.bfloat16:
+                    continue
+                heads_first = label == "fresh"      # the path's layout
+                turn = [0]
+
+                def call(fn, qkv=qkv, pools=pools, md=md,
+                         heads_first=heads_first, turn=turn):
+                    turn[0] = (turn[0] + 1) % L
+                    return fn(qkv, *pools, turn[0], md,
+                              heads_first=heads_first)
+
+                fns = {"ms": lambda call=call: call(RA.rope_append),
+                       "plain_ms":
+                       lambda call=call: call(RA._rope_append_ref)}
+                if pages == "int8":
+                    fns["old_composition_ms"] = \
+                        lambda call=call: call(_old_rope_append)
+                turns = time_ms_turns(fns)
+                if pages == "float":      # the old composition is the plain
+                    turns["old_composition_ms"] = turns["plain_ms"]
+                b, by = _rope_append_bound(qkv, pools, heads_first)
+                key = f"{label} {pages}"
+                timed[key] = dict(
+                    shape=f"qkv [{T}, {(HQ + 2 * HKV) * D}] bf16 "
+                          f"({HQ}/{HKV} heads of {D}) into "
+                          f"{'bf16' if pages == 'float' else 'int8'} pools "
+                          f"[{L}, {cfg.num_blocks}, {HKV}, {cfg.block_size},"
+                          f" {D}]" + (" + f32 scales" if pages == "int8"
+                                      else "")
+                          + (", q, k, v out heads first" if heads_first
+                             else ", q out [T, HQ, D]"),
+                    **turns, bound_ms=b, bound_by=by, library_ms=None,
+                    library_note="none: no single PyTorch call rotates, "
+                                 "casts and scatters",
+                    old_composition=dict(
+                        note="RoPE's tensor ops, the casts and "
+                             + ("index_put_ into the pages" if
+                                pages == "float" else
+                                "the old kv_quant kernel")))
+                calls[key] = (fns["ms"],
+                              lambda call=call: call(_old_rope_append))
+                log(f"rope_append {key}: {timed[key]}")
+    row = dict(name="rope_append", route="cuda",
+               source="paddle_tpu_torch/ops/kernels/csrc/rope_append.cu",
+               replaces="paddle_tpu/incubate/nn/functional/__init__.py:655 "
+                        "(RoPE of q and k, the casts, q8 and the page "
+                        "scatters; no Pallas kernel, XLA-fused jnp in the "
+                        "reference)",
+               max_abs_err=0.0, bit_for_bit_checks=checks,
+               **timed["decode float"])
+    for key, t in timed.items():
+        if key != "decode float":
+            row["at_" + key.replace(" ", "_")] = t
+    results["rope_append"] = row
+    for key, (kernel, old) in calls.items():
+        target = row if key == "decode float" \
+            else row["at_" + key.replace(" ", "_")]
+        probes[f"rope_append {key}"] = (kernel, "rope_append_kernel", 48,
+                                        target)
+        probes[f"rope_append old composition {key}"] = (
+            old, None, 48, target["old_composition"])
+
+
 def phase_int8_serving(dev, serving):
     """PagedServingConfig.llama_1b(cache_quant="int8") over the serving
     phase's model and requests, driven as that phase drives the bf16
     engine: twice on one engine (the first drive captures the windows'
     graphs), the second measured; its first replayed decode window, counts
     set to 0 just before it, must launch RMSNorm 2L + 1, the int8 paged
-    kernel L and kv_quant L times a step and the bf16 paged kernel not at
-    all. The int8 greedy and sampled streams against the bf16 engine's (the
+    kernel L and rope_append L times a step, and the bf16 paged kernel and
+    the old kv_quant kernel not at all. The int8 greedy and sampled streams against the bf16 engine's (the
     same request ids, so the same salts): the tokens equal and each
     request's first divergence, printed, not required equal. Then the int8
     windows' graphs against the eager runner, token for token."""
@@ -2485,7 +2759,7 @@ def phase_int8_serving(dev, serving):
     steps, n_tok, made = run["window"]
     want = {k: 0 for k in made}
     want.update(rms_norm=(2 * L + 1) * steps,
-                paged_attention_int8=L * steps, kv_quant=L * steps)
+                paged_attention_int8=L * steps, rope_append=L * steps)
     if made != want:
         raise AssertionError(f"a replayed int8 decode window of {steps} "
                              f"steps launched {made}, not {want}")
@@ -2493,7 +2767,7 @@ def phase_int8_serving(dev, serving):
     fresh = run["per_step"]
     want_fresh = {k: 0 for k in fresh}
     want_fresh.update(rms_norm=2 * L + 1, varlen_attention_fwd=L,
-                      kv_quant=L)
+                      rope_append=L)
     if fresh != want_fresh:
         raise AssertionError(f"the int8 fresh-prefill step launched {fresh},"
                              f" not {want_fresh}")
@@ -2502,12 +2776,13 @@ def phase_int8_serving(dev, serving):
         f"{n_tok // steps} rows, counts set to 0 just before it: "
         f"{ {k: n for k, n in made.items() if n} } ({decode_step['rms_norm']}"
         f", {decode_step['paged_attention_int8']} and "
-        f"{decode_step['kv_quant']} a step, counted under replay)")
+        f"{decode_step['rope_append']} a step, counted under replay)")
     for name in INT8_SERVING_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on the "
                                  f"int8 serving path")
-    for name in ("paged_attention", "rms_norm_bwd", "aligned16_copies"):
+    for name in ("paged_attention", "kv_quant", "rms_norm_bwd",
+                 "aligned16_copies"):
         if counts[name]:
             raise AssertionError(f"the int8 serving run counted {name} "
                                  f"{counts[name]}")
@@ -2921,7 +3196,7 @@ def phase_weight_stream(dev, serving, results, probes):
     share one quantization) over a model of the serving phase's seed, each
     driving the serving phase's 8 requests twice (captures, then
     measured): a replayed decode step must launch RMSNorm 33, paged
-    attention 16 and weight_dequant 16 times; each engine's tokens must
+    attention 16, weight_dequant 16 and rope_append 16 times; each engine's tokens must
     equal those of a plain bf16 engine whose weights are the dequantized
     ones, through the same route; the weights' bytes on the card, and peak
     memory. (3) measure_stream_win, prefetch against no prefetch, three
@@ -2977,14 +3252,15 @@ def phase_weight_stream(dev, serving, results, probes):
         steps, n_tok, made = run["window"]
         want = {k: 0 for k in made}
         want.update(rms_norm=(2 * L + 1) * steps,
-                    paged_attention=L * steps, weight_dequant=L * steps)
+                    paged_attention=L * steps, weight_dequant=L * steps,
+                    rope_append=L * steps)
         if made != want:
             raise AssertionError(f"a replayed {ws} decode window of {steps} "
                                  f"steps launched {made}, not {want}")
         fresh = run["per_step"]
         want_fresh = {k: 0 for k in fresh}
         want_fresh.update(rms_norm=2 * L + 1, varlen_attention_fwd=L,
-                          weight_dequant=L)
+                          weight_dequant=L, rope_append=L)
         if fresh != want_fresh:
             raise AssertionError(f"the {ws} fresh-prefill step launched "
                                  f"{fresh}, not {want_fresh}")
@@ -3218,6 +3494,7 @@ def plain_kernels():
     from paddle_tpu_torch.ops.kernels import kv_quant as KQ
     from paddle_tpu_torch.ops.kernels import paged_attention as PA
     from paddle_tpu_torch.ops.kernels import rms_norm as RN
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
     from paddle_tpu_torch.ops.kernels import varlen_attention as VA
 
     def paged(q, kc, vc, layer, t2b, pos, bt, ks=None, vs=None):
@@ -3226,17 +3503,27 @@ def plain_kernels():
             None if ks is None else ks[layer],
             None if vs is None else vs[layer])
 
-    saved = (RN.rms_norm, VA._on_kernels, PA.paged_attention, KQ.kv_quant)
+    saved = (RN.rms_norm, VA._on_kernels, PA.paged_attention, KQ.kv_quant,
+             RA.rope_append)
     RN.rms_norm = lambda x, weight=None, eps=1e-6: RN._rms_norm_ref(
         x, weight, eps)
     VA._on_kernels = lambda q: False
     PA.paged_attention = paged
     KQ.kv_quant = KQ._kv_quant_ref
+    RA.rope_append = _plain_rope_append
     try:
         yield
     finally:
-        (RN.rms_norm, VA._on_kernels, PA.paged_attention,
-         KQ.kv_quant) = saved
+        (RN.rms_norm, VA._on_kernels, PA.paged_attention, KQ.kv_quant,
+         RA.rope_append) = saved
+
+
+def _plain_rope_append(qkv, kc, vc, ks, vs, layer, md, heads_first=False):
+    """rope_append's plain version under the wrapper's signature."""
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    return RA._rope_append_ref(qkv, kc, vc, ks, vs, layer, md,
+                               heads_first=heads_first)
 
 
 def phase_parity(dev, serving):
@@ -3249,7 +3536,9 @@ def phase_parity(dev, serving):
     kernels called directly on the card's tensors (TF32 is off); (b) bf16
     16-layer first-step logits near forward_dense. (The bf16 windows'
     tokens against the eager runner's, bit for bit, are held in the
-    serving phase.)"""
+    serving phase.) (f) the bf16 16-layer engine's greedy streams through
+    rope_append against the same engine's with only rope_append patched to
+    its plain version (_rope_append_streams)."""
     run, model, first = serving["run"], serving["model"], serving["first"]
     from paddle_tpu_torch.inference import (PagedCausalLM,
                                             PagedServingConfig,
@@ -3305,6 +3594,54 @@ def phase_parity(dev, serving):
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("bf16 paged logits too far from dense")
+    _rope_append_streams(dev, serving)
+
+
+def _rope_append_streams(dev, serving):
+    """The bf16 llama_1b engine's greedy streams over the serving phase's 8
+    prompts (a fresh-prefill step, mixed steps, then decode windows whose
+    graphs it captures), twice on fresh engines over the same model: with
+    rope_append, and with rope_append alone patched to its plain version on
+    the card's tensors (every other kernel as it is; the bf16 paged kernel
+    is held to a tolerance of its plain version, not to bits). The kernel
+    is bit for bit its plain version and every GEMM keeps its shapes, so
+    every token must be equal; the patched run must launch no rope_append
+    kernel, the other at least one a layer."""
+    from paddle_tpu_torch.inference import ServingEngine
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    model, cfg = serving["model"], serving["cfg"]
+    first = serving["first"]
+    later = serving["prompts"][len(first):]
+    greedy = [None] * len(serving["prompts"])
+    runs = []
+    for plain in (False, True):
+        eng = ServingEngine.from_model(model, cfg, seed=7, device=dev)
+        saved = RA.rope_append
+        if plain:
+            RA.rope_append = _plain_rope_append
+        try:
+            before = RA.launches
+            outs = _serving_drive(eng, first, later, greedy, 32,
+                                  False)["outs"]
+            runs.append((outs, RA.launches - before))
+        finally:
+            RA.rope_append = saved
+        del eng
+    (got, n_kernel), (want, n_plain) = runs
+    n_tok = sum(map(len, want.values()))
+    if got != want or n_plain or n_kernel < cfg.num_layers \
+            or n_tok != 32 * len(want):
+        same = sum(a == b for r, toks in got.items()
+                   for a, b in zip(toks, want[r]))
+        raise AssertionError(f"bf16 greedy streams through rope_append: "
+                             f"{same} of {n_tok} tokens equal the plain "
+                             f"version's (rope_append launches {n_kernel} "
+                             f"and {n_plain})")
+    log(f"parity (f) bf16 16-layer greedy: {len(want)} streams, {n_tok} "
+        f"tokens through rope_append ({n_kernel} launches counted) equal "
+        f"the same engine's with only rope_append patched to its plain "
+        f"version, token for token")
 
 
 def _parity_features(dev, m, cfg, prompts, dense, n_new):
@@ -3413,6 +3750,7 @@ def main():
     serving = phase_serving(dev)
     phase_paged_kernel(dev, kernels, probes, serving)
     phase_int8_kernels(dev, kernels, probes, serving)
+    phase_rope_append_kernel(dev, kernels, probes, serving)
     phase_parity(dev, serving)
     int8 = phase_int8_serving(dev, serving)
     phase_prefix_cache(dev, serving)

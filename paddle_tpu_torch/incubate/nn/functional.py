@@ -7,10 +7,11 @@ decode and chunked-prefill route runs the paged-attention kernel
 table. The stacked caches are updated IN PLACE (the reference returns new
 arrays): a serving step writes each layer's new K/V straight into the one
 [L, num_blocks, HKV, block_size, D] buffer pair, with no copy of the pool.
-Its int8 mode (``use_dynamic_cachekv_quant``) writes int8 pages and their
-per-slot scales through the quantize-on-append kernel
-(ops/kernels/kv_quant.py) and reads them through the paged-attention
-kernel's int8 instantiations.
+Before either, one RoPE-and-append kernel a layer
+(ops/kernels/rope_append.py) rotates q and k and writes k and v into their
+pages: cast for float pages, quantized with per-slot scales for the int8
+mode (``use_dynamic_cachekv_quant``), whose pages the paged-attention
+kernel's int8 instantiations read.
 ``paged_metadata`` computes what every layer of a step shares (each
 token's row, position, page, slot and RoPE angles) once a step; a model
 passes it to each layer's call.
@@ -27,8 +28,9 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
-from ...ops.kernels import kv_quant as KQ
 from ...ops.kernels import paged_attention as PA
+from ...ops.kernels import rope_append as RA
+from ...ops.kernels.rope_append import _rope  # noqa: F401 (this module's)
 from ...ops.kernels.varlen_attention import (segment_ids_from_cu_seqlens,
                                              varlen_flash_attention,
                                              varlen_flash_attention_packed)
@@ -43,15 +45,6 @@ def swiglu(x, y=None):
     if y is None:
         x, y = x.chunk(2, dim=-1)
     return TF.silu(x) * y
-
-
-def _rope(t, cos_h, sin_h):
-    """Rotate interleaved pairs of [T, heads, D] at f32 angles [T, 1, D/2]
-    (use_neox_style=False in the reference); returns f32."""
-    tf = t.float()
-    t1, t2 = tf[..., 0::2], tf[..., 1::2]
-    return torch.stack([t1 * cos_h - t2 * sin_h,
-                        t2 * cos_h + t1 * sin_h], dim=-1).reshape(t.shape)
 
 
 class PagedMetadata(NamedTuple):
@@ -115,10 +108,11 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     reads and writes layer ``layer_idx``. block_tables [B, max_blocks]
     maps each row's logical blocks to pages. HKV divides HQ (GQA).
     rope_emb [2, B, 1, max_seq, D/2] holds (cos, sin) for interleaved
-    RoPE. New K/V are scattered into their pages in place, then each token
-    attends its row's filled prefix (causal) through the paged-attention
-    kernel (its plain version for CPU tensors). Returns (out [T, HQ D],
-    qkv, key_cache, value_cache).
+    RoPE. One ``rope_append`` call rotates q and k and writes the new K/V
+    into their pages in place, then each token attends its row's filled
+    prefix (causal) through the paged-attention kernel (the plain versions
+    for CPU tensors). Returns (out [T, HQ D], qkv, key_cache,
+    value_cache).
 
     ``metadata``: this step's ``paged_metadata`` (the same for every
     layer), computed here from the arguments when None; the results are
@@ -133,7 +127,7 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     int8 page pools and cache_k_quant_scales / cache_v_quant_scales the
     stacked per-slot f32 scale pools [L, num_blocks, HKV, block_size]; each
     written (token, head) stores its codes and scale (ops/kernels/
-    kv_quant.py), and the paged route dequantizes what it reads to qkv's
+    rope_append.py), and the paged route dequantizes what it reads to qkv's
     dtype. A fresh-prefill step attends over the step's unquantized k and
     v, as the reference does, and writes only the int8 pages. Returns
     (out, qkv, key_cache, value_cache, k_scales, v_scales). The reference's
@@ -157,39 +151,26 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     ks = cache_k_quant_scales if quant else None
     vs = cache_v_quant_scales if quant else None
     T = qkv.shape[0]
-    pool_k = key_cache[layer_idx]                        # views
-    pool_v = value_cache[layer_idx]
-    num_blocks, HKV, bs, D = pool_k.shape
+    HKV, bs, D = key_cache.shape[2:]
     B = block_tables.shape[0]
     HQ = qkv.shape[1] // D - 2 * HKV
-    q = qkv[:, :HQ * D].reshape(T, HQ, D)
-    k = qkv[:, HQ * D:(HQ + HKV) * D].reshape(T, HKV, D)
-    v = qkv[:, (HQ + HKV) * D:].reshape(T, HKV, D)
 
     md = metadata if metadata is not None else paged_metadata(
         T, seq_lens_encoder, seq_lens_decoder, cu_seqlens_q, block_tables,
         bs, rope_emb)
-    # rope runs in f32; the cast back precedes the cache scatter
-    q = _rope(q, md.cos, md.sin).to(qkv.dtype)
-    k = _rope(k, md.cos, md.sin).to(qkv.dtype)
-
-    if quant:
-        KQ.kv_quant(k, v, key_cache, value_cache, ks, vs, layer_idx,
-                    md.page, md.slot)
-    else:
-        # in place: [pages, HKV, bs, D] viewed as [pages, bs, HKV, D]
-        pool_k.transpose(1, 2)[md.page, md.slot] = k.to(pool_k.dtype)
-        pool_v.transpose(1, 2)[md.page, md.slot] = v.to(pool_v.dtype)
     caches = (key_cache, value_cache) + ((ks, vs) if quant else ())
 
     if fresh_prefill:
+        # q, k, v heads first, as the varlen kernel reads them
+        q, k, v = RA.rope_append(qkv, key_cache, value_cache, ks, vs,
+                                 layer_idx, md, heads_first=True)
         seg = torch.where(md.t2b == B - 1, -1, md.t2b).to(torch.int32)[None]
-        o, _ = varlen_flash_attention_packed(
-            q.transpose(0, 1)[None], k.transpose(0, 1)[None],
-            v.transpose(0, 1)[None], seg, seg, is_causal=True)
+        o, _ = varlen_flash_attention_packed(q[None], k[None], v[None], seg,
+                                             seg, is_causal=True)
         out = o[0].transpose(0, 1).reshape(T, HQ * D)
         return (out, qkv) + caches
 
+    q = RA.rope_append(qkv, key_cache, value_cache, ks, vs, layer_idx, md)
     out = PA.paged_attention(q, key_cache, value_cache, layer_idx, md.t2b,
                              md.pos, block_tables.long(), ks, vs)
     return (out.reshape(T, HQ * D), qkv) + caches

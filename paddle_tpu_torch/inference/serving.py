@@ -59,6 +59,7 @@ from ..nn import Embedding, Linear, RMSNorm
 from ..nn import functional as F
 from ..ops.kernels import (add_launch_counts, launch_counts,
                            resolve_device)
+from ..ops.kernels.rope_append import _rope
 from .prefix_cache import PrefixCache, restore_snapshot, save_snapshot
 from .weight_stream import STREAM_KINDS, WeightStreamer
 
@@ -547,8 +548,8 @@ class PagedCausalLM(nn.Module):
         v = qkv[:, (HQ + HKV) * D:].reshape(T, HKV, D)
         cos, sin = self._rope_table(torch.arange(T, device=qkv.device))
         cos_h, sin_h = cos[:, None, :], sin[:, None, :]
-        q = IF._rope(q, cos_h, sin_h).to(q.dtype)
-        k = IF._rope(k, cos_h, sin_h).to(k.dtype)
+        q = _rope(q, cos_h, sin_h).to(q.dtype)
+        k = _rope(k, cos_h, sin_h).to(k.dtype)
         if HQ != HKV:
             k = k.repeat_interleave(HQ // HKV, dim=1)
             v = v.repeat_interleave(HQ // HKV, dim=1)

@@ -48,7 +48,7 @@ def resolve_device(device=None) -> torch.device:
 def _counters():
     """{kernel name: (module, name of its launch counter)}."""
     from . import (_build, flash_attention, kv_quant, paged_attention,
-                   rms_norm, varlen_attention, weight_dequant)
+                   rms_norm, rope_append, varlen_attention, weight_dequant)
 
     return {"rms_norm": (rms_norm, "launches"),
             "rms_norm_bwd": (rms_norm, "launches_bwd"),
@@ -62,6 +62,7 @@ def _counters():
             "paged_attention": (paged_attention, "launches"),
             "paged_attention_int8": (paged_attention, "launches_int8"),
             "kv_quant": (kv_quant, "launches"),
+            "rope_append": (rope_append, "launches"),
             "weight_dequant": (weight_dequant, "launches"),
             "aligned16_copies": (_build, "copies")}
 
@@ -74,13 +75,14 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts():
-    """Set every count to 0, and forget the paged-attention wrapper's last
-    validated step (the next call is checked in full)."""
-    from . import paged_attention
+    """Set every count to 0, and forget the paged-attention and RoPE-append
+    wrappers' last validated steps (the next calls are checked in full)."""
+    from . import paged_attention, rope_append
 
     for mod, attr in _counters().values():
         setattr(mod, attr, 0)
     paged_attention._step = None
+    rope_append._step = None
 
 
 def add_launch_counts(counts: dict, times: int = 1):

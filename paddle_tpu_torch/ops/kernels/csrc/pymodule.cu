@@ -8,9 +8,9 @@
 // Python ints (pointers, sizes, the stream handle; None for a null
 // pointer) and one float, converted here, and the C entry's cudaError_t
 // comes back as an int. The paged attention of the decode and
-// chunked-prefill steps (16 calls a step, over bf16, f32 or int8 pages) and
-// the int8 path's quantize-on-append (16 a step) and the streamed weights'
-// dequantization (16 a step) are called the same way.
+// chunked-prefill steps (16 calls a step, over bf16, f32 or int8 pages), the
+// RoPE and cache append before it (16 a step), the old quantize-on-append and
+// the streamed weights' dequantization (16 a step) are called the same way.
 // Host code only; built into the same shared library, which _build.py also
 // imports as an extension module.
 #include <Python.h>
@@ -41,6 +41,13 @@ extern "C" int pt_kv_quant(const void* k, const void* v, int64_t k_stride,
                            const void* slot, void* kc, void* vc, void* ks,
                            void* vs, int T, int HKV, int D, int bs, int dtype,
                            void* stream);
+extern "C" int pt_rope_append(const void* qkv, int64_t row_stride,
+                              const void* cos, const void* sin,
+                              const void* page, const void* slot, void* kc,
+                              void* vc, void* ks, void* vs, void* q_out,
+                              void* k_out, void* v_out, int T, int HQ,
+                              int HKV, int D, int bs, int dtype, int int8,
+                              void* stream);
 extern "C" int pt_weight_dequant(int mode, int dtype, int n,
                                  const void* const* codes,
                                  const void* const* scales,
@@ -183,6 +190,29 @@ PyObject* kv_quant(PyObject*, PyObject* const* a, Py_ssize_t n) {
                                      stream));
 }
 
+// rope_append(qkv, row_stride, cos, sin, page, slot, kc, vc, ks, vs, q_out,
+// k_out, v_out, T, HQ, HKV, D, bs, dtype, int8, stream) -> cudaError_t
+PyObject* rope_append(PyObject*, PyObject* const* a, Py_ssize_t n) {
+  void *qkv, *cos, *sin, *page, *slot, *kc, *vc, *ks, *vs, *q_out, *k_out,
+      *v_out, *stream;
+  int64_t row_stride;
+  int T, HQ, HKV, D, bs, dtype, int8;
+  if (!arity("rope_append", n, 21) || !as_ptr(a[0], &qkv) ||
+      !as_int64(a[1], &row_stride) || !as_ptr(a[2], &cos) ||
+      !as_ptr(a[3], &sin) || !as_ptr(a[4], &page) || !as_ptr(a[5], &slot) ||
+      !as_ptr(a[6], &kc) || !as_ptr(a[7], &vc) || !as_ptr(a[8], &ks) ||
+      !as_ptr(a[9], &vs) || !as_ptr(a[10], &q_out) ||
+      !as_ptr(a[11], &k_out) || !as_ptr(a[12], &v_out) ||
+      !as_int(a[13], &T) || !as_int(a[14], &HQ) || !as_int(a[15], &HKV) ||
+      !as_int(a[16], &D) || !as_int(a[17], &bs) || !as_int(a[18], &dtype) ||
+      !as_int(a[19], &int8) || !as_ptr(a[20], &stream))
+    return nullptr;
+  return PyLong_FromLong(pt_rope_append(qkv, row_stride, cos, sin, page, slot,
+                                        kc, vc, ks, vs, q_out, k_out, v_out,
+                                        T, HQ, HKV, D, bs, dtype, int8,
+                                        stream));
+}
+
 // weight_dequant(mode, dtype, n, then four (codes, scales, out, in_dim,
 // out_dim) segments, the unused ones (None, None, None, 0, 0), stream)
 // -> cudaError_t
@@ -227,6 +257,9 @@ PyMethodDef methods[] = {
     {"kv_quant",
      reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(kv_quant)),
      METH_FASTCALL, "pt_kv_quant; returns its cudaError_t"},
+    {"rope_append",
+     reinterpret_cast<PyCFunction>(reinterpret_cast<void (*)()>(rope_append)),
+     METH_FASTCALL, "pt_rope_append; returns its cudaError_t"},
     {"weight_dequant",
      reinterpret_cast<PyCFunction>(
          reinterpret_cast<void (*)()>(weight_dequant)),

@@ -165,14 +165,6 @@ def _validate(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
 _step = None
 
 
-def _same_inputs(refs, inputs):
-    """True when each weak reference still points at the very object of
-    ``inputs`` (None stands for None)."""
-    return all((r is None and t is None)
-               or (r is not None and t is not None and r() is t)
-               for r, t in zip(refs, inputs))
-
-
 def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
             k_scales=None, v_scales=None):
     """The kernel's call. The step's inputs (caches, scale pools, t2b, pos,
@@ -185,7 +177,7 @@ def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
               v_scales)
     st = _step
     if st is None or st[1] != (q.shape, q.dtype, q.get_device()) \
-            or not _same_inputs(st[0], inputs):
+            or not _build.same_inputs(st[0], inputs):
         shared = _validate(q, key_cache, value_cache, layer_idx, t2b, pos,
                            block_tables, k_scales, v_scales)
         # the index tensors themselves are not kept: only their pointers

@@ -132,7 +132,7 @@ def test_swiglu_matches_jax():
                                atol=1e-6, rtol=1e-6)
 
 
-def test_int8_cache_path_not_ported_yet():
+def test_block_attention_refusals():
     # the int8 path is ported (tests/test_torch_kv_int8.py); what stays
     # refused is what the reference refuses (functional/__init__.py:
     # 602-614): the int8 mode without its scale pools, static per-tensor

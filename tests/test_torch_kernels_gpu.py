@@ -17,8 +17,12 @@ kernels do, the dense plain versions do not), in f32 rtol 1e-4, floor
 The paged-attention kernel takes the same tolerances (both sides round P
 to the cache dtype after normalising, from f32 sums taken in other
 orders). The serving decode window's CUDA graphs are held to the eager run
-of the same body bit for bit. The int8 cache-KV path: kv_quant's codes and
-scales bit for bit against its plain version; the int8 paged kernel within
+of the same body bit for bit. The RoPE-and-append kernel: q (k and v heads
+first) and every pool byte bit for bit against its plain version, slots it
+does not write untouched, a graph's replay equal to the eager call, and an
+engine's greedy streams equal to the same engine's through the plain
+version. The int8 cache-KV path: kv_quant's codes and scales bit for bit
+against its plain version; the int8 paged kernel within
 the tolerances above of its plain version and bit for bit equal to the
 float kernel over pages of q's dtype holding the same dequantized values.
 """
@@ -857,14 +861,17 @@ def test_decode_window_reuses_its_graph_and_counts_replays(window_model):
     graph = win.graph
     assert launch_counts()["rms_norm"] == 5 * (2 * L + 1)
     assert launch_counts()["paged_attention"] == 5 * L
+    assert launch_counts()["rope_append"] == 5 * L
     assert win.graph_launches["rms_norm"] == 2 * L + 1
     assert win.graph_launches["paged_attention"] == L
+    assert win.graph_launches["rope_append"] == L
     reset_launch_counts()
     eng.decode_run(4)                        # the same key: replays only
     assert eng._window_fns == {key: win} and win.graph is graph
     counts = launch_counts()
     assert counts["rms_norm"] == 4 * (2 * L + 1)
     assert counts["paged_attention"] == 4 * L
+    assert counts["rope_append"] == 4 * L
     assert counts["varlen_attention_fwd"] == 0
     assert counts["aligned16_copies"] == 0
 
@@ -1052,13 +1059,15 @@ def test_int8_decode_window_counts_replays(window_model8):
     eng.decode_run(4)                        # captures
     (key, win), = eng._window_fns.items()
     assert win.graph_launches["paged_attention_int8"] == L
-    assert win.graph_launches["kv_quant"] == L
+    assert win.graph_launches["rope_append"] == L
+    assert win.graph_launches["kv_quant"] == 0
     reset_launch_counts()
     eng.decode_run(4)                        # replays only
     counts = launch_counts()
     assert counts["rms_norm"] == 4 * (2 * L + 1)
     assert counts["paged_attention_int8"] == 4 * L
-    assert counts["kv_quant"] == 4 * L
+    assert counts["rope_append"] == 4 * L
+    assert counts["kv_quant"] == 0
     assert counts["paged_attention"] == 0
     assert counts["varlen_attention_fwd"] == 0
     assert counts["aligned16_copies"] == 0
@@ -1091,6 +1100,250 @@ def test_int8_decode_window_capture_leaves_pages_and_scales(window_model8):
     # every page and every scale but the trash page 0's as they were
     for now, was in zip((eng._kc, eng._vc, eng._ks, eng._vs), before[1:]):
         assert torch.equal(now[:, 1:], was[:, 1:])
+
+
+# -- RoPE and cache append: one kernel a layer ------------------------------
+
+# (rows [(tokens, start position)], trash-row padding tokens): the CPU test's
+# steps (tests/test_torch_rope_append.py), then llama_1b's decode (8 rows at
+# the serving run's depths), speculative verify (8 rows of 5, padded to 64)
+# and 256-token chunked and fresh-prefill steps; no step pads past a page,
+# so no two tokens write one slot and every page compares
+_ROPE_STEPS = {
+    "t1": ([(1, 13)], 0),
+    "t8": ([(1, 3 + 5 * i) for i in range(8)], 0),
+    "t37": ([(1, 13), (9, 20), (20, 3)], 7),
+    "decode": ([(1, 18 + 22 * i) for i in range(8)], 0),
+    "verify": ([(5, 96 + 12 * i) for i in range(8)], 24),
+    "chunked": ([(120, 64), (100, 90), (1, 170), (35, 0)], 0),
+    "fresh": ([(128, 0), (100, 0)], 28),
+}
+_ROPE_SHAPES = {"4-2-64": (4, 2, 64, 8), "16-8-128": (16, 8, 128, 8),
+                "llama_1b": (16, 8, 128, 32)}
+_ROPE_CASES = [(step, shape) for step in ("t1", "t8", "t37")
+               for shape in ("4-2-64", "16-8-128")] + \
+    [(step, "llama_1b") for step in ("decode", "verify", "chunked", "fresh")]
+
+
+def _rope_case(step, shape, dtype, int8, device, seed, canary=None):
+    """qkv [T, (HQ + 2 HKV) D] (k and v span magnitudes; token 0's k head 0
+    zero, the last token's v head 0 a tie head), the stacked pools [2, 64,
+    HKV, bs, D] (random, or filled with ``canary``), and the step's
+    metadata at the real RoPE angles. Each row on pages of its own."""
+    rows, n_pad = _ROPE_STEPS[step]
+    hq, hkv, d, bs = _ROPE_SHAPES[shape]
+    mb, nb = 6, 64
+    g = torch.Generator(device=device).manual_seed(seed)
+    B1 = len(rows) + 1
+    enc = torch.zeros(B1, dtype=torch.int64)
+    dec = torch.zeros(B1, dtype=torch.int64)
+    this = torch.zeros(B1, dtype=torch.int64)
+    bt = torch.zeros(B1, mb, dtype=torch.int64)
+    free = 1
+    for i, (n, start) in enumerate(rows):
+        dec[i], this[i] = start, n
+        used = -(-(start + n) // bs)
+        bt[i, :used] = free + torch.arange(used)
+        free += used
+    this[-1] = enc[-1] = n_pad
+    cu = torch.zeros(B1 + 1, dtype=torch.int64)
+    cu[1:] = torch.cumsum(this, 0)
+    T = int(cu[-1])
+    qkv = torch.randn(T, (hq + 2 * hkv) * d, device=device, generator=g)
+    qkv[:, hq * d:] *= torch.exp(torch.randn(T, 1, device=device,
+                                             generator=g))
+    qkv[0, hq * d:(hq + 1) * d] = 0
+    tie = (hq + hkv) * d
+    qkv[-1, tie:tie + d] = torch.arange(d, device=device) % 9 + 0.5
+    qkv[-1, tie] = 127
+    qkv = qkv.to(dtype)
+    half = d // 2
+    inv = 1.0 / (10000.0 ** (torch.arange(half, dtype=torch.float32) * 2.0
+                             / d))
+    ang = torch.arange(mb * bs, dtype=torch.float32)[:, None] * inv
+    rope = torch.stack([torch.cos(ang), torch.sin(ang)])[:, None, None] \
+        .expand(2, B1, 1, mb * bs, half).to(device)
+    md = IF.paged_metadata(T, enc.to(device), dec.to(device), cu.to(device),
+                           bt.to(device), bs, rope)
+    shape5 = (2, nb, hkv, bs, d)
+    if int8:
+        pools = [torch.randint(-127, 128, shape5, device=device, generator=g,
+                               dtype=torch.int8) for _ in range(2)]
+        pools += [torch.rand(shape5[:-1], device=device, generator=g) * 0.05
+                  for _ in range(2)]
+    else:
+        pools = [torch.randn(shape5, device=device, generator=g).to(dtype)
+                 for _ in range(2)] + [None, None]
+    if canary is not None:
+        for p in pools:
+            if p is not None:
+                p.fill_(canary)
+    return qkv, pools, md
+
+
+def _rope_run(fn, qkv, pools, md, layer, heads_first):
+    """fn's outputs (a tuple) and the pools it wrote (copies of ``pools``)."""
+    mine = [None if p is None else p.clone() for p in pools]
+    out = fn(qkv, *mine, layer, md, heads_first=heads_first)
+    return (out if heads_first else (out,)), mine
+
+
+@pytest.mark.parametrize("layout", ["paged", "heads_first"])
+@pytest.mark.parametrize("case", _ROPE_CASES, ids="-".join)
+@pytest.mark.parametrize("pages", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_append_kernel_matches_plain_bit_for_bit(dtype, pages, case,
+                                                      layout, cuda_device):
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    step, shape = case
+    heads_first = layout == "heads_first"
+    qkv, pools, md = _rope_case(step, shape, dtype, pages == "int8",
+                                cuda_device, seed=len(step) + len(shape))
+    before = RA.launches
+    got, got_pools = _rope_run(RA.rope_append, qkv, pools, md, 1,
+                               heads_first)
+    want, want_pools = _rope_run(RA._rope_append_ref, qkv, pools, md, 1,
+                                 heads_first)
+    torch.cuda.synchronize()
+    assert RA.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == b.shape and a.is_contiguous()
+        assert _same_bits(a, b)
+    for a, b, was in zip(got_pools, want_pools, pools):
+        if a is not None:
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            assert torch.equal(a[0], was[0])            # layer 0 untouched
+    if pages == "int8":                 # the zero head and the tie head
+        ks, vs = got_pools[2][1], got_pools[3][1]
+        assert float(ks[md.page[0], 0, md.slot[0]]) \
+            == float(np.float32(1e-8))
+        assert float(vs[md.page[-1], 0, md.slot[-1]]) == 1.0
+
+
+@pytest.mark.parametrize("pages", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_append_leaves_other_slots_untouched(dtype, pages,
+                                                  cuda_device):
+    """Pools filled with a canary: after the kernel, every (page, head,
+    slot) row of the layer that no token writes, and every other layer,
+    holds the canary to the bit; the written rows hold the plain
+    version's bits (the element route too: qkv 2 elements past a 16-byte
+    boundary)."""
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    for offset in (0, 2):
+        qkv, pools, md = _rope_case("verify", "llama_1b", dtype,
+                                    pages == "int8", cuda_device, seed=5,
+                                    canary=3)
+        if offset:
+            wide = torch.zeros(qkv.shape[0], qkv.shape[1] + offset,
+                               dtype=dtype, device=cuda_device)
+            wide[:, offset:] = qkv
+            qkv = wide[:, offset:]
+        got, got_pools = _rope_run(RA.rope_append, qkv, pools, md, 1, False)
+        want, want_pools = _rope_run(RA._rope_append_ref, qkv, pools, md, 1,
+                                     False)
+        torch.cuda.synchronize()
+        assert _same_bits(got[0], want[0])
+        written = torch.zeros(pools[0].shape[1:4], dtype=torch.bool,
+                              device=cuda_device)
+        written.transpose(1, 2)[md.page, md.slot] = True     # [nb, hkv, bs]
+        for a, b in zip(got_pools, want_pools):
+            if a is None:
+                continue
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+            assert bool((a[0] == 3).all())
+            assert bool((a[1][~written] == 3).all())
+            assert not bool((a[1][written] == 3).all())
+
+
+@pytest.mark.parametrize("pages", ["float", "int8"])
+def test_rope_append_graph_replay_equals_eager(pages, cuda_device):
+    """One capture of the kernel in a CUDA graph, replayed on new qkv and
+    new angles copied into its inputs, gives the eager call's q and pools
+    to the bit."""
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    qkv, pools, md = _rope_case("decode", "llama_1b", torch.bfloat16,
+                                pages == "int8", cuda_device, seed=8)
+    new_qkv, _, new_md = _rope_case("t8", "16-8-128", torch.bfloat16,
+                                    False, cuda_device, seed=9)
+    assert new_qkv.shape == qkv.shape
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        RA.rope_append(qkv, *pools, 1, md)            # warm-up
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        q = RA.rope_append(qkv, *pools, 1, md)
+    qkv.copy_(new_qkv)
+    md.cos.copy_(new_md.cos)
+    md.sin.copy_(new_md.sin)
+    want, want_pools = _rope_run(RA.rope_append, qkv, pools, md, 1, False)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert _same_bits(q, want[0])
+    for a, b in zip(pools, want_pools):
+        if a is not None:
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def test_rope_append_rejects_what_it_cannot_take(cuda_device):
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    qkv, pools, md = _rope_case("t8", "4-2-64", torch.float32, True,
+                                cuda_device, seed=1)
+    before = RA.launches
+    with pytest.raises(TypeError):
+        RA.rope_append(qkv.half(), *pools, 0, md)
+    with pytest.raises(TypeError):
+        RA.rope_append(qkv, pools[0].bfloat16(), pools[1].bfloat16(), None,
+                       None, 0, md)
+    with pytest.raises(ValueError):
+        RA.rope_append(qkv, *pools, 2, md)
+    with pytest.raises(ValueError):             # D not a multiple of 8
+        c = [torch.zeros(2, 8, 1, 8, 36, dtype=torch.float32,
+                         device=cuda_device) for _ in range(2)]
+        RA.rope_append(qkv[:, :6 * 36], *c, None, None, 0,
+                       md._replace(cos=md.cos[..., :18].contiguous(),
+                                   sin=md.sin[..., :18].contiguous()))
+    assert RA.launches == before
+
+
+@pytest.mark.parametrize("cache", ["bf16", "int8"])
+def test_engine_streams_equal_through_plain_rope_append(cache, window_model,
+                                                        window_model8):
+    """A small engine's greedy streams (eager steps, then window graphs)
+    through the kernel equal the same engine's with only rope_append
+    patched to its plain version, token for token."""
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    model, cfg = window_model if cache == "bf16" else window_model8
+
+    def streams():
+        eng = _at_decode_tip(model, cfg, _MODES["greedy"])
+        while eng.pending():
+            assert eng.decode_run(8)
+        return [list(r.generated) for r in eng._requests.values()]
+
+    def plain(qkv, kc, vc, ks, vs, layer, md, heads_first=False):
+        return RA._rope_append_ref(qkv, kc, vc, ks, vs, layer, md,
+                                   heads_first=heads_first)
+
+    before = RA.launches
+    got = streams()
+    assert RA.launches > before
+    kernel = RA.rope_append
+    RA.rope_append = plain
+    try:
+        before = RA.launches
+        want = streams()
+        assert RA.launches == before
+    finally:
+        RA.rope_append = kernel
+    assert got == want and all(len(s) == 24 for s in got)
 
 
 # -- weight streaming: the dequant kernel and streamed decode windows --------
