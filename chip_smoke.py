@@ -57,6 +57,19 @@ Phases, each of which fails the run with a non-zero exit:
      (a tie head and an all-zero head), then timed in turns with its plain
      version and with the composition it replaced (the plain version's
      tensor ops with the page scatter, or with the old kv_quant kernel);
+  3a. the deploy artifact: save_paged_model of the serving phase's model
+     and ServingEngine(path, cfg) (timed; bytes on disk); one fixed
+     256-token step through the loaded program against the live model's
+     forward (relative L2 within 5e-2); the serving phase's 8 requests
+     through the artifact engine, twice: its first (eager) step and a
+     replayed window must count RMSNorm 33, rope_append 16, paged attention
+     16 and varlen 0 a step (the kernels reached through their registered
+     ops); decode ms/step in turns with the from_model engine's windows; a
+     2-layer f32 artifact engine's greedy streams equal the from_model
+     engine's; deadlines (a zero deadline evicted at the next step, a
+     passed one after a step, pages back, requeue_hook told); and a small
+     MLP artifact saved on the CPU served on the card by create_predictor
+     against the CPU's eager output;
   4. parity: a 2-layer full-width f32 engine's greedy streams through
      decode_run's replayed graphs equal its forward_dense greedy decode;
      through speculative verify steps, prefix-cache hits and int8 pools
@@ -117,17 +130,19 @@ Phases, each of which fails the run with a non-zero exit:
      an unprofiled window that captured it) of the bf16, the int8 and each
      weight-streaming engine, a training step and a packed training step,
      by torch.profiler, with the device kernels a replayed decode step
-     launches in all; the composition rope_append replaced, its device
-     time and kernels a call.
+     launches in all (the artifact engine's too); the composition
+     rope_append replaced, its device time and kernels a call.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import Counter
 
@@ -163,9 +178,11 @@ PACKED_KERNELS = ("varlen_attention_fwd", "varlen_attention_bwd_dkv",
                   "varlen_attention_bwd_dq")
 STREAM_KERNELS = ("rms_norm", "varlen_attention_fwd", "paged_attention",
                   "weight_dequant", "rope_append")
+# the deploy artifact's engine: the three kernels through registered ops
+ARTIFACT_KERNELS = ("rms_norm", "paged_attention", "rope_append")
 PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
-         "weight_stream": STREAM_KERNELS}
+         "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS}
 # the weight-streaming modes of phase 4e, int4 first so that the int8
 # engines' shared quantization is the model's current one for the versions
 STREAM_MODES = ("int4", "int8", "int8-noprefetch")
@@ -290,14 +307,19 @@ def bound(nbytes, ops, ops_per_s):
                                  else "operations")
 
 
-def phase_device_and_build():
+def card():
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60)
     if smi.returncode != 0:
         raise RuntimeError(f"nvidia-smi failed: {smi.stderr}")
-    log(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device_and_build():
+    log(card())
     from paddle_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
@@ -2070,6 +2092,302 @@ def _graph_against_eager(dev, eng, model, cfg, sampling):
             "decode_turns_windows": len(per["graph"])}
 
 
+def _artifact_bytes(path):
+    return sum(os.path.getsize(path + ext)
+               for ext in (".pdmodel", ".pdiparams.npz", ".pdconfig"))
+
+
+def _fixed_step_inputs(dev, cfg, prompts):
+    """A 256-token step of two fresh 128-token rows (pages 1-4 and 5-8) as
+    the engine stages it, and two zeroed pool pairs."""
+    B1 = cfg.max_batch + 1
+    pages = -(-len(prompts[0]) // cfg.block_size)
+    enc = torch.zeros(B1, dtype=torch.int64)
+    dec = torch.zeros(B1, dtype=torch.int64)
+    this = torch.zeros(B1, dtype=torch.int64)
+    bt = torch.zeros(B1, cfg.max_blocks_per_seq, dtype=torch.int64)
+    for i, p in enumerate(prompts):
+        this[i] = len(p)
+        bt[i, :pages] = torch.arange(1 + i * pages, 1 + (i + 1) * pages)
+    this[-1] = enc[-1] = cfg.token_budget - int(this.sum())
+    cu = torch.zeros(B1 + 1, dtype=torch.int64)
+    cu[1:] = torch.cumsum(this, 0)
+    tokens = torch.tensor(sum(prompts, []) + [0] * int(this[-1]),
+                          dtype=torch.int64)
+    ins = [t.to(dev) for t in (tokens, enc, dec, this, cu, bt)]
+    shape = (cfg.num_layers, cfg.num_blocks, cfg.num_kv_heads,
+             cfg.block_size, cfg.head_dim)
+    pools = [torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
+             for _ in range(4)]
+    return ins, pools
+
+
+def _artifact_turns(dev, art, live, cfg, sampling):
+    """8 more requests (24-token prompts, 41 tokens each) on the artifact
+    engine and on the from_model engine, 8-step decode windows taken in
+    turns, artifact then live; the windows that capture a graph are left
+    out. Returns the ms/step of each (medians), and how many tokens the two
+    engines' streams share."""
+    prompts = _prompts(np.random.RandomState(3), [24] * 8, cfg.vocab_size)
+    for e in (art, live):
+        for i, p in enumerate(prompts):
+            e.add_request(p, max_new_tokens=41, sampling=sampling[i])
+        e.step()                          # 192 tokens
+    per = {"artifact": [], "from_model": []}
+    while art.pending() or live.pending():
+        for name, e in (("artifact", art), ("from_model", live)):
+            if not e.pending():
+                continue
+            graphs = _graph_count(e)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = e.decode_run(8)
+            dt = time.perf_counter() - t
+            if not got:
+                raise AssertionError(f"{name}: decode_run made no progress")
+            if _graph_count(e) == graphs:
+                steps = max(Counter(r for r, _ in got).values())
+                per[name].append(dt / steps * 1e3)
+    if not per["artifact"] or not per["from_model"]:
+        raise AssertionError("no decode window over an existing graph")
+    return {k: statistics.median(v) for k, v in per.items()}
+
+
+def phase_artifact(dev, serving):
+    """The deploy artifact (save_paged_model, ServingEngine(path_prefix,
+    cfg)) on the serving phase's llama_1b model, bf16, 16 layers:
+    (a) save to a directory under build/ and load (the program moved to the
+    card by move_to_device_pass, the weights placed once), timed, with the
+    artifact's bytes on disk; (b) one fixed 256-token step through the
+    loaded program and through the live serving copy's forward on the same
+    inputs: the largest logit difference, relative L2 within 5e-2; (c) the
+    serving phase's 8 requests through the artifact engine twice (the first
+    captures its windows' graphs); in the second the counts are set to 0
+    just before and read just after: RMSNorm, rope_append and paged
+    attention must launch and the varlen forward must not; its first
+    (eager) step and a replayed decode window must count RMSNorm 2L + 1,
+    rope_append L, paged attention L and varlen 0 a step; (d) decode ms/step
+    over windows whose graphs exist, in turns with the from_model engine's
+    windows (the artifact's windows run the fixed 256 tokens a step, as the
+    reference's do: reported, not judged); (e) a 2-layer f32 artifact
+    engine's greedy streams (TF32 off) equal the from_model engine's, token
+    for token; (f) a request with deadline_s=0 evicted at the next step and
+    one past its deadline after a step, pages back, requeue_hook told; (g)
+    create_predictor on a small MLP artifact saved on the CPU, served on
+    the card, against the CPU's eager output. Returns metrics, the counts,
+    the engine and the per-step launches."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.inference import (Config, PagedCausalLM,
+                                            PagedServingConfig,
+                                            ServingEngine, create_predictor,
+                                            save_inference_model,
+                                            save_paged_model)
+    from paddle_tpu_torch.jit import InputSpec
+    from paddle_tpu_torch.nn import Linear
+
+    model, cfg = serving["model"], serving["cfg"]
+    first, prompts, sampling = (serving["first"], serving["prompts"],
+                                serving["sampling"])
+    gpu = card()
+    L = cfg.num_layers
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="artifact-", dir=os.path.join(HERE,
+                                                                "build"))
+    try:
+        path = os.path.join(tmp, "llama_1b")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        save_paged_model(path, model)
+        t_save = time.perf_counter() - t
+        size = _artifact_bytes(path)
+        t = time.perf_counter()
+        eng = ServingEngine(path, cfg, seed=7, device=dev)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t
+        log(f"artifact ({gpu}): save_paged_model {t_save:.2f} s, "
+            f"{size / 1e9:.3f} GB on disk; ServingEngine(path, cfg) "
+            f"{t_load:.2f} s")
+
+        # (b) one fixed step: the loaded program against the live forward
+        live = ServingEngine.from_model(model, cfg, seed=7, device=dev)
+        ins, (ka, va, kl, vl) = _fixed_step_inputs(dev, cfg, first)
+        with torch.inference_mode():
+            got = eng._program(eng._params, eng._buffers, *ins, ka, va)[0]
+            ref = live._model(*ins, kl, vl)[0]
+        torch.cuda.synchronize()
+        got, ref = got[:2], ref[:2].float()
+        diff = float((got - ref).abs().max())
+        rel = float((got - ref).norm() / ref.norm())
+        pools_equal = bool(torch.equal(ka, kl) and torch.equal(va, vl))
+        log(f"artifact: one fixed 256-token step, loaded program against "
+            f"the live model's forward: largest logit difference {diff}, "
+            f"relative L2 {rel:.3e} (tol 5e-2), pools equal: {pools_equal}")
+        if not rel <= 5e-2 or got.dtype != torch.float32:
+            raise AssertionError("artifact: the loaded program's logits "
+                                 "are not the live model's")
+        del ka, va, kl, vl
+
+        # (c) the serving phase's requests, twice
+        def drive(measure):
+            return _serving_drive(eng, first, prompts[2:], sampling, 48,
+                                  measure)
+
+        drive(False)
+        if not _graph_count(eng):
+            raise AssertionError("artifact: decode_run captured no graph")
+        reset_launch_counts()
+        run = drive(True)
+        counts = {k: n + run["carried"][k]
+                  for k, n in launch_counts().items()}
+        if run["window"] is None:
+            raise AssertionError("artifact: every measured window captured")
+        steps, rows, made = run["window"]
+        want = {k: 0 for k in made}
+        want.update(rms_norm=2 * L + 1, paged_attention=L, rope_append=L)
+        step_want = dict(want)
+        want = {k: n * steps for k, n in want.items()}
+        if made != want:
+            raise AssertionError(f"artifact: a replayed window of {steps} "
+                                 f"steps launched {made}, not {want}")
+        if run["per_step"] != step_want:
+            raise AssertionError(f"artifact: its first (eager) step "
+                                 f"launched {run['per_step']}, not "
+                                 f"{step_want}")
+        for name in ARTIFACT_KERNELS:
+            if counts[name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched on "
+                                     f"the artifact path")
+        if counts["varlen_attention_fwd"] or counts["aligned16_copies"]:
+            raise AssertionError(f"artifact: varlen launched or inputs "
+                                 f"copied: {counts}")
+        V = cfg.vocab_size
+        same = total = 0
+        for rid, ref_rid in zip(run["rids"], serving["run"]["rids"]):
+            toks = run["outs"][rid]
+            if len(toks) != 48 or not all(0 <= x < V for x in toks):
+                raise AssertionError(f"artifact request {rid}: bad output "
+                                     f"{toks[:8]}")
+            ref_toks = serving["run"]["outs"][ref_rid]
+            same += sum(a == b for a, b in zip(toks, ref_toks))
+            total += len(toks)
+        steady = [w for w in run["windows"] if not w[3]]
+        ms, tps, n_steps = _window_rate(steady)
+        log(f"artifact: first (eager) step launched {run['per_step']}; a "
+            f"replayed window of {steps} steps {made}; decode {ms:.3f} "
+            f"ms/step over {n_steps} steps; {same} of {total} tokens equal "
+            f"the from_model engine's (bf16 streams depend on the step's "
+            f"shape)")
+
+        # (d) windows in turns with the from_model engine
+        turns = _artifact_turns(dev, eng, live, cfg, sampling)
+        log(f"artifact: decode in turns ({gpu}): artifact "
+            f"{turns['artifact']:.3f}, from_model {turns['from_model']:.3f}"
+            f" ms/step (the artifact's windows run {cfg.token_budget} tokens"
+            f" a step, the from_model engine's 8)")
+
+        # (f) deadlines
+        seen = []
+        eng.requeue_hook = seen.append
+        free0 = len(eng._free_pages)
+        gone = eng.add_request(prompts[2], max_new_tokens=8, deadline_s=0)
+        late = eng.add_request(prompts[3], max_new_tokens=8, deadline_s=1.0)
+        eng.step()
+        held = len(eng._requests[late].pages)
+        time.sleep(max(0.0, eng._requests[late].deadline_t
+                       - time.perf_counter()) + 0.01)
+        eng.step()
+        eng.requeue_hook = None
+        if eng.timed_out_requests() != [gone, late] \
+                or [d["rid"] for d in seen] != [gone, late] \
+                or held == 0 or len(eng._free_pages) != free0 \
+                or eng.pending():
+            raise AssertionError(
+                f"artifact deadlines: timed out {eng.timed_out_requests()}, "
+                f"hook {[d['rid'] for d in seen]}, pages held {held}, free "
+                f"{len(eng._free_pages)} of {free0}")
+        log(f"artifact: deadline_s=0 evicted at the next step, a 1 s "
+            f"deadline after a step holding {held} pages; every page back, "
+            f"requeue_hook told twice")
+
+        # (e) f32 parity, TF32 off
+        if torch.backends.cuda.matmul.allow_tf32:
+            raise AssertionError("TF32 must be off for the f32 parity")
+        cfg32 = PagedServingConfig.llama_1b(num_layers=2, dtype="float32")
+        m32 = PagedCausalLM(cfg32, device=dev, seed=99)
+        path32 = os.path.join(tmp, "f32")
+        save_paged_model(path32, m32)
+        outs = []
+        for e in (ServingEngine(path32, cfg32, device=dev),
+                  ServingEngine.from_model(m32, cfg32, device=dev)):
+            rids = [e.add_request(p, max_new_tokens=16) for p in prompts]
+            while any(r.length - r.cached > 1 for r in e.pending()):
+                e.step()
+            while e.pending():
+                if not e.decode_run(8):
+                    raise AssertionError("f32: decode_run made no progress")
+            outs.append([list(e._requests[r].generated) for r in rids])
+        if outs[0] != outs[1]:
+            raise AssertionError("artifact f32 greedy streams differ from "
+                                 "the from_model engine's")
+        log(f"artifact: f32 2-layer full width, TF32 off: {len(prompts)} "
+            f"greedy streams of 16 tokens equal the from_model engine's, "
+            f"token for token")
+        del m32
+
+        # (g) a predictor on the card over an artifact saved on the CPU
+        mlp = torch.nn.Sequential(Linear(8, 16, bias_attr=True,
+                                         device="cpu"),
+                                  torch.nn.ReLU(),
+                                  Linear(16, 4, bias_attr=True, device="cpu"))
+        with torch.no_grad():
+            for p in mlp.parameters():
+                p.copy_(torch.randn(p.shape,
+                                    generator=torch.Generator()
+                                    .manual_seed(p.numel())))
+        mlp_path = os.path.join(tmp, "mlp")
+        save_inference_model(mlp_path, mlp, [InputSpec([None, 8], "float32",
+                                                       "x")],
+                             output_names=["y"])
+        pred = create_predictor(Config(mlp_path))
+        worst = 0.0
+        for bs in (3, 5):
+            x = np.random.RandomState(bs).randn(bs, 8).astype(np.float32)
+            (y,) = pred.run([x])
+            if pred._outputs["y"].device.type != dev.type:
+                raise AssertionError("the predictor did not run on the card")
+            with torch.no_grad():
+                want_y = mlp(torch.from_numpy(x)).numpy()
+            worst = max(worst, float(np.abs(y - want_y).max()))
+        if not worst <= 1e-5:
+            raise AssertionError(f"predictor on the card vs eager on the "
+                                 f"CPU: {worst}")
+        log(f"artifact: create_predictor on an MLP artifact saved on the "
+            f"CPU, run on the card (batches 3 and 5): largest difference "
+            f"from the CPU's eager output {worst} (tol 1e-5)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    metrics = {
+        "card": gpu,
+        "save_s": t_save, "load_s": t_load, "artifact_bytes": size,
+        "fixed_step_max_abs_logit_diff": diff,
+        "fixed_step_rel_l2": rel, "fixed_step_pools_equal": pools_equal,
+        "decode_ms_per_step": ms, "decode_tokens_per_s": tps,
+        "decode_steps": n_steps,
+        "decode_turns_artifact_ms_per_step": turns["artifact"],
+        "decode_turns_from_model_ms_per_step": turns["from_model"],
+        "fresh_step_ms": run["t_fresh"] * 1e3,
+        "tokens_equal_from_model": [same, total],
+        "launches_per_step": {"eager_step": run["per_step"],
+                              "decode_step": step_want},
+        "predictor_max_abs_err": worst,
+    }
+    log(json.dumps({"artifact": metrics}))
+    return dict(metrics=metrics, counts=counts, engine=eng,
+                per_step={k: {"eager_step": run["per_step"][k],
+                              "decode_step": step_want[k]}
+                          for k in ARTIFACT_KERNELS})
+
+
 def _profiled_window(eng, prompts, sampling, label, want, seen_of,
                      ready=False):
     """Profile one 16-step decode window at batch 8 on ``eng``: the 8
@@ -2124,7 +2442,7 @@ def _kernels_a_step(prof, steps):
 
 
 def phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream):
+                  stream, artifact):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
@@ -2136,8 +2454,10 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
     device, as many as the counters added for the replays; the int8
     engine's, its paged-attention and RoPE-and-append kernels L times a
     step; each weight-streaming engine's, its dequant and RoPE-and-append
-    kernels L times a step (_profiled_window). Each decode window's device
-    kernels a step, in all, are logged. A probe with no kernel symbol (a
+    kernels L times a step (_profiled_window); the artifact engine's,
+    RMSNorm 2L + 1, paged attention and RoPE-and-append L times a step and
+    the varlen forward never. Each decode window's device kernels a step,
+    in all, are logged. A probe with no kernel symbol (a
     composition of tensor ops) records its device kernels a call too."""
     from paddle_tpu_torch.inference import ServingEngine
 
@@ -2218,6 +2538,20 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
                            "decode_device_busy": ms_s / step_ms,
                            "dequant_device_ms_per_step": dequant_ms,
                            "decode_top": top_s}
+    # the artifact engine's decode window: the program's call replayed
+    dec_a, seen_a, _ = _profiled_window(
+        artifact["engine"], prompts, sampling, "artifact",
+        {"rms_norm": (2 * L + 1) * 16, "paged_attention": L * 16,
+         "rope_append": L * 16, "varlen_attention_fwd": 0},
+        seen_of=lambda d: launched(d, (
+            ("rms_norm", ("rms_norm_kernel", "rms_norm_two_pass_kernel")),
+            ("paged_attention", ("paged_attention_tc_kernel",)),
+            ("rope_append", ("rope_append_kernel",)),
+            ("varlen_attention_fwd", ("varlen_fwd_kernel",)))))
+    log(f"profile: 16 artifact decode replays launched {seen_a} on the "
+        f"device")
+    art_ms, art_top = summary(dec_a, 16)
+    art_step_ms = artifact["metrics"]["decode_ms_per_step"]
     trainer, tm = training["trainer"], training["metrics"]
     train_ms, train_top = summary(profile_kernels(
         lambda: trainer.step(training["ids"], training["labels"])), 1)
@@ -2246,6 +2580,10 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
         / int8["metrics"]["decode_ms_per_step"],
         "int8_decode_top": dec8_top,
         "weight_stream_decode": stream_prof,
+        "artifact_decode_step_device_ms": art_ms,
+        "artifact_decode_device_kernels_a_step": _kernels_a_step(dec_a, 16),
+        "artifact_decode_device_busy": art_ms / art_step_ms,
+        "artifact_decode_top": art_top,
     }
     log(json.dumps({"profile": prof}))
     return prof
@@ -3748,6 +4086,7 @@ def main():
     phase_flash_kernels(dev, kernels, probes)
     phase_varlen_bwd_kernels(dev, kernels, probes)
     serving = phase_serving(dev)
+    artifact = phase_artifact(dev, serving)
     phase_paged_kernel(dev, kernels, probes, serving)
     phase_int8_kernels(dev, kernels, probes, serving)
     phase_rope_append_kernel(dev, kernels, probes, serving)
@@ -3761,11 +4100,12 @@ def main():
     packed = phase_packed_training(dev)
     phase_packed_parity(dev)
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream)
+                  stream, artifact)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
                "packed_training": packed["counts"],
-               "weight_stream": stream["counts"]}
+               "weight_stream": stream["counts"],
+               "artifact": artifact["counts"]}
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
                         [k]}
@@ -3776,7 +4116,8 @@ def main():
                                  stream["decode_launches_per_step"]})))}
     per_step.update({
                 "training": training["metrics"]["launches_per_step"],
-                "packed_training": packed["metrics"]["launches_per_step"]})
+                "packed_training": packed["metrics"]["launches_per_step"],
+                "artifact": artifact["per_step"]})
     line = []
     for name, r in kernels.items():
         r = dict(r)

@@ -38,10 +38,20 @@ request is pinned to the version serving at its admission and a step binds
 one version. A window's graph holds the addresses of the weights it read,
 so windows are kept a version and captured at a version's first use.
 
+``ServingEngine(path_prefix, cfg)`` serves a deploy artifact written by
+``save_paged_model`` (inference/__init__.py): the ``torch.export`` program
+of the paged step over flat weights, the kernels reached through their
+registered ops. Every step of such an engine, decode windows included, runs
+at the fixed token length ``cfg.token_budget`` on the paged route (the
+artifact has no fresh-prefill or verify entry), and its windows capture the
+program's call. ``add_request(deadline_s=)`` bounds a request's latency:
+past it the request is evicted before the next step or window, its pages
+freed, and ``requeue_hook`` told. ``PagedServingConfig(backend=)`` is the
+engine's placement handle.
+
 Not ported yet (ROADMAP.md): the weight publisher's transport and fleet
-tier, chaos fault sites (``publish`` among them), deadlines, metrics and
-tracing, disk artifacts and the StableHLO artifact of the decode step
-(``lower_fused_decode``), and the backend handle.
+tier, chaos fault sites (``publish`` among them), metrics and tracing, and
+the StableHLO artifact of the decode step (``lower_fused_decode``).
 """
 from __future__ import annotations
 
@@ -65,12 +75,28 @@ from .weight_stream import STREAM_KINDS, WeightStreamer
 
 __all__ = ["PagedServingConfig", "PagedCausalLM", "ServingEngine",
            "SamplingParams", "sampling_salt", "sample_logits",
-           "EngineOverloadedError"]
+           "EngineOverloadedError", "save_paged_model",
+           "resolve_backend_device"]
 
 
 class EngineOverloadedError(RuntimeError):
     """Admission rejected: the engine already holds cfg.max_queue live
     requests; the front-end should shed or retry elsewhere."""
+
+
+def resolve_backend_device(backend):
+    """``PagedServingConfig.backend`` as a device (serving.py:106-123):
+    None stays None (the engine then takes ``resolve_device(None)``,
+    "cuda"); a device string or a ``torch.device`` resolves through
+    ``resolve_device``. A CUDA handle naming no card raises ValueError."""
+    if backend is None:
+        return None
+    dev = torch.device(backend)
+    if dev.type == "cuda" and (
+            not torch.cuda.is_available()
+            or (dev.index or 0) >= torch.cuda.device_count()):
+        raise ValueError(f"backend {backend!r} has no devices")
+    return resolve_device(dev)
 
 
 class PagedServingConfig:
@@ -84,14 +110,18 @@ class PagedServingConfig:
     start and ``save_prefix_cache()`` writes to; ``prefix_page_quota``
     caps the cache pages one tenant namespace owns (None: no cap). Weight
     streaming and versions are the engine's (``ServingEngine.from_model``'s
-    ``weight_stream``, ``stage_weight_set``)."""
+    ``weight_stream``, ``stage_weight_set``). ``backend`` is the engine's
+    placement handle, a device string or ``torch.device`` (None: the
+    engine's ``device`` argument, else "cuda"; ``resolve_backend_device``).
+    """
 
     def __init__(self, vocab_size=256, hidden_size=64, num_layers=2,
                  num_heads=4, ffn_size=128, block_size=16, num_blocks=64,
                  max_batch=4, max_blocks_per_seq=8, token_budget=64,
                  num_kv_heads=None, dtype="float32", cache_quant=None,
                  max_queue=None, prefix_cache=False,
-                 prefix_snapshot_root=None, prefix_page_quota=None):
+                 prefix_snapshot_root=None, prefix_page_quota=None,
+                 backend=None):
         if dtype not in ("float32", "bfloat16"):
             raise ValueError("dtype must be 'float32' or 'bfloat16'")
         if cache_quant not in (None, "int8"):
@@ -116,6 +146,7 @@ class PagedServingConfig:
         self.prefix_cache = bool(prefix_cache)
         self.prefix_snapshot_root = prefix_snapshot_root
         self.prefix_page_quota = prefix_page_quota
+        self.backend = backend
         self.max_seq = max_blocks_per_seq * block_size
 
     @property
@@ -387,36 +418,28 @@ class PagedCausalLM(nn.Module):
         """(cos, sin) [2, max_seq, D/2] at positions 0..max_seq-1, in f32
         on ``device``: made once a device, not a step. It is not state, so
         a cast of the model (serving copies are cast to cfg.dtype) leaves
-        it f32."""
-        table = self.__dict__.get("_rope_cos_sin")
+        it f32. A traced step (the deploy artifact) computes it in the
+        program, from the same ops on the serving device, and caches
+        nothing."""
+        tracing = torch.compiler.is_compiling()
+        table = None if tracing else self.__dict__.get("_rope_cos_sin")
         if table is None or table.device != device:
             cos, sin = self._rope_table(
                 torch.arange(self.cfg.max_seq, device=device))
             table = torch.stack([cos, sin])
-            self.__dict__["_rope_cos_sin"] = table
+            if not tracing:
+                self.__dict__["_rope_cos_sin"] = table
         return table
 
     def load_paddle_tpu_params(self, named):
         """Load the TPU package's parameters: ``named`` maps its parameter
         names (``current_params``) to numpy arrays; see
         utils.convert.params_from_paddle_tpu."""
-        from ..utils.convert import params_from_paddle_tpu
+        from ..utils.convert import (load_params_from_paddle_tpu,
+                                     params_from_paddle_tpu)
 
-        params = params_from_paddle_tpu(named)
-        own = dict(self.named_parameters())
-        if set(params) != set(own):
-            raise KeyError(
-                f"parameter names differ: missing "
-                f"{sorted(set(own) - set(params))}, unexpected "
-                f"{sorted(set(params) - set(own))}")
-        with torch.no_grad():
-            for name, p in own.items():
-                src = params[name]
-                if tuple(src.shape) != tuple(p.shape):
-                    raise ValueError(f"{name}: shape {tuple(src.shape)} "
-                                     f"!= {tuple(p.shape)}")
-                p.copy_(src)
-        return self
+        params_from_paddle_tpu(named)        # refuses a foreign name
+        return load_params_from_paddle_tpu(self, named)
 
     def _lin(self, kind, li, h, w=None):
         """One decoder Linear (bias-free): the layer's own module, or, when
@@ -592,7 +615,7 @@ def _serving_copy(model, cfg, device, weight_stream=None):
     quantization: prefetch is a property of each engine's schedule."""
     quant = None if weight_stream is None \
         else ("int4" if weight_stream == "int4" else "int8")
-    key = (cfg.dtype, cfg.cache_quant, quant, str(device))
+    key = (cfg.dtype, cfg.cache_quant, quant, str(device), str(cfg.backend))
     cached = getattr(model, "_serving_shared", None)
     if cached is not None and cached[0] == key:
         return cached[1:]
@@ -620,12 +643,13 @@ def _serving_copy(model, cfg, device, weight_stream=None):
 
 class _Request:
     __slots__ = ("rid", "prompt", "generated", "max_new", "pages",
-                 "cached", "done", "sampling", "eos_token_id",
-                 "shared_keys", "prefix_registered", "tenant",
-                 "spec_observed", "weight_version")
+                 "cached", "done", "sampling", "eos_token_id", "submit_t",
+                 "deadline_t", "timed_out", "requeues", "shared_keys",
+                 "prefix_registered", "tenant", "spec_observed",
+                 "weight_version")
 
     def __init__(self, rid, prompt, max_new, sampling, eos_token_id,
-                 tenant=None):
+                 tenant=None, deadline_s=None):
         self.rid = rid
         self.prompt = list(int(t) for t in prompt)
         self.generated = []
@@ -635,6 +659,13 @@ class _Request:
         self.done = False
         self.sampling = sampling or GREEDY
         self.eos_token_id = eos_token_id
+        self.submit_t = time.perf_counter()
+        self.deadline_t = None if deadline_s is None \
+            else self.submit_t + float(deadline_s)
+        self.timed_out = False
+        # how many times a router already retried this request elsewhere
+        # (its cap is the router's)
+        self.requeues = 0
         # prefix cache: the trie keys this request holds a ref on, and
         # whether its full prompt blocks were registered after prefill
         self.shared_keys = []
@@ -661,7 +692,9 @@ class _DecodeWindow:
     version has its own windows.
 
     Every input of a window lives in one int64 device buffer ``buf``
-    (tokens [Bb], enc, dec, this, cu, the block table, top-k, the per-row
+    (tokens [tok_len]: Bb on a from_model engine, the artifact's fixed
+    token length on an artifact engine, whose padding goes to the trash
+    row; enc, dec, this, cu, the block table, top-k, the per-row
     salts, temperatures and top-p as float32 views, the step counter), so
     one copy from a pinned host buffer stages a window. The body runs the
     model on those buffers, samples in the window's mode, feeds the Bb
@@ -679,7 +712,8 @@ class _DecodeWindow:
         self.version = version
         B1 = cfg.max_batch + 1
         self.n_max = cfg.max_seq     # no request decodes more tokens
-        fields = (("tokens", Bb), ("enc", B1), ("dec", B1), ("this", B1),
+        tok_len = engine._fixed_token_len or Bb
+        fields = (("tokens", tok_len), ("enc", B1), ("dec", B1), ("this", B1),
                   ("cu", B1 + 1), ("bt", B1 * cfg.max_blocks_per_seq),
                   ("topks", B1), ("salts", B1), ("step", 1),
                   ("temps", (B1 + 1) // 2), ("topps", (B1 + 1) // 2))
@@ -726,14 +760,11 @@ class _DecodeWindow:
             self.buf.copy_(self._host, non_blocking=True)
 
     def body(self):
-        eng = self.engine
-        logits = eng._model(self.tokens, self.enc, self.dec, self.this,
-                            self.cu, self.bt, eng._kc, eng._vc, eng._ks,
-                            eng._vs, weights=eng._view(self.version),
-                            workspace=eng._stream_ws)[0]
+        logits = self.engine._forward(self.version, self.tokens, self.enc,
+                                      self.dec, self.this, self.cu, self.bt)
         sampled = _sample(logits, self.mode, self.temps, self.topks,
                           self.topps, self.salts)
-        self.tokens.copy_(sampled[:self.Bb])
+        self.tokens[:self.Bb].copy_(sampled[:self.Bb])
         self.dec.add_(self.live)
         self.salts.add_(self.live).bitwise_and_(0x7FFFFFFF)
         self.samples.index_copy_(0, self.step, sampled[None])
@@ -785,7 +816,8 @@ class _DecodeWindow:
 class ServingEngine:
     """Continuous-batching scheduler over a PagedCausalLM step.
 
-    engine = ServingEngine.from_model(model, cfg, device="cuda")
+    engine = ServingEngine(path_prefix, cfg)       # serves the artifact
+    engine = ServingEngine.from_model(model, cfg)  # or a live model
     rid = engine.add_request([tokens...], max_new_tokens=8,
                              sampling=SamplingParams(temperature=0.8,
                                                      top_k=50, top_p=0.9))
@@ -799,14 +831,30 @@ class ServingEngine:
     ``commit_weight_set`` swaps it in at a step boundary (new admissions pin
     to it; streams admitted before finish under theirs);
     ``rollback_weight_set`` swaps back. Every step binds one version.
+
+    The device: ``device`` when given, else ``cfg.backend``
+    (``resolve_backend_device``), else "cuda".
     """
 
-    def __init__(self, cfg: PagedServingConfig, device=None, seed=0):
+    def __init__(self, path_prefix: str = None,
+                 cfg: PagedServingConfig = None, device=None, seed=0):
+        if cfg is None:
+            raise ValueError("ServingEngine needs cfg, the engine's "
+                             "PagedServingConfig")
         self.cfg = cfg
         self.seed = seed
         self.name = f"engine{seed}"
-        self.device = resolve_device(device)
+        backend = resolve_backend_device(cfg.backend) if device is None \
+            else None
+        self.device = resolve_device(device if device is not None
+                                     else backend)
         self._model = None          # set by from_model
+        # the loaded artifact's program (path_prefix): every step runs at
+        # its fixed token length; None on a from_model engine, whose steps
+        # and windows run at their own
+        self._program = None
+        self._buffers = []
+        self._fixed_token_len = None
         shape = (cfg.num_layers, cfg.num_blocks, cfg.num_kv_heads,
                  cfg.block_size, cfg.head_dim)
         if cfg.cache_quant == "int8":
@@ -866,8 +914,37 @@ class ServingEngine:
         self._prefix_cache = PrefixCache(
             cfg.block_size, page_quota=cfg.prefix_page_quota) \
             if cfg.prefix_cache else None
+        # deadline-evicted requests are handed to this hook when it is set
+        # (a router retries them elsewhere): it gets _requeue_info's dict
+        # and must not raise, or the step sweeping it fails
+        self.requeue_hook = None
         if self._prefix_cache is not None and cfg.prefix_snapshot_root:
             restore_snapshot(self, cfg.prefix_snapshot_root)
+        if path_prefix is not None:
+            self._load_artifact(path_prefix)
+
+    def _load_artifact(self, path_prefix):
+        """Load ``save_paged_model``'s artifact (serving.py:628-639): the
+        program moved to this engine's device, its flat weights placed
+        there once (version 0's set)."""
+        from . import load_inference_model
+
+        cfg = self.cfg
+        if cfg.cache_quant is not None:
+            raise ValueError("an artifact engine serves float pages: the "
+                             "artifact's inputs carry no scale pools")
+        program, params, buffers, sig = load_inference_model(path_prefix,
+                                                             self.device)
+        want = [{"name": spec.name, "shape": list(spec.shape),
+                 "dtype": spec.dtype} for spec in _paged_specs(cfg)]
+        if sig["inputs"] != want:
+            raise ValueError(f"the artifact at {path_prefix!r} was saved for "
+                             f"other step shapes than cfg's: {sig['inputs']}"
+                             f" != {want}")
+        self._program = program
+        self._params = params
+        self._buffers = buffers
+        self._fixed_token_len = cfg.token_budget
 
     @classmethod
     def from_model(cls, model: PagedCausalLM, cfg: PagedServingConfig,
@@ -875,7 +952,7 @@ class ServingEngine:
         """An engine over a live model, with floating params cast to
         cfg.dtype on ``device`` (None means "cuda"); engines over one
         model share the cast copy. Fresh-prefill steps take the varlen
-        flash-attention route.
+        flash-attention route. ``device``: as the constructor's.
 
         ``weight_stream`` streams the decoder Linear stacks
         (inference/weight_stream.py; serving.py:739-843): ``"int8"``
@@ -888,7 +965,7 @@ class ServingEngine:
             raise ValueError(
                 f"weight_stream={weight_stream!r}: expected None, "
                 f"'int8', 'int8-noprefetch' or 'int4'")
-        eng = cls(cfg, device=device, seed=seed)
+        eng = cls(None, cfg, device=device, seed=seed)
         eng._weight_stream_mode = weight_stream
         served, streamer, names, flat = _serving_copy(model, cfg, eng.device,
                                                       weight_stream)
@@ -1107,7 +1184,9 @@ class ServingEngine:
         through the fresh-prefill route, its KV written to the trash page
         0. Returns a float32 numpy vector of vocabulary logits."""
         if self._model is None:
-            raise ValueError("probe_logits needs a from_model engine")
+            raise ValueError("probe_logits needs a from_model engine: the "
+                             "exported serving artifact has no "
+                             "fresh-prefill entry")
         cfg = self.cfg
         n = len(prompt)
         if not 0 < n <= cfg.token_budget:
@@ -1140,10 +1219,14 @@ class ServingEngine:
 
     # -- scheduling ------------------------------------------------------
     def add_request(self, prompt_tokens, max_new_tokens=8, sampling=None,
-                    eos_token_id=None, tenant=None):
-        """Admit one request. ``tenant`` scopes its prefix-cache reads and
-        writes to that tenant's namespace. Raises EngineOverloadedError
-        when cfg.max_queue live requests already exist."""
+                    eos_token_id=None, deadline_s=None, tenant=None):
+        """Admit one request. ``deadline_s`` (seconds from submit) bounds
+        its total latency: a request unfinished past it is evicted before
+        the next step or decode window (``_evict_expired``: pages freed,
+        ``timed_out`` set, ``requeue_hook`` told). ``tenant`` scopes its
+        prefix-cache reads and writes to that tenant's namespace. Raises
+        EngineOverloadedError when cfg.max_queue live requests already
+        exist."""
         if len(prompt_tokens) == 0:
             raise ValueError("prompt must contain at least one token "
                              "(an empty row would read another request's "
@@ -1159,7 +1242,7 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         req = _Request(rid, prompt_tokens, max_new_tokens, sampling,
-                       eos_token_id, tenant=tenant)
+                       eos_token_id, tenant=tenant, deadline_s=deadline_s)
         # the whole stream runs under the version serving at admission
         req.weight_version = self._active_wv
         self._requests[rid] = req
@@ -1177,8 +1260,10 @@ class ServingEngine:
         pool. ``k`` defaults to ``PT_SPEC_K`` (environment) or 4;
         ``set_drafter(None)`` turns speculation off."""
         if drafter is not None and self._model is None:
-            raise ValueError("speculative decoding needs a from_model "
-                             "engine: the verify step runs its model")
+            raise ValueError(
+                "speculative decoding needs a from_model engine: the "
+                "exported serving artifact has no all-positions verify "
+                "entry")
         self._drafter = drafter
         if k is not None:
             self._spec_k = int(k)
@@ -1263,6 +1348,42 @@ class ServingEngine:
     def pending(self):
         return [r for r in self._requests.values() if not r.done]
 
+    def _evict_expired(self):
+        """The deadline sweep before scheduling (serving.py:966-983):
+        requests past their deadline finish now as timed out, their pages
+        back in the pool, each handed to ``requeue_hook`` when one is
+        set."""
+        now = time.perf_counter()
+        for r in self.pending():
+            if r.deadline_t is not None and now > r.deadline_t:
+                r.timed_out = True
+                r.done = True
+                self._release(r)
+                # the reference counts serving/deadline_evictions here: it
+                # waits for the metrics registry's port (ROADMAP.md, queue
+                # 1, item 6)
+                if self.requeue_hook is not None:
+                    self.requeue_hook(self._requeue_info(r))
+
+    @staticmethod
+    def _requeue_info(r):
+        """What a router needs to retry an evicted request elsewhere
+        (serving.py:985-1001): the prompt, the progress, the budget and
+        sampling, and the stream's identity: its salts' (rid, seed), the
+        seed None for this engine's own (no request migrates between
+        engines until the fleet tier is ported). ``trace`` stays None
+        until tracing is ported."""
+        return {"rid": r.rid, "prompt": list(r.prompt),
+                "generated": list(r.generated), "max_new": r.max_new,
+                "sampling": r.sampling, "eos_token_id": r.eos_token_id,
+                "timed_out": True, "requeues": r.requeues,
+                "tenant": r.tenant, "salt_rid": r.rid, "salt_seed": None,
+                "weight_version": r.weight_version, "trace": None}
+
+    def timed_out_requests(self):
+        """rids evicted by the deadline sweep (a front-end's 504)."""
+        return [r.rid for r in self._requests.values() if r.timed_out]
+
     def _salt(self, r, n_generated):
         return sampling_salt(self.seed, r.rid, n_generated)
 
@@ -1333,16 +1454,28 @@ class ServingEngine:
         return [torch.from_numpy(np.ascontiguousarray(a)).to(
             self.device, torch.int64) for a in arrays]
 
+    def _forward(self, version, tokens, enc, dec, this, cu, bt, fresh=False,
+                 all_logits=False):
+        """The logits of one step over the engine's caches (updated in
+        place) under weight ``version``, from the live model, or from the
+        artifact's program fed that version's flat weights (its logits f32,
+        its route always the paged one)."""
+        if self._program is not None:
+            return self._program(self._params_for(version), self._buffers,
+                                 tokens, enc, dec, this, cu, bt, self._kc,
+                                 self._vc)[0]
+        return self._model(tokens, enc, dec, this, cu, bt, self._kc,
+                           self._vc, self._ks, self._vs, fresh_prefill=fresh,
+                           all_logits=all_logits, weights=self._view(version),
+                           workspace=self._stream_ws)[0]
+
     def _run(self, version, tokens, enc, dec, this, cu, bt, fresh=False,
              all_logits=False):
-        """One forward step over the engine's caches (updated in place),
-        under weight ``version``."""
+        """One forward step from host arrays (``_forward``)."""
         ins = self._tensors(tokens, enc, dec, this, cu, bt)
         with torch.inference_mode():
-            return self._model(*ins, self._kc, self._vc, self._ks, self._vs,
-                               fresh_prefill=fresh, all_logits=all_logits,
-                               weights=self._view(version),
-                               workspace=self._stream_ws)[0]
+            return self._forward(version, *ins, fresh=fresh,
+                                 all_logits=all_logits)
 
     def step(self):
         """One engine iteration: schedule <= max_batch live requests
@@ -1350,6 +1483,7 @@ class ServingEngine:
         step once, sample one token for each request at its sequence tip.
         Returns the produced (rid, token) pairs."""
         cfg = self.cfg
+        self._evict_expired()
         rows = self._schedule()
         preempted = set()
         while not rows and self.pending():
@@ -1401,8 +1535,10 @@ class ServingEngine:
         cu = np.zeros(B1 + 1, np.int64)
         cu[1:] = np.cumsum(this)
         # fresh-prefill steps (every scheduled row starts at position 0)
-        # run block-diagonal varlen flash over the packed tokens
-        fresh = all(r.cached == 0 for r, _ in rows)
+        # run block-diagonal varlen flash over the packed tokens; an
+        # artifact has only the paged route
+        fresh = self._program is None \
+            and all(r.cached == 0 for r, _ in rows)
         logits = self._run(rows[0][0].weight_version, tokens, enc, dec, this,
                            cu, bt, fresh)
         self.last_logits = logits
@@ -1493,6 +1629,7 @@ class ServingEngine:
 
     def _decode_window_run(self, n_steps, graph):
         cfg = self.cfg
+        self._evict_expired()
         rows = [r for r in self.pending() if r.length - r.cached == 1]
         if rows:
             # one weight version a window, the oldest tip row's first
@@ -1524,12 +1661,13 @@ class ServingEngine:
             self._maybe_register_prefix(r)
         # the row count is bucketed to a power of two (the reference's
         # executable-reuse rule); the bucket's spare slots are padding
-        # routed to the trash row like any other
+        # routed to the trash row like any other, and so is an artifact's
+        # padding up to its fixed token length (serving.py:1888-1893)
         Bb = min(_next_pow2(B), cfg.max_batch)
         enc = np.zeros(B1, np.int64)
         this = np.zeros(B1, np.int64)
         this[:B] = 1
-        n_pad = Bb - B
+        n_pad = (self._fixed_token_len or Bb) - B
         this[B1 - 1] = n_pad
         enc[B1 - 1] = n_pad
         cu = np.zeros(B1 + 1, np.int64)
@@ -1705,3 +1843,48 @@ class ServingEngine:
             self.step()
         return {rid: list(r.generated)
                 for rid, r in self._requests.items()}
+
+
+def _paged_specs(cfg):
+    """The artifact's eight inputs at the engine's static shapes
+    (serving.py:1973-1986). The index inputs are int64, the dtype the
+    port's engine stages them in (the reference's int32 is JAX's 32-bit
+    default); the pools are cfg.dtype."""
+    from ..jit.api import InputSpec
+
+    B1 = cfg.max_batch + 1
+    pools = (cfg.num_layers, cfg.num_blocks, cfg.num_kv_heads,
+             cfg.block_size, cfg.head_dim)
+    return [
+        InputSpec((cfg.token_budget,), "int64", "tokens"),
+        InputSpec((B1,), "int64", "seq_lens_encoder"),
+        InputSpec((B1,), "int64", "seq_lens_decoder"),
+        InputSpec((B1,), "int64", "seq_lens_this_time"),
+        InputSpec((B1 + 1,), "int64", "cu_seqlens_q"),
+        InputSpec((B1, cfg.max_blocks_per_seq), "int64", "block_tables"),
+        InputSpec(pools, cfg.dtype, "key_caches"),
+        InputSpec(pools, cfg.dtype, "value_caches"),
+    ]
+
+
+def save_paged_model(path_prefix: str, model: PagedCausalLM):
+    """Export the paged step as a serving artifact at the engine's static
+    shapes (serving.py:1966-1992), through ``save_inference_model``: bf16
+    weights and compute for a bfloat16 config, f32 logits, the pools
+    updated in place. The program takes the paged route (the reference's
+    artifact has no fresh-prefill entry). An int8 ``cache_quant`` config
+    raises ValueError: the artifact's inputs carry no scale pools. Weight
+    streaming is ``from_model``'s: an artifact carries full weights."""
+    from . import PrecisionType, save_inference_model
+
+    cfg = model.cfg
+    if cfg.cache_quant is not None:
+        raise ValueError("save_paged_model: the artifact's inputs carry no "
+                         "scale pools, so an int8 cache_quant engine serves "
+                         "through ServingEngine.from_model")
+    precision = PrecisionType.Bfloat16 if cfg.dtype == "bfloat16" \
+        else PrecisionType.Float32
+    return save_inference_model(path_prefix, model, _paged_specs(cfg),
+                                precision=precision,
+                                output_names=["logits", "key_caches",
+                                              "value_caches"])

@@ -31,6 +31,12 @@ counted apart (``launches_int8``).
 A step calls the kernel once a layer with the same caches, metadata and
 block tables, so the wrapper checks those once a step (``_launch``) and
 calls the library through its extension module (csrc/pymodule.cu).
+
+The kernel is also the registered op ``paddle_tpu_torch::paged_attention``:
+while tracing (``torch.export`` of the serving step, the deploy artifact)
+the wrapper calls the op, whose CUDA implementation is ``_launch`` and CPU
+implementation the plain version; outside tracing it launches directly,
+without the dispatcher's cost.
 """
 from __future__ import annotations
 
@@ -213,6 +219,35 @@ def _launch(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
     return out
 
 
+def _plain(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+           k_scales=None, v_scales=None):
+    """The plain version over the stacked pools, after the call's checks."""
+    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+           k_scales, v_scales)
+    quant = k_scales is not None
+    return _paged_attention_ref(
+        q, key_cache[layer_idx], value_cache[layer_idx], t2b, pos,
+        block_tables, k_scales[layer_idx] if quant else None,
+        v_scales[layer_idx] if quant else None)
+
+
+_op = torch.library.custom_op(
+    "paddle_tpu_torch::paged_attention", _launch, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor q, Tensor key_cache, Tensor value_cache, int layer_idx, "
+           "Tensor t2b, Tensor pos, Tensor block_tables, Tensor? k_scales, "
+           "Tensor? v_scales) -> Tensor")
+_op.register_kernel("cpu")(_plain)
+
+
+@_op.register_fake
+def _paged_attention_fake(q, key_cache, value_cache, layer_idx, t2b, pos,
+                          block_tables, k_scales, v_scales):
+    _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+           k_scales, v_scales)
+    return q.new_empty(q.shape)
+
+
 def paged_attention(q, key_cache, value_cache, layer_idx, t2b, pos,
                     block_tables, k_scales=None, v_scales=None):
     """out [T, HQ, D] in q's dtype: q [T, HQ, D] (RoPE applied, rounded to
@@ -221,16 +256,18 @@ def paged_attention(q, key_cache, value_cache, layer_idx, t2b, pos,
     scale pools ``k_scales``, ``v_scales`` [L, num_blocks, HKV,
     block_size]); t2b and pos [T] int64 (each token's batch row and cache
     position), block_tables [B, max_blocks] int64. A CPU tensor takes the
-    plain version, a CUDA tensor the kernel."""
+    plain version, a CUDA tensor the kernel; while tracing, the registered
+    op."""
+    if torch.compiler.is_compiling():
+        return torch.ops.paddle_tpu_torch.paged_attention(
+            q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
+            k_scales, v_scales)
     if q.is_cuda:
         return _launch(q, key_cache, value_cache, layer_idx, t2b, pos,
                        block_tables, k_scales, v_scales)
+    if q.device.type == "cpu":
+        return _plain(q, key_cache, value_cache, layer_idx, t2b, pos,
+                      block_tables, k_scales, v_scales)
     _check(q, key_cache, value_cache, layer_idx, t2b, pos, block_tables,
            k_scales, v_scales)
-    if q.device.type == "cpu":
-        quant = k_scales is not None
-        return _paged_attention_ref(
-            q, key_cache[layer_idx], value_cache[layer_idx], t2b, pos,
-            block_tables, k_scales[layer_idx] if quant else None,
-            v_scales[layer_idx] if quant else None)
     raise ValueError(f"paged_attention: no path for device {q.device}")

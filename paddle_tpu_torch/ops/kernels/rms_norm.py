@@ -14,6 +14,15 @@ for the host (33 calls a decode step), so it does the least work a call:
 one cached mode word a (h, dtype, weight dtype), the raw stream handle, no
 reshapes, and the C entries called through the library's extension module
 (``_build.py_module``, csrc/pymodule.cu) rather than ctypes.
+
+The forward is also the registered op ``paddle_tpu_torch::rms_norm``
+(``torch.ops.paddle_tpu_torch.rms_norm``): a traced program
+(``torch.export``, the deploy artifact of inference/__init__.py) cannot
+follow a launch through ``data_ptr()``, so while tracing the wrapper calls
+the op, whose CUDA implementation is ``_launch`` and CPU implementation the
+plain version. Outside tracing the wrapper launches directly: a call
+through the dispatcher costs ~15 us more host time (a trivial op's, on a
+CPU host), which a host-bound serving step would pay 33 times.
 """
 from __future__ import annotations
 
@@ -216,11 +225,27 @@ class _RMSNorm(torch.autograd.Function):
         return gx, (gw if ctx.needs_input_grad[1] else None), None
 
 
+_op = torch.library.custom_op(
+    "paddle_tpu_torch::rms_norm", _launch, mutates_args=(),
+    device_types="cuda",
+    schema="(Tensor x, Tensor? weight, float eps) -> Tensor")
+_op.register_kernel("cpu")(_rms_norm_ref)
+
+
+@_op.register_fake
+def _rms_norm_fake(x, weight, eps):
+    kernel_path(x.shape[-1], x.dtype)            # refuses what it refuses
+    return x.new_empty(x.shape)
+
+
 def rms_norm(x, weight=None, eps: float = 1e-6):
     """rms_norm over the last axis; weight=None is pure normalisation
     (the TPU package's _kernel_nw). A CPU tensor takes the plain versions,
     a CUDA tensor the kernels. Differentiable in x and weight: the forward
-    and the gradient are each a kernel."""
+    and the gradient are each a kernel. While tracing, the registered op
+    (forward only)."""
+    if torch.compiler.is_compiling():
+        return torch.ops.paddle_tpu_torch.rms_norm(x, weight, eps)
     if torch.is_grad_enabled() and (
             x.requires_grad or (weight is not None and weight.requires_grad)):
         return _RMSNorm.apply(x, weight, eps)

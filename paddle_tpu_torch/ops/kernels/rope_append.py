@@ -21,10 +21,20 @@ with float32 scale pools, D a multiple of 8 up to 256; other inputs raise.
 A step calls it once a layer with the same pools and metadata, so the
 wrapper checks those once a step (``_launch``) and calls the library
 through its extension module (csrc/pymodule.cu).
+
+The kernel's paged-route call (q out as [T, HQ, D]) is also the registered
+op ``paddle_tpu_torch::rope_append``, which declares that it writes the
+pools: while tracing (``torch.export`` of the serving step, the deploy
+artifact) the wrapper calls the op, whose CUDA implementation is
+``_launch`` and CPU implementation the plain version; outside tracing it
+launches directly, without the dispatcher's cost. The fresh-prefill layout
+(``heads_first``) feeds the varlen kernel, which no traced program reaches
+yet (it has no registered op): traced, it raises.
 """
 from __future__ import annotations
 
 import weakref
+from typing import NamedTuple
 
 import torch
 
@@ -219,6 +229,48 @@ def _launch(qkv, key_cache, value_cache, k_scales, v_scales, layer_idx, md,
     return (q, k, v) if heads_first else q
 
 
+class _Meta(NamedTuple):
+    """The metadata fields the kernel reads (``PagedMetadata``'s page,
+    slot, cos and sin), as the registered op receives them."""
+    page: torch.Tensor
+    slot: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+
+
+def _op_cuda(qkv, key_cache, value_cache, k_scales, v_scales, layer_idx,
+             cos, sin, page, slot):
+    return _launch(qkv, key_cache, value_cache, k_scales, v_scales,
+                   layer_idx, _Meta(page, slot, cos, sin), False)
+
+
+def _op_cpu(qkv, key_cache, value_cache, k_scales, v_scales, layer_idx,
+            cos, sin, page, slot):
+    md = _Meta(page, slot, cos, sin)
+    _check(qkv, key_cache, value_cache, k_scales, v_scales, layer_idx, md)
+    return _rope_append_ref(qkv, key_cache, value_cache, k_scales,
+                            v_scales, layer_idx, md)
+
+
+_op = torch.library.custom_op(
+    "paddle_tpu_torch::rope_append", _op_cuda,
+    mutates_args=("key_cache", "value_cache", "k_scales", "v_scales"),
+    device_types="cuda",
+    schema="(Tensor qkv, Tensor(a!) key_cache, Tensor(b!) value_cache, "
+           "Tensor(c!)? k_scales, Tensor(d!)? v_scales, int layer_idx, "
+           "Tensor cos, Tensor sin, Tensor page, Tensor slot) -> Tensor")
+_op.register_kernel("cpu")(_op_cpu)
+
+
+@_op.register_fake
+def _rope_append_fake(qkv, key_cache, value_cache, k_scales, v_scales,
+                      layer_idx, cos, sin, page, slot):
+    _check(qkv, key_cache, value_cache, k_scales, v_scales, layer_idx,
+           _Meta(page, slot, cos, sin))
+    HKV, D = key_cache.shape[2], key_cache.shape[-1]
+    return qkv.new_empty((qkv.shape[0], qkv.shape[1] // D - 2 * HKV, D))
+
+
 def rope_append(qkv, key_cache, value_cache, k_scales, v_scales, layer_idx,
                 md, *, heads_first=False):
     """RoPE of a paged step's q and k, and its k and v written into layer
@@ -231,7 +283,17 @@ def rope_append(qkv, key_cache, value_cache, k_scales, v_scales, layer_idx,
     rotated q [T, HQ, D] in qkv's dtype; with ``heads_first``, (q, k, v)
     as [HQ, T, D], [HKV, T, D], [HKV, T, D] (k rotated, neither
     quantized). A CPU tensor takes the plain version, a CUDA tensor the
-    kernel."""
+    kernel; while tracing, the registered op (q only: ``heads_first``
+    raises there)."""
+    if torch.compiler.is_compiling():
+        if heads_first:
+            raise NotImplementedError(
+                "rope_append: the fresh-prefill layout feeds the varlen "
+                "kernel, which has no registered op; a traced step takes "
+                "the paged route")
+        return torch.ops.paddle_tpu_torch.rope_append(
+            qkv, key_cache, value_cache, k_scales, v_scales, layer_idx,
+            md.cos, md.sin, md.page, md.slot)
     if qkv.is_cuda:
         return _launch(qkv, key_cache, value_cache, k_scales, v_scales,
                        layer_idx, md, heads_first)

@@ -1,3 +1,5 @@
-from .convert import params_from_paddle_tpu, stacked_params_from_paddle_tpu
+from .convert import (load_params_from_paddle_tpu, params_from_paddle_tpu,
+                      stacked_params_from_paddle_tpu)
 
-__all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu"]
+__all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu",
+           "load_params_from_paddle_tpu"]

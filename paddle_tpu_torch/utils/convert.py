@@ -13,7 +13,8 @@ import re
 import numpy as np
 import torch
 
-__all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu"]
+__all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu",
+           "load_params_from_paddle_tpu"]
 
 # parameter names of PagedCausalLM in both packages
 _SERVING_NAMES = re.compile(
@@ -37,6 +38,25 @@ def stacked_params_from_paddle_tpu(tree) -> dict:
     tensors, dtype kept, for paddle_tpu_torch.models.llama."""
     return {k: stacked_params_from_paddle_tpu(v) if isinstance(v, dict)
             else tensor_from_numpy(v) for k, v in tree.items()}
+
+
+def load_params_from_paddle_tpu(module, named):
+    """Copy the TPU package's parameters (``{name: numpy array}``, names as
+    ``current_params`` gives them) into ``module``'s parameters of the same
+    names, in place; the names and shapes must match. Returns ``module``."""
+    own = dict(module.named_parameters())
+    if set(named) != set(own):
+        raise KeyError(f"parameter names differ: missing "
+                       f"{sorted(set(own) - set(named))}, unexpected "
+                       f"{sorted(set(named) - set(own))}")
+    with torch.no_grad():
+        for name, p in own.items():
+            src = tensor_from_numpy(named[name])
+            if tuple(src.shape) != tuple(p.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                                 f"{tuple(p.shape)}")
+            p.copy_(src)
+    return module
 
 
 def params_from_paddle_tpu(named) -> dict:

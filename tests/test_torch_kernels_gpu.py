@@ -26,6 +26,8 @@ against its plain version; the int8 paged kernel within
 the tolerances above of its plain version and bit for bit equal to the
 float kernel over pages of q's dtype holding the same dequantized values.
 """
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -1607,3 +1609,179 @@ def test_streamed_full_width_windows_equal_plain_over_dequantized():
             windows.append(e.decode_run(8))
         streams.append(windows)
     assert streams[0] == streams[1]
+
+
+# -- the registered ops (the deploy artifact's route) ------------------------
+
+def _op_events(fn):
+    """The registered ops of the port a call went through (torch.profiler's
+    CPU events: a call through the dispatcher records the op's name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    return sorted(e.name for e in prof.events()
+                  if e.name.startswith("paddle_tpu_torch::"))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_registered_rms_norm_op_equals_the_direct_call(dtype, cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for rows, h in ((256, 2048), (8, 100)):
+        x = torch.randn(rows, h, device=cuda_device, generator=g).to(dtype)
+        w = torch.randn(h, device=cuda_device, generator=g).to(dtype)
+        before = TR.launches
+        direct = TR.rms_norm(x, w)
+        via_op = torch.ops.paddle_tpu_torch.rms_norm(x, w, 1e-6)
+        torch.cuda.synchronize()
+        assert TR.launches == before + 2
+        assert torch.equal(direct, via_op)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("case", ["decode", "chunked"])
+def test_registered_paged_attention_op_equals_the_direct_call(case, dtype,
+                                                               cuda_device):
+    rows, n_pad, bs, mb = _PAGED_CASES[case]
+    q, kc, vc, md, bt = _paged_case(rows, n_pad, 4, 2, 128, bs, mb, dtype,
+                                    cuda_device, seed=7)
+    before = PA.launches
+    for layer in (0, 1):
+        direct = PA.paged_attention(q, kc, vc, layer, md.t2b, md.pos, bt)
+        via_op = torch.ops.paddle_tpu_torch.paged_attention(
+            q, kc, vc, layer, md.t2b, md.pos, bt, None, None)
+        torch.cuda.synchronize()
+        assert torch.equal(direct, via_op)
+    assert PA.launches == before + 4
+
+
+@pytest.mark.parametrize("pages", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("step", ["decode", "chunked"])
+def test_registered_rope_append_op_equals_the_direct_call(step, dtype, pages,
+                                                          cuda_device):
+    from paddle_tpu_torch.ops.kernels import rope_append as RA
+
+    qkv, pools, md = _rope_case(step, "llama_1b", dtype, pages == "int8",
+                                cuda_device, seed=11)
+    before = RA.launches
+    for layer in (0, 1):
+        (direct,), mine = _rope_run(RA.rope_append, qkv, pools, md, layer,
+                                    False)
+        theirs = [None if p is None else p.clone() for p in pools]
+        via_op = torch.ops.paddle_tpu_torch.rope_append(
+            qkv, *theirs, layer, md.cos, md.sin, md.page, md.slot)
+        torch.cuda.synchronize()
+        assert torch.equal(direct, via_op)
+        for a, b in zip(mine, theirs):
+            assert (a is None and b is None) or torch.equal(a, b)
+    assert RA.launches == before + 4
+
+
+def test_wrappers_launch_directly_outside_tracing(window_model):
+    """An eager step launches every kernel without the dispatcher: the
+    launch counts rise and no registered op is called; the same call
+    through an op is seen."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    model, cfg = window_model
+    eng = _at_decode_tip(model, cfg, _MODES["greedy"])
+    reset_launch_counts()
+    assert _op_events(lambda: eng.step()) == []
+    counts = launch_counts()
+    L = cfg.num_layers
+    assert (counts["rms_norm"], counts["rope_append"],
+            counts["paged_attention"]) == (2 * L + 1, L, L)
+    x = torch.ones(4, 256, device="cuda")
+    assert _op_events(lambda: torch.ops.paddle_tpu_torch.rms_norm(
+        x, None, 1e-6)) == ["paddle_tpu_torch::rms_norm"]
+
+
+@pytest.fixture(scope="module")
+def artifact_on_cpu(tmp_path_factory):
+    """window_model's config saved on the CPU (a model on the CPU, bf16
+    artifact), to be served on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA kernels run only on a card")
+    cfg = TS.PagedServingConfig(**_WINDOW_CFG)
+    model = TS.PagedCausalLM(cfg, device="cpu", seed=5)
+    path = str(tmp_path_factory.mktemp("artifact") / "lm")
+    TS.save_paged_model(path, model)
+    return path, cfg, model
+
+
+def _artifact_at_decode_tip(path, cfg, sampling, seed=3):
+    eng = TS.ServingEngine(path, cfg, device="cuda", seed=seed)
+    rng = np.random.RandomState(11)
+    for i, sp in enumerate(sampling):
+        eng.add_request(list(rng.randint(1, cfg.vocab_size, 9 + 7 * i)),
+                        max_new_tokens=24, sampling=sp)
+    while any(r.length - r.cached > 1 for r in eng.pending()):
+        eng.step()
+    return eng
+
+
+def test_cpu_saved_program_launches_the_kernels_on_the_card(artifact_on_cpu):
+    """A program exported on the CPU, moved to the card at load: every step
+    (a fresh prefill among them: the artifact has only the paged route)
+    launches RMSNorm 2L + 1, rope_append L and paged attention L times and
+    no varlen kernel; its logits agree with the live model's on the same
+    step within bf16 rounding."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    path, cfg, model = artifact_on_cpu
+    eng = TS.ServingEngine(path, cfg, device="cuda")
+    assert all(p.is_cuda for p in eng._params)
+    live = TS.ServingEngine.from_model(model, cfg, device="cuda")
+    L = cfg.num_layers
+    rng = np.random.RandomState(2)
+    prompts = [list(rng.randint(1, cfg.vocab_size, n)) for n in (20, 9)]
+    for e in (eng, live):
+        for p in prompts:
+            e.add_request(p, max_new_tokens=4)
+    reset_launch_counts()
+    eng.step()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["rms_norm"], counts["rope_append"],
+            counts["paged_attention"], counts["varlen_attention_fwd"],
+            counts["aligned16_copies"]) == (2 * L + 1, L, L, 0, 0)
+    live.step()
+    a, b = eng.last_logits[:2].float(), live.last_logits[:2].float()
+    assert eng.last_logits.dtype == torch.float32
+    assert float((a - b).norm() / b.norm()) < 5e-2
+    while eng.pending():
+        eng.step()
+    assert all(len(r.generated) == 4 for r in eng._requests.values())
+
+
+@pytest.mark.parametrize("mode", ["greedy", "topk"])
+def test_artifact_window_captures_and_replays(mode, artifact_on_cpu):
+    """An artifact engine's decode windows capture the program's call in a
+    CUDA graph at the fixed token length; a replay launches the three
+    kernels as counted and equals the eager runner of the same body."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    path, cfg, _ = artifact_on_cpu
+    L = cfg.num_layers
+    graph = _artifact_at_decode_tip(path, cfg, _MODES[mode])
+    eager = _artifact_at_decode_tip(path, cfg, _MODES[mode])
+    graph.decode_run(4)                       # captures
+    eager._decode_run_eager(4)
+    (win,) = graph._window_fns.values()
+    assert win.graph is not None
+    assert win.tokens.numel() == cfg.token_budget
+    while graph.pending():
+        captured = {k for k, w in graph._window_fns.items() if w.graph}
+        reset_launch_counts()
+        got = graph.decode_run(4)
+        counts = launch_counts()
+        # a window whose graph is new runs its body once more to warm up
+        steps = max(collections.Counter(r for r, _ in got).values()) + (
+            len(graph._window_fns) > len(captured))
+        assert counts["rms_norm"] == steps * (2 * L + 1)
+        assert counts["rope_append"] == counts["paged_attention"] \
+            == steps * L
+        assert counts["varlen_attention_fwd"] == 0
+        assert got == eager._decode_run_eager(4)
+    assert not eager.pending()

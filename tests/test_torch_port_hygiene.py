@@ -68,7 +68,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         PagedCausalLM(cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
-        ServingEngine(cfg)
+        ServingEngine(cfg=cfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device(None)
     model = PagedCausalLM(cfg, device="cpu")

@@ -232,7 +232,7 @@ def test_set_drafter_validation(models, monkeypatch):
     assert eng._spec_k == 2
     eng.set_drafter(None)                     # off again
     assert eng._drafter is None
-    bare = TS.ServingEngine(TS.PagedServingConfig(**BASE), device="cpu")
+    bare = TS.ServingEngine(cfg=TS.PagedServingConfig(**BASE), device="cpu")
     with pytest.raises(ValueError):
         bare.set_drafter(TSP.NGramDrafter(), k=2)
     monkeypatch.setenv("PT_SPEC_K", "5")
