@@ -10,18 +10,20 @@ Phases, each of which fails the run with a non-zero exit:
      cuobjdump is found (printed, and in the kernels line);
   2. kernels: each kernel against its plain PyTorch version at its path's
      shapes (the varlen backward kernels with exact zeros on padding rows
-     and keys; the RMSNorm gradient at the serving and training shapes, and
-     RMSNorm forward and gradient at h = 100 and 40,000), then timed (CUDA
+     and keys; the RMSNorm gradient at the serving and training shapes;
+     RMSNorm forward and gradient with f32 x at the eager path's shape,
+     [16384, 2048]; and at h = 100 and 40,000), then timed (CUDA
      events around back-to-back calls, median of several such runs, after
      warm-up; RMSNorm's host-bound serving-shape call in turns with its
      plain version and F.rms_norm) beside its plain version and one
      PyTorch library call; the flash kernels also run twice at the training
      shape, the varlen forward at the packed shape and the RMSNorm
-     gradient at the training shape, and must give the same bits; the
-     varlen forward and backward kernels are timed at both document mixes,
-     with the share of the causal tiles the skip's rule keeps and the
-     backward's tiles a block (both computed from the segment ids, in the
-     log only), and the TFLOP/s over the within-segment pairs;
+     gradient at the training and eager shapes, and must give the same
+     bits; the varlen forward and backward kernels are timed at both
+     document mixes, with the share of the causal tiles the skip's rule
+     keeps and the backward's tiles a block (both computed from the
+     segment ids, in the log only), and the TFLOP/s over the
+     within-segment pairs;
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run, twice on
@@ -125,11 +127,22 @@ Phases, each of which fails the run with a non-zero exit:
      padding rows exactly zero gradient; one step through
      flash_attn_varlen_qkvpacked; then the same path in f32 at a small
      size on the card against the CPU;
+  6b. eager, after the packed phases (which then run before its state
+     exists): the PaddlePaddle user's own loop at the flagship row's
+     widths: an eager LlamaForCausalLM (f32 parameters, recompute; batch
+     4, seq 4096) trained by AdamW under amp.auto_cast("O1", "bfloat16")
+     through loss.backward(), opt.step(), opt.clear_grad(), one warm-up
+     and 3 timed steps, each held to RMSNorm 65 and its gradient 33, flash
+     forward 32, dK/dV 16 and dQ 16 launches, no 16-byte copy, the losses
+     finite and falling; greedy generate of 16 tokens after a 128-token
+     prompt (the prefill launches the flash forward 16 times); then a
+     2-layer f32 eager model at the same widths on the card against the
+     CPU (loss, every gradient, one AdamW step, greedy tokens);
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
-     weight-streaming engine, a training step and a packed training step,
-     by torch.profiler, with the device kernels a replayed decode step
+     weight-streaming engine, a training step, an eager training step,
+     the eager generate and a packed training step, by torch.profiler, with the device kernels a replayed decode step
      launches in all (the artifact engine's too); the composition
      rope_append replaced, its device time and kernels a call.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -182,7 +195,8 @@ STREAM_KERNELS = ("rms_norm", "varlen_attention_fwd", "paged_attention",
 ARTIFACT_KERNELS = ("rms_norm", "paged_attention", "rope_append")
 PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
-         "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS}
+         "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS,
+         "eager": TRAINING_KERNELS}
 # the weight-streaming modes of phase 4e, int4 first so that the int8
 # engines' shared quantization is the model's current one for the versions
 STREAM_MODES = ("int4", "int8", "int8-noprefetch")
@@ -437,6 +451,36 @@ def phase_kernels(dev):
         # that it cannot dispatch to its fused kernel)
         library_ms=time_ms(lambda: lib(xt, (h,), wt, 1e-6), calls=20,
                            windows=5))
+    # the eager path's case under AMP O1 (rms_norm black-listed, its input
+    # cast up): x [B*S, h] f32 with an f32 weight, eps 1e-5 as the
+    # flagship's; f32 within 1e-5 * |ref| + 1e-6 (rsqrtf, sum order)
+    xe = torch.randn(TRAIN_BATCH * TRAIN_SEQ, h, device=dev,
+                     generator=gen) * 3
+    got = RN.rms_norm(xe, wt, 1e-5)
+    ref = RN._rms_norm_ref(xe, wt, 1e-5)
+    torch.cuda.synchronize()
+    d = (got - ref).abs()
+    ok = got.dtype == torch.float32 \
+        and bool((d <= 1e-5 * ref.abs() + 1e-6).all())
+    log(f"rms_norm [{xe.shape[0]}, {h}] f32 x, f32 weight: max_abs_err "
+        f"{float(d.max()):.3e} (tol 1e-5 * |ref| + 1e-6) "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("rms_norm kernel (f32 x) disagrees with its "
+                             "plain version")
+    rms_err = max(rms_err, float(d.max()))
+    be, bye = bound(2 * xe.numel() * 4 + h * 4, 4 * xe.numel(),
+                    F32_OPS_PER_S)
+    eager_shape = dict(
+        shape=f"x [{xe.shape[0]}, {h}] f32, weight [{h}] f32 (the eager "
+              f"path under AMP O1)",
+        max_abs_err=float(d.max()),
+        ms=time_ms(lambda: RN.rms_norm(xe, wt, 1e-5), calls=20, windows=5),
+        plain_ms=time_ms(lambda: RN._rms_norm_ref(xe, wt, 1e-5), calls=20,
+                         windows=5),
+        bound_ms=be, bound_by=bye,
+        library_ms=time_ms(lambda: lib(xe, (h,), wt, 1e-5), calls=20,
+                           windows=5))
     x = (torch.randn(256, h, device=dev, generator=gen) * 3) \
         .to(torch.bfloat16)
     w = torch.randn(h, device=dev, generator=gen).to(torch.bfloat16)
@@ -452,10 +496,10 @@ def phase_kernels(dev):
         max_abs_err=rms_err, ms=turns["ms"], plain_ms=turns["plain_ms"],
         bound_ms=b, bound_by=by, library_ms=turns["library_ms"],
         shape="x [256, 2048] bf16, weight [2048]",
-        at_training_shape=training_shape)
+        at_training_shape=training_shape, at_eager_shape=eager_shape)
 
-    results["rms_norm_bwd"], bwd_probe = _rms_norm_bwd_checks(dev, gen, xt,
-                                                             wt)
+    results["rms_norm_bwd"], bwd_probes = _rms_norm_bwd_checks(
+        dev, gen, xt, wt, xe)
     _rms_norm_widths(dev, gen)
 
     # -- varlen attention: the fresh-prefill shape, GQA 16q/8kv, D=128;
@@ -536,7 +580,10 @@ def phase_kernels(dev):
         "rms_norm at the training shape": (
             lambda: RN.rms_norm(xt, wt), "rms_norm_kernel", 20,
             training_shape),
-        "rms_norm_bwd": bwd_probe,
+        "rms_norm at the eager shape": (
+            lambda: RN.rms_norm(xe, wt, 1e-5), "rms_norm_kernel", 20,
+            eager_shape),
+        **bwd_probes,
         "varlen_attention_fwd": (lambda: VA.varlen_flash_attention_packed(
             q, k, v, seg, seg, True), "varlen_fwd_kernel", 50,
             results["varlen_attention_fwd"]),
@@ -569,13 +616,15 @@ def _rms_norm_bwd_worst(x, w, g, gx, gw, eps):
     return rx, float(((gw.float() - gwr).abs() / tol).max())
 
 
-def _rms_norm_bwd_checks(dev, gen, xt, wt):
+def _rms_norm_bwd_checks(dev, gen, xt, wt, xe):
     """The gradient kernel against its plain version at the serving shape
-    (bf16 x and weight, [256, 2048]; with and without the weight) and at
-    the training shape (bf16 x [16384, 2048], f32 weight, eps 1e-5 as the
-    flagship's), twice there for the same bits; then timed at the training
-    shape beside its plain version and torch.autograd.grad through
-    F.rms_norm. Returns its kernels-line row and its device-time probe."""
+    (bf16 x and weight, [256, 2048]; with and without the weight), at the
+    training shape (bf16 x [16384, 2048], f32 weight, eps 1e-5 as the
+    flagship's) and at the eager path's (the same with f32 x, as AMP O1
+    casts rms_norm's input up), twice at each of the last two for the same
+    bits; then timed at both beside its plain version and
+    torch.autograd.grad through F.rms_norm. Returns its kernels-line row
+    and its device-time probes."""
     from paddle_tpu_torch.ops.kernels import rms_norm as RN
 
     h = xt.shape[-1]
@@ -585,55 +634,85 @@ def _rms_norm_bwd_checks(dev, gen, xt, wt):
     w = torch.randn(h, device=dev, generator=gen).to(torch.bfloat16)
     g = torch.randn(256, h, device=dev, generator=gen).to(torch.bfloat16)
     gt = torch.randn(xt.shape, device=dev, generator=gen).to(torch.bfloat16)
+    ge = torch.randn(xe.shape, device=dev, generator=gen)
     worst, err = (0.0, 0.0), 0.0
+    err_eager = 0.0
     for label, (a, b, c) in {"[256, 2048] bf16, bf16 weight": (x, w, g),
                              "[256, 2048] bf16, no weight": (x, None, g),
                              f"[{xt.shape[0]}, {h}] bf16, f32 weight":
-                             (xt, wt, gt)}.items():
+                             (xt, wt, gt),
+                             f"[{xe.shape[0]}, {h}] f32, f32 weight":
+                             (xe, wt, ge)}.items():
         gx, gw = RN._backward(a, b, eps, c)
         torch.cuda.synchronize()
         r = _rms_norm_bwd_worst(a, b, c, gx, gw, eps)
-        ok = max(r) <= 1.0 and bool(torch.isfinite(gx.float()).all())
-        err = max(err, _max_err(gx, RN._rms_norm_bwd(a, b, eps, c)[0]))
+        ok = max(r) <= 1.0 and bool(torch.isfinite(gx.float()).all()) \
+            and gx.dtype == a.dtype
+        e = _max_err(gx, RN._rms_norm_bwd(a, b, eps, c)[0])
+        err = max(err, e)
+        tol = "2**-7 * (|ref| + row RMS) + 1e-6" \
+            if a.dtype == torch.bfloat16 else \
+            "1e-5 * (|ref| + row RMS) + 1e-7"
         log(f"rms_norm_bwd {label}: worst error / tol gx {r[0]:.3f}, gw "
-            f"{r[1]:.3f} (gx 2**-7 * (|ref| + row RMS) + 1e-6; gw 1e-4 * "
-            f"sum |g * xhat| + 1e-6, + 2**-7 |ref| in bf16) "
-            f"{'ok' if ok else 'FAIL'}")
+            f"{r[1]:.3f} (gx {tol}; gw 1e-4 * sum |g * xhat| + 1e-6, + "
+            f"2**-7 |ref| in bf16) {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("rms_norm gradient kernel disagrees with "
                                  "its plain version")
-        worst = tuple(max(p, q) for p, q in zip(worst, r))
-    again = RN._backward(xt, wt, eps, gt)
-    torch.cuda.synchronize()
-    if not (torch.equal(again[0], gx) and torch.equal(again[1], gw)):
-        raise AssertionError("rms_norm gradient kernel: two calls differ")
-    xl = xt.detach().requires_grad_(True)
-    wl = wt.detach().requires_grad_(True)
-    y = torch.nn.functional.rms_norm(xl, (h,), wl, eps)
-    # read x and g, write gx (bf16); read the weight, write gw (f32); ~10
-    # f32 operations an element
-    b, by = bound(3 * nbytes(xt) + 2 * nbytes(wt), 10 * xt.numel(),
-                  F32_OPS_PER_S)
+        if a is xe:
+            err_eager, worst_eager = e, r
+        else:
+            worst = tuple(max(p, q) for p, q in zip(worst, r))
+        if b is wt:
+            again = RN._backward(a, b, eps, c)
+            torch.cuda.synchronize()
+            if not (torch.equal(again[0], gx) and torch.equal(again[1], gw)):
+                raise AssertionError(f"rms_norm gradient kernel {label}: "
+                                     f"two calls differ")
+
+    def timed(xx, gg):
+        xl = xx.detach().requires_grad_(True)
+        wl = wt.detach().requires_grad_(True)
+        y = torch.nn.functional.rms_norm(xl, (h,), wl, eps)
+        # read x and g, write gx (x's dtype); read the weight, write gw
+        # (f32); ~10 f32 operations an element
+        b, by = bound(3 * nbytes(xx) + 2 * nbytes(wt), 10 * xx.numel(),
+                      F32_OPS_PER_S)
+        return dict(
+            ms=time_ms(lambda: RN._backward(xx, wt, eps, gg), calls=20,
+                       windows=5),
+            plain_ms=time_ms(lambda: RN._rms_norm_bwd(xx, wt, eps, gg),
+                             calls=20, windows=5),
+            bound_ms=b, bound_by=by,
+            library_ms=time_ms(lambda: torch.autograd.grad(
+                y, (xl, wl), gg, retain_graph=True), calls=20, windows=5))
+
+    eager_shape = dict(
+        shape=f"x, g [{xe.shape[0]}, {h}] f32, weight [{h}] f32 (the eager "
+              f"path under AMP O1)",
+        max_abs_err=err_eager, worst_ratio_gx=worst_eager[0],
+        worst_ratio_gw=worst_eager[1], **timed(xe, ge))
     row = dict(
         name="rms_norm_bwd", route="cuda",
         source="paddle_tpu_torch/ops/kernels/csrc/rms_norm.cu",
         replaces="paddle_tpu/ops/pallas/rms_norm.py:88 (_bwd; no Pallas "
                  "kernel, XLA fuses it)",
         max_abs_err=err, worst_ratio_gx=worst[0], worst_ratio_gw=worst[1],
-        ms=time_ms(lambda: RN._backward(xt, wt, eps, gt), calls=20,
-                   windows=5),
-        plain_ms=time_ms(lambda: RN._rms_norm_bwd(xt, wt, eps, gt),
-                         calls=20, windows=5),
-        bound_ms=b, bound_by=by,
-        library_ms=time_ms(lambda: torch.autograd.grad(
-            y, (xl, wl), gt, retain_graph=True), calls=20, windows=5),
-        shape=f"x, g [{xt.shape[0]}, {h}] bf16, weight [{h}] f32")
-    log(f"rms_norm_bwd: {row['ms']:.4f} ms a call, {row['plain_ms']:.4f} ms "
-        f"plain, library {row['library_ms']:.4f} ms (autograd.grad through "
-        f"F.rms_norm), bound {b:.5f} ms ({by})")
-    probe = (lambda: RN._backward(xt, wt, eps, gt),
-             ("rms_norm_bwd_kernel", "rms_norm_bwd_gw_kernel"), 20, row)
-    return row, probe
+        **timed(xt, gt),
+        shape=f"x, g [{xt.shape[0]}, {h}] bf16, weight [{h}] f32",
+        at_eager_shape=eager_shape)
+    for label, r in (("", row), (" at the eager shape", eager_shape)):
+        log(f"rms_norm_bwd{label}: {r['ms']:.4f} ms a call, "
+            f"{r['plain_ms']:.4f} ms plain, library {r['library_ms']:.4f} "
+            f"ms (autograd.grad through F.rms_norm), bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
+    symbols = ("rms_norm_bwd_kernel", "rms_norm_bwd_gw_kernel")
+    probes = {"rms_norm_bwd": (lambda: RN._backward(xt, wt, eps, gt),
+                               symbols, 20, row),
+              "rms_norm_bwd at the eager shape": (
+                  lambda: RN._backward(xe, wt, eps, ge), symbols, 20,
+                  eager_shape)}
+    return row, probes
 
 
 def _rms_norm_widths(dev, gen):
@@ -1491,6 +1570,226 @@ def phase_training_parity(dev):
         raise AssertionError("training on the card disagrees with the CPU")
 
 
+def _eager_step(model, opt, ids, labels):
+    """One step of the PaddlePaddle user's loop under AMP O1 bf16: the
+    loss (a 0-d f32 Tensor), computed before the update."""
+    import paddle_tpu_torch as paddle
+
+    with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+        loss = model(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def phase_eager(dev):
+    """The eager (dygraph) surface at the flagship row's widths: an eager
+    LlamaForCausalLM (f32 parameters, recompute) trained by AdamW under
+    amp.auto_cast("O1", "bfloat16") through loss.backward(), opt.step()
+    and opt.clear_grad(): one warm-up and 3 timed steps, each held to the
+    stacked trainer's launches (RMSNorm 65 and its gradient 33, flash
+    forward 32, dK/dV 16, dQ 16, no 16-byte copy); then greedy generate
+    of 16 tokens after a 128-token prompt (the prefill launches the flash
+    forward 16 times, the one-token steps none: Sq = 1 takes the dense
+    fallback); then a 2-layer f32 model at the same widths on the card
+    against the CPU (loss, every gradient, one AdamW step, greedy
+    tokens)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import llama as TL
+
+    base = _flagship_config()
+    cfg = TL.LlamaConfig(**vars(base))
+    batch, seq, steps = TRAIN_BATCH, TRAIN_SEQ, 3
+    paddle.set_device("gpu:0")
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    paddle.seed(0)
+    model = TL.LlamaForCausalLM(cfg)
+    opt = paddle.optimizer.AdamW(learning_rate=3e-4,
+                                 parameters=model.parameters())
+    torch.cuda.synchronize()
+    n_params = sum(p.size for p in model.parameters())
+    if {p.dtype for p in model.parameters()} != {torch.float32} or \
+            {p._value.device for p in model.parameters()} != {dev}:
+        raise AssertionError("eager parameters are not f32 on the card")
+    log(f"eager: flagship {n_params / 1e9:.3f}B f32 parameters, init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.RandomState(0)
+    ids_np = rng.randint(0, cfg.vocab_size, (batch, seq))
+    ids = paddle.to_tensor(ids_np)
+    labels = paddle.to_tensor(np.roll(ids_np, -1, axis=1))
+    t = time.perf_counter()
+    warm = float(_eager_step(model, opt, ids, labels))
+    torch.cuda.synchronize()
+    log(f"eager warm-up step: {time.perf_counter() - t:.2f} s, loss "
+        f"{warm:.4f}")
+    expect = {"rms_norm": 4 * cfg.num_hidden_layers + 1,
+              "rms_norm_bwd": 2 * cfg.num_hidden_layers + 1,
+              "flash_attention_fwd": 2 * cfg.num_hidden_layers,
+              "flash_attention_bwd_dkv": cfg.num_hidden_layers,
+              "flash_attention_bwd_dq": cfg.num_hidden_layers,
+              "aligned16_copies": 0}
+    losses, step_ms = [], []
+    reset_launch_counts()
+    for _ in range(steps):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = _eager_step(model, opt, ids, labels)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        per = {k: v - before[k] for k, v in launch_counts().items()}
+        for name, n in expect.items():
+            if per[name] != n:
+                raise AssertionError(f"eager step launched {name} "
+                                     f"{per[name]} times, not {n}")
+        if per["varlen_attention_fwd"]:
+            raise AssertionError("the eager step launched the varlen "
+                                 "kernel")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f"eager losses not finite: {warm}, {losses}")
+    if not losses[-1] < warm:
+        raise AssertionError(f"eager loss did not fall: {warm}, {losses}")
+    ms = statistics.median(step_ms)
+    tps = batch * seq / (ms / 1e3)
+    fpt = model_flops_per_token(cfg, n_params, seq)
+    metrics = {"batch": batch, "seq": seq, "steps": steps,
+               "step_ms": step_ms, "step_ms_median": ms,
+               "tokens_per_s": tps, "warmup_loss": warm, "losses": losses,
+               "share_of_989_tflops": tps * fpt / BF16_OPS_PER_S,
+               "peak_memory_gb": peak / 1e9,
+               "peak_over_start_gb": (peak - start) / 1e9,
+               "launches_per_step": per}
+
+    # greedy generate: a 128-token prompt, 16 new tokens (f32, no AMP)
+    prompt = paddle.to_tensor(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (1, 128)))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    one = model.generate(prompt, max_new_tokens=1)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t
+    gen_counts = launch_counts()
+    t = time.perf_counter()
+    out = model.generate(prompt, max_new_tokens=16)
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t
+    model.train()
+    if out.shape != [1, 144] or not np.array_equal(
+            out.numpy()[:, :129], one.numpy()):
+        raise AssertionError(f"generate: {out.shape}, the first token "
+                             f"differs from a one-token run")
+    # the prefill's 16 layers at S = 128 launch the flash forward; the
+    # decode step (Sq = 1) takes the dense fallback
+    if gen_counts["flash_attention_fwd"] != cfg.num_hidden_layers:
+        raise AssertionError(f"generate launched the flash forward "
+                             f"{gen_counts['flash_attention_fwd']} times")
+    metrics["generate"] = {
+        "prompt": 128, "new_tokens": 16, "ms_all": t_all * 1e3,
+        "ms_per_token": t_all * 1e3 / 16,
+        "decode_ms_per_token": (t_all - t_one) * 1e3 / 15,
+        "prefill_and_one_token_ms": t_one * 1e3,
+        "launches_prefill_and_one_token": {
+            k: gen_counts[k] for k in ("flash_attention_fwd", "rms_norm")}}
+    log(json.dumps({"eager": metrics}))
+    metrics["parity"] = _eager_parity(dev, base)
+    return dict(metrics=metrics, counts=counts, model=model, opt=opt,
+                ids=ids, labels=labels, prompt=prompt)
+
+
+def _eager_parity(dev, base):
+    """A 2-layer f32 eager model at the flagship widths, B=1, S=512, on
+    the card (kernels) and on the CPU (plain versions), from the same
+    weights: the loss within 1e-4 relative and every gradient within 1e-3
+    of its leaf's largest magnitude; one AdamW step from the card's
+    gradients on both devices, the parameters within 1e-6 of their
+    largest magnitude (the same f32 update); then greedy generate (a
+    128-token prompt, 8 tokens) equal token for token."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import llama as TL
+
+    cfg = TL.LlamaConfig(**{**vars(base), "num_hidden_layers": 2,
+                            "dtype": "float32"})
+    rng = np.random.RandomState(3)
+    ids_np = rng.randint(0, cfg.vocab_size, (1, min(512, TRAIN_SEQ)))
+    labels_np = np.roll(ids_np, -1, axis=1)
+    prompt_np = rng.randint(0, cfg.vocab_size, (1, 128))
+    res = {}
+    with one_cpu_thread():
+        for where in ("gpu:0", "cpu"):
+            paddle.set_device(where)
+            paddle.seed(7)
+            m = TL.LlamaForCausalLM(cfg)
+            if where == "gpu:0":
+                state = {k: v._value.detach().cpu().clone()
+                         for k, v in m.state_dict().items()}
+            else:
+                m.set_state_dict(state)
+            reset_launch_counts()
+            loss = m(paddle.to_tensor(ids_np),
+                     labels=paddle.to_tensor(labels_np))
+            loss.backward()
+            c = launch_counts()
+            grads = {n: p.grad._value.detach().cpu().clone()
+                     for n, p in m.named_parameters()}
+            if where == "gpu:0":
+                card_grads = grads
+                if min(c[n] for n in TRAINING_KERNELS) <= 0:
+                    raise AssertionError(f"eager parity run missed a "
+                                         f"kernel: {c}")
+            else:
+                # the CPU's optimizer steps from the card's gradients
+                for n, p in m.named_parameters():
+                    p.grad = card_grads[n]
+            opt = paddle.optimizer.AdamW(learning_rate=3e-4,
+                                         parameters=m.parameters())
+            opt.step()
+            opt.clear_grad()
+            params = {n: p._value.detach().cpu().clone()
+                      for n, p in m.named_parameters()}
+            tokens = m.generate(paddle.to_tensor(prompt_np),
+                                max_new_tokens=8).numpy()
+            res[where] = (float(loss), grads, params, tokens)
+            del m, opt
+    paddle.set_device("gpu:0")
+    (lc, gc, pc, tc), (lp, gp, pp, tp) = res["gpu:0"], res["cpu"]
+    rel = abs(lc - lp) / abs(lp)
+    grad_ratio = {k: float((gc[k] - gp[k]).abs().max())
+                  / (1e-3 * float(gp[k].abs().max())) for k in gp}
+    param_ratio = {k: float((pc[k] - pp[k]).abs().max())
+                   / (1e-6 * float(pp[k].abs().max())) for k in pp}
+    worst_g = max(grad_ratio, key=grad_ratio.get)
+    worst_p = max(param_ratio, key=param_ratio.get)
+    same = bool(np.array_equal(tc, tp))
+    ok = (rel <= 1e-4 and grad_ratio[worst_g] <= 1.0 and len(gp) == 21
+          and param_ratio[worst_p] <= 1.0 and same)
+    out = {"loss_card": lc, "loss_cpu": lp, "loss_rel": rel,
+           "worst_gradient_ratio": grad_ratio[worst_g],
+           "worst_gradient_leaf": worst_g,
+           "worst_adamw_param_ratio": param_ratio[worst_p],
+           "worst_adamw_param_leaf": worst_p,
+           "generate_tokens_equal": same, "tokens_card": tc.tolist()}
+    log(f"eager parity f32 2-layer full width B=1 S={ids_np.shape[1]}: "
+        f"loss card {lc:.6f} cpu {lp:.6f} (rel {rel:.2e}, tol 1e-4); "
+        f"gradients within 1e-3 of each leaf's largest magnitude: worst "
+        f"ratio {grad_ratio[worst_g]:.3e} ({worst_g}); one AdamW step "
+        f"within 1e-6: worst ratio {param_ratio[worst_p]:.3e} ({worst_p}); "
+        f"greedy tokens equal: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the eager model on the card disagrees with "
+                             "the CPU")
+    return out
+
+
 def _packed_qkv(x, w, heads):
     """q, k, v [T, heads, D] from a hidden state x [T, hidden] through
     bias-free projections w[n] [hidden, hidden]."""
@@ -2183,7 +2482,7 @@ def phase_artifact(dev, serving):
                                             save_inference_model,
                                             save_paged_model)
     from paddle_tpu_torch.jit import InputSpec
-    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn.modules import TorchLinear as Linear
 
     model, cfg = serving["model"], serving["cfg"]
     first, prompts, sampling = (serving["first"], serving["prompts"],
@@ -2442,7 +2741,7 @@ def _kernels_a_step(prof, steps):
 
 
 def phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream, artifact):
+                  stream, artifact, eager):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
@@ -2555,9 +2854,22 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
     trainer, tm = training["trainer"], training["metrics"]
     train_ms, train_top = summary(profile_kernels(
         lambda: trainer.step(training["ids"], training["labels"])), 1)
+    em = eager["metrics"]
+    eager_ms, eager_top = summary(profile_kernels(lambda: _eager_step(
+        eager["model"], eager["opt"], eager["ids"], eager["labels"])), 1)
+    gen_ms, gen_top = summary(profile_kernels(
+        lambda: eager["model"].generate(eager["prompt"], max_new_tokens=16)),
+        1)
+    eager["model"].train()
     pm = packed["metrics"]
     packed_ms, packed_top = summary(profile_kernels(packed["step"]), 1)
     prof = {
+        "eager_training_step_device_ms": eager_ms,
+        "eager_training_device_busy": eager_ms / em["step_ms_median"],
+        "eager_training_top": eager_top,
+        "eager_generate_device_ms": gen_ms,
+        "eager_generate_device_busy": gen_ms / em["generate"]["ms_all"],
+        "eager_generate_top": gen_top,
         "packed_training_step_device_ms": packed_ms,
         "packed_training_device_busy": packed_ms / pm["step_ms_median"],
         "packed_training_top": packed_top,
@@ -4097,15 +4409,19 @@ def main():
     stream = phase_weight_stream(dev, serving, kernels, probes)
     training = phase_training(dev)
     phase_training_parity(dev)
+    # the eager phase after the packed ones: its model, gradients and AdamW
+    # moments stay allocated for the profile phase, and the packed step is
+    # timed before they exist (tools/torch_packed_after_eager.py)
     packed = phase_packed_training(dev)
     phase_packed_parity(dev)
+    eager = phase_eager(dev)
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream, artifact)
+                  stream, artifact, eager)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
                "packed_training": packed["counts"],
                "weight_stream": stream["counts"],
-               "artifact": artifact["counts"]}
+               "artifact": artifact["counts"], "eager": eager["counts"]}
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
                         [k]}
@@ -4117,7 +4433,8 @@ def main():
     per_step.update({
                 "training": training["metrics"]["launches_per_step"],
                 "packed_training": packed["metrics"]["launches_per_step"],
-                "artifact": artifact["per_step"]})
+                "artifact": artifact["per_step"],
+                "eager": eager["metrics"]["launches_per_step"]})
     line = []
     for name, r in kernels.items():
         r = dict(r)

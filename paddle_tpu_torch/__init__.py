@@ -11,14 +11,27 @@ windows replayed as CUDA graphs), the deploy artifact (inference:
 save_inference_model / create_predictor, save_paged_model and
 ServingEngine(path_prefix), a torch.export program that reaches the
 kernels through registered ops), one Llama training step
-(distributed.fleet.HybridTrainer over models.llama) and packed-sequence
-attention training (incubate.nn.functional.flash_attn_unpadded).
+(distributed.fleet.HybridTrainer over models.llama), packed-sequence
+attention training (incubate.nn.functional.flash_attn_unpadded), and the
+eager (dygraph) surface: Tensor over a torch tensor, the op funnel
+(core.dispatch.apply) with AMP, nn.Layer, the optimizers, recompute, and
+the eager models.llama.LlamaForCausalLM with its training loop and
+generate. The eager surface creates tensors on the default place,
+"gpu:0"; ``set_device("cpu")`` selects the CPU.
 """
-from . import distributed, incubate, inference, jit, models, nn, ops, utils
+from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,
+                            set_grad_enabled)
+from .core.dtype import (bfloat16, bool_, complex64, complex128, float16,
+                         float32, float64, int8, int16, int32, int64, uint8)
+from .core.dispatch import set_flags
+from .core.place import CPUPlace, CUDAPlace, Place, get_device, set_device
+from .core.tensor import Parameter, Tensor
+from .ops import *  # noqa: F401,F403
+from . import (amp, distributed, framework, incubate, inference, jit,
+               models, nn, ops, optimizer, utils)
+from .framework.random import get_rng_state, seed, set_rng_state
 from .ops.kernels import launch_counts, reset_launch_counts, resolve_device
 
-__version__ = "0.1.0"
+bool = bool_  # paddle.bool
 
-__all__ = ["distributed", "incubate", "inference", "jit", "models", "nn",
-           "ops", "utils", "launch_counts",
-           "reset_launch_counts", "resolve_device"]
+__version__ = "0.1.0"

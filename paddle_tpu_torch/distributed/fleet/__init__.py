@@ -1,3 +1,4 @@
+from .recompute import recompute
 from .trainer import HybridTrainer
 
-__all__ = ["HybridTrainer"]
+__all__ = ["HybridTrainer", "recompute"]

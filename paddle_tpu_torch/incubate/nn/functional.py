@@ -19,6 +19,10 @@ passes it to each layer's call.
 ``flash_attn_unpadded`` and ``flash_attn_varlen_qkvpacked`` are the
 packed-sequence entry points, differentiable: their kernel route runs the
 varlen flash-attention forward and its two backward kernels.
+
+``fused_rotary_position_embedding`` and ``swiglu`` are eager ops (through
+core/dispatch.py::apply; they take and return Tensors), the eager Llama's
+(incubate/nn/functional/__init__.py:58-181).
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ import numpy as np
 import torch
 import torch.nn.functional as TF
 
+from ...core.dispatch import apply
+from ...nn import modules as _modules
 from ...ops.kernels import paged_attention as PA
 from ...ops.kernels import rope_append as RA
 from ...ops.kernels.rope_append import _rope  # noqa: F401 (this module's)
@@ -35,16 +41,77 @@ from ...ops.kernels.varlen_attention import (segment_ids_from_cu_seqlens,
                                              varlen_flash_attention,
                                              varlen_flash_attention_packed)
 
-__all__ = ["swiglu", "block_multihead_attention", "paged_metadata",
+__all__ = ["swiglu", "fused_rotary_position_embedding",
+           "block_multihead_attention", "paged_metadata",
            "PagedMetadata", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked"]
 
 
-def swiglu(x, y=None):
-    """silu(x) * y; with y None, x splits in two along the last axis."""
-    if y is None:
-        x, y = x.chunk(2, dim=-1)
-    return TF.silu(x) * y
+def swiglu(x, y=None, name=None):
+    """silu(x) * y; with y None, x splits in two along the last axis
+    (the serving model's nn/modules.py::swiglu inside the funnel)."""
+    return apply(_modules.swiglu, x, y, op_name="swiglu")
+
+
+def _apply_rope(t, cos, sin, use_neox):
+    # t: [B, S, H, D] f32
+    if use_neox:
+        d2 = t.shape[-1] // 2
+        rotated = torch.cat([-t[..., d2:], t[..., :d2]], dim=-1)
+    else:
+        rotated = torch.stack([-t[..., 1::2], t[..., 0::2]],
+                              dim=-1).reshape(t.shape)
+    return t * cos + rotated * sin
+
+
+def fused_rotary_position_embedding(q, k=None, v=None, sin=None, cos=None,
+                                    position_ids=None,
+                                    use_neox_rotary_style=True,
+                                    time_major=False,
+                                    rotary_emb_base=10000.0):
+    """RoPE of q (and k, v) in the layout [B, S, H, D], computed in f32 and
+    cast back to each input's dtype. Without ``sin``/``cos`` the angles are
+    position x rotary_emb_base^(-2i/D), at ``position_ids`` ([B, S] or
+    [1, S], absolute positions) or 0..S-1; given tables are indexed by
+    ``position_ids`` when it is set. Returns (q, k, v), None where not
+    given (incubate/nn/functional/__init__.py:58-147)."""
+    def fn(qa, *rest):
+        it = iter(rest)
+        ka = next(it) if k is not None else None
+        va = next(it) if v is not None else None
+        if sin is not None:
+            sa, ca = next(it), next(it)
+            if position_ids is not None:
+                pid = next(it).long()
+                d_last = sa.shape[-1]
+                sa = sa.reshape(-1, d_last)[pid][:, :, None, :]
+                ca = ca.reshape(-1, d_last)[pid][:, :, None, :]
+        else:
+            s, d = qa.shape[1], qa.shape[-1]
+            inv = 1.0 / (rotary_emb_base ** (
+                torch.arange(0, d, 2, dtype=torch.float32,
+                             device=qa.device) / d))
+            if position_ids is not None:
+                freqs = next(it).float()[..., None] * inv      # [B, S, d/2]
+            else:
+                pos = torch.arange(s, dtype=torch.float32, device=qa.device)
+                freqs = torch.outer(pos, inv)[None]           # [1, S, d/2]
+            emb = torch.cat([freqs, freqs], dim=-1) if use_neox_rotary_style \
+                else torch.repeat_interleave(freqs, 2, dim=-1)
+            ca = torch.cos(emb)[:, :, None, :]
+            sa = torch.sin(emb)[:, :, None, :]
+        ca, sa = ca.float(), sa.float()
+        return tuple(_apply_rope(t.float(), ca, sa,
+                                 use_neox_rotary_style).to(t.dtype)
+                     for t in (qa, ka, va) if t is not None)
+
+    args = [q] + [t for t in (k, v) if t is not None]
+    if sin is not None:
+        args += [sin, cos]
+    if position_ids is not None:
+        args += [position_ids]
+    outs = iter(apply(fn, *args, op_name="fused_rope"))
+    return tuple(next(outs) if t is not None else None for t in (q, k, v))
 
 
 class PagedMetadata(NamedTuple):

@@ -65,8 +65,8 @@ import torch
 from torch import nn
 
 from ..incubate.nn import functional as IF
-from ..nn import Embedding, Linear, RMSNorm
-from ..nn import functional as F
+from ..nn import modules as F
+from ..nn.modules import TorchEmbedding, TorchLinear, TorchRMSNorm
 from ..ops.kernels import (add_launch_counts, launch_counts,
                            resolve_device)
 from ..ops.kernels.rope_append import _rope
@@ -402,16 +402,19 @@ class PagedCausalLM(nn.Module):
         L = cfg.num_layers
 
         def lin(i, o):
-            return Linear(i, o, device=dev, generator=gen)
+            return TorchLinear(i, o, device=dev, generator=gen)
 
-        self.embed = Embedding(cfg.vocab_size, h, device=dev, generator=gen)
-        self.ln1 = nn.ModuleList([RMSNorm(h, device=dev) for _ in range(L)])
+        self.embed = TorchEmbedding(cfg.vocab_size, h, device=dev,
+                                    generator=gen)
+        self.ln1 = nn.ModuleList([TorchRMSNorm(h, device=dev)
+                                  for _ in range(L)])
         self.qkv = nn.ModuleList([lin(h, h + 2 * kvw) for _ in range(L)])
         self.proj = nn.ModuleList([lin(h, h) for _ in range(L)])
-        self.ln2 = nn.ModuleList([RMSNorm(h, device=dev) for _ in range(L)])
+        self.ln2 = nn.ModuleList([TorchRMSNorm(h, device=dev)
+                                  for _ in range(L)])
         self.gate_up = nn.ModuleList([lin(h, 2 * f) for _ in range(L)])
         self.down = nn.ModuleList([lin(f, h) for _ in range(L)])
-        self.ln_f = RMSNorm(h, device=dev)
+        self.ln_f = TorchRMSNorm(h, device=dev)
         self.head = lin(h, cfg.vocab_size)
 
     def rope_cos_sin(self, device):
@@ -454,7 +457,7 @@ class PagedCausalLM(nn.Module):
     def _mlp(self, li, h, w=None):
         gu = self._lin("gate_up", li, h, w)
         half = self.cfg.ffn_size
-        return self._lin("down", li, IF.swiglu(gu[..., :half],
+        return self._lin("down", li, F.swiglu(gu[..., :half],
                                                gu[..., half:]), w)
 
     def weight_view(self, named, stream=None):

@@ -11,8 +11,20 @@ included, runs again in the backward. Attention goes through
 ops/kernels/flash_attention.py (the CUDA kernels on a card), RMSNorm
 through ops/kernels/rms_norm.py.
 
-Not ported here: the eager ``LlamaForCausalLM`` (it waits for the eager
-surface) and ring attention over a 'sep' mesh axis.
+Beside it, the eager model (llama.py:129-385): ``LlamaAttention``,
+``LlamaMLP``, ``LlamaDecoderLayer``, ``LlamaModel`` and
+``LlamaForCausalLM`` as nn.Layers over the eager surface (Tensor, the op
+funnel, nn.Linear / nn.Embedding / nn.RMSNorm, F.scaled_dot_product_attention,
+recompute), with ``generate``'s greedy KV-cached decode. Its parameters
+are f32, the reference's default; ``dtype="bfloat16"`` casts the
+embedding's output only, so without AMP the trunk computes in f32 from the
+first projection on (bf16 times f32 promotes), and under
+``amp.auto_cast("O1", "bfloat16")`` the projections and attention run in
+bf16 and RMSNorm and the loss in f32.
+
+Not ported here: ring attention over a 'sep' mesh axis, the model-parallel
+layers (no model-parallel group exists in the port yet) and
+``generate_static`` (the compile tier).
 """
 from __future__ import annotations
 
@@ -22,12 +34,19 @@ from typing import Any, Dict, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .. import nn
+from ..core.tensor import Tensor
+from ..incubate.nn import functional as IF
+from ..nn import functional as F
+from ..ops import manipulation, search
 from ..ops.kernels import flash_attention as fa
 from ..ops.kernels import resolve_device
 from ..ops.kernels import rms_norm as rn
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "init_stacked_params",
-           "forward_stacked", "loss_fn_stacked", "num_params"]
+           "forward_stacked", "loss_fn_stacked", "num_params",
+           "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
+           "LlamaForCausalLM"]
 
 
 @dataclass
@@ -306,3 +325,210 @@ def loss_fn_stacked(params, batch, config: LlamaConfig, remat: bool = True,
     input_ids, labels = batch
     x = _trunk(params, input_ids, config, remat, mesh=mesh)
     return _head_loss(params, x, labels, config)
+
+
+# ---------------------------------------------------------------------------
+# the eager nn.Layer model (llama.py:129-385)
+# ---------------------------------------------------------------------------
+
+def _mp_active():
+    """Whether a model-parallel group is active: never yet, since the port
+    has no fleet topology (ROADMAP.md, queue 1, item 5); the eager model
+    builds plain Linear and Embedding layers."""
+    return False
+
+
+class LlamaAttention(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.config = config
+        h = config.hidden_size
+        kvh = config.num_key_value_heads * config.head_dim
+        self.q_proj = nn.Linear(h, h, bias_attr=False)
+        self.k_proj = nn.Linear(h, kvh, bias_attr=False)
+        self.v_proj = nn.Linear(h, kvh, bias_attr=False)
+        self.o_proj = nn.Linear(h, h, bias_attr=False)
+
+    def forward(self, x, kv_cache=None, position_offset=0):
+        cfg = self.config
+        b, s = x.shape[0], x.shape[1]
+        q = self.q_proj(x).reshape(
+            [b, s, cfg.num_attention_heads, cfg.head_dim])
+        k = self.k_proj(x).reshape(
+            [b, s, cfg.num_key_value_heads, cfg.head_dim])
+        v = self.v_proj(x).reshape(
+            [b, s, cfg.num_key_value_heads, cfg.head_dim])
+        prev_len = int(kv_cache[0].shape[1]) if kv_cache is not None \
+            else 0
+        # RoPE at absolute positions: a decode chunk after prev_len
+        # cached tokens rotates at prev_len .. prev_len + s - 1
+        pos_ids = None
+        if prev_len or position_offset:
+            pos_ids = Tensor._wrap(torch.arange(
+                prev_len + position_offset,
+                prev_len + position_offset + s,
+                device=x._value.device).reshape(1, s))
+        q, k, _ = IF.fused_rotary_position_embedding(
+            q, k, None, position_ids=pos_ids,
+            rotary_emb_base=cfg.rope_theta)
+        new_cache = None
+        if kv_cache is not None:
+            k = manipulation.concat([kv_cache[0], k], axis=1)
+            v = manipulation.concat([kv_cache[1], v], axis=1)
+            new_cache = (k, v)
+        rep = cfg.num_attention_heads // cfg.num_key_value_heads
+        if rep > 1:
+            k = manipulation.repeat_interleave(k, rep, axis=2)
+            v = manipulation.repeat_interleave(v, rep, axis=2)
+        # causal whenever the query chunk spans more than one position;
+        # a one-token decode step attends the whole prefix
+        out = F.scaled_dot_product_attention(q, k, v, is_causal=s > 1)
+        out = self.o_proj(out.reshape([b, s, cfg.hidden_size]))
+        return (out, new_cache) if new_cache is not None else out
+
+
+class LlamaMLP(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        h, i = config.hidden_size, config.intermediate_size
+        self.gate_proj = nn.Linear(h, i, bias_attr=False)
+        self.up_proj = nn.Linear(h, i, bias_attr=False)
+        self.down_proj = nn.Linear(i, h, bias_attr=False)
+
+    def forward(self, x):
+        return self.down_proj(IF.swiglu(self.gate_proj(x),
+                                        self.up_proj(x)))
+
+
+class LlamaDecoderLayer(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.self_attn = LlamaAttention(config)
+        self.mlp = LlamaMLP(config)
+        self.input_layernorm = nn.RMSNorm(config.hidden_size,
+                                          epsilon=config.rms_norm_eps)
+        self.post_attention_layernorm = nn.RMSNorm(
+            config.hidden_size, epsilon=config.rms_norm_eps)
+        self._recompute = config.recompute
+
+    def _block(self, h):
+        h = h + self.self_attn(self.input_layernorm(h))
+        return h + self.mlp(self.post_attention_layernorm(h))
+
+    def forward(self, x, kv_cache=None):
+        if kv_cache is not None:
+            a, new_cache = self.self_attn(self.input_layernorm(x),
+                                          kv_cache)
+            x = x + a
+            x = x + self.mlp(self.post_attention_layernorm(x))
+            return x, new_cache
+        if self._recompute and self.training:
+            from ..distributed.fleet.recompute import recompute
+
+            return recompute(self._block, x)
+        return self._block(x)
+
+
+class LlamaModel(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        self.config = config
+        self.embed_tokens = nn.Embedding(config.vocab_size,
+                                         config.hidden_size)
+        self.layers = nn.LayerList(
+            [LlamaDecoderLayer(config)
+             for _ in range(config.num_hidden_layers)])
+        self.norm = nn.RMSNorm(config.hidden_size,
+                               epsilon=config.rms_norm_eps)
+
+    def forward(self, input_ids, kv_caches=None):
+        x = self.embed_tokens(input_ids)
+        if self.config.dtype == "bfloat16":
+            x = x.astype("bfloat16")
+        new_caches = [] if kv_caches is not None else None
+        for i, layer in enumerate(self.layers):
+            if kv_caches is not None:
+                x, c = layer(x, kv_caches[i])
+                new_caches.append(c)
+            else:
+                x = layer(x)
+        x = self.norm(x)
+        return (x, new_caches) if kv_caches is not None else x
+
+
+class LlamaForCausalLM(nn.Layer):
+    def __init__(self, config: LlamaConfig):
+        super().__init__()
+        if _mp_active():
+            raise NotImplementedError(
+                "paddle_tpu_torch: the model-parallel Llama layers are "
+                "not ported yet")
+        self.config = config
+        self.model = LlamaModel(config)
+        self.lm_head = None if config.tie_word_embeddings else \
+            nn.Linear(config.hidden_size, config.vocab_size,
+                      bias_attr=False)
+
+    def forward(self, input_ids, labels=None, kv_caches=None):
+        """Logits [B, S, vocab] in f32 (bf16 under AMP O1: the head is
+        a white-listed linear), or with ``labels`` the mean next-token
+        cross entropy, or with ``kv_caches`` (logits, new caches)."""
+        if kv_caches is not None:
+            h, new_caches = self.model(input_ids, kv_caches)
+        else:
+            h = self.model(input_ids)
+        if self.lm_head is not None:
+            logits = self.lm_head(h.astype("float32"))
+        else:
+            from ..ops.linalg import matmul
+
+            logits = matmul(
+                h.astype("float32"),
+                self.model.embed_tokens.weight.astype("float32"),
+                transpose_y=True)
+        if labels is not None:
+            return F.cross_entropy(
+                logits.reshape([-1, self.config.vocab_size]),
+                labels.reshape([-1]))
+        if kv_caches is not None:
+            return logits, new_caches
+        return logits
+
+    @classmethod
+    def from_preset(cls, name: str):
+        import copy
+
+        return cls(copy.deepcopy(LLAMA_PRESETS[name]))
+
+    def generate(self, input_ids, max_new_tokens=32, eos_token_id=None):
+        """Greedy decode with a KV cache: the prompt in one causal
+        forward (the flash kernels at a kernel shape), then one token
+        a step (Sq = 1: the dense fallback). Returns the prompt and the
+        new tokens, [B, S + n]; stops early when every row emitted
+        ``eos_token_id``."""
+        with torch.no_grad():
+            self.eval()
+            cfg = self.config
+            b = input_ids.shape[0]
+            dev = self.model.embed_tokens.weight._value.device
+            shape = (b, 0, cfg.num_key_value_heads, cfg.head_dim)
+            empty = [(Tensor._wrap(torch.zeros(shape, device=dev)),
+                      Tensor._wrap(torch.zeros(shape, device=dev)))
+                     for _ in range(cfg.num_hidden_layers)]
+            logits, caches = self.forward(input_ids, kv_caches=empty)
+            out = input_ids
+            cur = search.argmax(logits[:, -1], axis=-1).reshape([b, 1])
+            for _ in range(max_new_tokens):
+                out = manipulation.concat([out, cur], axis=1)
+                if eos_token_id is not None and bool(
+                        (cur == eos_token_id).all()):
+                    break
+                logits, caches = self.forward(cur, kv_caches=caches)
+                cur = search.argmax(logits[:, -1],
+                                    axis=-1).reshape([b, 1])
+            return out
+
+    def generate_static(self, *args, **kwargs):
+        raise NotImplementedError(
+            "paddle_tpu_torch: generate_static belongs to the compile "
+            "tier (to_static), not ported yet; use generate")

@@ -1,48 +1,60 @@
-"""Linear and Embedding (paddle_tpu/nn/layer/common.py:19, 51)."""
+"""Linear and Embedding as eager Layers (paddle_tpu/nn/layer/common.py:
+19-66), with the reference's defaults: a Linear has a bias unless
+``bias_attr=False``."""
 from __future__ import annotations
 
-import math
-
 import torch
-from torch import nn
 
 from .. import functional as F
+from ..initializer import XavierNormal
+from .layers import Layer
 
 __all__ = ["Linear", "Embedding"]
 
 
-class Linear(nn.Module):
-    """y = x W (+ b) with W [in_features, out_features], the reference
-    layout (``x @ w``), so carried-over weights need no transpose.
-    Xavier-uniform init from ``generator``; ``bias_attr=True`` adds a bias
-    [out_features] starting at zeros, as the reference's default does (the
-    port's layers are bias-free, the default here)."""
+class Linear(Layer):
+    """y = x W + b, W [in_features, out_features] (the reference layout,
+    ``x @ w``): Xavier-uniform W, zero bias."""
 
-    def __init__(self, in_features, out_features, *, bias_attr=False,
-                 device=None, generator=None):
+    def __init__(self, in_features, out_features, weight_attr=None,
+                 bias_attr=None, name=None):
         super().__init__()
-        limit = math.sqrt(6.0 / (in_features + out_features))
-        w = torch.empty(in_features, out_features, device=device)
-        w.uniform_(-limit, limit, generator=generator)
-        self.weight = nn.Parameter(w, requires_grad=False)
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device),
-                                 requires_grad=False) if bias_attr else None
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = self.create_parameter([in_features, out_features],
+                                            attr=weight_attr)
+        if bias_attr is not False:
+            self.bias = self.create_parameter([out_features],
+                                              attr=bias_attr, is_bias=True)
+        else:
+            self.bias = None
 
     def forward(self, x):
-        y = F.linear(x, self.weight)
-        return y if self.bias is None else y + self.bias
+        return F.linear(x, self.weight, self.bias)
+
+    def extra_repr(self):
+        return f"in={self.in_features}, out={self.out_features}"
 
 
-class Embedding(nn.Module):
-    """Lookup table [num_embeddings, embedding_dim], Xavier-normal init."""
+class Embedding(Layer):
+    """Lookup table [num_embeddings, embedding_dim], Xavier-normal; the
+    ``padding_idx`` row starts at zeros and looks up zeros."""
 
-    def __init__(self, num_embeddings, embedding_dim, *, device=None,
-                 generator=None):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
         super().__init__()
-        std = math.sqrt(2.0 / (num_embeddings + embedding_dim))
-        w = torch.empty(num_embeddings, embedding_dim, device=device)
-        w.normal_(0.0, std, generator=generator)
-        self.weight = nn.Parameter(w, requires_grad=False)
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=XavierNormal())
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight._value[padding_idx] = 0.0
 
-    def forward(self, ids):
-        return F.embedding(ids, self.weight)
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx)
+
+    def extra_repr(self):
+        return f"{self._num_embeddings}, {self._embedding_dim}"

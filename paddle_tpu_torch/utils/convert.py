@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu",
-           "load_params_from_paddle_tpu"]
+           "load_params_from_paddle_tpu", "state_dict_from_paddle_tpu"]
 
 # parameter names of PagedCausalLM in both packages
 _SERVING_NAMES = re.compile(
@@ -70,3 +70,14 @@ def params_from_paddle_tpu(named) -> dict:
                            f"serving model")
         out[name] = tensor_from_numpy(arr)
     return out
+
+
+def state_dict_from_paddle_tpu(state) -> dict:
+    """An eager Layer's ``state_dict()`` from the TPU package, as numpy
+    arrays under Paddle's structured names (e.g.
+    ``{k: np.asarray(v) for k, v in layer.state_dict().items()}``: names
+    such as ``model.layers.0.self_attn.q_proj.weight``) -> {name: CPU
+    tensor}, which the port's ``Layer.set_state_dict`` takes. Dtypes are
+    kept (bf16 goes through f32, exactly); Linear weights keep the [in,
+    out] layout."""
+    return {name: tensor_from_numpy(arr) for name, arr in state.items()}

@@ -30,7 +30,7 @@ from paddle_tpu.jit.functional import current_params
 
 from paddle_tpu_torch import inference as TI
 from paddle_tpu_torch.jit import InputSpec
-from paddle_tpu_torch.nn import Linear
+from paddle_tpu_torch.nn.modules import TorchLinear as Linear
 from paddle_tpu_torch.utils import load_params_from_paddle_tpu
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -1785,3 +1785,147 @@ def test_artifact_window_captures_and_replays(mode, artifact_on_cpu):
         assert counts["varlen_attention_fwd"] == 0
         assert got == eager._decode_run_eager(4)
     assert not eager.pending()
+
+
+# -- the eager surface (Tensor, F, nn.Layer, AdamW) on the card ---------------
+# A small eager Llama at a kernel shape (head_dim 128, S = 128): its loss
+# and every gradient on the card within 1e-4 relative and 1e-3 of each
+# leaf's largest magnitude of the CPU's (f32, TF32 off: the same f32
+# arithmetic, the kernels' online softmax against the dense plain
+# versions), as chip_smoke.py's eager parity holds them.
+
+_EAGER_CFG = dict(vocab_size=512, hidden_size=256, intermediate_size=512,
+                  num_hidden_layers=2, num_attention_heads=2,
+                  num_key_value_heads=2, max_position_embeddings=512,
+                  dtype="float32", recompute=True)
+
+
+@pytest.fixture
+def eager_on(cuda_device):
+    """set_device for the eager surface, put back after; TF32 off."""
+    import paddle_tpu_torch as paddle
+
+    prev = paddle.get_device()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield paddle.set_device
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    paddle.set_device(prev)
+
+
+def test_eager_llama_loss_and_gradients_on_the_card_match_cpu(eager_on):
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import llama as TL
+
+    rng = np.random.RandomState(0)
+    ids = rng.randint(0, 512, (2, 128))
+    labels = np.roll(ids, -1, axis=1)
+    out = {}
+    state = None
+    for where in ("gpu:0", "cpu"):
+        eager_on(where)
+        paddle.seed(5)
+        model = TL.LlamaForCausalLM(TL.LlamaConfig(**_EAGER_CFG))
+        if state is None:
+            state = {k: v._value.detach().cpu().clone()
+                     for k, v in model.state_dict().items()}
+        else:
+            model.set_state_dict(state)
+        reset_launch_counts()
+        loss = model(paddle.to_tensor(ids), labels=paddle.to_tensor(labels))
+        loss.backward()
+        out[where] = (float(loss), {n: p.grad._value.detach().cpu()
+                                    for n, p in model.named_parameters()},
+                      launch_counts())
+    (lc, gc, cc), (lp, gp, cp) = out["gpu:0"], out["cpu"]
+    assert abs(lc - lp) <= 1e-4 * abs(lp)
+    for name, g in gp.items():
+        assert float((gc[name] - g).abs().max()) <= \
+            1e-3 * float(g.abs().max()), name
+    # recompute: the forward kernels twice a step, the gradients once
+    assert cc["flash_attention_fwd"] == 4 and cc["rms_norm"] == 9
+    assert cc["flash_attention_bwd_dkv"] == cc["flash_attention_bwd_dq"] \
+        == 2 and cc["rms_norm_bwd"] == 5
+    assert cp["flash_attention_fwd"] == 0 and cp["rms_norm"] == 0
+
+
+def test_eager_amp_step_launch_counts_and_adamw_on_the_card(eager_on):
+    """Under auto_cast O1 bf16 a step launches RMSNorm 4L + 1 (f32: it is
+    black-listed) and its gradient 2L + 1, the flash forward 2L (bf16: it
+    is white-listed) and dK/dV, dQ L times; AdamW updates the f32
+    parameters in place on the card; the loss falls."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import llama as TL
+
+    eager_on("gpu:0")
+    paddle.seed(1)
+    model = TL.LlamaForCausalLM(TL.LlamaConfig(**_EAGER_CFG))
+    opt = paddle.optimizer.AdamW(learning_rate=1e-3,
+                                 parameters=model.parameters())
+    ids = paddle.to_tensor(np.random.RandomState(1).randint(0, 512, (2, 256)))
+    labels = paddle.to_tensor(np.roll(ids.numpy(), -1, axis=1))
+    seen, losses = [], []
+    for _ in range(3):
+        reset_launch_counts()
+        with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+            loss = model(ids, labels=labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        seen.append(launch_counts())
+    L = 2
+    for c in seen:
+        assert c["rms_norm"] == 4 * L + 1 and c["rms_norm_bwd"] == 2 * L + 1
+        assert c["flash_attention_fwd"] == 2 * L
+        assert c["flash_attention_bwd_dkv"] == c["flash_attention_bwd_dq"] \
+            == L
+        assert c["aligned16_copies"] == 0
+    assert losses[-1] < losses[0] and np.all(np.isfinite(losses))
+    assert all(p.dtype == torch.float32 and p._value.is_cuda
+               for p in model.parameters())
+    st = opt.state_dict()
+    assert st["_step_count"] == 3 and st["param_0.moment1"]._value.is_cuda
+
+
+def test_eager_functional_launches_kernels_without_plain_fallback(
+        eager_on, monkeypatch):
+    """A CUDA Tensor of a kernel shape through F.rms_norm and
+    F.scaled_dot_product_attention runs the kernels, forward and backward,
+    with the plain versions made to raise; a decode step's Sq = 1 takes
+    the dense fallback, which launches nothing."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.nn import functional as F
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain version ran for a CUDA tensor")
+    for mod, name in ((TR, "_rms_norm_ref"), (TR, "_rms_norm_bwd"),
+                      (FA, "_forward_ref"), (FA, "_backward_ref")):
+        monkeypatch.setattr(mod, name, refuse)
+    eager_on("gpu:0")
+    x = paddle.to_tensor(np.random.RandomState(2).randn(4, 256)
+                         .astype(np.float32), stop_gradient=False)
+    w = paddle.to_tensor(np.ones(256, np.float32), stop_gradient=False)
+    q, k, v = (paddle.to_tensor(np.random.RandomState(s).randn(
+        1, 128, 2, 128).astype(np.float32)).astype("bfloat16")
+        for s in (3, 4, 5))
+    for t in (q, k, v):
+        t.stop_gradient = False
+    reset_launch_counts()
+    y = F.rms_norm(x, w)
+    o = F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    (y.sum() + o.astype("float32").sum()).backward()
+    torch.cuda.synchronize()
+    c = launch_counts()
+    assert c["rms_norm"] == 1 and c["rms_norm_bwd"] == 1
+    assert c["flash_attention_fwd"] == 1
+    assert c["flash_attention_bwd_dkv"] == c["flash_attention_bwd_dq"] == 1
+    assert o.dtype == torch.bfloat16 and q.grad.shape == [1, 128, 2, 128]
+    reset_launch_counts()
+    with paddle.no_grad():
+        F.scaled_dot_product_attention(q[:, :1], k, v, is_causal=False)
+    assert launch_counts()["flash_attention_fwd"] == 0

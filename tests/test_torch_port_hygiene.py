@@ -11,8 +11,10 @@ from pathlib import Path
 import pytest
 import torch
 
+import paddle_tpu_torch as paddle
 from paddle_tpu_torch.inference import (PagedCausalLM, PagedServingConfig,
                                         ServingEngine)
+from paddle_tpu_torch.models import llama
 from paddle_tpu_torch.ops.kernels import resolve_device
 
 torch.set_num_threads(2)
@@ -75,3 +77,16 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine.from_model(model, cfg)
     assert resolve_device("cpu") == torch.device("cpu")
+    # the eager surface: its default place is "gpu:0"
+    assert paddle.get_device() == "gpu:0"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.to_tensor([1.0, 2.0])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.nn.Layer().create_parameter([2, 2])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.LlamaForCausalLM(llama.LLAMA_PRESETS["debug"])
+    p = paddle.Parameter(torch.zeros(2))      # a CPU tensor stays there
+    p.grad = torch.ones(2)
+    opt = paddle.optimizer.AdamW(parameters=[p], learning_rate=0.1)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        opt.step()                            # the moments' default place

@@ -18,8 +18,8 @@ import paddle_tpu as paddle
 from paddle_tpu.ops.pallas import rms_norm as JR
 
 from paddle_tpu_torch import launch_counts, reset_launch_counts
-from paddle_tpu_torch.nn import RMSNorm
-from paddle_tpu_torch.nn import functional as TF
+from paddle_tpu_torch.nn import modules as TF
+from paddle_tpu_torch.nn.modules import TorchRMSNorm as RMSNorm
 from paddle_tpu_torch.ops.kernels import rms_norm as TR
 
 torch.set_num_threads(2)

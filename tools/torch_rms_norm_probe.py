@@ -125,8 +125,8 @@ def per_call_ns(fn, n=N_HOST):
 
 
 def probe_host(dev, card):
-    from paddle_tpu_torch.nn import RMSNorm
-    from paddle_tpu_torch.nn import functional as TF
+    from paddle_tpu_torch.nn import modules as TF
+    from paddle_tpu_torch.nn.modules import TorchRMSNorm as RMSNorm
 
     gen = torch.Generator(device=dev).manual_seed(1)
     h = 2048
