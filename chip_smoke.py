@@ -7,7 +7,10 @@ Phases, each of which fails the run with a non-zero exit:
      kernels built from paddle_tpu_torch/ops/kernels/csrc with nvcc, and
      the count of tensor-core instructions (HGMMA, HMMA) in the bf16
      attention kernels' SASS (flash and varlen, forward and backward) where
-     cuobjdump is found (printed, and in the kernels line);
+     cuobjdump is found (printed, and in the kernels line); beside the
+     build, nvcc -Xptxas -v of the flash sources: each bf16
+     instantiation's registers and spill (printed, and in the kernels
+     line);
   2. kernels: each kernel against its plain PyTorch version at its path's
      shapes (the varlen backward kernels with exact zeros on padding rows
      and keys; the RMSNorm gradient at the serving and training shapes;
@@ -24,6 +27,13 @@ Phases, each of which fails the run with a non-zero exit:
      keeps and the backward's tiles a block (both computed from the
      segment ids, in the log only), and the TFLOP/s over the
      within-segment pairs;
+  2b. the flash kernels at head dim 64 with dropout 0.1 (seeds from the
+     port's generator), their general instantiations at the pretraining
+     shapes: BERT-base [32, 12, 512, 64], with and without a key-padding
+     bias, and GPT-2 [8, 12, 1024, 64] causal; O, LSE, dQ, dK and dV held
+     to the plain versions as in phase 2, then each kernel timed beside its
+     bound, its plain version and SDPA with dropout_p=0.1 (new *_d64_* rows
+     of the kernels line);
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run, twice on
@@ -138,11 +148,29 @@ Phases, each of which fails the run with a non-zero exit:
      prompt (the prefill launches the flash forward 16 times); then a
      2-layer f32 eager model at the same widths on the card against the
      CPU (loss, every gradient, one AdamW step, greedy tokens);
+  6c. pretraining, after the eager phase: BERT-base (bench.py::bench_bert's
+     row: BertForPretraining(BertConfig()), batch 32, seq 512) and GPT-2
+     small (GPT_PRESETS["gpt2"], batch 8, seq 1024) under amp.decorate O2
+     bf16, AdamW at lr 1e-4, through jit.TrainStep: one warm-up and 8 timed
+     steps, each held to 12 flash forward, 12 dK/dV and 12 dQ launches,
+     every forward at D = 64 in bf16 with dropout 0.1, no dense attention,
+     no 16-byte copy, the losses finite; BERT's BertModel with a [B, 1, 1,
+     S] key-padding mask (the forward with the bias, 12 launches); then
+     each model with 2 layers at full width, f32, dropout 0, one TrainStep
+     on the card against the CPU (loss, every gradient, the update from
+     the card's gradients; BERT's masked BertModel);
+  6d. the registry's attention ops: flash_attn_unpadded and
+     flash_attn_varlen_qkvpacked over a packed mix (12 heads of 64, bf16,
+     causal), forward and backward, bit for bit the incubate function and
+     launching each varlen kernel once; flash_attn through the flash
+     kernels, bit for bit F.scaled_dot_product_attention;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
      weight-streaming engine, a training step, an eager training step,
-     the eager generate and a packed training step, by torch.profiler, with the device kernels a replayed decode step
+     the eager generate, a packed training step and a BERT-base and a
+     GPT-2 pretraining step (with their device time by kernel class), by
+     torch.profiler, with the device kernels a replayed decode step
      launches in all (the artifact engine's too); the composition
      rope_append replaced, its device time and kernels a call.
 The last line is {"ok": true, "device": {...}}; the line before it holds
@@ -197,6 +225,16 @@ PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
          "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS,
          "eager": TRAINING_KERNELS}
+# the models' attention at head dim 64 (GPT-2 small and BERT-base: 12 heads
+# of 64), dropout 0.1 inside the flash kernels (their general
+# instantiations): the shapes a pretraining step gives them
+D64_SHAPES = {"bert": dict(batch=32, seq=512, causal=False),
+              "gpt2": dict(batch=8, seq=1024, causal=True)}
+ATTN_DROPOUT = 0.1
+PRETRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
+                    "flash_attention_bwd_dq")
+# the flash sources whose instantiations ptxas -v reports on
+PTXAS_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
 # the weight-streaming modes of phase 4e, int4 first so that the int8
 # engines' shared quantization is the model's current one for the versions
 STREAM_MODES = ("int4", "int8", "int8-noprefetch")
@@ -333,16 +371,88 @@ def card():
 
 
 def phase_device_and_build():
+    """The card, the kernels' build, and beside the build ptxas -v of the
+    flash sources (registers and spill a bf16 instantiation). Returns
+    (the HGMMA counts of log_tensor_core_sass, the ptxas report)."""
     log(card())
     from paddle_tpu_torch.ops.kernels import _build
 
     t0 = time.perf_counter()
-    so = _build.build()
-    _build.library()
+    started = start_ptxas_report()
+    try:
+        so = _build.build()
+        _build.library()
+    finally:
+        report = ptxas_report(started)
     log(f"build: {time.perf_counter() - t0:.1f} s -> "
         f"{os.path.relpath(so, HERE)} (nvcc "
         f"{' '.join(_build.ARCH_FLAGS)})")
-    return log_tensor_core_sass(so)
+    return log_tensor_core_sass(so), report
+
+
+def start_ptxas_report():
+    """nvcc -Xptxas -v of each of PTXAS_SOURCES into a scratch directory
+    under the build directory, all started at once; ptxas_report waits for
+    them."""
+    from paddle_tpu_torch.ops.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="ptxas-")
+    procs = [subprocess.Popen(
+        [_build._nvcc()] + _build.NVCC_FLAGS
+        + ["-Xptxas", "-v", "-c", str(_build._CSRC / name), "-o",
+           os.path.join(tmp, name + ".o")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name in PTXAS_SOURCES]
+    return tmp, procs
+
+
+def ptxas_report(started):
+    """{"flash_fwd_kernel<bf16, D=64, general>": {"registers": n,
+    "stack": b, "spill_stores": b, "spill_loads": b}, ...} of the bf16
+    flash instantiations, read from ptxas -v (printed); the compiles are
+    waited for and their directory removed. A failed compile fails."""
+    import re
+
+    tmp, procs = started
+    try:
+        outs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    for name, p, out in zip(PTXAS_SOURCES, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc -Xptxas -v {name} failed:\n{out}")
+    report, fn = {}, None
+    for line in "\n".join(outs).splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\S+?)'?(?: for|$)", line)
+        if m:
+            k = re.search(r"((?:flash_bwd_d\w+|flash_fwd)_kernel)ILi(\d+)E"
+                          r"(?:Lb([01])E)?EEvPK13__nv_bf", m.group(1))
+            fn = (f"{k.group(1)}<bf16, D={k.group(2)}"
+                  + {None: "", "1": ", plain", "0": ", general"}[k.group(3)]
+                  + ">") if k else None
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            report.setdefault(fn, {}).update(
+                stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            report.setdefault(fn, {})["registers"] = int(m.group(1))
+    log("ptxas -v, bf16 flash instantiations: " + "; ".join(
+        f"{f} {r.get('registers')} registers, spill {r.get('spill_stores')}"
+        f"/{r.get('spill_loads')} bytes (stores/loads), stack "
+        f"{r.get('stack')} bytes" for f, r in sorted(report.items())))
+    return report
 
 
 def log_tensor_core_sass(so):
@@ -983,6 +1093,159 @@ def phase_flash_kernels(dev, results, probes):
         log(f"{name}: {ms:.3f} ms a call, "
             f"{r['plain_ms']:.3f} ms plain, library {r['library_ms']:.3f} "
             f"ms ({r['library']}), bound {b:.4f} ms ({by}){extra}")
+
+
+def _d64_inputs(dev, gen, b, s, bias):
+    """q, k, v, dO [b, 12, s, 64] bf16 and, with ``bias``, a key-padding
+    bias [b, s] f32 padding each sequence's tail by 0 to s/2 keys (a
+    padded BERT batch)."""
+    q, k, v, do = [torch.randn(b, 12, s, 64, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4)]
+    kmask = None
+    if bias:
+        kmask = torch.zeros(b, s, device=dev)
+        pads = torch.randint(0, s // 2 + 1, (b,), device=dev, generator=gen)
+        kmask[torch.arange(s, device=dev)[None, :]
+              >= (s - pads)[:, None]] = -1e30
+    return q, k, v, do, kmask
+
+
+def phase_flash_d64(dev, results, probes):
+    """The flash kernels at the GPT-2 and BERT-base attention (12 heads of
+    64, bf16) with dropout 0.1 drawn from the port's generator: their
+    general instantiations at the shapes a pretraining step gives them
+    (BERT [32, 12, 512, 64], GPT-2 [8, 12, 1024, 64] causal), and BERT's
+    with a key-padding bias. O, LSE, dQ, dK and dV held element by element
+    to the plain versions with phase_flash_kernels' tolerances; then each
+    kernel timed beside its bound, its plain version and SDPA with
+    dropout_p=0.1 (forward; backward), as new rows of the kernels line."""
+    from paddle_tpu_torch.framework.random import generator
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(64)
+    RTOL, FLOOR, p = 2.0 ** -6, 1e-5, ATTN_DROPOUT
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases = [(m, c, False) for m, c in D64_SHAPES.items()] \
+        + [("bert", D64_SHAPES["bert"], True)]
+    for model, c, bias in cases:
+        b, S, causal = c["batch"], c["seq"], c["causal"]
+        q, k, v, do, kmask = _d64_inputs(dev, gen, b, S, bias)
+        seed = FA.seed_from_generator(generator(dev))
+        o, lse = FA.forward_with_lse(q, k, v, kmask, seed, causal, p)
+        dq, dk, dv = FA.backward(q, k, v, kmask, seed, o, lse, do, causal,
+                                 p)
+        o2, lse2 = FA._forward_ref(q, k, v, kmask, seed, causal, p)
+        dq2, dk2, dv2 = FA._backward_ref(q, k, v, kmask, seed, o, lse, do,
+                                         causal, p)
+        torch.cuda.synchronize()
+        finite = all(bool(torch.isfinite(t.float()).all())
+                     for t in (o, dq, dk, dv))
+        ratios = {n: _worst_of_tol(a, r, RTOL, FLOOR)
+                  for n, (a, r) in (("O", (o, o2)), ("dQ", (dq, dq2)),
+                                    ("dK", (dk, dk2)), ("dV", (dv, dv2)))}
+        el = _max_err(lse, lse2)
+        label = (f"{model} q/k/v [{b}, 12, {S}, 64] bf16"
+                 f"{' causal' if causal else ''}"
+                 f"{' key padding' if bias else ''} dropout {p}")
+        ok = finite and el <= 1e-3 and max(ratios.values()) <= 1.0
+        log(f"flash attention D=64 {label}: worst error / tol "
+            + ", ".join(f"{n} {r:.3f} (RMS {_rms(x):.3e})" for (n, r), x in
+                        zip(ratios.items(), (o2, dq2, dk2, dv2)))
+            + f"; LSE max_abs_err {el:.3e} (tol 1e-3) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"flash attention kernels at D=64 disagree "
+                                 f"with their plain versions ({label})")
+        errs = {"flash_attention_fwd": _max_err(o, o2),
+                "flash_attention_bwd_dkv": max(_max_err(dk, dk2),
+                                               _max_err(dv, dv2)),
+                "flash_attention_bwd_dq": _max_err(dq, dq2)}
+        worst = {"flash_attention_fwd": ratios["O"],
+                 "flash_attention_bwd_dkv": max(ratios["dK"], ratios["dV"]),
+                 "flash_attention_bwd_dq": ratios["dQ"]}
+        del o2, lse2, dq2, dk2, dv2, dq, dk, dv
+        if bias:
+            continue
+        _d64_times(dev, results, probes, model, q, k, v, do, seed, causal,
+                   o, lse, errs, worst, sdpa)
+        del q, k, v, do, o, lse
+        torch.cuda.empty_cache()
+
+
+def _d64_times(dev, results, probes, model, q, k, v, do, seed, causal, o,
+               lse, errs, worst, sdpa):
+    """phase_flash_d64's rows of one shape: each kernel's ms, bound, plain
+    and library times."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    p = ATTN_DROPOUT
+    b, H, S, D = q.shape
+    pairs = b * H * S * (S + 1) // 2 if causal else b * H * S * S
+    _, _, _, _, _, _, delta = FA._bwd_inputs(q, k, v, None, o, lse, do,
+                                             causal)
+    big = dict(calls=3, windows=3, warmup=1)
+    plain_fwd = time_ms(lambda: FA._forward_ref(q, k, v, None, seed, causal,
+                                                p), **big)
+    plain_bwd = time_ms(lambda: FA._backward_ref(
+        q, k, v, None, seed, o, lse, do, causal, p), **big)
+    lib_fwd = time_ms(lambda: sdpa(q, k, v, dropout_p=p, is_causal=causal),
+                      calls=10, windows=5, warmup=2)
+    qg, kg, vg = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+    out = sdpa(qg, kg, vg, dropout_p=p, is_causal=causal)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        out, (qg, kg, vg), do, retain_graph=True), calls=10, windows=5,
+        warmup=2)
+    del out, qg, kg, vg
+    shape = (f"q/k/v [{b}, {H}, {S}, {D}] bf16{' causal' if causal else ''}"
+             f", dropout {p}, {pairs} pairs")
+    lse_b, d_b = nbytes(lse), nbytes(delta)
+    rows = {
+        "flash_attention_fwd": dict(
+            source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_fwd.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:135",
+            fn=lambda: FA.forward_with_lse(q, k, v, None, seed, causal, p),
+            ops=4 * D * pairs, nbytes=nbytes(q, k, v, o) + lse_b,
+            plain_ms=plain_fwd, library_ms=lib_fwd,
+            library="SDPA forward, dropout_p=0.1",
+            symbol="flash_fwd_kernel"),
+        "flash_attention_bwd_dkv": dict(
+            source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:315",
+            fn=lambda: FA._launch_bwd_dkv(q, k, v, None, seed, do, lse,
+                                          delta, causal, p),
+            ops=8 * D * pairs, nbytes=nbytes(q, k, v, do, k, v) + lse_b + d_b,
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            library="SDPA backward, dropout_p=0.1 (dQ, dK, dV together)",
+            symbol="flash_bwd_dkv_kernel"),
+        "flash_attention_bwd_dq": dict(
+            source="paddle_tpu_torch/ops/kernels/csrc/flash_attention_bwd.cu",
+            replaces="paddle_tpu/ops/pallas/flash_attention.py:389",
+            fn=lambda: FA._launch_bwd_dq(q, k, v, None, seed, do, lse,
+                                         delta, causal, p),
+            ops=6 * D * pairs, nbytes=nbytes(q, k, v, do, q) + lse_b + d_b,
+            plain_ms=plain_bwd, library_ms=lib_bwd,
+            library="SDPA backward, dropout_p=0.1 (dQ, dK, dV together)",
+            symbol="flash_bwd_dq_kernel"),
+    }
+    for kernel, r in rows.items():
+        name = f"{kernel}_d64_{model}"
+        bnd, by = bound(r["nbytes"], r["ops"], BF16_OPS_PER_S)
+        ms = time_ms(r["fn"], calls=5, windows=5, warmup=2)
+        results[name] = dict(
+            name=name, route="cuda", source=r["source"],
+            replaces=r["replaces"], max_abs_err=errs[kernel], ms=ms,
+            plain_ms=r["plain_ms"], bound_ms=bnd, bound_by=by,
+            library_ms=r["library_ms"], library=r["library"], shape=shape,
+            plain_note="one dense f32 backward computes dQ, dK and dV"
+            if "bwd" in kernel else "dense f32 forward",
+            tflops=r["ops"] / ms / 1e9, bound_share=bnd / ms,
+            worst_ratio_at_shape=worst[kernel], kernel=kernel,
+            paths=[model])
+        probes[name] = (r["fn"], r["symbol"], 5, results[name])
+        log(f"{name}: {ms:.3f} ms a call, {r['plain_ms']:.3f} ms plain, "
+            f"library {r['library_ms']:.3f} ms ({r['library']}), bound "
+            f"{bnd:.4f} ms ({by}), {r['ops'] / ms / 1e9:.1f} TFLOP/s, "
+            f"{100 * bnd / ms:.1f}% of the bound")
 
 
 def _packed_lens(total, seed):
@@ -1788,6 +2051,385 @@ def _eager_parity(dev, base):
         raise AssertionError("the eager model on the card disagrees with "
                              "the CPU")
     return out
+
+
+# the registry ops' packed mix: tokens in all
+REGISTRY_TOKENS = 8192
+# the pretraining rows: bench.py::bench_bert's (batch 32, seq 512, 8 timed
+# steps) and GPT-2 small at its context (batch 8, seq 1024)
+PRETRAIN = {"bert": dict(batch=32, seq=512, steps=8),
+            "gpt2": dict(batch=8, seq=1024, steps=8)}
+
+
+def _pretrain_model(kind, **overrides):
+    """(config, model): BertForPretraining(BertConfig()) (bert-base) or
+    GPTForCausalLM(GPT_PRESETS["gpt2"]), the config's fields overridden."""
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.models import gpt as TG
+
+    if kind == "bert":
+        cfg = TB.BertConfig(**overrides)
+        return cfg, TB.BertForPretraining(cfg)
+    cfg = TG.GPTConfig(**{**vars(TG.GPT_PRESETS["gpt2"]), **overrides})
+    return cfg, TG.GPTForCausalLM(cfg)
+
+
+def _pretrain_step(kind, cfg, model, opt):
+    """TrainStep(model, MLMLoss(), opt) as bench.py::bench_bert writes it
+    (the MLM logits' cross-entropy, nn.CrossEntropyLoss), or
+    TrainStep(model, None, opt) for GPT (the model's own loss)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+
+    if kind != "bert":
+        return TrainStep(model, None, opt)
+
+    class MLMLoss(paddle.nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.ce = paddle.nn.CrossEntropyLoss()
+
+        def forward(self, outs, labels):
+            mlm_logits = outs[0] if isinstance(outs, (tuple, list)) \
+                else outs
+            return self.ce(mlm_logits.reshape([-1, cfg.vocab_size]),
+                           labels.reshape([-1]))
+    return TrainStep(model, MLMLoss(), opt)
+
+
+def _pretrain_batch(kind, cfg, batch, seq, seed):
+    """ids and labels from numpy seed ``seed``: random labels for BERT's
+    MLM (bench_bert's), next-token labels for GPT."""
+    import paddle_tpu_torch as paddle
+
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(0, cfg.vocab_size, (batch, seq))
+    labels = rng.randint(0, cfg.vocab_size, (batch, seq)) \
+        if kind == "bert" else np.roll(ids, -1, axis=1)
+    return paddle.to_tensor(ids), paddle.to_tensor(labels)
+
+
+@contextlib.contextmanager
+def _attention_routes():
+    """While open: each flash forward launch's (dropout_p, D, dtype,
+    causal, bias given) in "fwd", and the calls of the dense attention
+    (_attention_ref, _forward_fallback) in "dense"."""
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    seen = {"fwd": [], "dense": 0}
+    real = {n: getattr(FA, n) for n in ("_launch_fwd", "_attention_ref",
+                                        "_forward_fallback")}
+
+    def launch(q, k, v, kmask, seed, causal, dropout_p):
+        seen["fwd"].append((dropout_p, q.shape[-1], q.dtype, bool(causal),
+                            kmask is not None))
+        return real["_launch_fwd"](q, k, v, kmask, seed, causal, dropout_p)
+
+    def dense(name):
+        def fn(*a, **kw):
+            seen["dense"] += 1
+            return real[name](*a, **kw)
+        return fn
+    FA._launch_fwd = launch
+    FA._attention_ref = dense("_attention_ref")
+    FA._forward_fallback = dense("_forward_fallback")
+    try:
+        yield seen
+    finally:
+        for n, fn in real.items():
+            setattr(FA, n, fn)
+
+
+def _padded_mask(dev, batch, seq, seed):
+    """A [B, 1, 1, S] bool key-padding mask (True attends): each sequence's
+    tail padded by 0 to S/2 tokens."""
+    import paddle_tpu_torch as paddle
+
+    pads = np.random.RandomState(seed).randint(0, seq // 2 + 1, batch)
+    keep = np.arange(seq)[None, :] < (seq - pads)[:, None]
+    return paddle.to_tensor(keep[:, None, None, :])
+
+
+def phase_pretrain(dev, kind):
+    """BERT-base or GPT-2 small pretraining at full width as a Paddle user
+    writes it: the model from a seed, amp.decorate(..., "O2", "bfloat16")
+    (LayerNorm kept f32), AdamW at lr 1e-4, jit.TrainStep; a warm-up, then
+    PRETRAIN[kind]["steps"] timed steps, each held to L flash forward, L
+    dK/dV and L dQ launches, every forward at D = 64 in bf16 with dropout
+    0.1, no dense attention and no 16-byte copy; the losses finite. BERT:
+    then one BertModel forward with a [B, 1, 1, S] key-padding mask (eval),
+    L forward launches with the bias. Then the 2-layer f32 card-vs-CPU
+    parity (_pretrain_parity)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    sizes = PRETRAIN[kind]
+    batch, seq, steps = sizes["batch"], sizes["seq"], sizes["steps"]
+    paddle.set_device("gpu:0")
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    paddle.seed(0)
+    cfg, model = _pretrain_model(kind)
+    model = paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+    dtypes = {("LayerNorm" if type(l).__name__ == "LayerNorm" else "other",
+               p.dtype) for l in model.sublayers(include_self=True)
+              for p in l._parameters.values() if p is not None}
+    if dtypes != {("LayerNorm", torch.float32), ("other", torch.bfloat16)}:
+        raise AssertionError(f"{kind}: O2 parameter dtypes {dtypes}")
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    step = _pretrain_step(kind, cfg, model, opt)
+    ids, labels = _pretrain_batch(kind, cfg, batch, seq, seed=0)
+    n_params = sum(p.size for p in model.parameters())
+    t = time.perf_counter()
+    warm = float(step(ids, labels))
+    torch.cuda.synchronize()
+    log(f"{kind}: {n_params / 1e6:.1f}M parameters (O2 bf16), warm-up step "
+        f"{time.perf_counter() - t:.2f} s, loss {warm:.4f}")
+    L = cfg.num_hidden_layers
+    expect = {"flash_attention_fwd": L, "flash_attention_bwd_dkv": L,
+              "flash_attention_bwd_dq": L, "aligned16_copies": 0,
+              "rms_norm": 0, "varlen_attention_fwd": 0}
+    want_fwd = [(ATTN_DROPOUT, 64, torch.bfloat16, kind == "gpt2",
+                 False)] * L
+    losses, step_ms = [], []
+    reset_launch_counts()
+    with _attention_routes() as routes:
+        for _ in range(steps):
+            before = launch_counts()
+            routes["fwd"].clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = step(ids, labels)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            per = {k: v - before[k] for k, v in launch_counts().items()}
+            for name, n in expect.items():
+                if per[name] != n:
+                    raise AssertionError(f"{kind} step launched {name} "
+                                         f"{per[name]} times, not {n}")
+            if routes["fwd"] != want_fwd or routes["dense"]:
+                raise AssertionError(f"{kind} step: flash forwards "
+                                     f"{routes['fwd']}, dense attention "
+                                     f"{routes['dense']} times")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f"{kind} losses not finite: {warm}, {losses}")
+    ms = statistics.median(step_ms)
+    tps = batch * seq / (ms / 1e3)
+    fpt = model_flops_per_token(cfg, n_params, seq)
+    metrics = {"batch": batch, "seq": seq, "steps": steps,
+               "n_params": n_params, "step_ms": step_ms,
+               "step_ms_median": ms, "step_ms_min": min(step_ms),
+               "step_ms_max": max(step_ms), "tokens_per_s": tps,
+               "model_flops_per_step": fpt * batch * seq,
+               "share_of_989_tflops": tps * fpt / BF16_OPS_PER_S,
+               "warmup_loss": warm, "losses": losses,
+               "peak_memory_gb": peak / 1e9,
+               "peak_over_start_gb": (peak - start) / 1e9,
+               "launches_per_step": per}
+    if kind == "bert":
+        mask = _padded_mask(dev, batch, seq, seed=1)
+        model.eval()
+        reset_launch_counts()
+        with _attention_routes() as routes, paddle.no_grad():
+            out, pooled = model.bert(ids, attention_mask=mask)
+            torch.cuda.synchronize()
+        model.train()
+        c = launch_counts()
+        if c["flash_attention_fwd"] != L or routes["dense"] or \
+                {r[4] for r in routes["fwd"]} != {True} or \
+                not bool(torch.isfinite(out._value.float()).all()):
+            raise AssertionError(f"BertModel with a key-padding mask: "
+                                 f"{c['flash_attention_fwd']} forwards, "
+                                 f"{routes}")
+        metrics["masked_forward_launches"] = c["flash_attention_fwd"]
+    log(json.dumps({kind: metrics}))
+    metrics["parity"] = _pretrain_parity(dev, kind)
+    return dict(metrics=metrics, counts=counts, step=step, ids=ids,
+                labels=labels)
+
+
+def _pretrain_parity(dev, kind):
+    """The model with 2 layers at full width, f32, dropout 0, from one seed
+    on the card (the f32 flash kernels) and on the CPU (plain versions):
+    one TrainStep each (B=2, S=512 for BERT; B=1, S=1024 for GPT-2), the
+    gradients read at the optimizer's step, where the CPU's are replaced by
+    the card's. Held as the eager phase holds its parity: the loss within
+    1e-4 relative; every gradient within 1e-3 of its leaf's largest
+    magnitude, plus 1e-6 of the largest gradient (the k projections' biases
+    have a gradient of zero: round-off on both sides); after the update,
+    the parameters within 1e-6 of their largest magnitude (the same f32
+    AdamW from the same gradients). BERT also runs BertModel with a
+    [B, 1, 1, S] key-padding mask (the f32 forward kernel with the bias):
+    the sequence and pooled outputs within 1e-4 of their largest
+    magnitude."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+
+    b, S = (2, 512) if kind == "bert" else (1, 1024)
+    res = {}
+    with one_cpu_thread():
+        for where in ("gpu:0", "cpu"):
+            paddle.set_device(where)
+            paddle.seed(7)
+            cfg, model = _pretrain_model(kind, num_hidden_layers=2,
+                                         dropout=0.0)
+            if where == "gpu:0":
+                state = {k: v._value.detach().cpu().clone()
+                         for k, v in model.state_dict().items()}
+            else:
+                model.set_state_dict(state)
+            opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                         parameters=model.parameters())
+            grads = {}
+            real_step = opt.step
+
+            def step_with_card_grads():
+                for n, p in model.named_parameters():
+                    if p.grad is not None:
+                        grads[n] = p.grad._value.detach().cpu().clone()
+                        if where == "cpu":
+                            p.grad = res["gpu:0"]["grads"][n]
+                real_step()
+            opt.step = step_with_card_grads
+            step = _pretrain_step(kind, cfg, model, opt)
+            ids, labels = _pretrain_batch(kind, cfg, b, S, seed=3)
+            reset_launch_counts()
+            loss = float(step(ids, labels))
+            c = launch_counts()
+            if where == "gpu:0" and min(c[n] for n in PRETRAIN_KERNELS) <= 0:
+                raise AssertionError(f"{kind} parity run missed a kernel: "
+                                     f"{c}")
+            out = {"loss": loss, "grads": grads,
+                   "params": {n: p._value.detach().cpu().clone()
+                              for n, p in model.named_parameters()}}
+            if kind == "bert":
+                model.eval()
+                with paddle.no_grad():
+                    seq_out, pooled = model.bert(
+                        ids, attention_mask=_padded_mask(dev, b, S, seed=4))
+                out["masked"] = (seq_out._value.cpu(), pooled._value.cpu())
+            res[where] = out
+            del model, opt, step
+    paddle.set_device("gpu:0")
+    card, cpu = res["gpu:0"], res["cpu"]
+    rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    top = max(float(g.abs().max()) for g in cpu["grads"].values())
+    grad_ratio = {k: float((card["grads"][k] - g).abs().max())
+                  / (1e-3 * float(g.abs().max()) + 1e-6 * top)
+                  for k, g in cpu["grads"].items()}
+    # a leaf of zeros (the biases the MLM loss leaves at 0) must be equal
+    param_ratio = {k: float((card["params"][k] - v).abs().max())
+                   / max(1e-6 * float(v.abs().max()), 1e-30)
+                   for k, v in cpu["params"].items()}
+    worst_g = max(grad_ratio, key=grad_ratio.get)
+    worst_p = max(param_ratio, key=param_ratio.get)
+    ok = (rel <= 1e-4 and set(card["grads"]) == set(cpu["grads"])
+          and grad_ratio[worst_g] <= 1.0 and param_ratio[worst_p] <= 1.0)
+    out = {"loss_card": card["loss"], "loss_cpu": cpu["loss"],
+           "loss_rel": rel, "worst_gradient_ratio": grad_ratio[worst_g],
+           "worst_gradient_leaf": worst_g,
+           "worst_adamw_param_ratio": param_ratio[worst_p],
+           "worst_adamw_param_leaf": worst_p}
+    msg = ""
+    if kind == "bert":
+        mask_ratio = max(float((a - r).abs().max())
+                         / (1e-4 * float(r.abs().max()))
+                         for a, r in zip(card["masked"], cpu["masked"]))
+        out["masked_forward_ratio"] = mask_ratio
+        ok = ok and mask_ratio <= 1.0
+        msg = (f"; BertModel with a key-padding mask within 1e-4: worst "
+               f"ratio {mask_ratio:.3e}")
+    log(f"{kind} parity f32 2-layer full width B={b} S={S}: loss card "
+        f"{card['loss']:.6f} cpu {cpu['loss']:.6f} (rel {rel:.2e}, tol "
+        f"1e-4); gradients within 1e-3 of each leaf's largest magnitude: "
+        f"worst ratio {grad_ratio[worst_g]:.3e} ({worst_g}); one TrainStep "
+        f"AdamW update within 1e-6: worst ratio {param_ratio[worst_p]:.3e} "
+        f"({worst_p}){msg} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{kind} on the card disagrees with the CPU")
+    return out
+
+
+def phase_registry_ops(dev):
+    """The registry's attention ops on the card (ops/yaml_extra.py):
+    flash_attn_unpadded (the default scale) and flash_attn_varlen_qkvpacked
+    over a packed mix (REGISTRY_TOKENS in documents of log-uniform lengths,
+    12 heads of 64, bf16, causal), forward and backward: each equal to
+    incubate.nn.functional.flash_attn_unpadded bit for bit, each call
+    launching the varlen forward, dK/dV and dQ kernels once; flash_attn at
+    [2, 1024, 12, 64] bf16 causal launching the flash forward, dK/dV and
+    dQ once, equal to F.scaled_dot_product_attention bit for bit."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.incubate.nn import functional as IF
+    from paddle_tpu_torch.ops import registry
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    total, H, D = REGISTRY_TOKENS, 12, 64
+    lens = _packed_lens(total, PACKED_SEED + 15)
+    cu = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    q, k, v, do = (torch.randn(total, H, D, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    op = {n: registry.get(n).fn for n in ("flash_attn", "flash_attn_unpadded",
+                                          "flash_attn_varlen_qkvpacked")}
+    routes = {
+        "incubate": lambda a, b, c: IF.flash_attn_unpadded(
+            a, b, c, cu, cu, causal=True)[0],
+        "flash_attn_unpadded": lambda a, b, c: op["flash_attn_unpadded"](
+            a, b, c, cu, cu, scale=None, causal=True)[0],
+        "flash_attn_varlen_qkvpacked": lambda a, b, c: op[
+            "flash_attn_varlen_qkvpacked"](torch.stack([a, b, c], dim=1),
+                                           cu, cu, causal=True)[0]}
+    got = {}
+    for name, fn in routes.items():
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        reset_launch_counts()
+        out = fn(*leaves)
+        grads = torch.autograd.grad(out, leaves, do)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        n = (c["varlen_attention_fwd"], c["varlen_attention_bwd_dkv"],
+             c["varlen_attention_bwd_dq"])
+        if n != (1, 1, 1):
+            raise AssertionError(f"{name}: varlen launches {n}, not 1/1/1")
+        got[name] = (out.detach(),) + grads
+    same = {n: all(torch.equal(a, b) for a, b in zip(g, got["incubate"]))
+            for n, g in got.items()}
+    q4, k4, v4, do4 = (torch.randn(2, 1024, H, D, device=dev, generator=gen)
+                       .to(torch.bfloat16) for _ in range(4))
+    res = []
+    for route in ("flash_attn", "sdpa"):
+        leaves = [t.clone().requires_grad_(True) for t in (q4, k4, v4)]
+        reset_launch_counts()
+        if route == "flash_attn":
+            out = op["flash_attn"](*leaves, causal=True)[0]
+        else:
+            out = paddle.nn.functional.scaled_dot_product_attention(
+                *(paddle.Tensor._wrap(t) for t in leaves),
+                is_causal=True)._value
+        grads = torch.autograd.grad(out, leaves, do4)
+        torch.cuda.synchronize()
+        c = launch_counts()
+        res.append(((out.detach(),) + grads,
+                    tuple(c[n] for n in PRETRAIN_KERNELS)))
+    flash_same = all(torch.equal(a, b) for a, b in zip(res[0][0], res[1][0]))
+    ok = all(same.values()) and flash_same and res[0][1] == (1, 1, 1)
+    log(f"registry ops: flash_attn_unpadded and flash_attn_varlen_qkvpacked "
+        f"over {total} packed tokens in {len(lens)} documents (12 heads of "
+        f"64, bf16, causal), forward and backward, bit for bit the incubate "
+        f"function's: {same}, varlen launches 1/1/1 each; flash_attn at "
+        f"[2, 1024, 12, 64] launches {res[0][1]} (fwd, dK/dV, dQ), bit for "
+        f"bit F.scaled_dot_product_attention: {flash_same} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the registry's attention ops disagree")
+    return {"varlen_equal": same, "flash_attn_equal": flash_same,
+            "flash_attn_launches": res[0][1], "documents": len(lens)}
 
 
 def _packed_qkv(x, w, heads):
@@ -2735,13 +3377,42 @@ def _profiled_window(eng, prompts, sampling, label, want, seen_of,
                          f"{seen} on the device, not {want}")
 
 
+# kernel classes of a training step's profile: the first class whose
+# substring a kernel's name holds (elementwise last)
+KERNEL_CLASSES = (
+    ("attention", ("flash_", "varlen_")),
+    ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
+    ("embedding_backward", ("embedding_backward", "indexing_backward",
+                            "compute_grad_weight", "sum_and_scatter")),
+    ("copy_cast", ("direct_copy", "Memcpy", "copy_kernel")),
+    ("optimizer", ("multi_tensor_apply",)),
+    ("layer_norm", ("layer_norm", "LayerNorm")),
+    ("softmax_loss", ("softmax", "nll_loss", "cross_entropy")),
+    ("random", ("distribution", "philox")),
+    ("reduce", ("reduce_kernel",)),
+    ("elementwise", ("elementwise",)),
+)
+
+
+def _device_ms_by_class(prof):
+    """{class: (launches, device ms)} of one profiled step by
+    KERNEL_CLASSES, "other" for the rest."""
+    out = {}
+    for key, (n, us) in prof.items():
+        cls = next((c for c, subs in KERNEL_CLASSES
+                    if any(sub in key for sub in subs)), "other")
+        launches, ms = out.get(cls, (0, 0.0))
+        out[cls] = (launches + n, ms + us / 1e3)
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][1]))
+
+
 def _kernels_a_step(prof, steps):
     """Device kernels (and copies) a step of a profile over ``steps``."""
     return sum(n for n, _ in prof.values()) / steps
 
 
 def phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream, artifact, eager):
+                  stream, artifact, eager, pretrain):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
@@ -2861,9 +3532,21 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
         lambda: eager["model"].generate(eager["prompt"], max_new_tokens=16)),
         1)
     eager["model"].train()
+    pretrain_prof = {}
+    for kind, r in pretrain.items():
+        prof_k = profile_kernels(lambda: r["step"](r["ids"], r["labels"]))
+        ms_k, top_k = summary(prof_k, 1)
+        pretrain_prof[kind] = {
+            "step_device_ms": ms_k,
+            "device_busy": ms_k / r["metrics"]["step_ms_median"],
+            "device_ms_by_class": _device_ms_by_class(prof_k),
+            "top": top_k}
+        log(f"profile: {kind} step device ms by kernel class "
+            f"{pretrain_prof[kind]['device_ms_by_class']}")
     pm = packed["metrics"]
     packed_ms, packed_top = summary(profile_kernels(packed["step"]), 1)
     prof = {
+        "pretrain": pretrain_prof,
         "eager_training_step_device_ms": eager_ms,
         "eager_training_device_busy": eager_ms / em["step_ms_median"],
         "eager_training_top": eager_top,
@@ -4393,9 +5076,10 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    hgmma = phase_device_and_build()
+    hgmma, ptxas = phase_device_and_build()
     kernels, probes = phase_kernels(dev)
     phase_flash_kernels(dev, kernels, probes)
+    phase_flash_d64(dev, kernels, probes)
     phase_varlen_bwd_kernels(dev, kernels, probes)
     serving = phase_serving(dev)
     artifact = phase_artifact(dev, serving)
@@ -4415,13 +5099,16 @@ def main():
     packed = phase_packed_training(dev)
     phase_packed_parity(dev)
     eager = phase_eager(dev)
+    pretrain = {kind: phase_pretrain(dev, kind) for kind in PRETRAIN}
+    phase_registry_ops(dev)
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream, artifact, eager)
+                  stream, artifact, eager, pretrain)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
                "packed_training": packed["counts"],
                "weight_stream": stream["counts"],
                "artifact": artifact["counts"], "eager": eager["counts"]}
+    by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
                         [k]}
@@ -4435,16 +5122,26 @@ def main():
                 "packed_training": packed["metrics"]["launches_per_step"],
                 "artifact": artifact["per_step"],
                 "eager": eager["metrics"]["launches_per_step"]})
+    per_step.update({kind: r["metrics"]["launches_per_step"]
+                     for kind, r in pretrain.items()})
     line = []
     for name, r in kernels.items():
         r = dict(r)
-        paths = [p for p, kset in PATHS.items() if name in kset]
-        r["launches"] = sum(by_path[p][name] for p in paths)
-        r["launches_by_path"] = {p: by_path[p][name] for p in paths}
-        r["launches_per_step"] = {p: per_step[p].get(name)
+        # a D = 64 row counts its model's path; the others every path that
+        # runs their kernel at the shapes they were timed at
+        kernel = r.pop("kernel", name)
+        paths = r.pop("paths", None) or [p for p, kset in PATHS.items()
+                                         if kernel in kset]
+        r["launches"] = sum(by_path[p][kernel] for p in paths)
+        r["launches_by_path"] = {p: by_path[p][kernel] for p in paths}
+        r["launches_per_step"] = {p: per_step[p].get(kernel)
                                   for p in paths}
-        if SASS_SYMBOLS.get(name) in hgmma:
-            r["sass_hgmma"] = hgmma[SASS_SYMBOLS[name]]
+        if SASS_SYMBOLS.get(kernel) in hgmma:
+            r["sass_hgmma"] = hgmma[SASS_SYMBOLS[kernel]]
+        sym = SASS_SYMBOLS.get(kernel, "")
+        regs = {f: v for f, v in ptxas.items() if f.startswith(sym + "<")}
+        if sym and regs:
+            r["ptxas"] = regs
         line.append(r)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -18,7 +18,10 @@ passes it to each layer's call.
 
 ``flash_attn_unpadded`` and ``flash_attn_varlen_qkvpacked`` are the
 packed-sequence entry points, differentiable: their kernel route runs the
-varlen flash-attention forward and its two backward kernels.
+varlen flash-attention forward and its two backward kernels. They take
+torch tensors (the packed trainer's) or eager Tensors, which go through
+the op funnel as the op ``flash_attn_unpadded``. ``flash_attention`` is the
+dense [B, S, H, D] entry over F.scaled_dot_product_attention.
 
 ``fused_rotary_position_embedding`` and ``swiglu`` are eager ops (through
 core/dispatch.py::apply; they take and return Tensors), the eager Llama's
@@ -33,6 +36,7 @@ import torch
 import torch.nn.functional as TF
 
 from ...core.dispatch import apply
+from ...core.tensor import Tensor
 from ...nn import modules as _modules
 from ...ops.kernels import paged_attention as PA
 from ...ops.kernels import rope_append as RA
@@ -43,7 +47,7 @@ from ...ops.kernels.varlen_attention import (segment_ids_from_cu_seqlens,
 
 __all__ = ["swiglu", "fused_rotary_position_embedding",
            "block_multihead_attention", "paged_metadata",
-           "PagedMetadata", "flash_attn_unpadded",
+           "PagedMetadata", "flash_attention", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked"]
 
 
@@ -243,10 +247,28 @@ def block_multihead_attention(qkv, key_cache, value_cache,
     return (out.reshape(T, HQ * D), qkv) + caches
 
 
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None, rng_name="",
+                    training=True, name=None):
+    """Attention of [B, S, H, D] Tensors through
+    F.scaled_dot_product_attention (incubate/nn/functional/__init__.py:
+    184-193): the flash kernels for a CUDA tensor of a kernel shape,
+    dropout inside them. Returns (out, None) whenever ``return_softmax``
+    is not None (False included), as the reference writes it, else out."""
+    from ...nn import functional as F
+
+    out = F.scaled_dot_product_attention(
+        query, key, value, attn_mask=None, dropout_p=dropout,
+        is_causal=causal, training=training)
+    return (out, None) if return_softmax is not None else out
+
+
 def _host_offsets(cu):
     """Cumulative sequence offsets on the host, as int64 numpy (the TPU
-    package reads them with ``.numpy()``): from a list, a numpy array or a
-    tensor on any device."""
+    package reads them with ``.numpy()``): from a list, a numpy array, an
+    eager Tensor or a torch tensor on any device."""
+    if isinstance(cu, Tensor):
+        cu = cu._value
     if isinstance(cu, torch.Tensor):
         cu = cu.detach().cpu().numpy()
     return np.asarray(cu).astype(np.int64)
@@ -279,8 +301,21 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
     keys, ``scale`` (default 1/sqrt(D)) and dropout. The TPU package draws
     its dropout bits from jax.random, which cannot be reproduced: here
     they come from ``generator`` (the default generator of the tensors'
-    device when None), so a seed repeats a draw within the port only."""
+    device when None), so a seed repeats a draw within the port only.
+    Eager Tensors in give a Tensor out, through the op funnel."""
     cq, ck = _host_offsets(cu_seqlens_q), _host_offsets(cu_seqlens_k)
+    if isinstance(query, Tensor):
+        out = apply(lambda q, k, v: _unpadded(
+            q, k, v, cq, ck, scale, dropout, causal, training, generator),
+            query, key, value, op_name="flash_attn_unpadded")
+        return out, None
+    return _unpadded(query, key, value, cq, ck, scale, dropout, causal,
+                     training, generator), None
+
+
+def _unpadded(query, key, value, cq, ck, scale, dropout, causal, training,
+              generator):
+    """flash_attn_unpadded's output on torch tensors."""
     d = int(query.shape[-1])
     if _unpadded_kernel_route(d, cq, ck, scale, dropout, training):
         total = int(query.shape[0])
@@ -295,7 +330,7 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
         o = varlen_flash_attention(packed(query), packed(key),
                                    packed(value), seg, seg,
                                    is_causal=causal)
-        return o[0].transpose(0, 1)[:total], None
+        return o[0].transpose(0, 1)[:total]
 
     s = scale if scale is not None else 1.0 / d ** 0.5
     live_dropout = dropout > 0.0 and training
@@ -320,7 +355,7 @@ def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
                               device=probs.device) < 1.0 - dropout
             probs = probs * keep / (1.0 - dropout)
         outs.append(torch.einsum("hqk,khd->qhd", probs, vs))
-    return torch.cat(outs, dim=0).to(query.dtype), None
+    return torch.cat(outs, dim=0).to(query.dtype)
 
 
 def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,

@@ -1,4 +1,4 @@
 """Models of the ported slices (paddle_tpu/models)."""
-from . import llama
+from . import bert, gpt, llama
 
-__all__ = ["llama"]
+__all__ = ["bert", "gpt", "llama"]

@@ -1,9 +1,14 @@
 """Layers and functional ops (paddle_tpu/nn): the eager Layers, and the
 torch.nn.Module layers the serving model is built of (``nn.modules``)."""
 from . import functional, initializer, modules
-from .layer import (Embedding, Layer, LayerDict, LayerList, Linear,
-                    ParameterList, RMSNorm, Sequential)
+from .layer import (GELU, CrossEntropyLoss, Dropout, Embedding, Layer,
+                    LayerDict, LayerList, LayerNorm, Linear,
+                    MultiHeadAttention, ParameterList, ReLU, RMSNorm,
+                    Sequential, Tanh, TransformerEncoder,
+                    TransformerEncoderLayer)
 
 __all__ = ["functional", "initializer", "modules", "Layer", "Sequential",
            "LayerList", "ParameterList", "LayerDict", "Linear", "Embedding",
-           "RMSNorm"]
+           "Dropout", "LayerNorm", "RMSNorm", "ReLU", "GELU", "Tanh",
+           "CrossEntropyLoss", "MultiHeadAttention",
+           "TransformerEncoderLayer", "TransformerEncoder"]

@@ -2,6 +2,12 @@
 goes through the op funnel (core/dispatch.py::apply) under the reference's
 op name, which the AMP lists key on.
 
+``layer_norm`` computes in f32 and casts back to x's dtype, as the
+reference does, so an O2 model's bf16 activations meet its f32 LayerNorm
+weights. ``dropout`` draws its keep mask from the port's generator of the
+tensor's device (framework/random.py): the reference's jax.random bits
+cannot be reproduced, a seed repeats a draw within the port.
+
 ``linear``, ``rms_norm`` and ``embedding`` run the serving model's raw
 functions (nn/modules.py) inside the funnel. ``rms_norm`` and
 ``scaled_dot_product_attention`` call the kernels' wrappers
@@ -16,12 +22,14 @@ from __future__ import annotations
 import torch
 
 from ...core.dispatch import apply
+from ...core.tensor import Tensor
 from ...framework.random import generator
 from ...ops.kernels import flash_attention as _fa
 from ...ops.math import promote
 from .. import modules as _m
 
-__all__ = ["linear", "rms_norm", "embedding", "cross_entropy",
+__all__ = ["linear", "rms_norm", "layer_norm", "embedding", "relu", "tanh",
+           "gelu", "dropout", "cross_entropy",
            "scaled_dot_product_attention"]
 
 
@@ -41,6 +49,70 @@ def rms_norm(x, weight=None, epsilon=1e-6, name=None):
     """RMSNorm over the last axis (nn/functional/__init__.py:683): the CUDA
     kernel and its gradient kernel for a CUDA tensor."""
     return apply(_m.rms_norm, x, weight, epsilon, op_name="rms_norm")
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    """LayerNorm over the trailing ``normalized_shape`` axes
+    (nn/functional/__init__.py:659-680): x, the weight and the bias in
+    f32, the result cast back to x's dtype."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = (normalized_shape,)
+    shape = tuple(int(n) for n in normalized_shape)
+
+    def fn(a, *wb):
+        it = iter(wb)
+        w = next(it).float() if weight is not None else None
+        b = next(it).float() if bias is not None else None
+        return torch.nn.functional.layer_norm(a.float(), shape, w, b,
+                                              epsilon).to(a.dtype)
+
+    args = [x] + [t for t in (weight, bias) if t is not None]
+    return apply(fn, *args, op_name="layer_norm")
+
+
+def _act(op_name, fn):
+    def op(x, name=None):
+        return apply(fn, x, op_name=op_name)
+    op.__name__ = op_name
+    return op
+
+
+relu = _act("relu", torch.relu)
+tanh = _act("tanh", torch.tanh)
+
+
+def gelu(x, approximate=False, name=None):
+    """GELU: exact (erf) by default, the tanh form with ``approximate``
+    (nn/functional/__init__.py:85)."""
+    form = "tanh" if approximate else "none"
+    return apply(lambda a: torch.nn.functional.gelu(a, approximate=form), x,
+                 op_name="gelu")
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Zero each element with probability ``p`` (along ``axis`` only: one
+    draw shared by the other axes); ``upscale_in_train`` scales the kept
+    ones by 1 / (1 - p). Returns x itself when not training or p is 0
+    (nn/functional/__init__.py:935-951)."""
+    if not training or p == 0.0:
+        return x if isinstance(x, Tensor) else Tensor(x)
+
+    def fn(a):
+        shape = list(a.shape)
+        if axis is not None:
+            axes = axis if isinstance(axis, (list, tuple)) else [axis]
+            keep_axes = [ax % a.dim() for ax in axes]
+            shape = [s if i in keep_axes else 1 for i, s in enumerate(shape)]
+        keep = torch.rand(shape, generator=generator(a.device),
+                          device=a.device) < 1.0 - p
+        zero = torch.zeros((), dtype=a.dtype, device=a.device)
+        if mode == "upscale_in_train":
+            return torch.where(keep, a / (1.0 - p), zero)
+        return torch.where(keep, a, zero)
+
+    return apply(fn, x, op_name="dropout")
 
 
 def embedding(x, weight, padding_idx=None, sparse=False, name=None):
@@ -126,8 +198,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """Attention in the reference layout [B, S, H, D]
     (nn/functional/__init__.py:1332-1347): flash_attention_bshd, whose
     forward and backward are the CUDA flash kernels for a CUDA tensor of a
-    kernel shape. Dropout draws its seed from the port's generator of the
-    query's device."""
+    kernel shape. ``attn_mask`` of the form [B|1, 1, 1, Sk], bool (True
+    attends) or additive, streams through the kernels as their key-padding
+    bias; any other mask (a 2-D [Sq, Sk] one, a generic [B, H, Sq, Sk] one)
+    takes the materialised dense attention, dropout included
+    (ops/pallas/flash_attention.py:633-690). Dropout draws its seed from
+    the port's generator of the query's device."""
     p = dropout_p if training else 0.0
 
     def fn(q, k, v, *m):

@@ -1,6 +1,12 @@
-from .common import Embedding, Linear
+from .activation import GELU, ReLU, Tanh
+from .common import Dropout, Embedding, Linear
 from .layers import Layer, LayerDict, LayerList, ParameterList, Sequential
-from .norm import RMSNorm
+from .loss import CrossEntropyLoss
+from .norm import LayerNorm, RMSNorm
+from .transformer import (MultiHeadAttention, TransformerEncoder,
+                          TransformerEncoderLayer)
 
 __all__ = ["Layer", "Sequential", "LayerList", "ParameterList", "LayerDict",
-           "Linear", "Embedding", "RMSNorm"]
+           "Linear", "Embedding", "Dropout", "LayerNorm", "RMSNorm", "ReLU",
+           "GELU", "Tanh", "CrossEntropyLoss", "MultiHeadAttention",
+           "TransformerEncoderLayer", "TransformerEncoder"]

@@ -1,6 +1,6 @@
-"""Linear and Embedding as eager Layers (paddle_tpu/nn/layer/common.py:
-19-66), with the reference's defaults: a Linear has a bias unless
-``bias_attr=False``."""
+"""Linear, Embedding and Dropout as eager Layers
+(paddle_tpu/nn/layer/common.py:19-84), with the reference's defaults: a
+Linear has a bias unless ``bias_attr=False``."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +9,7 @@ from .. import functional as F
 from ..initializer import XavierNormal
 from .layers import Layer
 
-__all__ = ["Linear", "Embedding"]
+__all__ = ["Linear", "Embedding", "Dropout"]
 
 
 class Linear(Layer):
@@ -58,3 +58,20 @@ class Embedding(Layer):
 
     def extra_repr(self):
         return f"{self._num_embeddings}, {self._embedding_dim}"
+
+
+class Dropout(Layer):
+    """F.dropout while training; the identity in eval mode."""
+
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+    def extra_repr(self):
+        return f"p={self.p}"

@@ -1,0 +1,29 @@
+"""Loss layers (paddle_tpu/nn/layer/loss.py): CrossEntropyLoss over
+F.cross_entropy (f32 arithmetic whatever the logits' dtype)."""
+from __future__ import annotations
+
+from .. import functional as F
+from .layers import Layer
+
+__all__ = ["CrossEntropyLoss"]
+
+
+class CrossEntropyLoss(Layer):
+    def __init__(self, weight=None, ignore_index=-100, reduction="mean",
+                 soft_label=False, axis=-1, use_softmax=True,
+                 label_smoothing=0.0, name=None):
+        super().__init__()
+        self.weight = weight
+        self.ignore_index = ignore_index
+        self.reduction = reduction
+        self.soft_label = soft_label
+        self.axis = axis
+        self.use_softmax = use_softmax
+        self.label_smoothing = label_smoothing
+
+    def forward(self, input, label):
+        return F.cross_entropy(
+            input, label, weight=self.weight, ignore_index=self.ignore_index,
+            reduction=self.reduction, soft_label=self.soft_label,
+            axis=self.axis, use_softmax=self.use_softmax,
+            label_smoothing=self.label_smoothing)

@@ -1,12 +1,44 @@
-"""RMSNorm as an eager Layer (paddle_tpu/nn/layer/norm.py:45-60): routed
-through F.rms_norm to the CUDA RMSNorm kernel for a CUDA tensor."""
+"""Normalization layers as eager Layers (paddle_tpu/nn/layer/norm.py:
+17-60): LayerNorm through F.layer_norm (f32 arithmetic, x's dtype out);
+RMSNorm through F.rms_norm to the CUDA RMSNorm kernel for a CUDA tensor."""
 from __future__ import annotations
 
 from .. import functional as F
 from ..initializer import Constant
 from .layers import Layer
 
-__all__ = ["RMSNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
+
+
+class LayerNorm(Layer):
+    """A weight of ones and a bias of zeros over ``normalized_shape``;
+    ``weight_attr`` / ``bias_attr`` False leave either out."""
+
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        if weight_attr is not False:
+            self.weight = self.create_parameter(
+                self._normalized_shape, attr=weight_attr,
+                default_initializer=Constant(1.0))
+        else:
+            self.weight = None
+        if bias_attr is not False:
+            self.bias = self.create_parameter(
+                self._normalized_shape, attr=bias_attr, is_bias=True)
+        else:
+            self.bias = None
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight,
+                            self.bias, self._epsilon)
+
+    def extra_repr(self):
+        return f"normalized_shape={self._normalized_shape}"
 
 
 class RMSNorm(Layer):

@@ -2,11 +2,12 @@
 kernels (``ops.kernels``).
 
 The ops are patched onto Tensor as methods and operators
-(``patch_tensor_methods``, ops/__init__.py:34), at import time.
+(``patch_tensor_methods``, ops/__init__.py:34), at import time. Importing
+``yaml_extra`` registers the attention ops of the op registry.
 """
 import operator as _operator
 
-from . import kernels, registry
+from . import kernels, registry, yaml_extra
 from .creation import *  # noqa: F401,F403
 from .linalg import *  # noqa: F401,F403
 from .manipulation import *  # noqa: F401,F403
@@ -15,13 +16,14 @@ from .search import *  # noqa: F401,F403
 from . import creation, linalg, manipulation, math, search
 from ..core.tensor import Tensor
 
-__all__ = (["kernels", "registry", "patch_tensor_methods"]
+__all__ = (["kernels", "registry", "yaml_extra", "patch_tensor_methods"]
            + creation.__all__ + linalg.__all__ + manipulation.__all__
            + math.__all__ + search.__all__)
 
 _METHOD_SOURCES = [creation, linalg, manipulation, math, search]
 # names that are not methods of a Tensor
-_SKIP_METHODS = {"to_tensor", "zeros", "ones", "full", "arange", "promote"}
+_SKIP_METHODS = {"to_tensor", "zeros", "ones", "full", "arange", "promote",
+                 "zeros_like"}
 
 
 def patch_tensor_methods():

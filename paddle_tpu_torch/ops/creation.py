@@ -4,11 +4,12 @@ from __future__ import annotations
 
 import torch
 
+from ..core.dispatch import apply
 from ..core.dtype import convert_dtype
 from ..core.place import to_torch_device
 from ..core.tensor import Tensor, to_torch
 
-__all__ = ["to_tensor", "zeros", "ones", "full", "arange"]
+__all__ = ["to_tensor", "zeros", "ones", "full", "arange", "zeros_like"]
 
 
 def _shape(shape):
@@ -62,3 +63,11 @@ def arange(start=0, end=None, step=1, dtype=None, name=None):
                                (start, end, step)) else torch.float32
     return Tensor._wrap(torch.arange(start, end, step, dtype=d,
                                      device=to_torch_device()))
+
+
+def zeros_like(x, dtype=None, name=None):
+    """Zeros of x's shape on x's device, of x's dtype unless given."""
+    d = convert_dtype(dtype)
+    return apply(lambda a: torch.zeros_like(a, dtype=d), x,
+                 op_name="zeros_like", differentiable=False)
+

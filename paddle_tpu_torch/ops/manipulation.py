@@ -1,6 +1,6 @@
 """Shape and indexing ops (paddle_tpu/ops/manipulation.py): the ones the
-eager Llama path and its tests reach; the rest of the op library is
-ROADMAP.md's queue 1, item 10."""
+eager Llama, GPT and BERT paths and their tests reach; the rest of the op
+library is ROADMAP.md's queue 1, item 10."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,7 @@ import torch
 from ..core.dispatch import apply
 from ..core.tensor import Tensor, to_torch
 
-__all__ = ["reshape", "concat", "transpose", "repeat_interleave",
+__all__ = ["reshape", "concat", "transpose", "unsqueeze", "repeat_interleave",
            "take_along_axis", "put_along_axis"]
 
 
@@ -27,6 +27,21 @@ def reshape(x, shape, name=None):
 def transpose(x, perm, name=None):
     p = _ints(perm)
     return apply(lambda a: a.permute(*p), x, op_name="transpose")
+
+
+def unsqueeze(x, axis, name=None):
+    """New axes of size 1 at ``axis`` (an int or a list), inserted in
+    ascending order (ops/manipulation.py:102-110)."""
+    axes = axis if isinstance(axis, (list, tuple)) else [axis]
+    axes = [int(a.item()) if isinstance(a, Tensor) else int(a) for a in axes]
+
+    def fn(a):
+        out = a
+        for ax in sorted(ax if ax >= 0 else ax + out.dim() + 1
+                         for ax in axes):
+            out = out.unsqueeze(ax)
+        return out
+    return apply(fn, x, op_name="unsqueeze")
 
 
 def concat(x, axis=0, name=None):

@@ -42,8 +42,11 @@ def stacked_params_from_paddle_tpu(tree) -> dict:
 
 def load_params_from_paddle_tpu(module, named):
     """Copy the TPU package's parameters (``{name: numpy array}``, names as
-    ``current_params`` gives them) into ``module``'s parameters of the same
-    names, in place; the names and shapes must match. Returns ``module``."""
+    ``current_params`` or ``named_parameters`` give them) into ``module``'s
+    parameters of the same names, in place; the names and shapes must
+    match. ``module`` is a torch module or an eager Layer (the GPT and BERT
+    models carry over so: both packages name their parameters alike and
+    keep Linear weights [in, out]). Returns ``module``."""
     own = dict(module.named_parameters())
     if set(named) != set(own):
         raise KeyError(f"parameter names differ: missing "

@@ -1929,3 +1929,105 @@ def test_eager_functional_launches_kernels_without_plain_fallback(
     with paddle.no_grad():
         F.scaled_dot_product_attention(q[:, :1], k, v, is_causal=False)
     assert launch_counts()["flash_attention_fwd"] == 0
+
+
+# -- the flash kernels at head dim 64 with dropout (GPT-2 / BERT-base) -------
+# The general instantiations (dropout, a key-padding bias) at the models'
+# heads and sequence lengths, a smaller batch: held to the plain versions
+# with the bf16 tolerances above; each call launches each kernel once.
+
+@pytest.mark.parametrize("b,s,causal,bias", [
+    (4, 512, False, False),           # BERT-base: 12 heads of 64, S = 512
+    (4, 512, False, True),            # BERT with a key-padding mask
+    (2, 1024, True, False),           # GPT-2: causal, S = 1024
+])
+def test_flash_kernels_at_head_dim_64_with_dropout(b, s, causal, bias,
+                                                   cuda_device):
+    q, k, v, do, kmask = _flash_inputs(b, 12, s, 64, torch.bfloat16, bias,
+                                       cuda_device, s + b)
+    seed, p = -20260101 + s, 0.1
+    n0 = (FA.launches_fwd, FA.launches_bwd_dkv, FA.launches_bwd_dq)
+    o, lse = FA.forward_with_lse(q, k, v, kmask, seed, causal, p)
+    o2, lse2 = FA._forward_ref(q, k, v, kmask, seed, causal, p)
+    g = FA.backward(q, k, v, kmask, seed, o, lse, do, causal, p)
+    g2 = FA._backward_ref(q, k, v, kmask, seed, o, lse, do, causal, p)
+    again = FA.backward(q, k, v, kmask, seed, o, lse, do, causal, p)
+    torch.cuda.synchronize()
+    assert (FA.launches_fwd, FA.launches_bwd_dkv, FA.launches_bwd_dq) == \
+        (n0[0] + 1, n0[1] + 2, n0[2] + 2)
+    assert all(torch.equal(a, c) for a, c in zip(g, again))
+    assert float((lse - lse2).abs().max()) <= 1e-3
+    tol = _tol(torch.bfloat16)
+    parts = [slice(0, b - 1), slice(b - 1, b)] if bias else [slice(0, b)]
+    for sl in parts:
+        assert _worst_of_tol(o[sl], o2[sl], *tol) <= 1.0
+        for got, ref in zip(g, g2):
+            assert bool(torch.isfinite(got.float()).all())
+            assert _worst_of_tol(got[sl], ref[sl], *tol) <= 1.0
+
+
+def _two_layer(kind):
+    """A 2-layer GPT or BERT at the models' widths (12 heads of 64), bf16
+    under amp.decorate O2, dropout 0.1, small vocabularies."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.models import gpt as TG
+
+    paddle.seed(3)
+    if kind == "gpt":
+        model = TG.GPTForCausalLM(TG.GPTConfig(vocab_size=1024,
+                                               num_hidden_layers=2))
+    else:
+        model = TB.BertForPretraining(TB.BertConfig(vocab_size=1024,
+                                                    num_hidden_layers=2))
+    return paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+
+
+@pytest.mark.parametrize("kind,s", [("gpt", 1024), ("bert", 512)])
+def test_gpt_bert_train_step_launch_counts_on_the_card(kind, s, eager_on,
+                                                       monkeypatch):
+    """TrainStep of a 2-layer O2 bf16 model with dropout 0.1: each step
+    launches the flash forward, dK/dV and dQ kernels once a layer, every
+    one with dropout, with the dense attention made to raise; the losses
+    are finite."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.jit import TrainStep
+
+    def refuse(*a, **k):
+        raise AssertionError("the dense attention ran on the model's path")
+    for name in ("_attention_ref", "_forward_fallback", "_forward_ref",
+                 "_backward_ref"):
+        monkeypatch.setattr(FA, name, refuse)
+    seen = []
+    real = FA._launch_fwd
+
+    def record(q, k, v, kmask, seed, causal, dropout_p):
+        seen.append((dropout_p, q.shape[-1], q.dtype, causal))
+        return real(q, k, v, kmask, seed, causal, dropout_p)
+    monkeypatch.setattr(FA, "_launch_fwd", record)
+    eager_on("gpu:0")
+    model = _two_layer(kind)
+    opt = paddle.optimizer.AdamW(learning_rate=1e-4,
+                                 parameters=model.parameters())
+    if kind == "gpt":
+        step = TrainStep(model, None, opt)
+    else:
+        def mlm(outs, labels):
+            return paddle.nn.functional.cross_entropy(
+                outs[0].reshape([-1, 1024]), labels.reshape([-1]))
+        step = TrainStep(model, mlm, opt)
+    ids = np.random.RandomState(2).randint(0, 1024, (2, s))
+    ids, labels = paddle.to_tensor(ids), paddle.to_tensor(np.roll(ids, -1, 1))
+    losses = []
+    for _ in range(2):
+        reset_launch_counts()
+        seen.clear()
+        losses.append(float(step(ids, labels)))
+        torch.cuda.synchronize()
+        c = launch_counts()
+        assert c["flash_attention_fwd"] == c["flash_attention_bwd_dkv"] \
+            == c["flash_attention_bwd_dq"] == 2
+        assert c["aligned16_copies"] == 0
+        assert seen == [(0.1, 64, torch.bfloat16, kind == "gpt")] * 2
+    assert np.all(np.isfinite(losses))

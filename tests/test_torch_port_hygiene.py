@@ -51,6 +51,9 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference; "
             "import paddle_tpu_torch.utils.convert; "
             "import paddle_tpu_torch.models.llama; "
+            "import paddle_tpu_torch.models.gpt, paddle_tpu_torch.models.bert; "
+            "import paddle_tpu_torch.nn.layer.transformer; "
+            "import paddle_tpu_torch.ops.yaml_extra, paddle_tpu_torch.jit; "
             "import paddle_tpu_torch.distributed.fleet.trainer; "
             "import paddle_tpu_torch.ops.kernels.flash_attention; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
