@@ -164,6 +164,23 @@ Phases, each of which fails the run with a non-zero exit:
      causal), forward and backward, bit for bit the incubate function and
      launching each varlen kernel once; flash_attn through the flash
      kernels, bit for bit F.scaled_dot_product_attention;
+  6e. hybrid parallelism over NCCL: min(cards, 4) ranks spawned, one a
+     card (paddle_tpu_torch.distributed.spawn, start method "spawn"; they
+     load the kernels phase 1 built), each printed with its card. On one
+     card, an NCCL world of one: HybridTrainer over an all-ones mesh, a
+     2-layer bf16 model at the flagship row's width and batch (4 x 4096),
+     3 steps, each held to the training phase's launch counts, its losses,
+     its clip norms and every parameter and moment (gathered) held to
+     HybridTrainer(mesh=None) on the same card, bit for bit or within
+     the stated tolerance (which, is logged). With 2 cards, the same
+     check of a 2-layer f32 model at Llama-2 7B's width over mp 2; with 4
+     over mp 2 x sharding 2, then the Llama-2 7B row (32 layers, bf16,
+     remat, one 4096-token sequence a data rank): one warm-up and 10
+     timed steps (ms, the median of the later 5 and the window's slope,
+     tokens/s a card, share of 989 TF/s, peak memory a card, the host's
+     share of each step) and one profiled step on rank 0 (NCCL kernels'
+     device time against the rest). ``python3 chip_smoke.py --hybrid`` runs the build and this
+     phase alone at worlds 2 and 4;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
@@ -224,7 +241,7 @@ ARTIFACT_KERNELS = ("rms_norm", "paged_attention", "rope_append")
 PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
          "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS,
-         "eager": TRAINING_KERNELS}
+         "eager": TRAINING_KERNELS, "hybrid": TRAINING_KERNELS}
 # the models' attention at head dim 64 (GPT-2 small and BERT-base: 12 heads
 # of 64), dropout 0.1 inside the flash kernels (their general
 # instantiations): the shapes a pretraining step gives them
@@ -313,13 +330,24 @@ def profile_kernels(fn, calls=1):
         torch.cuda.synchronize()
     out = {}
     for evt in prof.key_averages():
-        if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        if not _is_device_kernel_row(evt):
             continue
         us = evt.self_device_time_total
         if us > 0 and "spin_kernel" not in evt.key:
             n, tot = out.get(evt.key, (0, 0.0))
             out[evt.key] = (n + evt.count, tot + us)
     return out
+
+
+def _is_device_kernel_row(evt):
+    """Whether a key_averages row is a device kernel (or copy): a CUDA row
+    that is not a user-annotation range. c10d wraps each collective's
+    kernel in a device range of the same length ("nccl:all_reduce" around
+    ncclDevKernel_AllReduce_...), which would count its time twice."""
+    if not str(getattr(evt, "device_type", "")).endswith("CUDA"):
+        return False
+    return not (getattr(evt, "is_user_annotation", False)
+                or evt.key.startswith("nccl:"))
 
 
 def kernel_device_ms(fn, kernel_symbol, calls=50, kernels=None):
@@ -3379,6 +3407,463 @@ def _profiled_window(eng, prompts, sampling, label, want, seen_of,
 
 # kernel classes of a training step's profile: the first class whose
 # substring a kernel's name holds (elementwise last)
+# ---------------------------------------------------------------------------
+# phase 6e: hybrid parallelism over NCCL (spawned ranks, one a card)
+# ---------------------------------------------------------------------------
+
+HYBRID_SEED = 1234
+HYBRID_LR = 3e-4
+# spawn's limit a world: past it every rank is killed and the run fails
+HYBRID_TIMEOUT_S = {1: 300, 2: 300, 4: 900}
+
+
+def _hybrid_config(width, dtype, layers=None):
+    """The flagship row's widths (bench.py:1965-1969) or Llama-2 7B's
+    (LLAMA_PRESETS["llama2-7b"]), in ``dtype``, at ``layers`` (the preset's
+    depth when None)."""
+    from paddle_tpu_torch.models.llama import LLAMA_PRESETS, LlamaConfig
+
+    base = _flagship_config() if width == "flagship" else \
+        LLAMA_PRESETS["llama2-7b"]
+    over = {"dtype": dtype, "recompute": True}
+    if layers is not None:
+        over["num_hidden_layers"] = layers
+    return LlamaConfig(**{**vars(base), **over})
+
+
+def _hybrid_plan(world):
+    """The jobs of a world: a parity job holds the mesh trainer to
+    HybridTrainer(mesh=None) run by rank 0 on its own card (3 steps, the
+    losses and every parameter and moment); the 7B row times the full model
+    at mp 2 x sharding 2."""
+    if world == 1:
+        # one card: a 2-layer bf16 model at the flagship row's
+        # width and batch, through the mesh path in an NCCL world of one
+        return [dict(kind="parity", name="flagship_2l_bf16_world1",
+                     width="flagship", dtype="bfloat16", layers=2,
+                     mesh={"dp": 1, "pp": 1, "sharding": 1, "sep": 1,
+                           "mp": 1},
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, path=True)]
+    parity = dict(kind="parity", width="llama2-7b", dtype="float32",
+                  layers=2, batch=2, seq=512, path=False)
+    if world == 2:
+        return [dict(parity, name="7b_width_2l_f32_mp2", mesh={"mp": 2})]
+    return [dict(parity, name="7b_width_2l_f32_mp2_sh2",
+                 mesh={"mp": 2, "sharding": 2}),
+            dict(kind="row", name="llama2_7b_mp2_sh2", width="llama2-7b",
+                 dtype="bfloat16", layers=None,
+                 mesh={"mp": 2, "sharding": 2}, seq=4096, steps=10,
+                 path=True)]
+
+
+def _hybrid_batches(cfg, batch, seq, steps, dev, seed=5):
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(steps):
+        ids = rng.randint(0, cfg.vocab_size, (batch, seq))
+        out.append((torch.tensor(ids, device=dev),
+                    torch.tensor(np.roll(ids, -1, axis=1), device=dev)))
+    return out
+
+
+class _GcClock:
+    """Milliseconds the Python garbage collector ran while it is entered."""
+
+    def __enter__(self):
+        import gc
+
+        self.ms, self._t = 0.0, None
+
+        def cb(phase, info):
+            if phase == "start":
+                self._t = time.perf_counter()
+            elif self._t is not None:
+                self.ms += (time.perf_counter() - self._t) * 1e3
+        self._cb = cb
+        gc.callbacks.append(cb)
+        return self
+
+    def __exit__(self, *exc):
+        import gc
+
+        gc.callbacks.remove(self._cb)
+
+
+def _timed_steps(dist, trainer, batches, probe=False):
+    """Each step between a device sync and a barrier: (losses, step ms,
+    launches a step, the clip's norm a step, the host's side of each step:
+    the ms until ``step`` returned (issue_ms; the device has not been
+    waited for yet), the ms the garbage collector took, and the caching
+    allocator's cudaMalloc calls and retries in the step; with ``probe``,
+    also _host_probe's launch time just before the step, untimed)."""
+    from paddle_tpu_torch import launch_counts
+
+    dev = trainer.device
+    losses, step_ms, per_step, norms, host = [], [], [], [], []
+    for ids, labels in batches:
+        launch_us = _host_probe(dev)["launch_us"] if probe else None
+        before = launch_counts()
+        mem0 = torch.cuda.memory_stats(dev)
+        torch.cuda.synchronize()
+        dist.barrier()
+        with _GcClock() as gc_clock:
+            t = time.perf_counter()
+            loss = trainer.step(ids, labels)
+            issue = time.perf_counter()
+            torch.cuda.synchronize()
+            dist.barrier()
+            end = time.perf_counter()
+        mem1 = torch.cuda.memory_stats(dev)
+        step_ms.append((end - t) * 1e3)
+        host.append({"issue_ms": (issue - t) * 1e3, "gc_ms": gc_clock.ms,
+                     "cuda_mallocs": mem1.get("num_device_alloc", 0)
+                     - mem0.get("num_device_alloc", 0),
+                     "alloc_retries": mem1.get("num_alloc_retries", 0)
+                     - mem0.get("num_alloc_retries", 0),
+                     "launch_us_before": launch_us})
+        losses.append(float(loss))
+        norms.append(None if trainer.last_grad_norm is None
+                     else float(trainer.last_grad_norm))
+        per_step.append({k: v - before[k]
+                         for k, v in launch_counts().items()})
+    return losses, step_ms, per_step, norms, host
+
+
+def _training_launches(cfg):
+    L = cfg.num_hidden_layers
+    return {"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+            "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
+            "flash_attention_bwd_dq": L, "aligned16_copies": 0}
+
+
+def _check_launches(per_step, cfg, what):
+    for per in per_step:
+        for name, n in _training_launches(cfg).items():
+            if per[name] != n:
+                raise AssertionError(f"{what}: a step launched {name} "
+                                     f"{per[name]} times, not {n}")
+
+
+def _held_leaf(prefix, got, want, ref_moments):
+    """One gathered leaf of the mesh trainer against the one-card
+    trainer's after 3 steps. The mesh path sums each gradient in another
+    order (over the mp split of its products and the sharding split of
+    the batch), which the moments carry: m and v within 1e-4 of the
+    leaf's largest magnitude at all but 1e-6 of its elements and within
+    1e-3 of it at every element (a near-cancelling sum turns the last
+    bits into a larger share of a small result). A parameter within 1e-4
+    of its largest magnitude plus a tenth of the learning rate at all but
+    1e-5 of its elements, and within three AdamW steps (3 lr) at every
+    element: where a gradient lies within its round-off of eps,
+    m / (sqrt(v) + eps) is not fixed by the gradient (at 7B's width the
+    reference's m and v at the worst element read ~1e-9 and ~1e-17)."""
+    a = want.float()
+    diff = (got.float() - a).abs()
+    scale = 1e-4 * float(a.abs().max())
+    if prefix == "p":
+        tol, share, cap = scale + 0.1 * HYBRID_LR, 1e-5, \
+            scale + 3 * HYBRID_LR
+    else:
+        tol, share, cap = scale, 1e-6, 10 * scale
+    rec = {"ratio": float(diff.max()) / tol,
+           "share_over_tol": float((diff > tol).float().mean())}
+    rec["ok"] = rec["share_over_tol"] <= share and float(diff.max()) <= cap
+    if prefix == "p":
+        at = int(diff.argmax())
+        rec["max_over_lr"] = float(diff.max()) / HYBRID_LR
+        rec["ref_m_v_at_worst"] = [float(t.reshape(-1)[at])
+                                   for t in ref_moments]
+    return rec
+
+
+def _hybrid_parity(job, dist, dev):
+    """The mesh trainer's 3 steps, then (rank 0) HybridTrainer(mesh=None)'s
+    on the same card from the same seed: bit for bit, or (where the mesh
+    path sums in another order) the losses within the training parity
+    phase's 1e-4 relative, the clip's global norm of each step within 1e-5
+    relative, and every parameter and moment gathered leaf by leaf as
+    _held_leaf holds them. The norm is the check that sees a gradient
+    scaled wrongly as a whole (a wrong division by the data ranks, a sum
+    taken twice): the clip (active at this init) and AdamW's m / sqrt(v)
+    cancel such a factor out of the parameters and moments, and the loss
+    is reduced on its own."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.models import llama as TL
+
+    cfg = _hybrid_config(job["width"], job["dtype"], job["layers"])
+    batches = _hybrid_batches(cfg, job["batch"], job["seq"], 3, dev)
+    tr = HybridTrainer(cfg, job["mesh"], learning_rate=HYBRID_LR,
+                       seed=HYBRID_SEED, device=dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    losses, step_ms, per_step, norms, _ = _timed_steps(dist, tr, batches)
+    counts = launch_counts()
+    _check_launches(per_step, cfg, f"hybrid {job['name']}")
+    rank = dist.get_rank()
+    ref = None
+    if rank == 0:
+        ref = HybridTrainer(cfg, learning_rate=HYBRID_LR, seed=HYBRID_SEED,
+                            device=dev)
+        ref_losses, ref_ms, ref_norms = [], [], []
+        for i, lab in batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            ref_losses.append(float(ref.step(i, lab)))
+            ref_ms.append((time.perf_counter() - t) * 1e3)
+            ref_norms.append(float(ref.last_grad_norm))
+    bits, by_leaf = True, {}
+    for prefix, tree in (("p", tr.params), ("m", tr.opt_state["m"]),
+                         ("v", tr.opt_state["v"])):
+        ref_tree = None if ref is None else (
+            ref.params if prefix == "p" else ref.opt_state[prefix])
+        for name, t in TL.leaves(tree).items():
+            full = tr._full(name, t).detach()   # collective: every rank
+            if ref is None:
+                continue
+            want = TL.leaves(ref_tree)[name].detach()
+            bits = bits and torch.equal(full, want)
+            by_leaf[prefix + ":" + name] = _held_leaf(
+                prefix, full, want, None if prefix != "p" else
+                [TL.leaves(ref.opt_state[k])[name] for k in ("m", "v")])
+    out = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
+           "per_step": per_step[-1], "counts": counts, "mesh": job["mesh"]}
+    if ref is not None:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in zip(norms, ref_norms))
+        bits = bits and losses == ref_losses and norms == ref_norms
+        failed = [k for k, v in by_leaf.items() if not v["ok"]]
+        ok = bits or (rel <= 1e-4 and norm_rel <= 1e-5 and not failed)
+        out.update(ref_losses=ref_losses, ref_grad_norms=ref_norms,
+                   ref_step_ms=ref_ms, loss_rel=rel, grad_norm_rel=norm_rel,
+                   bits_equal=bits, ok=ok, by_leaf=by_leaf,
+                   worst_over_tol=max(v["ratio"] for v in by_leaf.values()))
+        log(json.dumps({"hybrid_parity_by_leaf": {job["name"]: by_leaf}}))
+        log(f"hybrid {job['name']}: clip norms {norms} vs one card "
+            f"{ref_norms} (rel {norm_rel:.2e}, tol 1e-5)")
+        if not ok:
+            raise AssertionError(
+                f"hybrid {job['name']}: the mesh path disagrees with "
+                f"HybridTrainer(mesh=None): losses {losses} vs "
+                f"{ref_losses} (rel {rel:.2e}, tol 1e-4); clip norms "
+                f"{norms} vs {ref_norms} (rel {norm_rel:.2e}, tol 1e-5); "
+                f"leaves outside their tolerance: {failed}")
+    del tr, ref
+    torch.cuda.empty_cache()
+    return out
+
+
+def _slope(ys):
+    """The least-squares slope of ``ys`` against their index."""
+    x = np.arange(len(ys), dtype=np.float64)
+    return float(np.polyfit(x, np.asarray(ys, dtype=np.float64), 1)[0])
+
+
+def _host_probe(dev):
+    """How fast this rank's host issues work, as the eager step feels it:
+    microseconds a launch of 2000 in-place adds to a small tensor on the
+    card (host clock, before the sync), beside the cores this process may
+    use and the host's load average."""
+    x = torch.zeros(16, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(2000):
+        x.add_(1)
+    launch_us = (time.perf_counter() - t) / 2000 * 1e6
+    torch.cuda.synchronize()
+    return {"launch_us": launch_us, "cores": len(os.sched_getaffinity(0)),
+            "loadavg": list(os.getloadavg())}
+
+
+def _hybrid_row(job, dist, dev):
+    """Llama-2 7B at full width and depth, bf16, remat, over the mesh: one
+    sequence of ``seq`` tokens a data rank, one warm-up and ``steps``
+    timed steps, then one profiled step (rank 0 profiles; every rank
+    runs it). The rate is quoted at the median of the later half of the
+    timed steps (``steady``), beside the whole window's median and its
+    slope in ms a step, so that a step time that drifts shows."""
+    from paddle_tpu_torch import reset_launch_counts, launch_counts
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+
+    cfg = _hybrid_config(job["width"], job["dtype"], job["layers"])
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr = HybridTrainer(cfg, job["mesh"], learning_rate=HYBRID_LR,
+                       seed=HYBRID_SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    data = tr._data_ranks
+    world = dist.get_world_size()
+    batches = _hybrid_batches(cfg, data, job["seq"], job["steps"] + 2, dev)
+    held = torch.cuda.memory_allocated(dev)
+    probe = _host_probe(dev)
+    warm = float(tr.step(*batches[0]))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, step_ms, per_step, norms, host = _timed_steps(
+        dist, tr, batches[1:-1], probe=True)
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check_launches(per_step, cfg, f"hybrid {job['name']}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"7B losses not finite: {losses}")
+    # one profiled step: NCCL kernels' device time against the rest
+    rank = dist.get_rank()
+    wall = []
+
+    def profiled_step():
+        t = time.perf_counter()
+        tr.step(*batches[-1])
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+
+    torch.cuda.synchronize()
+    dist.barrier()
+    prof = profile_kernels(profiled_step) if rank == 0 else profiled_step()
+    dist.barrier()
+    steady = statistics.median(step_ms[len(step_ms) // 2:])
+    profile_out = None
+    if rank == 0:
+        nccl = {k: v for k, v in prof.items() if "nccl" in k.lower()}
+        nccl_ms = sum(us for _, us in nccl.values()) / 1e3
+        comp_ms = sum(us for k, (_, us) in prof.items()
+                      if k not in nccl) / 1e3
+        top = sorted(((k[:60], n, us / 1e3) for k, (n, us) in
+                      prof.items()), key=lambda r: -r[2])
+        profile_out = {"step_ms_profiled": wall[0],
+                       "nccl_device_ms": nccl_ms,
+                       "nccl_kernels": sum(n for n, _ in nccl.values()),
+                       "compute_device_ms": comp_ms,
+                       "compute_kernels": sum(n for k, (n, _) in
+                                              prof.items() if k not in nccl),
+                       "compute_busy_share_profiled": comp_ms / wall[0],
+                       "compute_device_ms_over_steady_step":
+                       comp_ms / steady,
+                       "nccl_share_of_device_ms":
+                       nccl_ms / max(nccl_ms + comp_ms, 1e-9),
+                       "top": top[:12]}
+    full_params = _full_param_count(cfg)
+    tokens = data * job["seq"]
+    tps_card = tokens / (steady / 1e3) / world
+    fpt = model_flops_per_token(cfg, full_params, job["seq"])
+    out = {"mesh": job["mesh"], "world": world, "data_ranks": data,
+           "tokens_per_step": tokens, "init_s": init_s,
+           "params": full_params, "warmup_loss": warm, "losses": losses,
+           "grad_norms": norms, "step_ms": step_ms,
+           "step_ms_median": statistics.median(step_ms),
+           "step_ms_steady": steady,
+           "step_ms_slope_per_step": _slope(step_ms),
+           "host": host, "host_probe": probe,
+           "issue_ms_over_step_ms": [h["issue_ms"] / s
+                                     for h, s in zip(host, step_ms)],
+           "tokens_per_s_per_card": tps_card,
+           "model_flops_per_token": fpt,
+           "share_of_989_tflops": tps_card * fpt / BF16_OPS_PER_S,
+           "held_before_steps_gb": held / 1e9, "peak_memory_gb": peak / 1e9,
+           "per_step": per_step[-1], "counts": counts,
+           "profile": profile_out}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _full_param_count(cfg):
+    """The parameter count of the whole (unsharded) model."""
+    h, i, v = cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size
+    kvh = cfg.num_key_value_heads * cfg.head_dim
+    layer = 2 * h * h + 2 * h * kvh + 3 * h * i + 2 * h
+    return 2 * v * h + h + cfg.num_hidden_layers * layer
+
+
+def _hybrid_rank(out_dir, plan):
+    """One rank of phase_hybrid (a spawned process): NCCL, its own card,
+    the plan's jobs in order; its results (or its error) to
+    out_dir/rank<r>.json."""
+    import faulthandler
+
+    faulthandler.enable()     # a rank that dies on a signal shows where
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import resolve_device
+
+    dist.init_parallel_env()
+    rank = dist.get_rank()
+    dev = resolve_device(None)
+    res = {"rank": rank, "device": str(dev),
+           "card": torch.cuda.get_device_name(dev),
+           "backend": dist.get_backend()}
+    try:
+        for job in plan:
+            fn = _hybrid_parity if job["kind"] == "parity" else _hybrid_row
+            log(f"hybrid rank {rank}: {job['name']} starts")
+            res[job["name"]] = fn(job, dist, dev)
+            log(f"hybrid rank {rank}: {job['name']} done")
+    finally:
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def phase_hybrid(dev, world=None):
+    """Hybrid parallelism over NCCL: ``world`` (min(cards, 4) when None)
+    ranks spawned one a card, each running _hybrid_plan(world)'s jobs;
+    fails if a rank fails. The parent first lets go of the cached device
+    memory it holds no more, so rank 0 on its card has room."""
+    import gc
+
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.ops.kernels import _build
+
+    world = world or min(torch.cuda.device_count(), 4)
+    plan = _hybrid_plan(world)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"hybrid: world {world}, parent holds "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on {dev}; jobs "
+        f"{[(j['name'], j['mesh']) for j in plan]}")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="hybrid-")
+    t0 = time.perf_counter()
+    try:
+        spawn(_hybrid_rank, args=(out_dir, plan), nprocs=world,
+              backend="nccl", timeout=HYBRID_TIMEOUT_S[world])
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log(f"hybrid: world {world} ran {wall:.1f} s; ranks on " + ", ".join(
+        f"{r['rank']}: {r['device']} {r['card']} ({r['backend']})"
+        for r in ranks))
+    if sorted({r["device"] for r in ranks}) != sorted(
+            f"cuda:{i}" for i in range(world)):
+        raise AssertionError(f"hybrid: ranks did not each take their own "
+                             f"card: {[r['device'] for r in ranks]}")
+    out = {"world": world, "wall_s": wall, "jobs": {}}
+    for job in plan:
+        r0 = ranks[0][job["name"]]
+        mine = {k: v for k, v in r0.items() if k not in ("counts",)}
+        mine["step_ms_by_rank"] = [r[job["name"]]["step_ms"]
+                                   for r in ranks]
+        if job["kind"] == "row":
+            mine["peak_memory_gb_by_rank"] = [
+                r[job["name"]]["peak_memory_gb"] for r in ranks]
+            mine["host_probe_by_rank"] = [
+                r[job["name"]]["host_probe"] for r in ranks]
+        out["jobs"][job["name"]] = mine
+        log(json.dumps({"hybrid": {job["name"]: mine}}))
+        if job["path"]:
+            out["counts"] = r0["counts"]
+            out["launches_per_step"] = r0["per_step"]
+    return out
+
+
 KERNEL_CLASSES = (
     ("attention", ("flash_", "varlen_")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
@@ -5057,6 +5542,27 @@ def _parity_features(dev, m, cfg, prompts, dense, n_new):
         f"{sum(map(len, dense))} tokens equal the f32 pools' streams")
 
 
+def main_hybrid():
+    """``python3 chip_smoke.py --hybrid``: the build, then phase_hybrid at
+    every world of 2 and 4 the host's cards allow (the multi-card run:
+    parity at mp 2 and mp 2 x sharding 2, and the Llama-2 7B row)."""
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    phase_device_and_build()
+    dev = torch.device("cuda", 0)
+    worlds = [w for w in (2, 4) if w <= torch.cuda.device_count()]
+    if not worlds:
+        raise AssertionError("--hybrid needs 2 or more cards")
+    for world in worlds:
+        phase_hybrid(dev, world)
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -5072,6 +5578,8 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == ["--hybrid"]:
+        return main_hybrid()
     dev = paddle_tpu_torch.resolve_device("cuda")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -5101,13 +5609,15 @@ def main():
     eager = phase_eager(dev)
     pretrain = {kind: phase_pretrain(dev, kind) for kind in PRETRAIN}
     phase_registry_ops(dev)
+    hybrid = phase_hybrid(dev)
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
                   stream, artifact, eager, pretrain)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
                "packed_training": packed["counts"],
                "weight_stream": stream["counts"],
-               "artifact": artifact["counts"], "eager": eager["counts"]}
+               "artifact": artifact["counts"], "eager": eager["counts"],
+               "hybrid": hybrid["counts"]}
     by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
@@ -5121,7 +5631,8 @@ def main():
                 "training": training["metrics"]["launches_per_step"],
                 "packed_training": packed["metrics"]["launches_per_step"],
                 "artifact": artifact["per_step"],
-                "eager": eager["metrics"]["launches_per_step"]})
+                "eager": eager["metrics"]["launches_per_step"],
+                "hybrid": hybrid["launches_per_step"]})
     per_step.update({kind: r["metrics"]["launches_per_step"]
                      for kind, r in pretrain.items()})
     line = []

@@ -16,7 +16,10 @@ attention training (incubate.nn.functional.flash_attn_unpadded), and the
 eager (dygraph) surface: Tensor over a torch tensor, the op funnel
 (core.dispatch.apply) with AMP, nn.Layer, the optimizers, recompute, and
 the eager models.llama.LlamaForCausalLM with its training loop and
-generate. The eager surface creates tensors on the default place,
+generate, and hybrid parallelism over torch.distributed (distributed:
+collectives, Fleet, the tensor-parallel layers, ZeRO stage 1, and
+HybridTrainer over a dp x sharding x mp mesh, one process a card). The
+eager surface creates tensors on the default place,
 "gpu:0"; ``set_device("cpu")`` selects the CPU.
 """
 from .core.autograd import (enable_grad, grad, is_grad_enabled, no_grad,

@@ -273,9 +273,12 @@ def _unwrap_index(idx):
 
 class Parameter(Tensor):
     """A trainable leaf Tensor (paddle_tpu/core/tensor.py:412): its
-    ``_value`` is a leaf torch tensor with ``requires_grad = trainable``."""
+    ``_value`` is a leaf torch tensor with ``requires_grad = trainable``.
+    A model-parallel layer's parameter holds this rank's shard and says so
+    (mp_layers.py:_shard_param): ``is_distributed`` True and
+    ``split_axis`` the axis its full array is split on."""
 
-    __slots__ = ()
+    __slots__ = ("is_distributed", "split_axis")
 
     def __init__(self, data, dtype=None, name=None, trainable=True,
                  place=None):
@@ -283,6 +286,8 @@ class Parameter(Tensor):
                          persistable=True)
         self._value = self._value.detach()
         self._value.requires_grad_(bool(trainable))
+        self.is_distributed = False
+        self.split_axis = None
 
     @property
     def trainable(self):

@@ -1,19 +1,42 @@
-"""AdamW trainer over the stacked Llama core, on one device
-(paddle_tpu/distributed/fleet/trainer.py:34-220).
+"""AdamW trainer over the stacked Llama core
+(paddle_tpu/distributed/fleet/trainer.py:34-220), on one card or over a
+dp x sharding x mp mesh of ranks.
 
 The TPU package compiles the whole step into one XLA program over a hybrid
-mesh. Here the step runs eagerly on one card: the loss and its gradient
-through models/llama.py (the flash-attention and RMSNorm kernels on a
-card), then the global-norm clip and AdamW exactly as the TPU package
-writes them: f32 moments, bias correction by the step count t, weight
-decay on every leaf, the update computed in f32 and cast back to the
-parameter's dtype. Parameters and moments are updated in place (the TPU
-package donates its buffers to the same end). A mesh of more than one
-device raises: the hybrid-parallel layouts are not ported yet.
+mesh; its parameters are full arrays with NamedShardings. Here the step
+runs eagerly, and over a mesh each rank is a process (spawn, or a launcher
+and init_parallel_env) holding only its shards (models/llama.py::
+param_specs): the loss and its gradient through models/llama.py (the
+flash-attention and RMSNorm kernels on a card, at H/mp heads), then the
+global-norm clip and AdamW exactly as the TPU package writes them: f32
+moments, bias correction by the step count t, weight decay on every leaf,
+the update computed in f32 and cast back to the parameter's dtype.
+Parameters and moments are updated in place (the TPU package donates its
+buffers to the same end).
+
+Over a mesh:
+
+- ``place_batch``: each data rank (over dp x sharding, dp outer) takes its
+  rows of the global batch, and the loss is the global batch's mean: the
+  gradients are summed over the data ranks (reduce-scattered over
+  'sharding' by the FSDP gathers, all-reduced over 'dp', or over both for a
+  leaf replicated on them) and divided by their count;
+- the clip's norm counts each logical element once: a leaf's sum of
+  squares is summed over the axes it is split on, and the sums are added
+  in the leaves' order, as the one-card step adds them;
+- every mesh starts from the parameters ``HybridTrainer(mesh=None,
+  seed=s)`` draws (each leaf drawn whole on the card, only this rank's
+  shard kept), so any mesh reproduces the one-card run;
+- ``elastic_state`` returns full numpy arrays (gathered; every rank calls
+  it) and ``load_elastic_state`` re-slices them for the current mesh
+  (reshard on load).
+
+A mesh larger than the initialized world raises, and so do, naming
+ROADMAP.md (queue 1, item 5): pp > 1, sep > 1, pipeline micro-batches,
+``overlap_sends`` and ``lower_text`` (there is no HLO).
 """
 from __future__ import annotations
 
-import math
 from typing import Dict, Optional
 
 import numpy as np
@@ -22,13 +45,12 @@ import torch
 from ...models import llama as llama_mod
 from ...ops.kernels import resolve_device
 from ...utils.convert import tensor_from_numpy
+from ..fleet.layers.mpu.mp_ops import all_reduce_live, gather_along
+from ..topology import hcg_for_mesh, mesh_degrees
 
 __all__ = ["HybridTrainer"]
 
-
-def _mesh_size(mesh) -> int:
-    shape = getattr(mesh, "shape", mesh)
-    return math.prod(int(n) for n in dict(shape).values())
+_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item 5)"
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -43,20 +65,32 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 class HybridTrainer:
     """AdamW trainer over the stacked Llama core. Usage:
 
-        trainer = HybridTrainer(config)              # device "cuda"
-        loss = trainer.step(input_ids, labels)       # one step, in place
+        trainer = HybridTrainer(config)              # one card
+        trainer = HybridTrainer(config, mesh)        # each rank of a mesh
+        loss = trainer.step(input_ids, labels)       # global batch, in place
     """
 
     def __init__(self, config, mesh=None, learning_rate=3e-4,
                  weight_decay=0.1, beta1=0.9, beta2=0.95, eps=1e-8,
                  grad_clip_norm: Optional[float] = 1.0, seed: int = 0,
-                 remat: bool = True, device=None):
-        if mesh is not None and _mesh_size(mesh) > 1:
-            raise NotImplementedError(
-                "paddle_tpu_torch: HybridTrainer runs on one device; a mesh "
-                "of more than one device is not ported yet")
+                 remat: bool = True,
+                 pipeline_micro_batches: Optional[int] = None,
+                 overlap_sends: bool = False, device=None):
+        if pipeline_micro_batches is not None and pipeline_micro_batches > 1:
+            raise NotImplementedError(f"pipeline micro-batches {_NOT_PORTED}")
+        if overlap_sends:
+            raise NotImplementedError(f"overlap_sends {_NOT_PORTED}")
         self.config = config
         self.mesh = mesh
+        self.hcg = None
+        if mesh is not None:
+            degrees = mesh_degrees(mesh)
+            if degrees["pp"] > 1:
+                raise NotImplementedError(
+                    f"pipeline parallelism over 'pp' {_NOT_PORTED}")
+            llama_mod._check_mesh(degrees)
+            self._check_divides(config, degrees)
+            self.hcg = hcg_for_mesh(degrees)
         self.device = resolve_device(device)
         self.lr = learning_rate
         self.wd = weight_decay
@@ -64,13 +98,30 @@ class HybridTrainer:
         self.eps = eps
         self.clip = grad_clip_norm
         self.remat = remat
-        self.params = llama_mod.init_stacked_params(config, seed=seed,
-                                                    device=self.device)
+        self.params = llama_mod.init_stacked_params(
+            config, seed=seed, device=self.device, hcg=self.hcg)
         for t in llama_mod.leaves(self.params).values():
             t.requires_grad_(True)
         self.opt_state = {
             "m": self._zeros_like_params(), "v": self._zeros_like_params()}
         self.step_count = 0
+        self.last_grad_norm = None
+        if self.hcg is not None:
+            self._specs = llama_mod.leaves(llama_mod.param_specs(config))
+            self._data_ranks = (self.hcg.get_data_parallel_world_size()
+                                * self.hcg.get_sharding_parallel_world_size())
+
+    @staticmethod
+    def _check_divides(config, degrees):
+        mp, sh = degrees["mp"], degrees["sharding"]
+        need = {"num_attention_heads": mp, "num_key_value_heads": mp,
+                "intermediate_size": mp, "vocab_size": mp,
+                "hidden_size": sh}
+        for name, n in need.items():
+            if getattr(config, name) % n:
+                raise ValueError(f"{name}={getattr(config, name)} does not "
+                                 f"split over {n} ranks of the mesh "
+                                 f"{degrees}")
 
     def _zeros_like_params(self):
         def walk(tree):
@@ -84,22 +135,55 @@ class HybridTrainer:
         return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x)
                                else x, device=self.device).long()
 
-    def step(self, input_ids, labels):
-        """One AdamW step; returns the loss (a 0-d f32 tensor on the
-        device, computed before the update)."""
+    def place_batch(self, input_ids, labels):
+        """This rank's rows of the global batch (all of it on one card):
+        data rank dp_rank * sharding + sharding_rank of dp x sharding."""
         ids, labs = self._batch(input_ids), self._batch(labels)
+        if self.hcg is None:
+            return ids, labs
+        n = self._data_ranks
+        if ids.shape[0] % n:
+            raise ValueError(f"batch {ids.shape[0]} does not split over "
+                             f"{n} data ranks (dp x sharding)")
+        r = (self.hcg.get_data_parallel_rank()
+             * self.hcg.get_sharding_parallel_world_size()
+             + self.hcg.get_sharding_parallel_rank())
+        rows = ids.shape[0] // n
+        return ids[r * rows:(r + 1) * rows], labs[r * rows:(r + 1) * rows]
+
+    def _groups_of(self, name):
+        """The groups a leaf's gradient and sum of squares are split over,
+        and those its gradient is summed over beyond the FSDP gathers."""
+        spec, hcg = self._specs[name], self.hcg
+        split = [hcg.get_group(a) for a in ("sharding", "mp") if a in spec]
+        data = hcg.get_group("dp") if "sharding" in spec else \
+            hcg.get_group("dp", "sharding")
+        return split, data
+
+    def step(self, input_ids, labels):
+        """One AdamW step on the global batch; returns its loss (a 0-d f32
+        tensor on the device, computed before the update)."""
+        ids, labs = self.place_batch(input_ids, labels)
         self.step_count += 1
         names = list(llama_mod.leaves(self.params))
         params = llama_mod.leaves(self.params)
         loss = llama_mod.loss_fn_stacked(self.params, (ids, labs),
                                          self.config, remat=self.remat,
-                                         mesh=self.mesh)
+                                         mesh=self.mesh, hcg=self.hcg)
         grads = torch.autograd.grad(loss, [params[n] for n in names])
         grads = [g.float() for g in grads]
+        loss = loss.detach()
         b1, b2 = self.betas
         with torch.no_grad():
+            if self.hcg is not None:
+                self._reduce_over_data(names, grads)
+                all_reduce_live(loss, self.hcg.get_group("dp", "sharding"))
+                if self._data_ranks > 1:
+                    loss /= self._data_ranks
             if self.clip is not None:
-                gnorm = torch.sqrt(sum(g.square().sum() for g in grads))
+                gnorm = torch.sqrt(sum(self._squares(names, grads)))
+                # the global gradient norm before the clip, for callers
+                self.last_grad_norm = gnorm
                 scale = torch.clamp(
                     self.clip / torch.clamp(gnorm, min=1e-12), max=1.0)
                 for g in grads:
@@ -119,29 +203,72 @@ class HybridTrainer:
                 upd = (m / bc1) / (torch.sqrt(v / bc2) + self.eps) \
                     + self.wd * pf
                 p.copy_((pf - lr * upd).to(p.dtype))
-        return loss.detach()
+        return loss
+
+    def _reduce_over_data(self, names, grads):
+        """Each gradient summed over the data ranks, then divided by their
+        count: the gradient of the global batch's mean loss."""
+        for name, g in zip(names, grads):
+            all_reduce_live(g, self._groups_of(name)[1])
+            if self._data_ranks > 1:
+                g.div_(self._data_ranks)
+
+    def _squares(self, names, grads):
+        """Each leaf's sum of squares, summed over the axes it is split
+        on: one entry a logical leaf, in the leaves' order."""
+        out = []
+        for name, g in zip(names, grads):
+            sq = g.square().sum()
+            if self.hcg is not None:
+                for group in self._groups_of(name)[0]:
+                    all_reduce_live(sq, group)
+            out.append(sq)
+        return out
 
     # -- elastic supervisor wiring ----------------------------------------
+    def _full(self, name, t):
+        """The whole leaf from every rank's shard (collective)."""
+        if self.hcg is None:
+            return t
+        spec = self._specs[name]
+        for axis in ("sharding", "mp"):
+            if axis in spec:
+                t = gather_along(t.detach(), self.hcg.get_group(axis),
+                                 spec.index(axis))
+        return t
+
     def elastic_state(self) -> Dict[str, np.ndarray]:
         """Flat host-side state (params + Adam moments + step) under the
-        TPU package's keys ("p:['blocks']['wq']", ...), so either trainer
-        loads the other's."""
+        TPU package's keys ("p:['blocks']['wq']", ...), full arrays on
+        every rank (over a mesh every rank must call it), so either
+        package's trainer, on any mesh, loads it."""
         d = {}
         for prefix, tree in (("p:", self.params),
                              ("m:", self.opt_state["m"]),
                              ("v:", self.opt_state["v"])):
             for name, t in llama_mod.leaves(tree).items():
-                d[prefix + name] = _to_numpy(t)
+                d[prefix + name] = _to_numpy(self._full(name, t))
         d["step"] = np.asarray(self.step_count, np.int64)
         return d
 
     def load_elastic_state(self, state: Dict[str, np.ndarray]):
-        """Restore from ``elastic_state()`` output of either package, each
-        leaf cast to its current dtype on this trainer's device."""
+        """Restore from ``elastic_state()`` output of either package, taken
+        on any mesh: each full leaf re-sliced for this rank and cast to
+        its current dtype on this trainer's device."""
+        layout = None if self.hcg is None else self.hcg.layout()
         with torch.no_grad():
             for prefix, tree in (("p:", self.params),
                                  ("m:", self.opt_state["m"]),
                                  ("v:", self.opt_state["v"])):
                 for name, t in llama_mod.leaves(tree).items():
-                    t.copy_(tensor_from_numpy(state[prefix + name]))
+                    full = tensor_from_numpy(state[prefix + name])
+                    if layout is not None:
+                        full = llama_mod.shard_leaf(full, self._specs[name],
+                                                    layout)
+                    t.copy_(full)
         self.step_count = int(np.asarray(state["step"]))
+
+    def lower_text(self, batch_shape):
+        raise NotImplementedError(
+            "paddle_tpu_torch: lower_text belongs to the compile tier; the "
+            "eager step has no HLO (ROADMAP.md, queue 1, item 9)")

@@ -1,0 +1,84 @@
+"""Hybrid-parallel model wrappers (paddle_tpu/distributed/meta_parallel/
+engines.py; reference fleet/meta_parallel/tensor_parallel.py,
+sharding_parallel.py).
+
+In the TPU package one process holds every array, so its wrappers have
+nothing to synchronize. Here each rank starts from its own copy, and the
+wrapper makes the copies agree before training: TensorParallel broadcasts
+every parameter over the data-parallel and sharding groups from their
+first rank, and the replicated (not ``is_distributed``) ones over the
+model-parallel group from its first rank; ShardingParallel broadcasts over
+the sharding group. The segment (sep) engine is not ported (ROADMAP.md,
+queue 1, item 5).
+"""
+from __future__ import annotations
+
+from ...nn.layer.layers import Layer
+from .. import collective
+from ..fleet.layers.mpu.mp_ops import _live
+
+__all__ = ["MetaParallelBase", "TensorParallel", "ShardingParallel"]
+
+
+def _broadcast_params(params, group):
+    if group is None or group.nranks <= 1 or not _live(group):
+        return
+    for p in params:
+        collective.broadcast(p, src=group.ranks[0], group=group)
+
+
+class MetaParallelBase(Layer):
+    def __init__(self, layers, hcg, strategy=None):
+        super().__init__()
+        self._layers = layers
+        self._hcg = hcg
+        self._strategy = strategy
+        self._prepare_for_model()
+
+    def _prepare_for_model(self):
+        pass
+
+    def forward(self, *inputs, **kwargs):
+        return self._layers(*inputs, **kwargs)
+
+    def state_dict(self, *args, **kwargs):
+        return self._layers.state_dict(*args, **kwargs)
+
+    def set_state_dict(self, state_dict, *args, **kwargs):
+        return self._layers.set_state_dict(state_dict, *args, **kwargs)
+
+    def parameters(self, *args, **kwargs):
+        return self._layers.parameters(*args, **kwargs)
+
+    def named_parameters(self, *args, **kwargs):
+        return self._layers.named_parameters(*args, **kwargs)
+
+    def sublayers(self, include_self=False):
+        return self._layers.sublayers(include_self)
+
+    def train(self):
+        self._layers.train()
+        return self
+
+    def eval(self):
+        self._layers.eval()
+        return self
+
+
+class TensorParallel(MetaParallelBase):
+    def _prepare_for_model(self):
+        params = list(self._layers.parameters())
+        _broadcast_params(params, self._hcg.get_data_parallel_group())
+        _broadcast_params(params, self._hcg.get_sharding_parallel_group())
+        _broadcast_params(
+            [p for p in params if not getattr(p, "is_distributed", False)],
+            self._hcg.get_model_parallel_group())
+
+
+class ShardingParallel(MetaParallelBase):
+    """Model wrapper for a sharding-only topology: the optimizer
+    (sharding_optimizer.py) partitions the state."""
+
+    def _prepare_for_model(self):
+        _broadcast_params(list(self._layers.parameters()),
+                          self._hcg.get_sharding_parallel_group())

@@ -22,9 +22,19 @@ first projection on (bf16 times f32 promotes), and under
 ``amp.auto_cast("O1", "bfloat16")`` the projections and attention run in
 bf16 and RMSNorm and the loss in f32.
 
-Not ported here: ring attention over a 'sep' mesh axis, the model-parallel
-layers (no model-parallel group exists in the port yet) and
-``generate_static`` (the compile tier).
+Over a mesh (``loss_fn_stacked(..., hcg=)``, HybridTrainer's path) each
+rank holds the shards ``param_specs`` gives it (llama.py:426-449) and the
+trunk runs Megatron's tensor parallelism over 'mp' and FSDP over
+'sharding' (``_Par``): the vocab-parallel lookup, each layer's leaves
+all-gathered over 'sharding' inside the remat'd block (so recomputation
+gathers again, and the gradients come back reduce-scattered), attention at
+H/mp heads through the same flash kernels, ``wo`` and ``w_down`` summed
+over 'mp', and a vocab-parallel LSE loss with the reference's stop-gradient
+max. Under fleet.init with mp > 1 the eager model builds the
+tensor-parallel layers, as the reference's does (llama.py:118-122).
+
+Not ported here: ring attention over a 'sep' mesh axis, pipeline stages
+over 'pp', and ``generate_static`` (the compile tier).
 """
 from __future__ import annotations
 
@@ -45,6 +55,7 @@ from ..ops.kernels import rms_norm as rn
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "init_stacked_params",
            "forward_stacked", "loss_fn_stacked", "num_params",
+           "param_specs", "shard_leaf",
            "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
            "LlamaForCausalLM"]
 
@@ -102,12 +113,20 @@ def _torch_dtype(name):
 
 
 def init_stacked_params(config: LlamaConfig, seed: int = 0,
-                        device=None) -> Dict[str, Any]:
+                        device=None, hcg=None) -> Dict[str, Any]:
     """The stacked-parameter dict (llama.py:392-423): normal weights scaled
     by 1/sqrt(fan_in) (embeddings 0.02) in the model dtype, norm weights
     ones in f32. Drawn on ``device`` from a generator seeded with ``seed``
-    (the numbers differ from the TPU package's jax.random ones)."""
+    (the numbers differ from the TPU package's jax.random ones). With a
+    hybrid group ``hcg`` each leaf is drawn whole, in the same order, and
+    only this rank's shard (``param_specs``) is kept before the next is
+    drawn: every mesh starts from the parameters of one process."""
     dev = resolve_device(device)
+    specs = layout = None
+    if hcg is not None:
+        from ..distributed.topology import rank_layout
+
+        specs, layout = leaves(param_specs(config)), rank_layout(hcg)
     d = _torch_dtype(config.dtype)
     h, i, v = config.hidden_size, config.intermediate_size, config.vocab_size
     kvh = config.num_key_value_heads * config.head_dim
@@ -124,21 +143,29 @@ def init_stacked_params(config: LlamaConfig, seed: int = 0,
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=dev)
 
+    def keep(name, t):
+        """``t`` whole, or its shard on this rank (before the next draw)."""
+        return t if specs is None else shard_leaf(t, specs[name], layout)
+
+    def block(key, t):
+        return keep(f"['blocks']['{key}']", t)
+
+    # drawn in this order from one generator, whatever the mesh
     return {
-        "embed": norm_init((v, h), scale=0.02),
+        "embed": keep("['embed']", norm_init((v, h), scale=0.02)),
         "blocks": {
-            "wq": norm_init((L, h, h)),
-            "wk": norm_init((L, h, kvh)),
-            "wv": norm_init((L, h, kvh)),
-            "wo": norm_init((L, h, h)),
-            "w_gate": norm_init((L, h, i)),
-            "w_up": norm_init((L, h, i)),
-            "w_down": norm_init((L, i, h)),
-            "ln_attn": ones(L, h),
-            "ln_mlp": ones(L, h),
+            "wq": block("wq", norm_init((L, h, h))),
+            "wk": block("wk", norm_init((L, h, kvh))),
+            "wv": block("wv", norm_init((L, h, kvh))),
+            "wo": block("wo", norm_init((L, h, h))),
+            "w_gate": block("w_gate", norm_init((L, h, i))),
+            "w_up": block("w_up", norm_init((L, h, i))),
+            "w_down": block("w_down", norm_init((L, i, h))),
+            "ln_attn": block("ln_attn", ones(L, h)),
+            "ln_mlp": block("ln_mlp", ones(L, h)),
         },
-        "final_norm": ones(h),
-        "lm_head": norm_init((h, v)),
+        "final_norm": keep("['final_norm']", ones(h)),
+        "lm_head": keep("['lm_head']", norm_init((h, v))),
     }
 
 
@@ -163,6 +190,92 @@ def num_params(params) -> int:
     return sum(t.numel() for t in leaves(params).values())
 
 
+def param_specs(config: LlamaConfig) -> Dict[str, Any]:
+    """Each leaf's split over the mesh axes (llama.py:426-449), a tuple of
+    one axis name or None a dimension: the stack axis on 'pp', the head and
+    FFN dimension on 'mp', the other large one on 'sharding' (FSDP), the
+    embedding's vocabulary on 'mp'; the norm weights replicated."""
+    fsdp = "sharding"
+    col, row = ("pp", fsdp, "mp"), ("pp", "mp", fsdp)
+    return {
+        "embed": ("mp", None),
+        "blocks": {"wq": col, "wk": col, "wv": col, "wo": row,
+                   "w_gate": col, "w_up": col, "w_down": row,
+                   "ln_attn": ("pp", None), "ln_mlp": ("pp", None)},
+        "final_norm": (None,),
+        "lm_head": (fsdp, "mp"),
+    }
+
+
+def shard_leaf(t: torch.Tensor, spec, layout) -> torch.Tensor:
+    """This rank's piece of the full leaf ``t`` under ``spec`` (a tuple of
+    axis names or None, one a dimension); ``layout`` (a
+    distributed.topology.RankLayout, as ``rank_layout`` gives it) holds
+    each axis's degree and this rank's coordinate on it."""
+    for dim, axis in enumerate(spec):
+        n = layout.degrees[axis] if axis else 1
+        if n > 1:
+            if t.shape[dim] % n:
+                raise ValueError(f"dimension {dim} of a {tuple(t.shape)} "
+                                 f"leaf does not split over {axis}={n}")
+            t = t.chunk(n, dim=dim)[layout.coords[axis]]
+    return t.contiguous()
+
+
+class _Par:
+    """The stacked core's collectives over one rank's shards: Megatron's
+    tensor parallelism over 'mp' and FSDP gathers over 'sharding'
+    (distributed/fleet/layers/mpu/mp_ops.py,
+    distributed/meta_parallel/sharding_optimizer.py). With a hybrid group of
+    one rank each collective runs over its one-rank group."""
+
+    def __init__(self, hcg, config: LlamaConfig):
+        from ..distributed.fleet.layers.mpu import mp_ops
+        from ..distributed.meta_parallel import sharding_optimizer as so
+
+        self.ops, self.gather_leaf = mp_ops, so._gather_leaf
+        self.mp = hcg.get_model_parallel_group()
+        self.sharding = hcg.get_sharding_parallel_group()
+        self.mp_size = hcg.get_model_parallel_world_size()
+        self.mp_rank = hcg.get_model_parallel_rank()
+        specs = param_specs(config)["blocks"]
+        # the dimension of a layer's leaf that 'sharding' splits
+        self.block_dims = {k: v.index("sharding") - 1
+                           for k, v in specs.items() if "sharding" in v}
+
+    def gather_block(self, p):
+        """A layer's leaves whole over 'sharding' (still split on 'mp')."""
+        return {k: (self.gather_leaf(v, self.sharding, self.block_dims[k])
+                    if k in self.block_dims else v) for k, v in p.items()}
+
+    def enter(self, x):
+        """Identity forward; the gradient summed over 'mp'."""
+        return self.ops._CIdentity.apply(x, self.mp)
+
+    def reduce(self, x):
+        """The partial products summed over 'mp'."""
+        return self.ops._MpAllreduce.apply(x, self.mp)
+
+    def embed(self, table, ids):
+        """The vocab-parallel lookup: this rank's rows, zeros elsewhere,
+        summed over 'mp' (indexed as ``_trunk`` indexes the whole table,
+        so that its gradient sums in the same order)."""
+        per = table.shape[0]
+        local = ids - self.mp_rank * per
+        outside = (local < 0) | (local >= per)
+        x = table[local.masked_fill(outside, 0)]
+        return self.reduce(x.masked_fill(outside[..., None], 0))
+
+    def head_loss(self, params, h, labels, config: LlamaConfig):
+        """_head_loss over vocab-sharded logits (the stop-gradient max, the
+        sum of exponentials and the picked logit reduced over 'mp')."""
+        h = self.enter(rn.rms_norm(h, params["final_norm"],
+                                   config.rms_norm_eps))
+        w = self.gather_leaf(params["lm_head"], self.sharding, 0)
+        return self.ops.vocab_parallel_nll(h.float() @ w.float(), labels,
+                                           self.mp, self.mp_rank).mean()
+
+
 def _rope(q, k, theta):
     """Rotary embedding on rotating halves (llama.py:452-468)."""
     _, s, _, hd = q.shape
@@ -182,12 +295,16 @@ def _rope(q, k, theta):
     return rot(q), rot(k)
 
 
-def _qkv(p, x, config: LlamaConfig):
-    """RMSNorm -> q, k, v projections -> RoPE -> GQA repeat, [B, S, H, D]."""
-    nh, kvh, hd = (config.num_attention_heads, config.num_key_value_heads,
-                   config.head_dim)
+def _qkv(p, x, config: LlamaConfig, par: Optional[_Par] = None):
+    """RMSNorm -> q, k, v projections -> RoPE -> GQA repeat, [B, S, H, D]
+    (H/mp heads a rank over a mesh)."""
+    tp = par.mp_size if par is not None else 1
+    nh, kvh, hd = (config.num_attention_heads // tp,
+                   config.num_key_value_heads // tp, config.head_dim)
     b, s, _ = x.shape
     hx = rn.rms_norm(x, p["ln_attn"], config.rms_norm_eps)
+    if par is not None:
+        hx = par.enter(hx)
     q = (hx @ p["wq"]).reshape(b, s, nh, hd)
     k = (hx @ p["wk"]).reshape(b, s, kvh, hd)
     v = (hx @ p["wv"]).reshape(b, s, kvh, hd)
@@ -199,20 +316,30 @@ def _qkv(p, x, config: LlamaConfig):
     return q, k, v
 
 
-def _after_attn(p, x, attn, config: LlamaConfig):
-    """Output projection + residual, then the swiglu MLP + residual."""
-    b, s, h = x.shape
-    x = x + attn.reshape(b, s, h) @ p["wo"]
+def _after_attn(p, x, attn, config: LlamaConfig,
+                par: Optional[_Par] = None):
+    """Output projection + residual, then the swiglu MLP + residual (the
+    row-parallel products summed over 'mp' over a mesh)."""
+    b, s, _ = x.shape
+    out = attn.reshape(b, s, -1) @ p["wo"]
+    x = x + (out if par is None else par.reduce(out))
     hx = rn.rms_norm(x, p["ln_mlp"], config.rms_norm_eps)
+    if par is not None:
+        hx = par.enter(hx)
     gated = torch.nn.functional.silu(hx @ p["w_gate"]) * (hx @ p["w_up"])
-    return x + gated @ p["w_down"]
+    out = gated @ p["w_down"]
+    return x + (out if par is None else par.reduce(out))
 
 
-def _block(p, x, config: LlamaConfig):
-    """One decoder block (llama.py:471-518)."""
-    q, k, v = _qkv(p, x, config)
+def _block(p, x, config: LlamaConfig, par: Optional[_Par] = None):
+    """One decoder block (llama.py:471-518); over a mesh its leaves are
+    gathered over 'sharding' first (inside the remat'd region, so the
+    recomputation gathers them again)."""
+    if par is not None:
+        p = par.gather_block(p)
+    q, k, v = _qkv(p, x, config, par)
     attn = fa.flash_attention_bshd(q, k, v, is_causal=True)
-    return _after_attn(p, x, attn, config)
+    return _after_attn(p, x, attn, config, par)
 
 
 class _SavedAttention(torch.autograd.Function):
@@ -272,14 +399,20 @@ def _check_mesh(mesh):
     if dict(shape).get("sep", 1) > 1:
         raise NotImplementedError(
             "paddle_tpu_torch: ring attention over a 'sep' mesh axis is "
-            "not ported yet")
+            "not ported yet (ROADMAP.md, queue 1, item 5)")
 
 
 def _trunk(params, input_ids, config: LlamaConfig, remat: bool = True,
-           mesh=None):
-    """Embedding -> the blocks in order (llama.py:521-544)."""
+           mesh=None, par: Optional[_Par] = None):
+    """Embedding -> the blocks in order (llama.py:521-544); with ``par``
+    (a hybrid group's collectives), on this rank's shards."""
     _check_mesh(mesh)
-    x = params["embed"][input_ids]
+    if par is not None and config.remat_policy == "save_attn":
+        raise NotImplementedError(
+            "paddle_tpu_torch: remat_policy='save_attn' over a mesh is not "
+            "ported (ROADMAP.md, queue 1, item 5); use 'full'")
+    x = params["embed"][input_ids] if par is None else \
+        par.embed(params["embed"], input_ids)
     if config.dtype == "bfloat16":
         x = x.to(torch.bfloat16)
     blocks = params["blocks"]
@@ -289,11 +422,11 @@ def _trunk(params, input_ids, config: LlamaConfig, remat: bool = True,
     for vals in per_layer:
         p = dict(zip(_BLOCK_KEYS, vals))
         if not remat:
-            x = _block(p, x, config)
+            x = _block(p, x, config, par)
         elif config.remat_policy == "save_attn":
             x = _block_save_attn(p, x, config)
         else:
-            x = checkpoint(_block, p, x, config, use_reentrant=False)
+            x = checkpoint(_block, p, x, config, par, use_reentrant=False)
     return x
 
 
@@ -318,12 +451,16 @@ def _head_loss(params, h, labels, config: LlamaConfig):
 
 
 def loss_fn_stacked(params, batch, config: LlamaConfig, remat: bool = True,
-                    mesh=None):
+                    mesh=None, hcg=None):
     """Next-token LM loss; batch = (input_ids [B, S], labels [B, S])
-    (llama.py:570-576). A mesh with a 'sep' axis > 1 raises: ring
-    attention is not ported yet."""
+    (llama.py:570-576). With a hybrid group ``hcg``, ``params`` are this
+    rank's shards, ``batch`` its rows, and the loss their mean. A mesh with
+    a 'sep' axis > 1 raises: ring attention is not ported yet."""
     input_ids, labels = batch
-    x = _trunk(params, input_ids, config, remat, mesh=mesh)
+    par = None if hcg is None else _Par(hcg, config)
+    x = _trunk(params, input_ids, config, remat, mesh=mesh, par=par)
+    if par is not None:
+        return par.head_loss(params, x, labels, config)
     return _head_loss(params, x, labels, config)
 
 
@@ -331,11 +468,14 @@ def loss_fn_stacked(params, batch, config: LlamaConfig, remat: bool = True,
 # the eager nn.Layer model (llama.py:129-385)
 # ---------------------------------------------------------------------------
 
-def _mp_active():
-    """Whether a model-parallel group is active: never yet, since the port
-    has no fleet topology (ROADMAP.md, queue 1, item 5); the eager model
-    builds plain Linear and Embedding layers."""
-    return False
+def _mp_degree():
+    """The hybrid group's (fleet.init) model-parallel degree, 1 without
+    one (llama.py:118-122): above 1 the eager model builds the
+    tensor-parallel layers, each rank holding its shard."""
+    from ..distributed.topology import get_hybrid_communicate_group
+
+    hcg = get_hybrid_communicate_group()
+    return 1 if hcg is None else hcg.get_model_parallel_world_size()
 
 
 class LlamaAttention(nn.Layer):
@@ -344,20 +484,34 @@ class LlamaAttention(nn.Layer):
         self.config = config
         h = config.hidden_size
         kvh = config.num_key_value_heads * config.head_dim
-        self.q_proj = nn.Linear(h, h, bias_attr=False)
-        self.k_proj = nn.Linear(h, kvh, bias_attr=False)
-        self.v_proj = nn.Linear(h, kvh, bias_attr=False)
-        self.o_proj = nn.Linear(h, h, bias_attr=False)
+        # under mp, each rank holds the columns of its H/mp heads
+        self.mp = _mp_degree()
+        if self.mp > 1:
+            from ..distributed.meta_parallel import (ColumnParallelLinear,
+                                                     RowParallelLinear)
+
+            self.q_proj = ColumnParallelLinear(h, h, has_bias=False,
+                                               gather_output=False)
+            self.k_proj = ColumnParallelLinear(h, kvh, has_bias=False,
+                                               gather_output=False)
+            self.v_proj = ColumnParallelLinear(h, kvh, has_bias=False,
+                                               gather_output=False)
+            self.o_proj = RowParallelLinear(h, h, has_bias=False,
+                                            input_is_parallel=True)
+        else:
+            self.q_proj = nn.Linear(h, h, bias_attr=False)
+            self.k_proj = nn.Linear(h, kvh, bias_attr=False)
+            self.v_proj = nn.Linear(h, kvh, bias_attr=False)
+            self.o_proj = nn.Linear(h, h, bias_attr=False)
 
     def forward(self, x, kv_cache=None, position_offset=0):
         cfg = self.config
         b, s = x.shape[0], x.shape[1]
-        q = self.q_proj(x).reshape(
-            [b, s, cfg.num_attention_heads, cfg.head_dim])
-        k = self.k_proj(x).reshape(
-            [b, s, cfg.num_key_value_heads, cfg.head_dim])
-        v = self.v_proj(x).reshape(
-            [b, s, cfg.num_key_value_heads, cfg.head_dim])
+        nh, kvh = (cfg.num_attention_heads // self.mp,
+                   cfg.num_key_value_heads // self.mp)
+        q = self.q_proj(x).reshape([b, s, nh, cfg.head_dim])
+        k = self.k_proj(x).reshape([b, s, kvh, cfg.head_dim])
+        v = self.v_proj(x).reshape([b, s, kvh, cfg.head_dim])
         prev_len = int(kv_cache[0].shape[1]) if kv_cache is not None \
             else 0
         # RoPE at absolute positions: a decode chunk after prev_len
@@ -383,7 +537,7 @@ class LlamaAttention(nn.Layer):
         # causal whenever the query chunk spans more than one position;
         # a one-token decode step attends the whole prefix
         out = F.scaled_dot_product_attention(q, k, v, is_causal=s > 1)
-        out = self.o_proj(out.reshape([b, s, cfg.hidden_size]))
+        out = self.o_proj(out.reshape([b, s, nh * cfg.head_dim]))
         return (out, new_cache) if new_cache is not None else out
 
 
@@ -391,9 +545,20 @@ class LlamaMLP(nn.Layer):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         h, i = config.hidden_size, config.intermediate_size
-        self.gate_proj = nn.Linear(h, i, bias_attr=False)
-        self.up_proj = nn.Linear(h, i, bias_attr=False)
-        self.down_proj = nn.Linear(i, h, bias_attr=False)
+        if _mp_degree() > 1:
+            from ..distributed.meta_parallel import (ColumnParallelLinear,
+                                                     RowParallelLinear)
+
+            self.gate_proj = ColumnParallelLinear(h, i, has_bias=False,
+                                                  gather_output=False)
+            self.up_proj = ColumnParallelLinear(h, i, has_bias=False,
+                                                gather_output=False)
+            self.down_proj = RowParallelLinear(i, h, has_bias=False,
+                                               input_is_parallel=True)
+        else:
+            self.gate_proj = nn.Linear(h, i, bias_attr=False)
+            self.up_proj = nn.Linear(h, i, bias_attr=False)
+            self.down_proj = nn.Linear(i, h, bias_attr=False)
 
     def forward(self, x):
         return self.down_proj(IF.swiglu(self.gate_proj(x),
@@ -433,8 +598,14 @@ class LlamaModel(nn.Layer):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size)
+        if _mp_degree() > 1:
+            from ..distributed.meta_parallel import VocabParallelEmbedding
+
+            self.embed_tokens = VocabParallelEmbedding(config.vocab_size,
+                                                       config.hidden_size)
+        else:
+            self.embed_tokens = nn.Embedding(config.vocab_size,
+                                             config.hidden_size)
         self.layers = nn.LayerList(
             [LlamaDecoderLayer(config)
              for _ in range(config.num_hidden_layers)])
@@ -459,15 +630,17 @@ class LlamaModel(nn.Layer):
 class LlamaForCausalLM(nn.Layer):
     def __init__(self, config: LlamaConfig):
         super().__init__()
-        if _mp_active():
-            raise NotImplementedError(
-                "paddle_tpu_torch: the model-parallel Llama layers are "
-                "not ported yet")
         self.config = config
         self.model = LlamaModel(config)
+        # the LM head stays a replicated Linear under mp (llama.py:291-293)
         self.lm_head = None if config.tie_word_embeddings else \
             nn.Linear(config.hidden_size, config.vocab_size,
                       bias_attr=False)
+        if self.lm_head is None and _mp_degree() > 1:
+            raise NotImplementedError(
+                "paddle_tpu_torch: tied word embeddings under mp (a "
+                "vocab-sharded table as the head) are not ported "
+                "(ROADMAP.md, queue 1, item 5)")
 
     def forward(self, input_ids, labels=None, kv_caches=None):
         """Logits [B, S, vocab] in f32 (bf16 under AMP O1: the head is

@@ -31,13 +31,32 @@ def tensor_from_numpy(arr) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def stacked_params_from_paddle_tpu(tree) -> dict:
+def _layout(mesh):
+    from ..distributed.topology import rank_layout
+
+    return rank_layout(mesh)
+
+
+def stacked_params_from_paddle_tpu(tree, mesh=None) -> dict:
     """The TPU package's stacked Llama pytree (models/llama.py::
     init_stacked_params; nested dicts of arrays, e.g. after
     ``jax.tree.map(np.asarray, params)``) -> the same nesting of CPU
-    tensors, dtype kept, for paddle_tpu_torch.models.llama."""
-    return {k: stacked_params_from_paddle_tpu(v) if isinstance(v, dict)
-            else tensor_from_numpy(v) for k, v in tree.items()}
+    tensors, dtype kept, for paddle_tpu_torch.models.llama. With ``mesh``
+    (a HybridCommunicateGroup, or a mesh: a Mesh or a dict of axis sizes,
+    read at this process's rank) each leaf is this rank's shard
+    (models/llama.py::param_specs)."""
+    from ..models import llama
+
+    if mesh is None:
+        return {k: stacked_params_from_paddle_tpu(v) if isinstance(v, dict)
+                else tensor_from_numpy(v) for k, v in tree.items()}
+    layout, specs = _layout(mesh), llama.param_specs(llama.LlamaConfig())
+
+    def walk(sub, spec):
+        return {k: walk(v, spec[k]) if isinstance(v, dict) else
+                llama.shard_leaf(tensor_from_numpy(v), spec[k], layout)
+                for k, v in sub.items()}
+    return walk(tree, specs)
 
 
 def load_params_from_paddle_tpu(module, named):
@@ -62,10 +81,18 @@ def load_params_from_paddle_tpu(module, named):
     return module
 
 
-def params_from_paddle_tpu(named) -> dict:
+def params_from_paddle_tpu(named, mesh=None) -> dict:
     """{name: numpy array} from the TPU package (e.g.
     ``{k: np.asarray(v) for k, v in current_params(model).items()}``) ->
-    {name: torch.Tensor} on the CPU, dtype kept (bf16 goes through f32)."""
+    {name: torch.Tensor} on the CPU, dtype kept (bf16 goes through f32).
+    With ``mesh`` (a HybridCommunicateGroup or a mesh), this rank's
+    arrays: the serving model has no model-parallel layers, so each rank
+    of a data-parallel mesh holds them all, and an mp degree above 1
+    raises."""
+    if mesh is not None and _layout(mesh).degrees["mp"] > 1:
+        raise NotImplementedError(
+            "paddle_tpu_torch: the serving model under mp is not ported "
+            "(ROADMAP.md, queue 1, item 5)")
     out = {}
     for name, arr in named.items():
         if not _SERVING_NAMES.fullmatch(name):
@@ -75,12 +102,35 @@ def params_from_paddle_tpu(named) -> dict:
     return out
 
 
-def state_dict_from_paddle_tpu(state) -> dict:
+# the eager Llama's tensor-parallel weights: the axis of the full array
+# that 'mp' splits (mp_layers.py: column layers split the outputs, row
+# layers the inputs, the embedding the vocabulary)
+_EAGER_MP_AXIS = (
+    (re.compile(r".*\.(q_proj|k_proj|v_proj|gate_proj|up_proj)\.weight"), 1),
+    (re.compile(r".*\.(o_proj|down_proj)\.weight"), 0),
+    (re.compile(r"(.*\.)?embed_tokens\.weight"), 0))
+
+
+def state_dict_from_paddle_tpu(state, mesh=None) -> dict:
     """An eager Layer's ``state_dict()`` from the TPU package, as numpy
     arrays under Paddle's structured names (e.g.
     ``{k: np.asarray(v) for k, v in layer.state_dict().items()}``: names
     such as ``model.layers.0.self_attn.q_proj.weight``) -> {name: CPU
     tensor}, which the port's ``Layer.set_state_dict`` takes. Dtypes are
     kept (bf16 goes through f32, exactly); Linear weights keep the [in,
-    out] layout."""
-    return {name: tensor_from_numpy(arr) for name, arr in state.items()}
+    out] layout. With ``mesh`` (a HybridCommunicateGroup or a mesh) and an
+    mp degree above 1, the eager Llama's tensor-parallel weights are this
+    rank's slices, as its mp layers hold them."""
+    out = {name: tensor_from_numpy(arr) for name, arr in state.items()}
+    if mesh is None:
+        return out
+    layout = _layout(mesh)
+    n, r = layout.degrees["mp"], layout.coords["mp"]
+    if n == 1:
+        return out
+    for name, t in out.items():
+        for pattern, axis in _EAGER_MP_AXIS:
+            if pattern.fullmatch(name):
+                out[name] = t.chunk(n, dim=axis)[r].contiguous()
+                break
+    return out

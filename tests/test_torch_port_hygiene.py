@@ -47,6 +47,26 @@ def test_port_sources_import_no_jax_or_reference():
     assert bad == []
 
 
+def test_spawned_rank_functions_import_no_jax():
+    # the multi-rank tests' ranks run tests/torch_dist_workers.py and the
+    # port's distributed package, never the reference
+    worker = ROOT / "tests" / "torch_dist_workers.py"
+    assert [n for n in _imports(worker)
+            if n.split(".")[0] in FORBIDDEN] == []
+    code = ("import sys; sys.path.insert(0, 'tests'); "
+            "import torch_dist_workers, paddle_tpu_torch.distributed; "
+            "import paddle_tpu_torch.distributed.fleet; "
+            "import paddle_tpu_torch.distributed.meta_parallel; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'paddle_tpu')))")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
 def test_import_leaves_jax_unloaded():
     code = ("import sys, paddle_tpu_torch, paddle_tpu_torch.inference; "
             "import paddle_tpu_torch.utils.convert; "

@@ -1,0 +1,529 @@
+"""Rank functions for the port's multi-rank CPU tests
+(tests/test_torch_{collective,hybrid_trainer,fleet_eager}.py).
+
+``paddle_tpu_torch.distributed.spawn`` starts each in new processes, one a
+rank, over gloo; each imports only torch, numpy and paddle_tpu_torch (never
+jax or paddle_tpu: the parent test holds the JAX side), runs on one
+PyTorch thread, and writes what the parent compares into
+``out_dir/rank{r}.npz`` (or ``.pkl``).
+"""
+import os
+import pickle
+import time
+
+import numpy as np
+import torch
+
+
+def _start():
+    torch.set_num_threads(1)
+    import paddle_tpu_torch.distributed as dist
+
+    dist.init_parallel_env(backend="gloo")
+    return dist, dist.get_rank()
+
+
+def _dump(out_dir, rank, results):
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(results, f)
+
+
+def _np(t):
+    from paddle_tpu_torch import Tensor
+
+    t = t._value if isinstance(t, Tensor) else t
+    return t.detach().float().numpy().copy()
+
+
+# ---------------------------------------------------------------------------
+# collectives
+# ---------------------------------------------------------------------------
+
+def collectives(out_dir, eager):
+    """Every collective at 4 ranks, on torch tensors or (``eager``) the
+    eager Tensors."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+
+    world = dist.get_world_size()
+    mk = (lambda a: paddle.to_tensor(a)) if eager else \
+        (lambda a: torch.from_numpy(np.array(a)))
+    res = {}
+    base = np.arange(6, dtype=np.float32).reshape(2, 3) + 10 * (rank + 1)
+    for op in ("sum", "max", "min", "prod", "avg"):
+        t = mk(base.copy())
+        task = dist.all_reduce(t, op=op)
+        assert task.wait() and task.is_completed()
+        res[f"all_reduce_{op}"] = _np(t)
+    t = mk(base.copy())
+    task = dist.all_reduce(t, sync_op=False)
+    task.wait()
+    res["all_reduce_async"] = _np(t)
+    t = mk(base.astype(np.float32))
+    if eager:
+        t = t.astype("bfloat16")
+    else:
+        t = t.to(torch.bfloat16)
+    dist.all_reduce(t)
+    res["all_reduce_bf16"] = _np(t)
+    parts = []
+    dist.all_gather(parts, mk(base.copy()))
+    assert type(parts[0]) is type(mk(base))
+    res["all_gather_list"] = np.stack([_np(p) for p in parts])
+    res["all_gather_axis0"] = _np(dist.all_gather(None, mk(base.copy())))
+    res["all_gather_axis1"] = _np(dist.all_gather(None, mk(base.copy()),
+                                                  axis=1))
+    objs = []
+    dist.all_gather_object(objs, {"rank": rank, "tag": "x" * (rank + 1)})
+    res["all_gather_object"] = [(o["rank"], o["tag"]) for o in objs]
+    full = np.arange(8, dtype=np.float32) + 100 * (rank + 1)
+    out = mk(np.zeros(2, np.float32))
+    dist.reduce_scatter(out, mk(full.copy()))
+    res["reduce_scatter"] = _np(out)
+    out = mk(np.zeros(2, np.float32))
+    dist.reduce_scatter(out, [mk(p) for p in np.split(full, world)],
+                        op="max")
+    res["reduce_scatter_list_max"] = _np(out)
+    ins = [mk(np.full(2, 10.0 * rank + i, np.float32)) for i in range(world)]
+    outs = []
+    dist.all_to_all(outs, ins)
+    res["all_to_all"] = np.stack([_np(o) for o in outs])
+    out = mk(np.zeros(world, np.float32))
+    dist.all_to_all_single(out, mk(np.arange(world, dtype=np.float32)
+                                   + 10 * rank))
+    res["all_to_all_single"] = _np(out)
+    # uneven: rank r sends r + 1 elements to each peer
+    send = np.full(world * (rank + 1), float(rank), np.float32)
+    out = mk(np.zeros(sum(r + 1 for r in range(world)), np.float32))
+    dist.all_to_all_single(out, mk(send), [r + 1 for r in range(world)],
+                           [rank + 1] * world)
+    res["all_to_all_single_uneven"] = _np(out)
+    t = mk(base.copy())
+    dist.broadcast(t, src=2)
+    res["broadcast"] = _np(t)
+    olist = [{"from": rank}, rank * 3] if rank == 1 else [None, None]
+    dist.broadcast_object_list(olist, src=1)
+    res["broadcast_object_list"] = olist
+    t = mk(base.copy())
+    dist.reduce(t, dst=3)
+    res["reduce"] = _np(t)
+    t = mk(np.zeros(2, np.float32))
+    pieces = [mk(np.full(2, float(i), np.float32)) for i in range(world)] \
+        if rank == 0 else None
+    dist.scatter(t, pieces, src=0)
+    res["scatter"] = _np(t)
+    got = []
+    dist.scatter_object_list(got, [f"o{i}" for i in range(world)]
+                             if rank == 0 else None, src=0)
+    res["scatter_object_list"] = got[0]
+    gl = []
+    dist.gather(mk(base.copy()), gl, dst=1)
+    res["gather"] = np.stack([_np(g) for g in gl]) if rank == 1 else None
+    # send / recv around a ring, then the same posted asynchronously
+    nxt, prv = (rank + 1) % world, (rank - 1) % world
+    buf = mk(np.zeros(3, np.float32))
+    if rank % 2 == 0:
+        dist.send(mk(np.full(3, float(rank), np.float32)), dst=nxt)
+        dist.recv(buf, src=prv)
+    else:
+        dist.recv(buf, src=prv)
+        dist.send(mk(np.full(3, float(rank), np.float32)), dst=nxt)
+    res["send_recv"] = _np(buf)
+    buf = mk(np.zeros(3, np.float32))
+    tasks = [dist.irecv(buf, src=prv),
+             dist.isend(mk(np.full(3, rank + 0.5, np.float32)), dst=nxt)]
+    for task in tasks:
+        task.wait()
+    res["isend_irecv"] = _np(buf)
+    # batched p2p with the receive listed first on every rank
+    rbuf = mk(np.zeros(3, np.float32))
+    tasks = dist.batch_isend_irecv([
+        dist.P2POp(dist.irecv, rbuf, prv),
+        dist.P2POp(dist.isend, mk(np.full(3, rank + 1.0, np.float32)),
+                   nxt)])
+    for task in tasks:
+        task.wait()
+    res["batch_isend_irecv"] = _np(rbuf)
+    # a group of the even ranks: every rank makes it, the members use it
+    evens = dist.new_group([0, 2])
+    odds = dist.new_group([1, 3])
+    mine = evens if rank % 2 == 0 else odds
+    assert dist.get_group(mine.id) is mine
+    t = mk(base.copy())
+    dist.all_reduce(t, group=mine)
+    res["subgroup_all_reduce"] = _np(t)
+    res["subgroup_rank"] = (mine.rank, mine.nranks, mine.is_member(),
+                            evens.is_member())
+    res["backend"] = dist.get_backend()
+    dist.wait(t)
+    dist.barrier()
+    dist.barrier(mine)
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+def sleeper(out_dir):
+    _start()
+    time.sleep(120)
+
+
+def raiser(out_dir):
+    dist, rank = _start()
+    if rank == 1:
+        raise ValueError("rank 1 fails on purpose")
+    time.sleep(120)
+
+
+# ---------------------------------------------------------------------------
+# HybridTrainer over a mesh
+# ---------------------------------------------------------------------------
+
+def _llama_config(cfg_dict):
+    from paddle_tpu_torch.models import llama as TL
+
+    return TL.LlamaConfig(**cfg_dict)
+
+
+def _trainer_from(cfg, mesh, np_params, lr, clip=1.0):
+    """A mesh trainer whose parameters are this rank's slices of the
+    reference's arrays, through the converter."""
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.utils import stacked_params_from_paddle_tpu
+
+    tr = HybridTrainer(cfg, mesh, learning_rate=lr, grad_clip_norm=clip,
+                       device="cpu")
+    mine = TL.leaves(stacked_params_from_paddle_tpu(np_params, tr.hcg))
+    with torch.no_grad():
+        for name, t in TL.leaves(tr.params).items():
+            t.copy_(mine[name])
+    return tr
+
+
+def trainer_mesh(out_dir, cfg_dict, mesh, np_params, batches, lr):
+    """3 steps on ``mesh``: losses, grad norms, the gathered state."""
+    dist, rank = _start()
+    tr = _trainer_from(_llama_config(cfg_dict), mesh, np_params, lr)
+    losses, norms = [], []
+    for ids, labels in batches:
+        losses.append(float(tr.step(ids, labels)))
+        norms.append(float(tr.last_grad_norm))
+    state = tr.elastic_state()
+    from paddle_tpu_torch.models import llama as TL
+
+    local = {k: tuple(v.shape) for k, v in TL.leaves(tr.params).items()}
+    if rank == 0:
+        _dump(out_dir, rank, {"losses": losses, "norms": norms,
+                              "state": state, "local_shapes": local})
+    dist.destroy_process_group()
+
+
+def trainer_elastic(out_dir, cfg_dict, np_params, batches, lr):
+    """Steps under mp 2 x sharding 2, a snapshot, one more step; the
+    snapshot loaded under dp 4 and the same step there."""
+    dist, rank = _start()
+    cfg = _llama_config(cfg_dict)
+    tr = _trainer_from(cfg, {"mp": 2, "sharding": 2}, np_params, lr)
+    for ids, labels in batches[:-1]:
+        tr.step(ids, labels)
+    snap = tr.elastic_state()
+    ids, labels = batches[-1]
+    next_loss = float(tr.step(ids, labels))
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+
+    dp4 = HybridTrainer(cfg, {"dp": 4}, learning_rate=lr, device="cpu")
+    dp4.load_elastic_state(snap)
+    loaded = dp4.elastic_state()
+    dp4_loss = float(dp4.step(ids, labels))
+    after = dp4.elastic_state()
+    after_mp = tr.elastic_state()
+    if rank == 0:
+        _dump(out_dir, rank, {
+            "next_loss": next_loss, "dp4_loss": dp4_loss,
+            "reload_exact": all(np.array_equal(loaded[k], snap[k])
+                                for k in snap),
+            "after_gap": max(float(np.abs(after[k] - after_mp[k]).max())
+                             for k in after if k != "step")})
+    dist.destroy_process_group()
+
+
+def trainer_norms(out_dir, cfg_dict, np_params, batches, lr, clip, meshes):
+    """The clip's global norms, step by step, on each mesh."""
+    dist, rank = _start()
+    cfg = _llama_config(cfg_dict)
+    norms = {}
+    for mesh in meshes:
+        tr = _trainer_from(cfg, mesh, np_params, lr, clip)
+        norms[str(mesh)] = []
+        for ids, labels in batches:
+            tr.step(ids, labels)
+            norms[str(mesh)].append(float(tr.last_grad_norm))
+    if rank == 0:
+        _dump(out_dir, rank, norms)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# fleet and the eager layers
+# ---------------------------------------------------------------------------
+
+def _fleet(dist, **degrees):
+    from paddle_tpu_torch.distributed import fleet
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = dict(
+        {"dp_degree": 1, "mp_degree": 1, "pp_degree": 1,
+         "sharding_degree": 1, "sep_degree": 1}, **degrees)
+    fleet.init(is_collective=True, strategy=strategy)
+    return fleet, fleet.get_hybrid_communicate_group()
+
+
+def _gathered(p, group):
+    """The full parameter from every mp rank's shard."""
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+
+    t = p._value.detach()
+    if not getattr(p, "is_distributed", False):
+        return t.numpy().copy()
+    return gather_along(t, group, p.split_axis).numpy().copy()
+
+
+def fleet_tp_layers(out_dir):
+    """fleet.init(dp 2, mp 2) and the reference's TP-layers parity check
+    (tests/test_distributed.py:175-197), gathered."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ColumnParallelLinear, RowParallelLinear)
+
+    paddle.seed(11)
+    fleet, hcg = _fleet(dist, dp_degree=2, mp_degree=2)
+    info = {"mode": hcg.get_parallel_mode(), "degrees": hcg.degrees(),
+            "mp_rank": hcg.get_model_parallel_rank(),
+            "dp_rank": hcg.get_data_parallel_rank(),
+            "mp_ranks": hcg.get_model_parallel_group().ranks,
+            "dp_ranks": hcg.get_data_parallel_group().ranks,
+            "worker": (fleet.worker_num(), fleet.worker_index(),
+                       fleet.is_first_worker()),
+            "mesh": dict(dist.get_mesh().shape)}
+    mp = hcg.get_model_parallel_group()
+    col = ColumnParallelLinear(16, 32, has_bias=True, gather_output=False)
+    # the column layer's output stays split: the row layer's input is
+    # parallel (the reference's one-process layers need not say so)
+    row = RowParallelLinear(32, 16, input_is_parallel=True)
+    gathered = ColumnParallelLinear(16, 32, has_bias=True,
+                                    gather_output=True)
+    info["flags"] = (col.weight.is_distributed, col.weight.split_axis,
+                     row.weight.is_distributed, row.weight.split_axis,
+                     row.bias.is_distributed, tuple(col.weight.shape),
+                     tuple(row.weight.shape))
+    x = paddle.to_tensor(np.random.RandomState(0).rand(4, 16)
+                         .astype(np.float32), stop_gradient=False)
+    y = row(col(x))
+    y.sum().backward()
+    g = gathered(x)
+    # a row layer over a whole input slices it first
+    row_split = RowParallelLinear(32, 16)
+    z = row_split(g)
+    out = {"info": info, "x": x.numpy(), "y": y.numpy(),
+           "x_grad": x.grad.numpy(), "g": g.numpy(),
+           "col_w": _gathered(col.weight, mp), "col_b": _gathered(col.bias, mp),
+           "row_w": _gathered(row.weight, mp), "row_b": _gathered(row.bias, mp),
+           "z": z.numpy(), "rs_w": _gathered(row_split.weight, mp),
+           "rs_b": _gathered(row_split.bias, mp),
+           "g_w": _gathered(gathered.weight, mp),
+           "g_b": _gathered(gathered.bias, mp),
+           "col_w_grad": gather_grad(col.weight, mp),
+           "row_w_grad": gather_grad(row.weight, mp),
+           "row_b_grad": row.bias.grad.numpy()}
+    fleet.barrier_worker()
+    _dump(out_dir, rank, out)
+    dist.destroy_process_group()
+
+
+def gather_grad(p, group):
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+
+    return gather_along(p._value.grad, group, p.split_axis).numpy().copy()
+
+
+def vocab_and_cross_entropy(out_dir):
+    """VocabParallelEmbedding and ParallelCrossEntropy at mp 4 against
+    their dense forms over the gathered table and logits."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        ParallelCrossEntropy, VocabParallelEmbedding)
+
+    paddle.seed(5)
+    fleet, hcg = _fleet(dist, mp_degree=4)
+    mp = hcg.get_model_parallel_group()
+    rng = np.random.RandomState(1)
+    ids = rng.randint(0, 64, (3, 5))
+    emb = VocabParallelEmbedding(64, 8)
+    x = emb(paddle.to_tensor(ids))
+    cot = rng.standard_normal((3, 5, 8)).astype(np.float32)
+    (x * paddle.to_tensor(cot)).sum().backward()
+    logits_full = rng.standard_normal((3, 5, 64)).astype(np.float32) * 3
+    labels = rng.randint(0, 64, (3, 5))
+    labels[0, 0] = -100
+    r = hcg.get_model_parallel_rank()
+    local = paddle.to_tensor(logits_full[..., r * 16:(r + 1) * 16].copy(),
+                             stop_gradient=False)
+    loss = ParallelCrossEntropy()(local, paddle.to_tensor(labels))
+    loss.sum().backward()
+    out = {"ids": ids, "x": x.numpy(), "cot": cot,
+           "table": _gathered(emb.weight, mp),
+           "table_grad": gather_grad(emb.weight, mp),
+           "logits": logits_full, "labels": labels, "loss": loss.numpy(),
+           "logits_grad": _np(dist.all_gather(None, local.grad._value,
+                                              group=mp, axis=2))}
+    _dump(out_dir, rank, out)
+    dist.destroy_process_group()
+
+
+def sharding_stage1(out_dir, lr):
+    """DygraphShardingOptimizer at sharding 4 over AdamW: each rank's
+    moments are 1/4 of each parameter; two steps against AdamW on the
+    averaged gradients in the same process."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed.meta_parallel import \
+        DygraphShardingOptimizer
+
+    fleet, hcg = _fleet(dist, sharding_degree=4)
+    paddle.seed(3)
+    lin = nn.Linear(10, 7)                      # 70 weights (not / 4), 7 bias
+    paddle.seed(3)
+    ref = nn.Linear(10, 7)
+    opt = DygraphShardingOptimizer(optimizer.AdamW(
+        learning_rate=lr, parameters=lin.parameters(), weight_decay=0.1),
+        hcg)
+    ref_opt = optimizer.AdamW(learning_rate=lr, parameters=ref.parameters(),
+                              weight_decay=0.1)
+    every = np.random.RandomState(100)
+    xs_all = [every.rand(4, 4, 10).astype(np.float32) for _ in range(2)]
+    for step in range(2):
+        xr = paddle.to_tensor(xs_all[step][rank])
+        (lin(xr) ** 2).mean().backward()
+        opt.step()
+        opt.clear_grad()
+        # the reference: the mean of the ranks' gradients
+        for k in range(4):
+            ((ref(paddle.to_tensor(xs_all[step][k])) ** 2).mean()
+             * 0.25).backward()
+        ref_opt.step()
+        ref_opt.clear_grad()
+    moments = {k: tuple(v.shape) for k, v in opt.state_dict().items()
+               if k != "_step_count"}
+    out = {"moments": moments,
+           "w": lin.weight.numpy(), "b": lin.bias.numpy(),
+           "ref_w": ref.weight.numpy(), "ref_b": ref.bias.numpy()}
+    out.update(_stage3(hcg.get_sharding_parallel_group(), rank))
+    _dump(out_dir, rank, out)
+    dist.destroy_process_group()
+
+
+def _stage3(group, rank):
+    """stage3_forward over 3 layers whose weights live as 4 row shards,
+    with and without the prefetch overlap, against the dense layers: the
+    output, and the shards' gradients (the full gradient's rows)."""
+    from paddle_tpu_torch.distributed.meta_parallel import stage3_forward
+
+    full = [torch.from_numpy(np.random.RandomState(40 + i).standard_normal(
+        (8, 8)).astype(np.float32)) for i in range(3)]
+    x = torch.from_numpy(np.random.RandomState(50 + rank).standard_normal(
+        (5, 8)).astype(np.float32))
+
+    def stage_fn(p, h):
+        return torch.tanh(h @ p["w"])
+
+    out = {}
+    for overlap in (False, True):
+        shards = [{"w": w.chunk(4, 0)[rank].clone().requires_grad_(True)}
+                  for w in full]
+        y = stage3_forward(stage_fn, shards, x, group, overlap=overlap)
+        y.square().sum().backward()
+        out[f"stage3_y_{overlap}"] = y.detach().numpy()
+        out[f"stage3_g_{overlap}"] = [s["w"].grad.numpy() for s in shards]
+    # the dense reference: every rank's input, the gradients summed
+    dense = [w.clone().requires_grad_(True) for w in full]
+    total = 0
+    for r in range(4):
+        h = torch.from_numpy(np.random.RandomState(50 + r).standard_normal(
+            (5, 8)).astype(np.float32))
+        for w in dense:
+            h = torch.tanh(h @ w)
+        if r == rank:
+            out["stage3_dense_y"] = h.detach().numpy()
+        total = total + h.square().sum()
+    total.backward()
+    out["stage3_dense_g"] = [w.grad.chunk(4, 0)[rank].numpy()
+                             for w in dense]
+    return out
+
+
+def data_parallel(out_dir):
+    """DataParallel at 4 ranks: the parameters broadcast from rank 0, the
+    gradients averaged; inside no_sync() they stay local."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn
+
+    paddle.seed(rank)                  # different on each rank at first
+    model = dist.DataParallel(nn.Linear(6, 3))
+    x = np.random.RandomState(7).rand(4, 2, 6).astype(np.float32)
+    model(paddle.to_tensor(x[rank])).sum().backward()
+    synced = model._layers.weight.grad.numpy().copy()
+    model._layers.clear_gradients()
+    with model.no_sync():
+        model(paddle.to_tensor(x[rank])).sum().backward()
+    local = model._layers.weight.grad.numpy().copy()
+    _dump(out_dir, rank, {"w": model._layers.weight.numpy(), "x": x,
+                          "synced": synced, "local": local,
+                          "scaled": float(model.scale_loss(
+                              paddle.to_tensor(2.0)))})
+    dist.destroy_process_group()
+
+
+def eager_llama(out_dir, cfg_dict, state, ids, labels, lr):
+    """The eager LlamaForCausalLM at mp 2 x dp 2 through distributed_model
+    and distributed_optimizer (AdamW with the global-norm clip): the
+    global batch's loss and the gathered parameters after one step."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.utils import state_dict_from_paddle_tpu
+
+    fleet, hcg = _fleet(dist, dp_degree=2, mp_degree=2)
+    model = TL.LlamaForCausalLM(TL.LlamaConfig(**cfg_dict))
+    missing, unexpected = model.set_state_dict(
+        state_dict_from_paddle_tpu(state, hcg))
+    assert missing == [] and unexpected == [], (missing, unexpected)
+    kinds = {type(model.model.embed_tokens).__name__,
+             type(model.model.layers[0].self_attn.q_proj).__name__,
+             type(model.model.layers[0].mlp.down_proj).__name__,
+             type(model.lm_head).__name__}
+    model = fleet.distributed_model(model)
+    opt = fleet.distributed_optimizer(optimizer.AdamW(
+        learning_rate=lr, parameters=model.parameters(), weight_decay=0.1,
+        grad_clip=optimizer.ClipGradByGlobalNorm(1.0)))
+    r, n = hcg.get_data_parallel_rank(), 2
+    rows = ids.shape[0] // n
+    loss = model(paddle.to_tensor(ids[r * rows:(r + 1) * rows]),
+                 labels=paddle.to_tensor(labels[r * rows:(r + 1) * rows]))
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    total = loss.detach()._value.clone()
+    dist.all_reduce(total, op="avg", group=hcg.get_data_parallel_group())
+    mp = hcg.get_model_parallel_group()
+    params = {name: _gathered(p, mp) for name, p in model.named_parameters()}
+    if rank == 0:
+        _dump(out_dir, rank, {"loss": float(total), "params": params,
+                              "kinds": sorted(kinds)})
+    dist.destroy_process_group()
