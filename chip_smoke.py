@@ -172,15 +172,27 @@ Phases, each of which fails the run with a non-zero exit:
      3 steps, each held to the training phase's launch counts, its losses,
      its clip norms and every parameter and moment (gathered) held to
      HybridTrainer(mesh=None) on the same card, bit for bit or within
-     the stated tolerance (which, is logged). With 2 cards, the same
-     check of a 2-layer f32 model at Llama-2 7B's width over mp 2; with 4
-     over mp 2 x sharding 2, then the Llama-2 7B row (32 layers, bf16,
-     remat, one 4096-token sequence a data rank): one warm-up and 10
-     timed steps (ms, the median of the later 5 and the window's slope,
-     tokens/s a card, share of 989 TF/s, peak memory a card, the host's
-     share of each step) and one profiled step on rank 0 (NCCL kernels'
-     device time against the rest). ``python3 chip_smoke.py --hybrid`` runs the build and this
-     phase alone at worlds 2 and 4;
+     the stated tolerance (which, is logged); then the eager pipeline
+     engines at pp 1 (the "pipeline" path of the kernels line): a
+     PipelineLayer of the eager Llama's layers at the flagship widths (4
+     decoder layers, AMP O1 bf16, 4 micro-batches of 2 x 512) through
+     1F1B, VPP and ZB-H1, 2 AdamW steps each, held to the same layers
+     stepped whole through micro-batch accumulation, every training
+     kernel launched. With 2 cards, the same check of a 2-layer f32 model
+     at Llama-2 7B's width over mp 2, the pipelined trainer at pp 2 with
+     and without overlap_sends (4 layers, 8 x 512 in 4 micro-batches:
+     each stage's launches held, the replicated leaves bit for bit equal
+     on every pp rank) and the engines at pp 2 over NCCL; with 4, mp 2 x
+     sharding 2, pp 2 x mp 2 and pp 4, the engines at pp 2 x mp 2, then
+     the Llama-2 7B rows (32 layers, bf16, remat) at mp 2 x sharding 2
+     (one 4096-token sequence a data rank) and at pp 2 x mp 2 (8
+     sequences in 8 micro-batches): one warm-up and 10 timed steps (ms,
+     the median of the later 5 and the window's slope, tokens/s a card,
+     share of 989 TF/s, peak memory a card, the host's share of each
+     step, launches a step on every stage) and one profiled step on rank
+     0 and over pp on each stage's first rank (NCCL and point-to-point
+     kernels' device time against the rest). ``python3 chip_smoke.py
+     --hybrid`` runs the build and this phase alone at worlds 2 and 4;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
@@ -241,7 +253,8 @@ ARTIFACT_KERNELS = ("rms_norm", "paged_attention", "rope_append")
 PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
          "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS,
-         "eager": TRAINING_KERNELS, "hybrid": TRAINING_KERNELS}
+         "eager": TRAINING_KERNELS, "hybrid": TRAINING_KERNELS,
+         "pipeline": TRAINING_KERNELS}
 # the models' attention at head dim 64 (GPT-2 small and BERT-base: 12 heads
 # of 64), dropout 0.1 inside the flash kernels (their general
 # instantiations): the shapes a pretraining step gives them
@@ -3414,7 +3427,18 @@ def _profiled_window(eng, prompts, sampling, label, want, seen_of,
 HYBRID_SEED = 1234
 HYBRID_LR = 3e-4
 # spawn's limit a world: past it every rank is killed and the run fails
-HYBRID_TIMEOUT_S = {1: 300, 2: 300, 4: 900}
+HYBRID_TIMEOUT_S = {1: 420, 2: 600, 4: 1500}
+# the eager engines' job: their losses and parameters against the same
+# layers stepped whole (2 AdamW steps under AMP O1 bf16): the losses within
+# ENGINE_LOSS_RTOL relative; of each gathered parameter all but a share
+# ENGINE_PARAM_SHARE of the elements within 1e-3 of the leaf's largest
+# magnitude plus a tenth of the learning rate, and every element within
+# ENGINE_PARAM_LR learning rates (where a gradient lies within its
+# round-off of eps, AdamW's m / sqrt(v) may take either sign: up to about
+# 2 lr a step apart)
+ENGINE_LOSS_RTOL = 1e-4
+ENGINE_PARAM_SHARE = 3e-2
+ENGINE_PARAM_LR = 6.0
 
 
 def _hybrid_config(width, dtype, layers=None):
@@ -3434,26 +3458,50 @@ def _hybrid_config(width, dtype, layers=None):
 def _hybrid_plan(world):
     """The jobs of a world: a parity job holds the mesh trainer to
     HybridTrainer(mesh=None) run by rank 0 on its own card (3 steps, the
-    losses and every parameter and moment); the 7B row times the full model
-    at mp 2 x sharding 2."""
+    losses and every parameter and moment); an engines job runs the eager
+    pipeline engines (_pipeline_engines); a row times the full Llama-2 7B
+    at mp 2 x sharding 2, and at pp 2 x mp 2 with 8 micro-batches.
+    ``pipeline`` marks the jobs whose launches the pipeline path counts."""
+    engines = dict(kind="engines", width="flagship", layers=4, batch=8,
+                   seq=512, n_micro=4, steps=2, path=False, pipeline=True)
     if world == 1:
         # one card: a 2-layer bf16 model at the flagship row's
-        # width and batch, through the mesh path in an NCCL world of one
+        # width and batch, through the mesh path in an NCCL world of one;
+        # the eager engines at pp 1 (one stage holds every layer: no sends)
         return [dict(kind="parity", name="flagship_2l_bf16_world1",
                      width="flagship", dtype="bfloat16", layers=2,
                      mesh={"dp": 1, "pp": 1, "sharding": 1, "sep": 1,
                            "mp": 1},
-                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, path=True)]
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, path=True),
+                dict(engines, name="engines_flagship_pp1", mesh={"pp": 1})]
     parity = dict(kind="parity", width="llama2-7b", dtype="float32",
                   layers=2, batch=2, seq=512, path=False)
+    # the pipelined trainer at 7B's width: 4 layers, 8 x 512 in 4
+    # micro-batches of 2 rows (each splits into halves under overlap_sends)
+    pipe = dict(parity, layers=4, batch=8, n_micro=4, pipeline=True)
     if world == 2:
-        return [dict(parity, name="7b_width_2l_f32_mp2", mesh={"mp": 2})]
+        return [dict(parity, name="7b_width_2l_f32_mp2", mesh={"mp": 2}),
+                dict(pipe, name="7b_width_4l_f32_pp2", mesh={"pp": 2}),
+                dict(pipe, name="7b_width_4l_f32_pp2_overlap",
+                     mesh={"pp": 2}, overlap=True),
+                dict(engines, name="engines_flagship_pp2", mesh={"pp": 2})]
     return [dict(parity, name="7b_width_2l_f32_mp2_sh2",
                  mesh={"mp": 2, "sharding": 2}),
+            dict(pipe, name="7b_width_4l_f32_pp2_mp2",
+                 mesh={"pp": 2, "mp": 2}),
+            dict(pipe, name="7b_width_4l_f32_pp4", mesh={"pp": 4}),
+            dict(engines, name="engines_flagship_pp2_mp2",
+                 mesh={"pp": 2, "mp": 2}),
             dict(kind="row", name="llama2_7b_mp2_sh2", width="llama2-7b",
                  dtype="bfloat16", layers=None,
                  mesh={"mp": 2, "sharding": 2}, seq=4096, steps=10,
-                 path=True)]
+                 path=True),
+            # 8 sequences in 8 micro-batches: 32,768 tokens a step, GPipe
+            # bubble (P - 1) / (M + P - 1) = 1/9
+            dict(kind="row", name="llama2_7b_pp2_mp2", width="llama2-7b",
+                 dtype="bfloat16", layers=None, mesh={"pp": 2, "mp": 2},
+                 seq=4096, batch=8, n_micro=8, steps=10, path=False,
+                 pipeline=True)]
 
 
 def _hybrid_batches(cfg, batch, seq, steps, dev, seed=5):
@@ -3529,19 +3577,57 @@ def _timed_steps(dist, trainer, batches, probe=False):
     return losses, step_ms, per_step, norms, host
 
 
-def _training_launches(cfg):
-    L = cfg.num_hidden_layers
-    return {"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+def _training_launches(cfg, layers=None, calls=1, last=True):
+    """A remat'd step's launches: each of ``layers`` layers (all when None)
+    ``calls`` times (micro-batches, halves) with its recomputation, and
+    the final norm once where ``last`` holds it."""
+    L = (cfg.num_hidden_layers if layers is None else layers) * calls
+    return {"rms_norm": 4 * L + last, "rms_norm_bwd": 2 * L + last,
             "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
             "flash_attention_bwd_dq": L, "aligned16_copies": 0}
 
 
-def _check_launches(per_step, cfg, what):
+def _launches_of(trainer, rows):
+    """HybridTrainer's launches a step on this rank: the stacked step's,
+    or over 'pp' its stage's: its num_hidden_layers / pp layers for each
+    micro-batch (in two halves under overlap_sends with an even
+    micro-batch of 2 or more rows), the final norm on the last stage."""
+    cfg = trainer.config
+    if not trainer.pipelined:
+        return _training_launches(cfg)
+    hcg = trainer.hcg
+    pp = hcg.get_pipe_parallel_world_size()
+    mb = rows // trainer.n_micro // trainer._data_ranks
+    halves = 2 if trainer.overlap_sends and mb % 2 == 0 and mb >= 2 else 1
+    return _training_launches(cfg, cfg.num_hidden_layers // pp,
+                              trainer.n_micro * halves,
+                              hcg.get_stage_id() == pp - 1)
+
+
+def _check_launches(per_step, want, what):
     for per in per_step:
-        for name, n in _training_launches(cfg).items():
+        for name, n in want.items():
             if per[name] != n:
                 raise AssertionError(f"{what}: a step launched {name} "
                                      f"{per[name]} times, not {n}")
+
+
+def _replicas_equal(trainer):
+    """Over 'pp', whether each leaf that every stage holds whole
+    (embedding, final norm, head) is bit for bit this rank's on every
+    rank of its pp group (collective)."""
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+    from paddle_tpu_torch.models import llama as TL
+
+    group = trainer.hcg.get_pipe_parallel_group()
+    out = {}
+    for name, t in TL.leaves(trainer.params).items():
+        if "pp" in trainer._specs[name]:
+            continue
+        pieces = gather_along(t.detach()[None], group, 0)
+        out[name] = all(torch.equal(piece, t) for piece in pieces)
+    return out
 
 
 def _held_leaf(prefix, got, want, ref_moments):
@@ -3586,7 +3672,10 @@ def _hybrid_parity(job, dist, dev):
     scaled wrongly as a whole (a wrong division by the data ranks, a sum
     taken twice): the clip (active at this init) and AdamW's m / sqrt(v)
     cancel such a factor out of the parameters and moments, and the loss
-    is reduced on its own."""
+    is reduced on its own. Over 'pp' (``n_micro`` micro-batches,
+    ``overlap``) each rank's launches are its stage's (_launches_of), and
+    the leaves every stage holds whole must be bit for bit equal on every
+    rank of the pp group after the steps."""
     from paddle_tpu_torch import launch_counts, reset_launch_counts
     from paddle_tpu_torch.distributed.fleet import HybridTrainer
     from paddle_tpu_torch.models import llama as TL
@@ -3594,12 +3683,20 @@ def _hybrid_parity(job, dist, dev):
     cfg = _hybrid_config(job["width"], job["dtype"], job["layers"])
     batches = _hybrid_batches(cfg, job["batch"], job["seq"], 3, dev)
     tr = HybridTrainer(cfg, job["mesh"], learning_rate=HYBRID_LR,
-                       seed=HYBRID_SEED, device=dev)
+                       seed=HYBRID_SEED, device=dev,
+                       pipeline_micro_batches=job.get("n_micro"),
+                       overlap_sends=job.get("overlap", False))
     torch.cuda.synchronize()
     reset_launch_counts()
     losses, step_ms, per_step, norms, _ = _timed_steps(dist, tr, batches)
     counts = launch_counts()
-    _check_launches(per_step, cfg, f"hybrid {job['name']}")
+    _check_launches(per_step, _launches_of(tr, job["batch"]),
+                    f"hybrid {job['name']}")
+    replicas = _replicas_equal(tr) if tr.pipelined else {}
+    if not all(replicas.values()):
+        raise AssertionError(f"hybrid {job['name']}: the pp replicas of "
+                             f"{[k for k, v in replicas.items() if not v]} "
+                             f"differ")
     rank = dist.get_rank()
     ref = None
     if rank == 0:
@@ -3627,7 +3724,9 @@ def _hybrid_parity(job, dist, dev):
                 prefix, full, want, None if prefix != "p" else
                 [TL.leaves(ref.opt_state[k])[name] for k in ("m", "v")])
     out = {"losses": losses, "grad_norms": norms, "step_ms": step_ms,
-           "per_step": per_step[-1], "counts": counts, "mesh": job["mesh"]}
+           "per_step": per_step[-1], "counts": counts, "mesh": job["mesh"],
+           "n_micro": tr.n_micro, "overlap_sends": tr.overlap_sends,
+           "stage": tr.hcg.get_stage_id(), "replicas_bit_equal": replicas}
     if ref is not None:
         rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
         norm_rel = max(abs(a - b) / abs(b) for a, b in zip(norms, ref_norms))
@@ -3677,11 +3776,13 @@ def _host_probe(dev):
 
 def _hybrid_row(job, dist, dev):
     """Llama-2 7B at full width and depth, bf16, remat, over the mesh: one
-    sequence of ``seq`` tokens a data rank, one warm-up and ``steps``
-    timed steps, then one profiled step (rank 0 profiles; every rank
-    runs it). The rate is quoted at the median of the later half of the
-    timed steps (``steady``), beside the whole window's median and its
-    slope in ms a step, so that a step time that drifts shows."""
+    sequence of ``seq`` tokens a data rank (or ``batch`` sequences in
+    ``n_micro`` micro-batches over 'pp'), one warm-up and ``steps`` timed
+    steps, then one profiled step (rank 0 profiles, and over 'pp' the
+    first rank of every stage; every rank runs it). The rate is quoted at
+    the median of the later half of the timed steps (``steady``), beside
+    the whole window's median and its slope in ms a step, so that a step
+    time that drifts shows."""
     from paddle_tpu_torch import reset_launch_counts, launch_counts
     from paddle_tpu_torch.distributed.fleet import HybridTrainer
 
@@ -3689,12 +3790,14 @@ def _hybrid_row(job, dist, dev):
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
     tr = HybridTrainer(cfg, job["mesh"], learning_rate=HYBRID_LR,
-                       seed=HYBRID_SEED, device=dev)
+                       seed=HYBRID_SEED, device=dev,
+                       pipeline_micro_batches=job.get("n_micro"))
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     data = tr._data_ranks
     world = dist.get_world_size()
-    batches = _hybrid_batches(cfg, data, job["seq"], job["steps"] + 2, dev)
+    rows = job.get("batch", data)
+    batches = _hybrid_batches(cfg, rows, job["seq"], job["steps"] + 2, dev)
     held = torch.cuda.memory_allocated(dev)
     probe = _host_probe(dev)
     warm = float(tr.step(*batches[0]))
@@ -3705,11 +3808,14 @@ def _hybrid_row(job, dist, dev):
         dist, tr, batches[1:-1], probe=True)
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated(dev)
-    _check_launches(per_step, cfg, f"hybrid {job['name']}")
+    _check_launches(per_step, _launches_of(tr, rows), f"hybrid {job['name']}")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"7B losses not finite: {losses}")
-    # one profiled step: NCCL kernels' device time against the rest
+    # one profiled step: NCCL kernels' device time against the rest, on
+    # rank 0 and over 'pp' on the first rank of every stage
     rank = dist.get_rank()
+    coords = tr.hcg.layout().coords
+    profiles = all(v == 0 for a, v in coords.items() if a != "pp")
     wall = []
 
     def profiled_step():
@@ -3720,20 +3826,25 @@ def _hybrid_row(job, dist, dev):
 
     torch.cuda.synchronize()
     dist.barrier()
-    prof = profile_kernels(profiled_step) if rank == 0 else profiled_step()
+    prof = profile_kernels(profiled_step) if profiles else profiled_step()
     dist.barrier()
     steady = statistics.median(step_ms[len(step_ms) // 2:])
     profile_out = None
-    if rank == 0:
+    if profiles:
         nccl = {k: v for k, v in prof.items() if "nccl" in k.lower()}
         nccl_ms = sum(us for _, us in nccl.values()) / 1e3
+        p2p = {k: v for k, v in nccl.items() if "sendrecv" in k.lower()}
         comp_ms = sum(us for k, (_, us) in prof.items()
                       if k not in nccl) / 1e3
         top = sorted(((k[:60], n, us / 1e3) for k, (n, us) in
                       prof.items()), key=lambda r: -r[2])
         profile_out = {"step_ms_profiled": wall[0],
+                       "stage": tr.hcg.get_stage_id(),
                        "nccl_device_ms": nccl_ms,
                        "nccl_kernels": sum(n for n, _ in nccl.values()),
+                       "p2p_device_ms": sum(us for _, us in p2p.values())
+                       / 1e3,
+                       "p2p_kernels": sum(n for n, _ in p2p.values()),
                        "compute_device_ms": comp_ms,
                        "compute_kernels": sum(n for k, (n, _) in
                                               prof.items() if k not in nccl),
@@ -3744,10 +3855,11 @@ def _hybrid_row(job, dist, dev):
                        nccl_ms / max(nccl_ms + comp_ms, 1e-9),
                        "top": top[:12]}
     full_params = _full_param_count(cfg)
-    tokens = data * job["seq"]
+    tokens = rows * job["seq"]
     tps_card = tokens / (steady / 1e3) / world
     fpt = model_flops_per_token(cfg, full_params, job["seq"])
     out = {"mesh": job["mesh"], "world": world, "data_ranks": data,
+           "n_micro": tr.n_micro, "stage": tr.hcg.get_stage_id(),
            "tokens_per_step": tokens, "init_s": init_s,
            "params": full_params, "warmup_loss": warm, "losses": losses,
            "grad_norms": norms, "step_ms": step_ms,
@@ -3766,6 +3878,234 @@ def _hybrid_row(job, dist, dev):
     del tr
     torch.cuda.empty_cache()
     return out
+
+
+def _to_bf16(x):
+    """The eager model's cast of the embedding's output (llama.py's
+    LlamaModel with dtype "bfloat16"), as a pipeline item."""
+    return x.astype("bfloat16")
+
+
+def _engine_descs(cfg):
+    """The eager Llama's own layers as pipeline items: Embedding, the cast
+    to bf16, LlamaDecoderLayer x L (tensor-parallel under mp), RMSNorm,
+    the head Linear."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.meta_parallel import LayerDesc
+    from paddle_tpu_torch.models import llama as TL
+
+    h, v = cfg.hidden_size, cfg.vocab_size
+    return ([LayerDesc(nn.Embedding, v, h), _to_bf16]
+            + [LayerDesc(TL.LlamaDecoderLayer, cfg)
+               for _ in range(cfg.num_hidden_layers)]
+            + [LayerDesc(nn.RMSNorm, h, epsilon=cfg.rms_norm_eps),
+               LayerDesc(nn.Linear, h, v, bias_attr=False)])
+
+
+def _gathered_params(model, hcg):
+    """{name: the whole parameter} of a stage (collective over 'mp')."""
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+
+    mp = hcg.get_model_parallel_group()
+    return {n: (gather_along(p._value.detach(), mp, p.split_axis)
+                if p.is_distributed else p._value.detach())
+            for n, p in model.named_parameters()}
+
+
+def _pipeline_engines(job, dist, dev):
+    """The eager pipeline engines at the flagship row's widths: a
+    PipelineLayer of the eager Llama's layers (_engine_descs, 4 decoder
+    layers, f32 parameters, recompute) with CrossEntropyLoss, under
+    fleet.init at the job's pp (and mp: the decoder layers' mp layers
+    inside each stage), through fleet.distributed_model's three engines
+    (1F1B, VPP v = 2, ZB-H1) in turn: ``n_micro`` micro-batches of a
+    ``batch`` x ``seq`` batch, ``steps`` AdamW steps under AMP O1 bf16
+    (train_batch). Every rank builds the whole model from HYBRID_SEED on
+    its card and loads its stage's entries by global names; rank 0 then
+    steps the whole model through micro-batch accumulation on its card
+    (the same micro-batches, each loss divided by their count) and holds
+    each engine's losses within ENGINE_LOSS_RTOL relative and every
+    gathered parameter within ENGINE_PARAM_LR learning rates of it. Every
+    rank that holds a decoder layer must launch each training kernel. At
+    pp 2 and more every engine's sends and receives run over NCCL."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import (launch_counts, nn, optimizer,
+                                  reset_launch_counts)
+    from paddle_tpu_torch.distributed import fleet, topology
+    from paddle_tpu_torch.distributed.meta_parallel import PipelineLayer
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.utils import stage_state_dict_from_paddle_tpu
+
+    cfg = _hybrid_config(job["width"], "bfloat16", job["layers"])
+    pp, mp = job["mesh"].get("pp", 1), job["mesh"].get("mp", 1)
+    rank = dist.get_rank()
+    rng = np.random.RandomState(11)
+    ids_np = rng.randint(0, cfg.vocab_size, (job["batch"], job["seq"]))
+    ids = paddle.to_tensor(ids_np)
+    labels = paddle.to_tensor(np.roll(ids_np, -1, axis=1))
+    n = job["n_micro"]
+    # the whole plain model, from the seed, on every rank's card
+    topology.set_hybrid_communicate_group(None)
+    paddle.seed(HYBRID_SEED)
+    whole = PipelineLayer(_engine_descs(cfg), loss_fn=nn.CrossEntropyLoss())
+    state = {k: v.numpy() for k, v in whole.state_dict().items()}
+    if rank != 0:
+        del whole
+    ref_params = None
+    out = {"engines": {}, "pp": pp, "mp": mp}
+    counts_all, kept = Counter(), {}
+    for name, extra, v in (("1F1B", {}, 1), ("VPP", {"schedule_mode": "VPP"},
+                                            2),
+                           ("ZBH1", {"schedule_mode": "ZBH1"}, 1)):
+        strategy = fleet.DistributedStrategy()
+        strategy.hybrid_configs = {
+            "dp_degree": 1, "mp_degree": mp, "pp_degree": pp,
+            "sharding_degree": 1, "sep_degree": 1,
+            "pp_configs": dict({"accumulate_steps": n}, **extra)}
+        fleet.init(is_collective=True, strategy=strategy)
+        hcg = fleet.get_hybrid_communicate_group()
+        if pp == 1 and v > 1:
+            v = 1           # one stage: the one chunk
+        model = PipelineLayer(_engine_descs(cfg),
+                              loss_fn=nn.CrossEntropyLoss(),
+                              num_virtual_pipeline_stages=v)
+        missing, unexpected = model.set_state_dict(
+            stage_state_dict_from_paddle_tpu(state, model, hcg))
+        if missing or unexpected:
+            raise AssertionError(f"engines {name}: stage load missed "
+                                 f"{missing}, unexpected {unexpected}")
+        engine = fleet.distributed_model(model) if pp > 1 else \
+            _engine_class(name)(model, hcg, strategy=strategy)
+        opt = optimizer.AdamW(learning_rate=HYBRID_LR,
+                              parameters=model.parameters())
+        losses, step_ms = [], []
+        torch.cuda.synchronize()
+        dist.barrier()
+        reset_launch_counts()
+        for _ in range(job["steps"]):
+            t = time.perf_counter()
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                loss = engine.train_batch((ids, labels), opt)
+            losses.append(float(loss))
+            torch.cuda.synchronize()
+            dist.barrier()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = launch_counts()
+        counts_all.update(counts)
+        decoders = sum(isinstance(l, TL.LlamaDecoderLayer)
+                       for l in model.layers_list.values())
+        if decoders and min(counts[k] for k in TRAINING_KERNELS) <= 0:
+            raise AssertionError(f"engines {name}: a stage holding "
+                                 f"{decoders} decoder layers missed a "
+                                 f"kernel: {counts}")
+        out["engines"][name] = {
+            "engine": type(engine).__name__, "losses": losses,
+            "step_ms": step_ms, "decoder_layers_here": decoders,
+            "launches": {k: counts[k] for k in TRAINING_KERNELS},
+            "stage": hcg.get_stage_id()}
+        kept[name] = _gathered_params(model, hcg)
+        del model, engine, opt
+        torch.cuda.empty_cache()
+    topology.set_hybrid_communicate_group(None)
+    dist.barrier()
+    # rank 0 steps the whole model, then sends each of its parameters to
+    # every rank, which holds its stage's against it
+    ref_losses = None
+    if rank == 0:
+        ref_losses, ref_params = _engine_reference(whole, ids, labels, n,
+                                                   job["steps"])
+    # per engine: (the largest difference in learning rates, its leaf),
+    # and (the largest share of a leaf's elements off by more than 1e-3
+    # of the leaf's largest magnitude plus a tenth of the learning rate,
+    # its leaf)
+    worst = {name: [(-1.0, None), (-1.0, None)] for name in kept}
+    for key in sorted(state):
+        buf = ref_params[key].contiguous() if rank == 0 else torch.empty(
+            state[key].shape, dtype=torch.float32, device=dev)
+        dist.broadcast(buf, src=0)
+        tol = 1e-3 * float(buf.abs().max()) + 0.1 * HYBRID_LR
+        for name, params in kept.items():
+            if key in params:
+                diff = (params[key].float() - buf).abs()
+                w = worst[name]
+                w[0] = max(w[0], (float(diff.max()) / HYBRID_LR, key),
+                           key=lambda r: r[0])
+                w[1] = max(w[1], (float((diff > tol).float().mean()), key),
+                           key=lambda r: r[0])
+    if rank == 0:
+        del whole, ref_params
+    gathered = [None] * dist.get_world_size()
+    dist.all_gather_object(gathered, worst)
+    for name, rec in out["engines"].items():
+        big = max((g[name][0] for g in gathered), key=lambda r: r[0])
+        share = max((g[name][1] for g in gathered), key=lambda r: r[0])
+        rec.update(worst_param_over_lr=big[0], worst_param_leaf=big[1],
+                   worst_share_over_tol=share[0],
+                   worst_share_leaf=share[1])
+        if rank == 0:
+            rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(rec["losses"], ref_losses))
+            rec.update(ref_losses=ref_losses, loss_rel=rel,
+                       ok=rel <= ENGINE_LOSS_RTOL
+                       and share[0] <= ENGINE_PARAM_SHARE
+                       and big[0] <= ENGINE_PARAM_LR)
+            log(f"engines {job['name']} {name} ({rec['engine']}): losses "
+                f"{rec['losses']} vs whole {ref_losses} (rel {rel:.2e}, tol "
+                f"{ENGINE_LOSS_RTOL}); parameters: largest difference "
+                f"{big[0]:.3f} lr ({big[1]}; tol {ENGINE_PARAM_LR}), share "
+                f"off by more than 1e-3 of the leaf's largest magnitude + "
+                f"0.1 lr {share[0]:.2e} ({share[1]}; tol "
+                f"{ENGINE_PARAM_SHARE}); step ms {rec['step_ms']}")
+            if not rec["ok"]:
+                raise AssertionError(f"engines {job['name']} {name} "
+                                     f"disagree with the whole model")
+    out["counts"] = dict(counts_all)
+    out["stage"] = out["engines"]["1F1B"]["stage"]
+    out["per_step"] = {k: n // job["steps"] for k, n in
+                       out["engines"]["1F1B"]["launches"].items()}
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def _engine_class(name):
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        PipelineParallel, PipelineParallelWithInterleave,
+        PipelineParallelZeroBubble)
+
+    return {"1F1B": PipelineParallel, "VPP": PipelineParallelWithInterleave,
+            "ZBH1": PipelineParallelZeroBubble}[name]
+
+
+def _engine_reference(whole, ids, labels, n, steps):
+    """The whole model on this card through micro-batch accumulation:
+    each micro-batch's loss divided by their count, its gradients
+    accumulated, then AdamW; the mean loss of each step and the
+    parameters after the steps."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer
+
+    opt = optimizer.AdamW(learning_rate=HYBRID_LR,
+                          parameters=whole.parameters())
+    rows = ids.shape[0] // n
+    losses = []
+    whole.train()
+    for _ in range(steps):
+        total = 0.0
+        for m in range(n):
+            with paddle.amp.auto_cast(level="O1", dtype="bfloat16"):
+                x = ids[m * rows:(m + 1) * rows]
+                y = labels[m * rows:(m + 1) * rows]
+                loss = whole._loss_fn(whole(x), y)
+            (loss / n).backward()
+            total += float(loss)
+        opt.step()
+        opt.clear_grad()
+        losses.append(total / n)
+    params = {k: p._value.detach().float() for k, p in
+              whole.named_parameters()}
+    return losses, params
 
 
 def _full_param_count(cfg):
@@ -3796,7 +4136,8 @@ def _hybrid_rank(out_dir, plan):
            "backend": dist.get_backend()}
     try:
         for job in plan:
-            fn = _hybrid_parity if job["kind"] == "parity" else _hybrid_row
+            fn = {"parity": _hybrid_parity, "row": _hybrid_row,
+                  "engines": _pipeline_engines}[job["kind"]]
             log(f"hybrid rank {rank}: {job['name']} starts")
             res[job["name"]] = fn(job, dist, dev)
             log(f"hybrid rank {rank}: {job['name']} done")
@@ -3845,22 +4186,40 @@ def phase_hybrid(dev, world=None):
             f"cuda:{i}" for i in range(world)):
         raise AssertionError(f"hybrid: ranks did not each take their own "
                              f"card: {[r['device'] for r in ranks]}")
-    out = {"world": world, "wall_s": wall, "jobs": {}}
+    out = {"world": world, "wall_s": wall, "jobs": {},
+           "pipeline_counts": Counter(), "pipeline_per_step": {}}
     for job in plan:
         r0 = ranks[0][job["name"]]
         mine = {k: v for k, v in r0.items() if k not in ("counts",)}
-        mine["step_ms_by_rank"] = [r[job["name"]]["step_ms"]
-                                   for r in ranks]
+        if job["kind"] == "engines":
+            mine["engines_by_rank"] = [r[job["name"]]["engines"]
+                                       for r in ranks]
+        else:
+            mine["step_ms_by_rank"] = [r[job["name"]]["step_ms"]
+                                       for r in ranks]
         if job["kind"] == "row":
             mine["peak_memory_gb_by_rank"] = [
                 r[job["name"]]["peak_memory_gb"] for r in ranks]
             mine["host_probe_by_rank"] = [
                 r[job["name"]]["host_probe"] for r in ranks]
+            mine["issue_ms_over_step_ms_by_rank"] = [
+                r[job["name"]]["issue_ms_over_step_ms"] for r in ranks]
+            mine["profiles"] = [r[job["name"]]["profile"] for r in ranks
+                                if r[job["name"]]["profile"]]
         out["jobs"][job["name"]] = mine
         log(json.dumps({"hybrid": {job["name"]: mine}}))
         if job["path"]:
             out["counts"] = r0["counts"]
             out["launches_per_step"] = r0["per_step"]
+        if job.get("pipeline"):
+            # every stage's launches (each rank's), and a step's on the
+            # first rank of each stage
+            for r in ranks:
+                out["pipeline_counts"].update(r[job["name"]]["counts"])
+            out["pipeline_per_step"][job["name"]] = {
+                f"stage {r[job['name']].get('stage', 0)}":
+                r[job["name"]]["per_step"] for r in reversed(ranks)}
+    out["pipeline_counts"] = dict(out["pipeline_counts"])
     return out
 
 
@@ -5545,7 +5904,9 @@ def _parity_features(dev, m, cfg, prompts, dense, n_new):
 def main_hybrid():
     """``python3 chip_smoke.py --hybrid``: the build, then phase_hybrid at
     every world of 2 and 4 the host's cards allow (the multi-card run:
-    parity at mp 2 and mp 2 x sharding 2, and the Llama-2 7B row)."""
+    parity at mp 2, mp 2 x sharding 2 and the pp meshes, the eager
+    pipeline engines over NCCL, and the Llama-2 7B rows); fails if the
+    pipeline path missed a training kernel on every stage."""
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -5554,8 +5915,14 @@ def main_hybrid():
     worlds = [w for w in (2, 4) if w <= torch.cuda.device_count()]
     if not worlds:
         raise AssertionError("--hybrid needs 2 or more cards")
+    pipeline = Counter()
     for world in worlds:
-        phase_hybrid(dev, world)
+        pipeline.update(phase_hybrid(dev, world)["pipeline_counts"])
+    log(json.dumps({"pipeline_launches_every_stage": {
+        k: pipeline[k] for k in TRAINING_KERNELS}}))
+    if min(pipeline[k] for k in TRAINING_KERNELS) <= 0:
+        raise AssertionError(f"the pipeline path missed a kernel: "
+                             f"{dict(pipeline)}")
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5617,7 +5984,8 @@ def main():
                "packed_training": packed["counts"],
                "weight_stream": stream["counts"],
                "artifact": artifact["counts"], "eager": eager["counts"],
-               "hybrid": hybrid["counts"]}
+               "hybrid": hybrid["counts"],
+               "pipeline": Counter(hybrid["pipeline_counts"])}
     by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
@@ -5632,7 +6000,12 @@ def main():
                 "packed_training": packed["metrics"]["launches_per_step"],
                 "artifact": artifact["per_step"],
                 "eager": eager["metrics"]["launches_per_step"],
-                "hybrid": hybrid["launches_per_step"]})
+                "hybrid": hybrid["launches_per_step"],
+                "pipeline": {k: {job: {stage: per[k] for stage, per in
+                                       stages.items()}
+                                 for job, stages in
+                                 hybrid["pipeline_per_step"].items()}
+                             for k in TRAINING_KERNELS}})
     per_step.update({kind: r["metrics"]["launches_per_step"]
                      for kind, r in pretrain.items()})
     line = []

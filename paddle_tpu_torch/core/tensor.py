@@ -276,9 +276,12 @@ class Parameter(Tensor):
     ``_value`` is a leaf torch tensor with ``requires_grad = trainable``.
     A model-parallel layer's parameter holds this rank's shard and says so
     (mp_layers.py:_shard_param): ``is_distributed`` True and
-    ``split_axis`` the axis its full array is split on."""
+    ``split_axis`` the axis its full array is split on. A pipeline's shared
+    weight (pp_layers.py) is held by every stage that uses it, and
+    ``is_firstly_shared`` is True on the first of them only (a global-norm
+    clip counts it there)."""
 
-    __slots__ = ("is_distributed", "split_axis")
+    __slots__ = ("is_distributed", "split_axis", "is_firstly_shared")
 
     def __init__(self, data, dtype=None, name=None, trainable=True,
                  place=None):
@@ -288,6 +291,7 @@ class Parameter(Tensor):
         self._value.requires_grad_(bool(trainable))
         self.is_distributed = False
         self.split_axis = None
+        self.is_firstly_shared = True
 
     @property
     def trainable(self):

@@ -11,18 +11,21 @@ start method "spawn"), each with the launcher's environment
 (env.py: PADDLE_TRAINER_ID, PADDLE_TRAINERS_NUM, PADDLE_TRAINER_ENDPOINTS);
 the function calls init_parallel_env (or fleet.init) itself, as in Paddle.
 
-Not ported yet (ROADMAP.md, queue 1, item 5 and after): pipeline
-parallelism, sep with ring attention, MoE, sequence parallel, the
-group-sharded stage 2-3 wrappers, auto_parallel and launch; the store,
-transport, watchdog, resilience supervisor and checkpoint tiers (items 6
-and 8).
+Pipeline parallelism (meta_parallel: PipelineLayer, the 1F1B, interleaved
+and zero-bubble engines, spmd_pipeline) sends the activations between the
+pp ranks over point-to-point groups of the topology.
+
+Not ported yet (ROADMAP.md, queue 1, item 5 and after): sep with ring
+attention, MoE, sequence parallel, the group-sharded stage 2-3 wrappers,
+auto_parallel and launch; the store, transport, watchdog, resilience
+supervisor and checkpoint tiers (items 6 and 8).
 """
 from __future__ import annotations
 
 import os
 import time
 
-from . import collective, env, fleet, resilience, topology
+from . import collective, env, fleet, meta_parallel, resilience, topology
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
                          all_reduce, all_to_all, all_to_all_single, barrier,
                          batch_isend_irecv, broadcast, broadcast_object_list,
@@ -36,7 +39,8 @@ from .parallel import DataParallel
 from .topology import (HybridCommunicateGroup, build_mesh,
                        get_hybrid_communicate_group, get_mesh)
 
-__all__ = ["collective", "env", "fleet", "resilience", "topology", "spawn",
+__all__ = ["collective", "env", "fleet", "meta_parallel", "resilience",
+           "topology", "spawn",
            "P2POp", "ReduceOp", "all_gather", "all_gather_object",
            "all_reduce", "all_to_all", "all_to_all_single", "barrier",
            "batch_isend_irecv", "broadcast", "broadcast_object_list",
@@ -69,6 +73,9 @@ def get_current_endpoint():
 
 
 def _spawn_entry(index, func, args, environ):
+    import faulthandler
+
+    faulthandler.enable()     # a rank that dies on a signal shows where
     os.environ.update(environ)
     os.environ["PADDLE_TRAINER_ID"] = str(index)
     os.environ["PADDLE_LOCAL_RANK"] = str(index)

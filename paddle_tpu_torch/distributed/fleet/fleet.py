@@ -7,9 +7,10 @@ hybrid topology over the world: its degrees from
 ``strategy.hybrid_configs``, a dp degree of -1 (or 1 while the others
 leave ranks over) taking what is left. ``distributed_model`` picks the
 wrapper by parallel mode and ``distributed_optimizer`` wraps the optimizer
-in HybridParallelOptimizer. The pipeline and segment-parallel modes and
-the parameter-server mode raise NotImplementedError (ROADMAP.md, queue 1,
-item 5).
+in HybridParallelOptimizer; the pipeline mode picks the engine by
+``pp_configs["schedule_mode"]`` and the PipelineLayer's virtual stages
+(fleet.py:155-172). The segment-parallel mode and the parameter-server
+mode raise NotImplementedError (ROADMAP.md, queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -88,6 +89,24 @@ def distributed_model(model):
         return TensorParallel(model, hcg, strategy=strategy)
     if mode == "sharding_parallel":
         return ShardingParallel(model, hcg, strategy=strategy)
+    if mode == "pipeline":
+        from ..meta_parallel.pipeline_parallel import (
+            PipelineParallel, PipelineParallelWithInterleave,
+            PipelineParallelZeroBubble)
+        from ..meta_parallel.pp_layers import PipelineLayer
+
+        pp_cfg = dict(strategy.hybrid_configs.get("pp_configs", {}) or {}) \
+            if strategy is not None else {}
+        sched = str(pp_cfg.get("schedule_mode", "1F1B")).upper()
+        v = model.get_num_virtual_stages() \
+            if isinstance(model, PipelineLayer) else 1
+        if sched in ("ZBH1", "ZB-H1", "ZERO_BUBBLE"):
+            return PipelineParallelZeroBubble(model, hcg, strategy=strategy)
+        if v > 1 or sched == "VPP":
+            return PipelineParallelWithInterleave(
+                model, hcg, strategy=strategy,
+                num_virtual_pipeline_stages=max(v, 1))
+        return PipelineParallel(model, hcg, strategy=strategy)
     raise NotImplementedError(f"Fleet's {mode} mode {_NOT_PORTED}")
 
 

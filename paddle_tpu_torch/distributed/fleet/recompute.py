@@ -26,23 +26,34 @@ from ...framework import random as _random
 __all__ = ["recompute"]
 
 
-@contextlib.contextmanager
-def _replay(amp, rng):
+class _Replay:
     """The recomputation's context: the forward's AMP state and generator
-    states, the current ones put back after."""
-    prev_amp = amp_state.set_amp(False)
-    amp_state.restore_amp(amp)
-    prev_rng = {k: _random._generators[k].get_state() for k in rng
-                if k in _random._generators}
-    for k, st in rng.items():
-        _random.generator(torch.device(k)).set_state(st)
-    try:
-        yield
-    finally:
+    states, the current ones put back after. It may be entered once for
+    each backward that runs the segment again: a backward that keeps the
+    graph (``retain_graph``, as the zero-bubble pipeline's input-gradient
+    pullback before its weight-gradient one) recomputes it once more."""
+
+    def __init__(self, amp, rng):
+        self._amp, self._rng = amp, rng
+        self._prev = []
+
+    def __enter__(self):
+        prev_amp = amp_state.set_amp(False)
+        amp_state.restore_amp(self._amp)
+        prev_rng = {k: _random._generators[k].get_state() for k in self._rng
+                    if k in _random._generators}
+        for k, st in self._rng.items():
+            _random.generator(torch.device(k)).set_state(st)
+        self._prev.append((prev_amp, prev_rng))
+        return self
+
+    def __exit__(self, *exc):
+        prev_amp, prev_rng = self._prev.pop()
         amp_state.restore_amp(prev_amp)
-        for k in rng:
+        for k in self._rng:
             if k in prev_rng:
                 _random._generators[k].set_state(prev_rng[k])
+        return False
 
 
 def recompute(function, *args, **kwargs):
@@ -65,7 +76,7 @@ def recompute(function, *args, **kwargs):
         if preserve else {}
 
     def context_fn():
-        return contextlib.nullcontext(), _replay(amp, rng)
+        return contextlib.nullcontext(), _Replay(amp, rng)
 
     raw = [a._value if t else a for a, t in zip(args, is_tensor)]
     return _wrap(checkpoint(run, *raw, use_reentrant=False,

@@ -1,6 +1,6 @@
 """AdamW trainer over the stacked Llama core
 (paddle_tpu/distributed/fleet/trainer.py:34-220), on one card or over a
-dp x sharding x mp mesh of ranks.
+dp x pp x sharding x mp mesh of ranks.
 
 The TPU package compiles the whole step into one XLA program over a hybrid
 mesh; its parameters are full arrays with NamedShardings. Here the step
@@ -31,9 +31,25 @@ Over a mesh:
   it) and ``load_elastic_state`` re-slices them for the current mesh
   (reshard on load).
 
-A mesh larger than the initialized world raises, and so do, naming
-ROADMAP.md (queue 1, item 5): pp > 1, sep > 1, pipeline micro-batches,
-``overlap_sends`` and ``lower_text`` (there is no HLO).
+Over 'pp' (trainer.py:58-70, 104-111, 143-158) each rank holds
+num_hidden_layers / pp layers and the loss is models/llama.py::
+loss_fn_pipelined: ``place_batch`` splits the batch into
+[pipeline_micro_batches, mb, S] (one micro-batch by default: the TPU
+package's plain stack placement, one micro-batch through the ring), the
+micro-batches go through the stages as a GPipe ring of sends and receives
+(with ``overlap_sends``, each tick's micro-batch in halves, the first
+half's send behind the second half's compute), the embedding runs on the
+first stage and the head on the last. Their gradients, and the final
+norm's, exist on one stage only and are summed over the pp group (zeros
+elsewhere) after the data ranks' reduction, so that every pp replica takes
+the same step; the clip counts them once and sums the blocks' squares over
+pp.
+
+A mesh larger than the initialized world raises, and so do:
+``pipeline_micro_batches`` > 1 without a 'pp' axis, and num_hidden_layers
+that pp does not divide (ValueError, as in the TPU package); sep > 1
+(ring attention) and ``lower_text`` (there is no HLO), naming ROADMAP.md.
+``overlap_sends`` without a 'pp' axis does nothing, as in the TPU package.
 """
 from __future__ import annotations
 
@@ -49,9 +65,6 @@ from ..fleet.layers.mpu.mp_ops import all_reduce_live, gather_along
 from ..topology import hcg_for_mesh, mesh_degrees
 
 __all__ = ["HybridTrainer"]
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md, queue 1, item 5)"
-
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     """A CPU numpy copy; bf16 (which numpy lacks) goes out as f32, which
@@ -76,18 +89,23 @@ class HybridTrainer:
                  remat: bool = True,
                  pipeline_micro_batches: Optional[int] = None,
                  overlap_sends: bool = False, device=None):
-        if pipeline_micro_batches is not None and pipeline_micro_batches > 1:
-            raise NotImplementedError(f"pipeline micro-batches {_NOT_PORTED}")
-        if overlap_sends:
-            raise NotImplementedError(f"overlap_sends {_NOT_PORTED}")
         self.config = config
         self.mesh = mesh
         self.hcg = None
+        degrees = mesh_degrees(mesh) if mesh is not None else {"pp": 1}
+        pp = degrees["pp"]
+        self.n_micro = int(pipeline_micro_batches or 1)
+        if self.n_micro > 1 and pp <= 1:
+            raise ValueError(
+                f"pipeline_micro_batches={self.n_micro} requires a mesh "
+                f"with a 'pp' axis of size > 1 (got pp={pp})")
+        if pp > 1 and config.num_hidden_layers % pp != 0:
+            raise ValueError(
+                f"num_hidden_layers={config.num_hidden_layers} must divide "
+                f"evenly over pp={pp} for the pipeline")
+        self.pipelined = pp > 1
+        self.overlap_sends = overlap_sends
         if mesh is not None:
-            degrees = mesh_degrees(mesh)
-            if degrees["pp"] > 1:
-                raise NotImplementedError(
-                    f"pipeline parallelism over 'pp' {_NOT_PORTED}")
             llama_mod._check_mesh(degrees)
             self._check_divides(config, degrees)
             self.hcg = hcg_for_mesh(degrees)
@@ -137,25 +155,40 @@ class HybridTrainer:
 
     def place_batch(self, input_ids, labels):
         """This rank's rows of the global batch (all of it on one card):
-        data rank dp_rank * sharding + sharding_rank of dp x sharding."""
+        data rank dp_rank * sharding + sharding_rank of dp x sharding. Over
+        'pp', [n_micro, mb, S]: the global batch split into
+        ``pipeline_micro_batches`` micro-batches, of each this data rank's
+        rows (llama.py::microbatch_spec)."""
         ids, labs = self._batch(input_ids), self._batch(labels)
+        if self.pipelined:
+            b = ids.shape[0]
+            if b % self.n_micro:
+                raise ValueError(
+                    f"batch {b} not divisible by "
+                    f"pipeline_micro_batches={self.n_micro}")
+            ids = ids.reshape((self.n_micro, b // self.n_micro)
+                              + tuple(ids.shape[1:]))
+            labs = labs.reshape(ids.shape)
         if self.hcg is None:
             return ids, labs
         n = self._data_ranks
-        if ids.shape[0] % n:
-            raise ValueError(f"batch {ids.shape[0]} does not split over "
+        dim = 1 if self.pipelined else 0
+        if ids.shape[dim] % n:
+            raise ValueError(f"batch {ids.shape[dim]} does not split over "
                              f"{n} data ranks (dp x sharding)")
         r = (self.hcg.get_data_parallel_rank()
              * self.hcg.get_sharding_parallel_world_size()
              + self.hcg.get_sharding_parallel_rank())
-        rows = ids.shape[0] // n
-        return ids[r * rows:(r + 1) * rows], labs[r * rows:(r + 1) * rows]
+        rows = ids.shape[dim] // n
+        return (ids.narrow(dim, r * rows, rows),
+                labs.narrow(dim, r * rows, rows))
 
     def _groups_of(self, name):
         """The groups a leaf's gradient and sum of squares are split over,
         and those its gradient is summed over beyond the FSDP gathers."""
         spec, hcg = self._specs[name], self.hcg
-        split = [hcg.get_group(a) for a in ("sharding", "mp") if a in spec]
+        split = [hcg.get_group(a) for a in ("pp", "sharding", "mp")
+                 if a in spec]
         data = hcg.get_group("dp") if "sharding" in spec else \
             hcg.get_group("dp", "sharding")
         return split, data
@@ -167,11 +200,22 @@ class HybridTrainer:
         self.step_count += 1
         names = list(llama_mod.leaves(self.params))
         params = llama_mod.leaves(self.params)
-        loss = llama_mod.loss_fn_stacked(self.params, (ids, labs),
-                                         self.config, remat=self.remat,
-                                         mesh=self.mesh, hcg=self.hcg)
-        grads = torch.autograd.grad(loss, [params[n] for n in names])
-        grads = [g.float() for g in grads]
+        if self.pipelined:
+            loss = llama_mod.loss_fn_pipelined(
+                self.params, (ids, labs), self.config, self.mesh,
+                remat=self.remat, overlap_sends=self.overlap_sends,
+                hcg=self.hcg)
+        else:
+            loss = llama_mod.loss_fn_stacked(self.params, (ids, labs),
+                                             self.config, remat=self.remat,
+                                             mesh=self.mesh, hcg=self.hcg)
+        # over 'pp' a stage's gradient of the embedding or the head is
+        # zero where that stage does not run it
+        grads = torch.autograd.grad(loss, [params[n] for n in names],
+                                    allow_unused=self.pipelined)
+        grads = [torch.zeros(params[n].shape, dtype=torch.float32,
+                             device=params[n].device) if g is None
+                 else g.float() for n, g in zip(names, grads)]
         loss = loss.detach()
         b1, b2 = self.betas
         with torch.no_grad():
@@ -207,11 +251,17 @@ class HybridTrainer:
 
     def _reduce_over_data(self, names, grads):
         """Each gradient summed over the data ranks, then divided by their
-        count: the gradient of the global batch's mean loss."""
+        count: the gradient of the global batch's mean loss. Over 'pp', a
+        leaf that every stage holds whole (the embedding, the final norm,
+        the head) is then summed over the pp group: one stage computed it,
+        the others add zeros, and every replica gets the same bits."""
+        pp = self.hcg.get_group("pp") if self.pipelined else None
         for name, g in zip(names, grads):
             all_reduce_live(g, self._groups_of(name)[1])
             if self._data_ranks > 1:
                 g.div_(self._data_ranks)
+            if pp is not None and "pp" not in self._specs[name]:
+                all_reduce_live(g, pp)
 
     def _squares(self, names, grads):
         """Each leaf's sum of squares, summed over the axes it is split
@@ -231,7 +281,7 @@ class HybridTrainer:
         if self.hcg is None:
             return t
         spec = self._specs[name]
-        for axis in ("sharding", "mp"):
+        for axis in ("pp", "sharding", "mp"):
             if axis in spec:
                 t = gather_along(t.detach(), self.hcg.get_group(axis),
                                  spec.index(axis))

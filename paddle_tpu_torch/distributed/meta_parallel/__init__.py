@@ -1,13 +1,19 @@
 """meta_parallel (paddle_tpu/distributed/meta_parallel/): the
-tensor-parallel layers, ZeRO stage 1, the hybrid optimizer and the model
-wrappers. Pipeline parallelism (pp_layers, pipeline_parallel,
-pipeline_schedules, spmd_pipeline), the segment engine and the
-group-sharded stage 2-3 wrappers are not ported (ROADMAP.md, queue 1,
-item 5)."""
+tensor-parallel layers, ZeRO stage 1, the hybrid optimizer, the model
+wrappers, and pipeline parallelism (pp_layers, pipeline_schedules, the
+1F1B / interleaved / zero-bubble engines and spmd_pipeline). The segment
+engine and the group-sharded stage 2-3 wrappers are not ported
+(ROADMAP.md, queue 1, item 5)."""
 from .engines import MetaParallelBase, ShardingParallel, TensorParallel
 from .hybrid_optimizer import HybridParallelOptimizer
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
                         RowParallelLinear, VocabParallelEmbedding)
+from . import pipeline_schedules
+from .pipeline_parallel import (PipelineParallel,
+                                PipelineParallelWithInterleave,
+                                PipelineParallelZeroBubble, spmd_pipeline,
+                                spmd_pipeline_interleaved)
+from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
 from .sharding_optimizer import (DygraphShardingOptimizer,
                                  DygraphShardingOptimizerV2,
                                  all_gather_params, stage3_forward)
@@ -15,6 +21,9 @@ from .sharding_optimizer import (DygraphShardingOptimizer,
 __all__ = ["MetaParallelBase", "TensorParallel", "ShardingParallel",
            "HybridParallelOptimizer", "ColumnParallelLinear",
            "RowParallelLinear", "VocabParallelEmbedding",
-           "ParallelCrossEntropy", "DygraphShardingOptimizer",
+           "ParallelCrossEntropy", "pipeline_schedules", "PipelineParallel",
+           "PipelineParallelWithInterleave", "PipelineParallelZeroBubble",
+           "spmd_pipeline", "spmd_pipeline_interleaved", "LayerDesc",
+           "PipelineLayer", "SharedLayerDesc", "DygraphShardingOptimizer",
            "DygraphShardingOptimizerV2", "all_gather_params",
            "stage3_forward"]

@@ -13,7 +13,9 @@ order:
    element once: a distributed (mp-split) parameter's sum of squares is
    summed over the model-parallel group, a replicated one's (the RMSNorm
    weights, a replicated LM head) is taken once, since every mp rank holds
-   the same gradient for it;
+   the same gradient for it; over pp the stages' sums are added (each
+   stage holds its own layers), a shared weight counted on the first
+   stage that holds it only (``is_firstly_shared``);
 4. the inner optimizer's update.
 """
 from __future__ import annotations
@@ -40,16 +42,22 @@ class _HybridClip:
     def global_norm(self, grads):
         live = [p for p in self._params
                 if not p.stop_gradient and p._value.grad is not None]
+        pp = self._hcg.get_pipe_parallel_group()
+        if not live and not (_live(pp) and pp.nranks > 1):
+            return None
         dist_sq, rep_sq = [], []
         for p, g in zip(live, grads):
+            if not getattr(p, "is_firstly_shared", True):
+                continue
             (dist_sq if getattr(p, "is_distributed", False) else
              rep_sq).append(g.float().square().sum())
-        if not dist_sq and not rep_sq:
-            return None
-        zero = grads[0].new_zeros((), dtype=torch.float32)
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=self._params[0]._value.device)
         total = sum(dist_sq, zero)
         all_reduce_live(total, self._hcg.get_model_parallel_group())
-        return torch.sqrt(total + sum(rep_sq, zero))
+        total = total + sum(rep_sq, zero)
+        all_reduce_live(total, pp)
+        return torch.sqrt(total)
 
     def apply(self, grads):
         norm = self.global_norm(grads)

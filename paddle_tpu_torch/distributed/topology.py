@@ -172,6 +172,30 @@ class HybridCommunicateGroup:
                 if self.global_rank in ranks:
                     mine = g
             self._groups[axes] = mine
+        self._p2p = self._make_p2p_groups(topology)
+
+    def _make_p2p_groups(self, topology):
+        """The point-to-point groups of the pipeline: one a ring edge
+        (stage s, stage s+1 mod P) of every pp group, made by every rank in
+        the same order. An edge's group carries the activations that go
+        forward over it and the gradients that come back over it, so that a
+        step's send and receive with one neighbour go in one batch (one
+        NCCL group); with P = 2 the two edges are two groups over the same
+        two ranks, so each still carries one flow each way. Returns
+        (this rank's next edge, its previous edge), or None below pp 2."""
+        p = self._pp_degree
+        if p < 2:
+            return None
+        nxt = prev = None
+        for ranks in topology.get_comm_list("pp"):
+            for s in range(p):
+                edge = (ranks[s], ranks[(s + 1) % p])
+                g = collective.new_group(list(edge), axis_name="pp_p2p")
+                if self.global_rank == edge[0]:
+                    nxt = g
+                if self.global_rank == edge[1]:
+                    prev = g
+        return nxt, prev
 
     def get_group(self, *axes) -> collective.Group:
         """This rank's group over ``axes`` (one axis, or a fused pair made
@@ -253,7 +277,21 @@ class HybridCommunicateGroup:
         return self._pp_rank == self._pp_degree - 1
 
     def get_p2p_groups(self):
-        return None
+        """(send_next, send_prev, recv_next, recv_prev) as Paddle's
+        topology gives them: the next edge's group sends forward and
+        receives from the next stage, the previous edge's group the other
+        two (``_make_p2p_groups``); None below pp 2."""
+        if self._p2p is None:
+            return None
+        nxt, prev = self._p2p
+        return nxt, prev, nxt, prev
+
+    def get_p2p_neighbours(self):
+        """The global ranks of the previous and the next stage on this
+        rank's pp ring (stage s - 1 and s + 1, mod pp)."""
+        p, s = self._pp_degree, self._pp_rank
+        return (self.get_rank_from_stage((s - 1) % p),
+                self.get_rank_from_stage((s + 1) % p))
 
     # -- sharding
     def get_sharding_parallel_rank(self):

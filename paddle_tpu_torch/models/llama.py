@@ -33,8 +33,13 @@ over 'mp', and a vocab-parallel LSE loss with the reference's stop-gradient
 max. Under fleet.init with mp > 1 the eager model builds the
 tensor-parallel layers, as the reference's does (llama.py:118-122).
 
-Not ported here: ring attention over a 'sep' mesh axis, pipeline stages
-over 'pp', and ``generate_static`` (the compile tier).
+Over a mesh with a 'pp' axis (``loss_fn_pipelined``, HybridTrainer's
+pipelined path) each rank holds num_hidden_layers / pp layers, and the
+micro-batches go through them as a ring of sends and receives
+(distributed/meta_parallel/pipeline_parallel.py::spmd_pipeline).
+
+Not ported here: ring attention over a 'sep' mesh axis, and
+``generate_static`` (the compile tier).
 """
 from __future__ import annotations
 
@@ -54,7 +59,8 @@ from ..ops.kernels import resolve_device
 from ..ops.kernels import rms_norm as rn
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "init_stacked_params",
-           "forward_stacked", "loss_fn_stacked", "num_params",
+           "forward_stacked", "loss_fn_stacked", "microbatch_spec",
+           "loss_fn_pipelined", "num_params",
            "param_specs", "shard_leaf",
            "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer", "LlamaModel",
            "LlamaForCausalLM"]
@@ -415,7 +421,12 @@ def _trunk(params, input_ids, config: LlamaConfig, remat: bool = True,
         par.embed(params["embed"], input_ids)
     if config.dtype == "bfloat16":
         x = x.to(torch.bfloat16)
-    blocks = params["blocks"]
+    return _blocks(params["blocks"], x, config, remat, par)
+
+
+def _blocks(blocks, x, config: LlamaConfig, remat: bool = True,
+            par: Optional[_Par] = None):
+    """The stacked layers of ``blocks`` in order over ``x``."""
     # unbind once: its backward stacks the layers' gradients in one op
     per_layer = zip(*(blocks[key].unbind(0) for key in _BLOCK_KEYS))
     remat = remat and torch.is_grad_enabled()
@@ -462,6 +473,85 @@ def loss_fn_stacked(params, batch, config: LlamaConfig, remat: bool = True,
     if par is not None:
         return par.head_loss(params, x, labels, config)
     return _head_loss(params, x, labels, config)
+
+
+def microbatch_spec():
+    """The split of a micro-batched tensor [n_micro, mb, S] over the mesh
+    (llama.py:579-583): the micro-batch axis whole (the pipeline's time
+    axis), the batch over the data axes, the sequence over 'sep'."""
+    return (None, ("dp", "sharding"), "sep")
+
+
+class _LastStageLoss(torch.autograd.Function):
+    """The last pp stage's loss on every rank of the pp group (a broadcast
+    forward); the backward gives each rank's own loss the gradient, so
+    that every stage's hops run (spmd_pipeline)."""
+
+    @staticmethod
+    def forward(ctx, local, group):
+        from ..distributed import collective
+
+        out = local.detach().float().contiguous().clone()
+        if group is not None and group.process_group is not None:
+            collective.broadcast(out, src=group.ranks[-1], group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def loss_fn_pipelined(params, batch, config: LlamaConfig, mesh=None,
+                      remat: bool = True, overlap_sends: bool = False,
+                      hcg=None):
+    """The pipelined next-token loss over the 'pp' axis (llama.py:586-640);
+    every rank of the mesh calls it with its shards and its rows.
+
+    batch = (input_ids [n_micro, mb, S], labels [n_micro, mb, S]). The
+    embedding runs on the first stage; the blocks of this rank's
+    num_hidden_layers / pp layers run through ``spmd_pipeline`` (a GPipe
+    ring of n_micro + pp - 1 ticks, each hop a send to the next stage and a
+    receive from the previous one; ``overlap_sends`` half-splits each
+    tick's micro-batch so that the first half's send runs behind the
+    second half's compute); the final norm, the LM head and the loss
+    (``_Par.head_loss``) run on the last stage, whose loss every rank
+    returns. The embedding's and the head's gradients therefore exist on
+    one stage only: HybridTrainer sums them over the pp group, with zeros
+    elsewhere, so that the replicas stay equal (the TPU package runs the
+    head on every pp device after a psum of the last stage's outputs,
+    which costs an all-reduce of the activations and the head on every
+    stage)."""
+    from ..distributed.meta_parallel.pipeline_parallel import spmd_pipeline
+
+    _check_mesh(mesh)
+    if hcg is None:
+        raise ValueError("loss_fn_pipelined runs over a hybrid group (hcg)")
+    if config.remat_policy == "save_attn":
+        raise NotImplementedError(
+            "paddle_tpu_torch: remat_policy='save_attn' over a mesh is not "
+            "ported (ROADMAP.md, queue 1, item 5); use 'full'")
+    input_ids, labels = batch
+    n_micro, mb, s = input_ids.shape
+    par = _Par(hcg, config)
+    group = hcg.get_pipe_parallel_group()
+    p, stage = hcg.get_pipe_parallel_world_size(), hcg.get_stage_id()
+    dtype = _torch_dtype(config.dtype)
+    if stage == 0:
+        x = par.embed(params["embed"], input_ids).to(dtype)
+    else:
+        x = torch.empty((n_micro, mb, s, config.hidden_size), dtype=dtype,
+                        device="meta")
+
+    def stage_fn(blocks, h):
+        return _blocks(blocks, h, config, remat, par)
+
+    ys = spmd_pipeline(stage_fn, params["blocks"], x, n_micro,
+                       overlap_sends=overlap_sends, group=hcg)
+    if stage == p - 1:
+        local = par.head_loss(params, ys, labels, config)
+    else:
+        local = ys.sum().float()      # zero: ties in this stage's hops
+    return _LastStageLoss.apply(local, group if p > 1 else None)
 
 
 # ---------------------------------------------------------------------------

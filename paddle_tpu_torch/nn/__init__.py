@@ -2,7 +2,7 @@
 torch.nn.Module layers the serving model is built of (``nn.modules``)."""
 from . import functional, initializer, modules
 from .layer import (GELU, CrossEntropyLoss, Dropout, Embedding, Layer,
-                    LayerDict, LayerList, LayerNorm, Linear,
+                    LayerDict, LayerList, LayerNorm, Linear, MSELoss,
                     MultiHeadAttention, ParameterList, ReLU, RMSNorm,
                     Sequential, Tanh, TransformerEncoder,
                     TransformerEncoderLayer)
@@ -10,5 +10,5 @@ from .layer import (GELU, CrossEntropyLoss, Dropout, Embedding, Layer,
 __all__ = ["functional", "initializer", "modules", "Layer", "Sequential",
            "LayerList", "ParameterList", "LayerDict", "Linear", "Embedding",
            "Dropout", "LayerNorm", "RMSNorm", "ReLU", "GELU", "Tanh",
-           "CrossEntropyLoss", "MultiHeadAttention",
+           "CrossEntropyLoss", "MSELoss", "MultiHeadAttention",
            "TransformerEncoderLayer", "TransformerEncoder"]

@@ -29,7 +29,7 @@ from ...ops.math import promote
 from .. import modules as _m
 
 __all__ = ["linear", "rms_norm", "layer_norm", "embedding", "relu", "tanh",
-           "gelu", "dropout", "cross_entropy",
+           "gelu", "dropout", "cross_entropy", "mse_loss",
            "scaled_dot_product_attention"]
 
 
@@ -190,6 +190,12 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
 
     args = [input, label] + ([weight] if weight is not None else [])
     return apply(fn, *args, op_name="cross_entropy")
+
+
+def mse_loss(input, label, reduction="mean", name=None):
+    """The squared error, reduced (nn/functional/__init__.py:1101)."""
+    return apply(lambda a, b: _reduce_loss(torch.square(a - b), reduction),
+                 input, label, op_name="mse_loss")
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,

@@ -1,11 +1,11 @@
 """Loss layers (paddle_tpu/nn/layer/loss.py): CrossEntropyLoss over
-F.cross_entropy (f32 arithmetic whatever the logits' dtype)."""
+F.cross_entropy (f32 arithmetic whatever the logits' dtype), and MSELoss."""
 from __future__ import annotations
 
 from .. import functional as F
 from .layers import Layer
 
-__all__ = ["CrossEntropyLoss"]
+__all__ = ["CrossEntropyLoss", "MSELoss"]
 
 
 class CrossEntropyLoss(Layer):
@@ -27,3 +27,12 @@ class CrossEntropyLoss(Layer):
             reduction=self.reduction, soft_label=self.soft_label,
             axis=self.axis, use_softmax=self.use_softmax,
             label_smoothing=self.label_smoothing)
+
+
+class MSELoss(Layer):
+    def __init__(self, reduction="mean"):
+        super().__init__()
+        self.reduction = reduction
+
+    def forward(self, input, label):
+        return F.mse_loss(input, label, self.reduction)

@@ -14,7 +14,8 @@ import numpy as np
 import torch
 
 __all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu",
-           "load_params_from_paddle_tpu", "state_dict_from_paddle_tpu"]
+           "load_params_from_paddle_tpu", "state_dict_from_paddle_tpu",
+           "stage_state_dict_from_paddle_tpu"]
 
 # parameter names of PagedCausalLM in both packages
 _SERVING_NAMES = re.compile(
@@ -44,7 +45,8 @@ def stacked_params_from_paddle_tpu(tree, mesh=None) -> dict:
     tensors, dtype kept, for paddle_tpu_torch.models.llama. With ``mesh``
     (a HybridCommunicateGroup, or a mesh: a Mesh or a dict of axis sizes,
     read at this process's rank) each leaf is this rank's shard
-    (models/llama.py::param_specs)."""
+    (models/llama.py::param_specs): over 'pp' the blocks' stack axis holds
+    this stage's num_hidden_layers / pp layers."""
     from ..models import llama
 
     if mesh is None:
@@ -134,3 +136,16 @@ def state_dict_from_paddle_tpu(state, mesh=None) -> dict:
                 out[name] = t.chunk(n, dim=axis)[r].contiguous()
                 break
     return out
+
+
+def stage_state_dict_from_paddle_tpu(state, layer, mesh=None) -> dict:
+    """The TPU package's whole-model ``state_dict()`` of a PipelineLayer
+    (numpy arrays, names ``layers_list.<i>.<...>``) -> the entries of the
+    stage that the port's PipelineLayer ``layer`` holds on this rank, under
+    the same global names, as ``state_dict_from_paddle_tpu`` converts them
+    (with ``mesh``, the eager Llama's tensor-parallel weights as this
+    rank's slices). ``layer.set_state_dict`` takes the result with nothing
+    missing or unexpected."""
+    own = set(layer.state_dict())
+    return state_dict_from_paddle_tpu(
+        {k: v for k, v in state.items() if k in own}, mesh)

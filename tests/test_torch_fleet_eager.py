@@ -192,7 +192,7 @@ class _ModeHCG:
         return self.mode
 
 
-@pytest.mark.parametrize("mode", ["pipeline", "segment_parallel"])
+@pytest.mark.parametrize("mode", ["segment_parallel"])
 def test_fleet_modes_not_ported_raise_naming_roadmap(mode):
     from paddle_tpu_torch.distributed.fleet import fleet as F
 

@@ -527,3 +527,266 @@ def eager_llama(out_dir, cfg_dict, state, ids, labels, lr):
         _dump(out_dir, rank, {"loss": float(total), "params": params,
                               "kinds": sorted(kinds)})
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def _seq_descs(n_layers=8, width=12, shared=False):
+    """The TPU package's test model (tests/test_pipeline_schedules.py::
+    _seq_model) as descs: Linear, Tanh, ...; with ``shared``, its first and
+    last Linear one tied layer."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.meta_parallel import (LayerDesc,
+                                                            SharedLayerDesc)
+
+    out = []
+    for i in range(n_layers):
+        if shared and i in (0, n_layers - 1):
+            out.append(SharedLayerDesc("tie", nn.Linear, None, "weight",
+                                       width, width))
+        else:
+            out.append(LayerDesc(nn.Linear, width, width))
+        out.append(LayerDesc(nn.Tanh))
+    return out
+
+
+def _pp_strategy(pp, **pp_configs):
+    from paddle_tpu_torch.distributed import fleet
+
+    strategy = fleet.DistributedStrategy()
+    strategy.hybrid_configs = {
+        "dp_degree": 1, "mp_degree": 1, "pp_degree": pp,
+        "sharding_degree": 1, "sep_degree": 1,
+        "pp_configs": dict({"accumulate_steps": 4}, **pp_configs)}
+    fleet.init(is_collective=True, strategy=strategy)
+    return strategy, fleet.get_hybrid_communicate_group()
+
+
+def _grads(model):
+    return {n: _np(p.grad) for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def pipeline_engines(out_dir, state, shared_state, x, y):
+    """The three engines at pp = world over the TPU package's test model
+    (its state loaded by global names): each engine's loss and gradients
+    of one forward_backward_pipeline, 3 train_batch steps of SGD with and
+    without a GradScaler, eval_batch, a tied layer on the first and last
+    stage, ZB-H1's pullbacks, Fleet's dispatch and the point-to-point
+    helpers."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import amp, nn, optimizer
+    from paddle_tpu_torch.core import autograd
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        PipelineLayer, PipelineParallel, PipelineParallelWithInterleave,
+        PipelineParallelZeroBubble)
+    from paddle_tpu_torch.distributed.meta_parallel._p2p_communication \
+        import p2p_of
+    from paddle_tpu_torch.utils import stage_state_dict_from_paddle_tpu
+
+    world = dist.get_world_size()
+    strategy, hcg = _pp_strategy(world)
+    xt, yt = paddle.to_tensor(x), paddle.to_tensor(y)
+    res = {"stage": hcg.get_stage_id()}
+
+    def build(v=1, shared=False):
+        model = PipelineLayer(_seq_descs(shared=shared),
+                              loss_fn=nn.MSELoss(),
+                              num_virtual_pipeline_stages=v)
+        whole = shared_state if shared else state
+        mine = stage_state_dict_from_paddle_tpu(whole, model)
+        res.setdefault("load", []).append(
+            (model.set_state_dict(mine), model.set_state_dict(whole),
+             len(mine) == len(model.state_dict())))
+        return model
+
+    engines = {"1f1b": (PipelineParallel, {}, 1),
+               "vpp": (PipelineParallelWithInterleave,
+                       {"num_virtual_pipeline_stages": 2}, 2),
+               "zb": (PipelineParallelZeroBubble, {}, 1)}
+    for name, (cls, kw, v) in engines.items():
+        model = build(v)
+        eng = cls(model, hcg, strategy=strategy, **kw)
+        loss = eng.forward_backward_pipeline((xt, yt))
+        res[name] = {"loss": float(loss), "grads": _grads(model),
+                     "names": sorted(n for n, _ in model.named_parameters())}
+        for use_scaler in (False, True):
+            model = build(v)
+            eng = cls(model, hcg, strategy=strategy, **kw)
+            opt = optimizer.SGD(learning_rate=0.1,
+                                parameters=model.parameters())
+            scaler = amp.GradScaler(init_loss_scaling=1024.0) \
+                if use_scaler else None
+            res[name][f"train_{use_scaler}"] = [
+                float(eng.train_batch((xt, yt), opt, scaler=scaler))
+                for _ in range(3)]
+            res[name][f"params_{use_scaler}"] = {
+                n: _np(p) for n, p in model.named_parameters()}
+        res[name]["eval"] = float(eng.eval_batch((xt, yt),
+                                                 compute_loss=True))
+
+    # a tied layer on the first and the last stage
+    model = build(shared=True)
+    eng = PipelineParallel(model, hcg, strategy=strategy)
+    res["shared_loss"] = float(eng.forward_backward_pipeline((xt, yt)))
+    model.allreduce_shared_weight_gradients()
+    res["shared_grads"] = _grads(model)
+    res["firstly_shared"] = {n: bool(p.is_firstly_shared)
+                             for n, p in model.named_parameters()}
+    # 3 steps of SGD under fleet's optimizer with an active global-norm
+    # clip: the norm over every stage, the tied weight counted once
+    model = build(shared=True)
+    eng = PipelineParallel(model, hcg, strategy=strategy)
+    opt = fleet.distributed_optimizer(optimizer.SGD(
+        learning_rate=0.1, parameters=model.parameters(),
+        grad_clip=optimizer.ClipGradByGlobalNorm(0.05)))
+    res["clip_losses"] = [float(eng.train_batch((xt, yt), opt))
+                          for _ in range(3)]
+    res["clip_params"] = {n: _np(p) for n, p in model.named_parameters()}
+
+    # ZB-H1: B is the input-gradient pullback, W the weights'
+    calls, real = [], autograd.grad
+
+    def spy(outputs, inputs, *a, **kw):
+        ins = inputs if isinstance(inputs, list) else [inputs]
+        calls.append(len(ins))
+        return real(outputs, ins, *a, **kw)
+
+    autograd.grad = spy
+    try:
+        model = build()
+        PipelineParallelZeroBubble(model, hcg, strategy=strategy) \
+            .forward_backward_pipeline((xt, yt))
+    finally:
+        autograd.grad = real
+    res["zb_calls"] = calls
+
+    # PipelineLayer.forward at pp > 1
+    try:
+        build()(xt)
+        res["forward_error"] = None
+    except RuntimeError as e:
+        res["forward_error"] = str(e)
+
+    # Fleet's dispatch
+    kinds = []
+    for extra, v in (({"schedule_mode": "ZBH1"}, 1), ({}, 2), ({}, 1),
+                     ({"schedule_mode": "VPP"}, 2)):
+        strategy, hcg = _pp_strategy(world, **extra)
+        kinds.append(type(fleet.distributed_model(build(v))).__name__)
+    res["dispatch"] = kinds
+
+    # the point-to-point helpers, stage 0 with stage 1
+    p2p = p2p_of(hcg)
+    p2p.begin_batch()
+    s = hcg.get_stage_id()
+    a = torch.arange(6, dtype=torch.float32).reshape(2, 3) + 10 * s
+    like = ((2, 3), torch.float32)
+    if s == 0:
+        p2p.send_forward(a, "k")
+        got = p2p.send_forward_recv_backward(a + 1, "k", like)
+        res["p2p"] = [_np(got), _np(p2p.recv_backward(like))]
+    elif s == 1:
+        first = p2p.recv_forward("k")
+        second = p2p.send_backward_recv_forward(a, "k")
+        p2p.send_backward(a + 1)
+        res["p2p"] = [_np(first), _np(second)]
+    p2p.finish()
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+def pipeline_spmd(out_dir, ws, wv, x, g, n_micro):
+    """spmd_pipeline (plain, halves, an odd micro-batch) and
+    spmd_pipeline_interleaved at pp = world: the last stage's outputs, and
+    the gradients of sum(out * g) of each stage's weights and of x."""
+    dist, rank = _start()
+    from paddle_tpu_torch.distributed.meta_parallel import (
+        spmd_pipeline, spmd_pipeline_interleaved)
+
+    world = dist.get_world_size()
+    _, hcg = _pp_strategy(world)
+    s = hcg.get_stage_id()
+    res = {"stage": s}
+
+    def run(fn, w, xs, gs, **kw):
+        w = torch.from_numpy(w).requires_grad_(True)
+        xs = torch.from_numpy(xs).requires_grad_(True)
+        out = fn(w, xs, **kw)
+        (out * torch.from_numpy(gs)).sum().backward()
+        return {"out": out.detach().numpy().copy(), "dw": w.grad.numpy(),
+                "dx": xs.grad.numpy() if xs.grad is not None else None}
+
+    def plain(w, xs, overlap_sends=False):
+        return spmd_pipeline(lambda p, h: h @ p, w, xs, n_micro,
+                             overlap_sends=overlap_sends)
+
+    res["plain"] = run(plain, ws[s], x, g)
+    res["halves"] = run(plain, ws[s], x, g, overlap_sends=True)
+    odd = (slice(None), slice(0, 3))
+    res["odd"] = run(plain, ws[s], x[odd], g[odd])
+    res["odd_halves"] = run(plain, ws[s], x[odd], g[odd], overlap_sends=True)
+    res["interleaved"] = run(
+        lambda w, xs: spmd_pipeline_interleaved(
+            lambda p, h: torch.tanh(h @ p), w, xs, n_micro, wv.shape[1]),
+        wv[s], x, g)
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+def trainer_pipeline(out_dir, cfg_dict, np_params, batches, lr, jobs):
+    """HybridTrainer over meshes with a 'pp' axis: per job (mesh,
+    micro-batches, overlap_sends) 3 steps: losses, clip norms, the gathered
+    state, and this rank's replicated leaves; with ``elastic`` a snapshot
+    after the second step loaded under dp = world and the third step
+    there."""
+    dist, rank = _start()
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.utils import stacked_params_from_paddle_tpu
+
+    cfg = _llama_config(cfg_dict)
+    res = {}
+    for job in jobs:
+        tr = HybridTrainer(cfg, job["mesh"], learning_rate=lr,
+                           pipeline_micro_batches=job["n_micro"],
+                           overlap_sends=job.get("overlap", False),
+                           device="cpu")
+        mine = TL.leaves(stacked_params_from_paddle_tpu(np_params, tr.hcg))
+        with torch.no_grad():
+            for name, t in TL.leaves(tr.params).items():
+                t.copy_(mine[name])
+        out = {"losses": [], "norms": [],
+               "coords": tr.hcg.layout().coords,
+               "local_shapes": {k: tuple(v.shape) for k, v in
+                                TL.leaves(tr.params).items()}}
+        for i, (ids, labels) in enumerate(batches):
+            if job.get("elastic") and i == len(batches) - 1:
+                snap = tr.elastic_state()
+            out["losses"].append(float(tr.step(ids, labels)))
+            out["norms"].append(float(tr.last_grad_norm))
+        out["replicated"] = {k: v.detach().numpy().copy() for k, v in
+                             TL.leaves(tr.params).items()
+                             if "blocks" not in k}
+        out["state"] = tr.elastic_state()
+        if job.get("elastic"):
+            world = dist.get_world_size()
+            dp = HybridTrainer(cfg, {"dp": world}, learning_rate=lr,
+                               device="cpu")
+            dp.load_elastic_state(snap)
+            out["reload_exact"] = all(
+                np.array_equal(dp.elastic_state()[k], snap[k]) for k in snap)
+            out["dp_loss"] = float(dp.step(*batches[-1]))
+            after = dp.elastic_state()
+            out["after_gap"] = max(float(np.abs(after[k]
+                                                - out["state"][k]).max())
+                                   for k in after if k != "step")
+        if rank != 0:
+            out.pop("state")
+        res[job["name"]] = out
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
