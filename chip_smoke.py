@@ -34,6 +34,14 @@ Phases, each of which fails the run with a non-zero exit:
      to the plain versions as in phase 2, then each kernel timed beside its
      bound, its plain version and SDPA with dropout_p=0.1 (new *_d64_* rows
      of the kernels line);
+  2c. sep: the ring attention's hops at the training shape (q/k/v [4, 16,
+     4096, 128] bf16 causal) for 2 and 4 virtual sep ranks on this card,
+     composed from ops/kernels/ring_attention.py's own hop functions (every
+     shard already on the card; the --hybrid jobs run the exchange): O,
+     LSE, dQ, dK and dV held to the whole sequence's flash call, the
+     launches held exactly (n(n+1)/2 forward, dK/dV and dQ), the
+     composition's forward + backward timed beside the whole call's (the
+     "sep" path of the kernels line);
   3. serving: PagedServingConfig.llama_1b() at full width (16 layers,
      bf16, random weights from a seed) serves 8 requests through
      ServingEngine.from_model / add_request / step / decode_run, twice on
@@ -185,14 +193,21 @@ Phases, each of which fails the run with a non-zero exit:
      on every pp rank) and the engines at pp 2 over NCCL; with 4, mp 2 x
      sharding 2, pp 2 x mp 2 and pp 4, the engines at pp 2 x mp 2, then
      the Llama-2 7B rows (32 layers, bf16, remat) at mp 2 x sharding 2
-     (one 4096-token sequence a data rank) and at pp 2 x mp 2 (8
-     sequences in 8 micro-batches): one warm-up and 10 timed steps (ms,
+     (one 4096-token sequence a data rank), at pp 2 x mp 2 (8 sequences in
+     8 micro-batches) and at sep 2 x mp 2 (4 sequences, each sep rank
+     holding 2048 positions of each). Over 'sep' the parity jobs run the
+     ring at sep 2 (2 cards) and at sep 4, sep 2 x mp 2, sep 2 x sharding
+     2 and pp 2 x sep 2 (4 cards), each sep rank's launches held to its
+     ring's hops and every leaf bit for bit equal over the sep group. The
+     rows take one warm-up and 10 timed steps (ms,
      the median of the later 5 and the window's slope, tokens/s a card,
      share of 989 TF/s, peak memory a card, the host's share of each
      step, launches a step on every stage) and one profiled step on rank
-     0 and over pp on each stage's first rank (NCCL and point-to-point
-     kernels' device time against the rest). ``python3 chip_smoke.py
-     --hybrid`` runs the build and this phase alone at worlds 2 and 4;
+     0 and over pp and sep on each stage's and each sep rank's first rank
+     (NCCL and point-to-point kernels' device time against the rest, the
+     flash kernels', and how much of the point-to-point time ran beside
+     compute). ``python3 chip_smoke.py --hybrid`` runs the build and this
+     phase alone at worlds 2 and 4;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
@@ -263,6 +278,10 @@ D64_SHAPES = {"bert": dict(batch=32, seq=512, causal=False),
 ATTN_DROPOUT = 0.1
 PRETRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
                     "flash_attention_bwd_dq")
+# the sep phase's virtual ring sizes: the ring attention's hops run through
+# the three flash kernels
+SEP_RANKS = (2, 4)
+PATHS["sep"] = PRETRAIN_KERNELS
 # the flash sources whose instantiations ptxas -v reports on
 PTXAS_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
 # the weight-streaming modes of phase 4e, int4 first so that the int8
@@ -325,13 +344,14 @@ def time_ms_turns(fns, calls=50, windows=7, warmup=10):
     return {name: statistics.median(v) for name, v in per_call.items()}
 
 
-def profile_kernels(fn, calls=1):
+def profile_kernels(fn, calls=1, intervals=None):
     """{kernel name: (launches, total device us)} of ``calls`` calls of
     ``fn`` under torch.profiler (CUPTI), device-side kernel rows only.
     The profiler may lose the first device records it takes (one more
     every ~15 s of process life, now and then a few hundred:
     tools/torch_profiler_window.py), so PROFILE_PAD_LAUNCHES one-cycle spin
-    kernels go first, and the result leaves them out."""
+    kernels go first, and the result leaves them out. ``intervals``, a
+    list, gets each device kernel's (name, start us, end us)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -341,6 +361,11 @@ def profile_kernels(fn, calls=1):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
+    if intervals is not None:
+        intervals.extend((evt.key, evt.time_range.start, evt.time_range.end)
+                         for evt in prof.events()
+                         if _is_device_kernel_row(evt)
+                         and "spin_kernel" not in evt.key)
     out = {}
     for evt in prof.key_averages():
         if not _is_device_kernel_row(evt):
@@ -350,6 +375,30 @@ def profile_kernels(fn, calls=1):
             n, tot = out.get(evt.key, (0, 0.0))
             out[evt.key] = (n + evt.count, tot + us)
     return out
+
+
+def _overlap_ms(intervals, picked, beside):
+    """Milliseconds of the device time of the kernels ``picked`` (a
+    predicate of the name) during which a kernel ``beside`` picks ran on
+    the card too (``intervals`` as profile_kernels gives them)."""
+    import bisect
+
+    spans = []
+    for s, e in sorted((s, e) for k, s, e in intervals if beside(k)):
+        if spans and s <= spans[-1][1]:
+            spans[-1][1] = max(spans[-1][1], e)
+        else:
+            spans.append([s, e])
+    starts = [s for s, _ in spans]
+    total = 0.0
+    for k, s, e in intervals:
+        if not picked(k):
+            continue
+        i = max(bisect.bisect_right(starts, s) - 1, 0)
+        while i < len(spans) and spans[i][0] < e:
+            total += max(0.0, min(e, spans[i][1]) - max(s, spans[i][0]))
+            i += 1
+    return total / 1e3
 
 
 def _is_device_kernel_row(evt):
@@ -1287,6 +1336,98 @@ def _d64_times(dev, results, probes, model, q, k, v, do, seed, causal, o,
             f"library {r['library_ms']:.3f} ms ({r['library']}), bound "
             f"{bnd:.4f} ms ({by}), {r['ops'] / ms / 1e9:.1f} TFLOP/s, "
             f"{100 * bnd / ms:.1f}% of the bound")
+
+
+def phase_sep(dev):
+    """The ring attention's hops (ops/kernels/ring_attention.py) at the
+    flagship training shape, q/k/v [4, 16, 4096, 128] bf16 causal, for
+    SEP_RANKS virtual sep ranks on this one card: each rank's hops composed
+    from the module's own per-hop forward, merge and backward
+    (compose_forward / compose_backward), every shard already on the card
+    (the exchange runs in the --hybrid jobs). O, LSE, dQ, dK and dV held
+    to the flash kernels over the whole sequence on the same inputs with
+    phase_flash_kernels' tolerances; the launches held exactly (n ranks
+    run n(n+1)/2 causal hops: that many forward, dK/dV and dQ launches);
+    the composition's forward + backward timed beside the whole call's.
+    Both sides are bf16 kernels that phase 2 holds within
+    2**-6 * (|ref| + row RMS) + 1e-5 of the plain f32 versions, so they
+    are held within twice that of each other (the composition rounds each
+    hop's O, dK and dV to bf16 before it merges or adds them in f32)."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+    from paddle_tpu_torch.ops.kernels import ring_attention as RA
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    B, H, S, D = TRAIN_BATCH, 16, TRAIN_SEQ, 128
+    RTOL, FLOOR = 2.0 ** -5, 2e-5
+    q, k, v, do = [torch.randn(B, H, S, D, device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4)]
+    # the whole sequence, the comparison (its launches are not the path's)
+    o, lse = FA.forward_with_lse(q, k, v, None, 0, True, 0.0)
+    dq, dk, dv = FA.backward(q, k, v, None, 0, o, lse, do, True, 0.0)
+
+    def whole():
+        o_, lse_ = FA.forward_with_lse(q, k, v, None, 0, True, 0.0)
+        FA.backward(q, k, v, None, 0, o_, lse_, do, True, 0.0)
+
+    whole_ms = time_ms(whole, calls=3, windows=5, warmup=1)
+    counts, out = Counter(), {"shape": f"q/k/v [{B}, {H}, {S}, {D}] bf16 "
+                              f"causal", "whole_ms": whole_ms, "ranks": {}}
+    for n in SEP_RANKS:
+        qs, ks, vs, dos = ([c.contiguous() for c in t.chunk(n, dim=2)]
+                           for t in (q, k, v, do))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        os_, lses = RA.compose_forward(qs, ks, vs, True)
+        dqs, dks, dvs = RA.compose_backward(qs, ks, vs, os_, lses, dos, True)
+        torch.cuda.synchronize()
+        got = launch_counts()
+        hops = n * (n + 1) // 2
+        want = {"flash_attention_fwd": hops, "flash_attention_bwd_dkv": hops,
+                "flash_attention_bwd_dq": hops, "aligned16_copies": 0}
+        ratios = {name: _worst_of_tol(torch.cat(a, 2), b, RTOL, FLOOR)
+                  for name, (a, b) in (("O", (os_, o)), ("dQ", (dqs, dq)),
+                                       ("dK", (dks, dk)), ("dV", (dvs, dv)))}
+        el = _max_err(torch.cat(lses, 2), lse)
+        finite = all(bool(torch.isfinite(torch.cat(t, 2).float()).all())
+                     for t in (os_, dqs, dks, dvs))
+
+        def composed():
+            o_, l_ = RA.compose_forward(qs, ks, vs, True)
+            RA.compose_backward(qs, ks, vs, o_, l_, dos, True)
+
+        ms = time_ms(composed, calls=3, windows=5, warmup=1)
+        launched = {name: got[name] for name in want}
+        ok = finite and el <= 1e-3 and max(ratios.values()) <= 1.0 \
+            and launched == want
+        out["ranks"][n] = {"worst_ratio": ratios, "lse_max_abs_err": el,
+                           "launches": launched, "ms": ms,
+                           "ms_over_whole": ms / whole_ms,
+                           "max_abs_err": {
+                               "O": _max_err(torch.cat(os_, 2), o),
+                               "dQ": _max_err(torch.cat(dqs, 2), dq),
+                               "dK": _max_err(torch.cat(dks, 2), dk),
+                               "dV": _max_err(torch.cat(dvs, 2), dv)}}
+        log(f"sep: {n} virtual ranks over {out['shape']}: the ring's hops "
+            f"against the whole flash call, worst error / tol "
+            + ", ".join(f"{name} {r:.3f}" for name, r in ratios.items())
+            + f" (tol 2**-5 * (|ref| + row RMS) + 2e-5), LSE max_abs_err "
+            f"{el:.3e} (tol 1e-3); launches {launched} (want {want}); "
+            f"forward + backward {ms:.3f} ms composed against {whole_ms:.3f}"
+            f" ms whole {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"sep: the ring's hops at {n} ranks "
+                                 f"disagree with the whole flash call, or "
+                                 f"launched {launched} (want {want})")
+        counts.update({name: got[name] for name in want})
+        del qs, ks, vs, dos, os_, lses, dqs, dks, dvs
+    log(json.dumps({"sep": out}))
+    out["counts"] = counts
+    out["per_call"] = {name: {f"{n} ranks": out["ranks"][n]["launches"][name]
+                              for n in SEP_RANKS} for name in PRETRAIN_KERNELS}
+    del q, k, v, do, o, lse, dq, dk, dv
+    torch.cuda.empty_cache()
+    return out
 
 
 def _packed_lens(total, seed):
@@ -3460,8 +3601,11 @@ def _hybrid_plan(world):
     HybridTrainer(mesh=None) run by rank 0 on its own card (3 steps, the
     losses and every parameter and moment); an engines job runs the eager
     pipeline engines (_pipeline_engines); a row times the full Llama-2 7B
-    at mp 2 x sharding 2, and at pp 2 x mp 2 with 8 micro-batches.
-    ``pipeline`` marks the jobs whose launches the pipeline path counts."""
+    at mp 2 x sharding 2, at pp 2 x mp 2 with 8 micro-batches, and at
+    sep 2 x mp 2 (4 sequences). Over 'sep' the parity jobs run the ring at
+    sep 2 (world 2) and sep 4, sep 2 x mp 2, sep 2 x sharding 2 and pp 2 x
+    sep 2 (world 4). ``pipeline`` marks the jobs whose launches the
+    pipeline path counts."""
     engines = dict(kind="engines", width="flagship", layers=4, batch=8,
                    seq=512, n_micro=4, steps=2, path=False, pipeline=True)
     if world == 1:
@@ -3481,15 +3625,34 @@ def _hybrid_plan(world):
     pipe = dict(parity, layers=4, batch=8, n_micro=4, pipeline=True)
     if world == 2:
         return [dict(parity, name="7b_width_2l_f32_mp2", mesh={"mp": 2}),
+                dict(parity, name="7b_width_2l_f32_sep2", mesh={"sep": 2}),
                 dict(pipe, name="7b_width_4l_f32_pp2", mesh={"pp": 2}),
                 dict(pipe, name="7b_width_4l_f32_pp2_overlap",
                      mesh={"pp": 2}, overlap=True),
                 dict(engines, name="engines_flagship_pp2", mesh={"pp": 2})]
-    return [dict(parity, name="7b_width_2l_f32_mp2_sh2",
+    # the sep 2 x mp 2 row first: it holds every leaf and its f32 moments
+    # at half the model a rank (~47 GB, ~60 GB with the update's
+    # temporaries), and each job's NCCL communicators stay allocated
+    # after it (the hybrid groups are not destroyed), which before it took
+    # ~18 GB a card
+    return [dict(kind="row", name="llama2_7b_sep2_mp2", width="llama2-7b",
+                 dtype="bfloat16", layers=None, mesh={"sep": 2, "mp": 2},
+                 # 4 sequences of 4096 (16,384 tokens a step), each sep
+                 # rank holding 2048 positions of each at 16 heads a rank
+                 seq=4096, batch=4, steps=10, path=False),
+            dict(parity, name="7b_width_2l_f32_mp2_sh2",
                  mesh={"mp": 2, "sharding": 2}),
             dict(pipe, name="7b_width_4l_f32_pp2_mp2",
                  mesh={"pp": 2, "mp": 2}),
             dict(pipe, name="7b_width_4l_f32_pp4", mesh={"pp": 4}),
+            # the ring over 'sep': 256 or 128 positions a rank
+            dict(parity, name="7b_width_2l_f32_sep4", mesh={"sep": 4}),
+            dict(parity, name="7b_width_2l_f32_sep2_mp2",
+                 mesh={"sep": 2, "mp": 2}),
+            dict(parity, name="7b_width_2l_f32_sep2_sh2",
+                 mesh={"sep": 2, "sharding": 2}),
+            dict(pipe, name="7b_width_4l_f32_pp2_sep2",
+                 mesh={"pp": 2, "sep": 2}),
             dict(engines, name="engines_flagship_pp2_mp2",
                  mesh={"pp": 2, "mp": 2}),
             dict(kind="row", name="llama2_7b_mp2_sh2", width="llama2-7b",
@@ -3577,31 +3740,35 @@ def _timed_steps(dist, trainer, batches, probe=False):
     return losses, step_ms, per_step, norms, host
 
 
-def _training_launches(cfg, layers=None, calls=1, last=True):
+def _training_launches(cfg, layers=None, calls=1, last=True, hops=1):
     """A remat'd step's launches: each of ``layers`` layers (all when None)
     ``calls`` times (micro-batches, halves) with its recomputation, and
-    the final norm once where ``last`` holds it."""
+    the final norm once where ``last`` holds it; each layer's attention
+    ``hops`` flash calls (a causal ring's sep rank r runs r + 1)."""
     L = (cfg.num_hidden_layers if layers is None else layers) * calls
     return {"rms_norm": 4 * L + last, "rms_norm_bwd": 2 * L + last,
-            "flash_attention_fwd": 2 * L, "flash_attention_bwd_dkv": L,
-            "flash_attention_bwd_dq": L, "aligned16_copies": 0}
+            "flash_attention_fwd": 2 * L * hops,
+            "flash_attention_bwd_dkv": L * hops,
+            "flash_attention_bwd_dq": L * hops, "aligned16_copies": 0}
 
 
 def _launches_of(trainer, rows):
     """HybridTrainer's launches a step on this rank: the stacked step's,
     or over 'pp' its stage's: its num_hidden_layers / pp layers for each
     micro-batch (in two halves under overlap_sends with an even
-    micro-batch of 2 or more rows), the final norm on the last stage."""
+    micro-batch of 2 or more rows), the final norm on the last stage.
+    Over 'sep', sep rank r's causal ring runs r + 1 hops a layer."""
     cfg = trainer.config
-    if not trainer.pipelined:
-        return _training_launches(cfg)
     hcg = trainer.hcg
+    hops = 1 if hcg is None else hcg.get_sep_parallel_rank() + 1
+    if not trainer.pipelined:
+        return _training_launches(cfg, hops=hops)
     pp = hcg.get_pipe_parallel_world_size()
     mb = rows // trainer.n_micro // trainer._data_ranks
     halves = 2 if trainer.overlap_sends and mb % 2 == 0 and mb >= 2 else 1
     return _training_launches(cfg, cfg.num_hidden_layers // pp,
                               trainer.n_micro * halves,
-                              hcg.get_stage_id() == pp - 1)
+                              hcg.get_stage_id() == pp - 1, hops)
 
 
 def _check_launches(per_step, want, what):
@@ -3613,20 +3780,32 @@ def _check_launches(per_step, want, what):
 
 
 def _replicas_equal(trainer):
-    """Over 'pp', whether each leaf that every stage holds whole
-    (embedding, final norm, head) is bit for bit this rank's on every
-    rank of its pp group (collective)."""
+    """Whether the replicas of each leaf are bit for bit this rank's
+    (collective): over 'pp', each leaf that every stage holds whole
+    (embedding, final norm, head) on every rank of the pp group; over
+    'sep', every parameter and moment on every rank of the sep group.
+    Keys "pp:<leaf>", "sep:<p|m|v>:<leaf>"."""
     from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
         gather_along
     from paddle_tpu_torch.models import llama as TL
 
-    group = trainer.hcg.get_pipe_parallel_group()
-    out = {}
-    for name, t in TL.leaves(trainer.params).items():
-        if "pp" in trainer._specs[name]:
-            continue
+    def same(t, group):
         pieces = gather_along(t.detach()[None], group, 0)
-        out[name] = all(torch.equal(piece, t) for piece in pieces)
+        return all(torch.equal(piece, t) for piece in pieces)
+
+    hcg, out = trainer.hcg, {}
+    if trainer.pipelined:
+        group = hcg.get_pipe_parallel_group()
+        for name, t in TL.leaves(trainer.params).items():
+            if "pp" not in trainer._specs[name]:
+                out["pp:" + name] = same(t, group)
+    if hcg.get_sep_parallel_world_size() > 1:
+        group = hcg.get_sep_parallel_group()
+        for prefix, tree in (("p", trainer.params),
+                             ("m", trainer.opt_state["m"]),
+                             ("v", trainer.opt_state["v"])):
+            for name, t in TL.leaves(tree).items():
+                out[f"sep:{prefix}:{name}"] = same(t, group)
     return out
 
 
@@ -3675,7 +3854,11 @@ def _hybrid_parity(job, dist, dev):
     is reduced on its own. Over 'pp' (``n_micro`` micro-batches,
     ``overlap``) each rank's launches are its stage's (_launches_of), and
     the leaves every stage holds whole must be bit for bit equal on every
-    rank of the pp group after the steps."""
+    rank of the pp group after the steps; over 'sep' each sep rank's
+    launches are its ring's hops, and every leaf must be bit for bit equal
+    on every rank of the sep group (_replicas_equal). The ring merges its
+    hops in another order than the one-card flash call, so over 'sep' the
+    bits are not expected to equal HybridTrainer(mesh=None)'s."""
     from paddle_tpu_torch import launch_counts, reset_launch_counts
     from paddle_tpu_torch.distributed.fleet import HybridTrainer
     from paddle_tpu_torch.models import llama as TL
@@ -3692,9 +3875,9 @@ def _hybrid_parity(job, dist, dev):
     counts = launch_counts()
     _check_launches(per_step, _launches_of(tr, job["batch"]),
                     f"hybrid {job['name']}")
-    replicas = _replicas_equal(tr) if tr.pipelined else {}
+    replicas = _replicas_equal(tr)
     if not all(replicas.values()):
-        raise AssertionError(f"hybrid {job['name']}: the pp replicas of "
+        raise AssertionError(f"hybrid {job['name']}: the replicas of "
                              f"{[k for k, v in replicas.items() if not v]} "
                              f"differ")
     rank = dist.get_rank()
@@ -3812,11 +3995,13 @@ def _hybrid_row(job, dist, dev):
     if not all(np.isfinite(losses)):
         raise AssertionError(f"7B losses not finite: {losses}")
     # one profiled step: NCCL kernels' device time against the rest, on
-    # rank 0 and over 'pp' on the first rank of every stage
+    # rank 0 and over 'pp' and 'sep' on the first rank of every stage and
+    # every sep rank
     rank = dist.get_rank()
     coords = tr.hcg.layout().coords
-    profiles = all(v == 0 for a, v in coords.items() if a != "pp")
-    wall = []
+    profiles = all(v == 0 for a, v in coords.items()
+                   if a not in ("pp", "sep"))
+    wall, intervals = [], []
 
     def profiled_step():
         t = time.perf_counter()
@@ -3826,7 +4011,8 @@ def _hybrid_row(job, dist, dev):
 
     torch.cuda.synchronize()
     dist.barrier()
-    prof = profile_kernels(profiled_step) if profiles else profiled_step()
+    prof = profile_kernels(profiled_step, intervals=intervals) if profiles \
+        else profiled_step()
     dist.barrier()
     steady = statistics.median(step_ms[len(step_ms) // 2:])
     profile_out = None
@@ -3834,12 +4020,22 @@ def _hybrid_row(job, dist, dev):
         nccl = {k: v for k, v in prof.items() if "nccl" in k.lower()}
         nccl_ms = sum(us for _, us in nccl.values()) / 1e3
         p2p = {k: v for k, v in nccl.items() if "sendrecv" in k.lower()}
+        flash = {k: v for k, v in prof.items() if "flash_" in k}
         comp_ms = sum(us for k, (_, us) in prof.items()
                       if k not in nccl) / 1e3
         top = sorted(((k[:60], n, us / 1e3) for k, (n, us) in
                       prof.items()), key=lambda r: -r[2])
         profile_out = {"step_ms_profiled": wall[0],
                        "stage": tr.hcg.get_stage_id(),
+                       "sep_rank": coords["sep"],
+                       "flash_device_ms": sum(us for _, us in flash.values())
+                       / 1e3,
+                       "flash_kernels": sum(n for n, _ in flash.values()),
+                       # how much of the point-to-point kernels' time
+                       # compute kernels ran beside (the exchange hidden)
+                       "p2p_ms_beside_compute": _overlap_ms(
+                           intervals, lambda k: "sendrecv" in k.lower(),
+                           lambda k: "nccl" not in k.lower()),
                        "nccl_device_ms": nccl_ms,
                        "nccl_kernels": sum(n for n, _ in nccl.values()),
                        "p2p_device_ms": sum(us for _, us in p2p.values())
@@ -4206,6 +4402,11 @@ def phase_hybrid(dev, world=None):
                 r[job["name"]]["issue_ms_over_step_ms"] for r in ranks]
             mine["profiles"] = [r[job["name"]]["profile"] for r in ranks
                                 if r[job["name"]]["profile"]]
+            if job["mesh"].get("sep", 1) > 1:
+                # the contiguous shards' load: sep rank r runs r + 1 hops
+                mine["sep_flash_device_ms_by_rank"] = {
+                    p["sep_rank"]: p["flash_device_ms"]
+                    for p in mine["profiles"]}
         out["jobs"][job["name"]] = mine
         log(json.dumps({"hybrid": {job["name"]: mine}}))
         if job["path"]:
@@ -5402,12 +5603,13 @@ def phase_weight_stream(dev, serving, results, probes):
     bm = serving["metrics"]
 
     def clean():
-        """Allocated bytes, after a collection and without the cuBLAS
-        workspaces PyTorch keeps a stream (a capture's side stream adds
-        one)."""
+        """Allocated bytes, after a collection. The cuBLAS workspaces
+        PyTorch keeps a stream stay: the decode windows captured earlier
+        (the int8 phase's, replayed in the profile phase) point at the one
+        they ran with, and every capture's warm-up runs on one side stream
+        a device (serving.py::_warmup_stream), so an engine adds none."""
         gc.collect()
         torch.cuda.synchronize()
-        torch._C._cuda_clearCublasWorkspaces()
         return torch.cuda.memory_allocated(dev)
 
     engines, out = {}, {}
@@ -5904,7 +6106,7 @@ def _parity_features(dev, m, cfg, prompts, dense, n_new):
 def main_hybrid():
     """``python3 chip_smoke.py --hybrid``: the build, then phase_hybrid at
     every world of 2 and 4 the host's cards allow (the multi-card run:
-    parity at mp 2, mp 2 x sharding 2 and the pp meshes, the eager
+    parity at mp 2, mp 2 x sharding 2, the pp and the sep meshes, the eager
     pipeline engines over NCCL, and the Llama-2 7B rows); fails if the
     pipeline path missed a training kernel on every stage."""
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5955,6 +6157,7 @@ def main():
     kernels, probes = phase_kernels(dev)
     phase_flash_kernels(dev, kernels, probes)
     phase_flash_d64(dev, kernels, probes)
+    sep = phase_sep(dev)
     phase_varlen_bwd_kernels(dev, kernels, probes)
     serving = phase_serving(dev)
     artifact = phase_artifact(dev, serving)
@@ -5985,7 +6188,8 @@ def main():
                "weight_stream": stream["counts"],
                "artifact": artifact["counts"], "eager": eager["counts"],
                "hybrid": hybrid["counts"],
-               "pipeline": Counter(hybrid["pipeline_counts"])}
+               "pipeline": Counter(hybrid["pipeline_counts"]),
+               "sep": sep["counts"]}
     by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
@@ -6005,7 +6209,8 @@ def main():
                                        stages.items()}
                                  for job, stages in
                                  hybrid["pipeline_per_step"].items()}
-                             for k in TRAINING_KERNELS}})
+                             for k in TRAINING_KERNELS},
+                "sep": sep["per_call"]})
     per_step.update({kind: r["metrics"]["launches_per_step"]
                      for kind, r in pretrain.items()})
     line = []

@@ -279,9 +279,12 @@ class Parameter(Tensor):
     ``split_axis`` the axis its full array is split on. A pipeline's shared
     weight (pp_layers.py) is held by every stage that uses it, and
     ``is_firstly_shared`` is True on the first of them only (a global-norm
-    clip counts it there)."""
+    clip counts it there). ``sequence_parallel`` marks a parameter whose
+    gradient each mp rank computes from its slice of the sequence
+    (fleet/sequence_parallel_utils.py)."""
 
-    __slots__ = ("is_distributed", "split_axis", "is_firstly_shared")
+    __slots__ = ("is_distributed", "split_axis", "is_firstly_shared",
+                 "sequence_parallel")
 
     def __init__(self, data, dtype=None, name=None, trainable=True,
                  place=None):
@@ -292,6 +295,7 @@ class Parameter(Tensor):
         self.is_distributed = False
         self.split_axis = None
         self.is_firstly_shared = True
+        self.sequence_parallel = False
 
     @property
     def trainable(self):

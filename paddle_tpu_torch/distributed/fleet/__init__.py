@@ -1,5 +1,6 @@
 """fleet (paddle_tpu/distributed/fleet/): collective Fleet, its
-tensor-parallel layers, recompute and HybridTrainer."""
+tensor-parallel layers, recompute, sequence parallelism
+(sequence_parallel_utils) and HybridTrainer."""
 from . import base
 from .base import DistributedStrategy
 from .fleet import (barrier_worker, distributed_model, distributed_optimizer,
@@ -9,6 +10,7 @@ from .fleet import (barrier_worker, distributed_model, distributed_optimizer,
                     stop_worker, worker_endpoints, worker_index, worker_num)
 from . import layers
 from .recompute import recompute
+from . import sequence_parallel_utils
 from .trainer import HybridTrainer
 from .. import meta_parallel
 from ..meta_parallel import (ColumnParallelLinear, ParallelCrossEntropy,
@@ -21,7 +23,8 @@ __all__ = ["DistributedStrategy", "init", "is_initialized",
            "worker_num", "worker_index", "is_first_worker", "is_worker",
            "is_server", "server_num", "worker_endpoints", "barrier_worker",
            "init_server", "run_server", "stop_server", "init_worker",
-           "stop_worker", "layers", "recompute", "HybridTrainer",
+           "stop_worker", "layers", "recompute", "sequence_parallel_utils",
+           "HybridTrainer",
            "meta_parallel", "ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "ParallelCrossEntropy",
            "CommunicateTopology", "HybridCommunicateGroup"]

@@ -9,8 +9,9 @@ leave ranks over) taking what is left. ``distributed_model`` picks the
 wrapper by parallel mode and ``distributed_optimizer`` wraps the optimizer
 in HybridParallelOptimizer; the pipeline mode picks the engine by
 ``pp_configs["schedule_mode"]`` and the PipelineLayer's virtual stages
-(fleet.py:155-172). The segment-parallel mode and the parameter-server
-mode raise NotImplementedError (ROADMAP.md, queue 1, item 5).
+(fleet.py:155-172); the segment-parallel mode wraps the model in
+SegmentParallel. The parameter-server mode raises NotImplementedError
+(ROADMAP.md, queue 1, item 5).
 """
 from __future__ import annotations
 
@@ -75,7 +76,8 @@ def _hcg() -> HybridCommunicateGroup:
 
 def distributed_model(model):
     """The model wrapped for the parallel mode (reference model.py:32)."""
-    from ..meta_parallel import ShardingParallel, TensorParallel
+    from ..meta_parallel import (SegmentParallel, ShardingParallel,
+                                 TensorParallel)
     from ..parallel import DataParallel
 
     hcg = _hcg()
@@ -89,6 +91,8 @@ def distributed_model(model):
         return TensorParallel(model, hcg, strategy=strategy)
     if mode == "sharding_parallel":
         return ShardingParallel(model, hcg, strategy=strategy)
+    if mode == "segment_parallel":
+        return SegmentParallel(model, hcg, strategy=strategy)
     if mode == "pipeline":
         from ..meta_parallel.pipeline_parallel import (
             PipelineParallel, PipelineParallelWithInterleave,

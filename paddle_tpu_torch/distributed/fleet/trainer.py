@@ -1,6 +1,6 @@
 """AdamW trainer over the stacked Llama core
 (paddle_tpu/distributed/fleet/trainer.py:34-220), on one card or over a
-dp x pp x sharding x mp mesh of ranks.
+dp x pp x sharding x sep x mp mesh of ranks.
 
 The TPU package compiles the whole step into one XLA program over a hybrid
 mesh; its parameters are full arrays with NamedShardings. Here the step
@@ -17,10 +17,14 @@ buffers to the same end).
 Over a mesh:
 
 - ``place_batch``: each data rank (over dp x sharding, dp outer) takes its
-  rows of the global batch, and the loss is the global batch's mean: the
-  gradients are summed over the data ranks (reduce-scattered over
-  'sharding' by the FSDP gathers, all-reduced over 'dp', or over both for a
-  leaf replicated on them) and divided by their count;
+  rows of the global batch, and each sep rank its shard of every sequence
+  (sep rank r the positions r·S/sep onwards; the model runs attention as a
+  ring over the sep group). The loss is the global batch's mean: the
+  gradients are summed over the data and sep ranks (reduce-scattered over
+  'sharding' by the FSDP gathers, all-reduced over dp x sep, or over dp x
+  sharding x sep for a leaf replicated on them) and divided by their
+  count, and the loss is averaged over the same ranks, so that every sep
+  replica takes the same step, bit for bit;
 - the clip's norm counts each logical element once: a leaf's sum of
   squares is summed over the axes it is split on, and the sums are added
   in the leaves' order, as the one-card step adds them;
@@ -45,10 +49,15 @@ elsewhere) after the data ranks' reduction, so that every pp replica takes
 the same step; the clip counts them once and sums the blocks' squares over
 pp.
 
+Over 'pp' x 'sep' each stage's blocks run the ring inside the pipeline,
+whose hops carry [mb, S/sep, hidden] (the reference's GSPMD computes the
+same attention over its sequence-sharded activations).
+
 A mesh larger than the initialized world raises, and so do:
-``pipeline_micro_batches`` > 1 without a 'pp' axis, and num_hidden_layers
-that pp does not divide (ValueError, as in the TPU package); sep > 1
-(ring attention) and ``lower_text`` (there is no HLO), naming ROADMAP.md.
+``pipeline_micro_batches`` > 1 without a 'pp' axis, num_hidden_layers
+that pp does not divide (ValueError, as in the TPU package), and a
+sequence that sep does not divide (ValueError at ``place_batch``);
+``lower_text`` (there is no HLO) raises naming ROADMAP.md.
 ``overlap_sends`` without a 'pp' axis does nothing, as in the TPU package.
 """
 from __future__ import annotations
@@ -106,7 +115,6 @@ class HybridTrainer:
         self.pipelined = pp > 1
         self.overlap_sends = overlap_sends
         if mesh is not None:
-            llama_mod._check_mesh(degrees)
             self._check_divides(config, degrees)
             self.hcg = hcg_for_mesh(degrees)
         self.device = resolve_device(device)
@@ -128,6 +136,9 @@ class HybridTrainer:
             self._specs = llama_mod.leaves(llama_mod.param_specs(config))
             self._data_ranks = (self.hcg.get_data_parallel_world_size()
                                 * self.hcg.get_sharding_parallel_world_size())
+            self._sep = self.hcg.get_sep_parallel_world_size()
+            # the ranks whose losses and gradients make the global mean
+            self._mean_ranks = self._data_ranks * self._sep
 
     @staticmethod
     def _check_divides(config, degrees):
@@ -155,10 +166,12 @@ class HybridTrainer:
 
     def place_batch(self, input_ids, labels):
         """This rank's rows of the global batch (all of it on one card):
-        data rank dp_rank * sharding + sharding_rank of dp x sharding. Over
-        'pp', [n_micro, mb, S]: the global batch split into
-        ``pipeline_micro_batches`` micro-batches, of each this data rank's
-        rows (llama.py::microbatch_spec)."""
+        data rank dp_rank * sharding + sharding_rank of dp x sharding, and
+        over 'sep' its shard of each row's sequence (sep rank r the
+        positions r·S/sep to (r+1)·S/sep - 1). Over 'pp', [n_micro, mb,
+        S]: the global batch split into ``pipeline_micro_batches``
+        micro-batches, of each this data rank's rows
+        (llama.py::microbatch_spec)."""
         ids, labs = self._batch(input_ids), self._batch(labels)
         if self.pipelined:
             b = ids.shape[0]
@@ -180,17 +193,28 @@ class HybridTrainer:
              * self.hcg.get_sharding_parallel_world_size()
              + self.hcg.get_sharding_parallel_rank())
         rows = ids.shape[dim] // n
-        return (ids.narrow(dim, r * rows, rows),
-                labs.narrow(dim, r * rows, rows))
+        ids, labs = (ids.narrow(dim, r * rows, rows),
+                     labs.narrow(dim, r * rows, rows))
+        if self._sep > 1:
+            seq, sep = ids.shape[dim + 1], self._sep
+            if seq % sep:
+                raise ValueError(f"sequence length {seq} does not split "
+                                 f"over sep={sep} ranks")
+            part = seq // sep
+            start = self.hcg.get_sep_parallel_rank() * part
+            ids, labs = (ids.narrow(dim + 1, start, part),
+                         labs.narrow(dim + 1, start, part))
+        return ids, labs
 
     def _groups_of(self, name):
         """The groups a leaf's gradient and sum of squares are split over,
-        and those its gradient is summed over beyond the FSDP gathers."""
+        and those its gradient is summed over beyond the FSDP gathers (the
+        data ranks and the sep ranks)."""
         spec, hcg = self._specs[name], self.hcg
         split = [hcg.get_group(a) for a in ("pp", "sharding", "mp")
                  if a in spec]
-        data = hcg.get_group("dp") if "sharding" in spec else \
-            hcg.get_group("dp", "sharding")
+        data = hcg.get_group("dp", "sep") if "sharding" in spec else \
+            hcg.get_group("dp", "sharding", "sep")
         return split, data
 
     def step(self, input_ids, labels):
@@ -221,9 +245,10 @@ class HybridTrainer:
         with torch.no_grad():
             if self.hcg is not None:
                 self._reduce_over_data(names, grads)
-                all_reduce_live(loss, self.hcg.get_group("dp", "sharding"))
-                if self._data_ranks > 1:
-                    loss /= self._data_ranks
+                all_reduce_live(loss, self.hcg.get_group("dp", "sharding",
+                                                         "sep"))
+                if self._mean_ranks > 1:
+                    loss /= self._mean_ranks
             if self.clip is not None:
                 gnorm = torch.sqrt(sum(self._squares(names, grads)))
                 # the global gradient norm before the clip, for callers
@@ -250,16 +275,18 @@ class HybridTrainer:
         return loss
 
     def _reduce_over_data(self, names, grads):
-        """Each gradient summed over the data ranks, then divided by their
-        count: the gradient of the global batch's mean loss. Over 'pp', a
-        leaf that every stage holds whole (the embedding, the final norm,
-        the head) is then summed over the pp group: one stage computed it,
-        the others add zeros, and every replica gets the same bits."""
+        """Each gradient summed over the data and sep ranks, then divided
+        by their count: the gradient of the global batch's mean loss (each
+        sep rank's loss is the mean over its shard of the tokens). Over
+        'pp', a leaf that every stage holds whole (the embedding, the final
+        norm, the head) is then summed over the pp group: one stage
+        computed it, the others add zeros, and every replica gets the same
+        bits."""
         pp = self.hcg.get_group("pp") if self.pipelined else None
         for name, g in zip(names, grads):
             all_reduce_live(g, self._groups_of(name)[1])
-            if self._data_ranks > 1:
-                g.div_(self._data_ranks)
+            if self._mean_ranks > 1:
+                g.div_(self._mean_ranks)
             if pp is not None and "pp" not in self._specs[name]:
                 all_reduce_live(g, pp)
 

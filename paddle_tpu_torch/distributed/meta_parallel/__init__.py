@@ -1,10 +1,11 @@
 """meta_parallel (paddle_tpu/distributed/meta_parallel/): the
 tensor-parallel layers, ZeRO stage 1, the hybrid optimizer, the model
 wrappers, and pipeline parallelism (pp_layers, pipeline_schedules, the
-1F1B / interleaved / zero-bubble engines and spmd_pipeline). The segment
-engine and the group-sharded stage 2-3 wrappers are not ported
-(ROADMAP.md, queue 1, item 5)."""
-from .engines import MetaParallelBase, ShardingParallel, TensorParallel
+1F1B / interleaved / zero-bubble engines and spmd_pipeline). The
+group-sharded stage 2-3 wrappers are not ported (ROADMAP.md, queue 1,
+item 5)."""
+from .engines import (MetaParallelBase, SegmentParallel, ShardingParallel,
+                      TensorParallel)
 from .hybrid_optimizer import HybridParallelOptimizer
 from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
                         RowParallelLinear, VocabParallelEmbedding)
@@ -19,6 +20,7 @@ from .sharding_optimizer import (DygraphShardingOptimizer,
                                  all_gather_params, stage3_forward)
 
 __all__ = ["MetaParallelBase", "TensorParallel", "ShardingParallel",
+           "SegmentParallel",
            "HybridParallelOptimizer", "ColumnParallelLinear",
            "RowParallelLinear", "VocabParallelEmbedding",
            "ParallelCrossEntropy", "pipeline_schedules", "PipelineParallel",

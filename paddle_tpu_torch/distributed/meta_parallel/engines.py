@@ -1,15 +1,18 @@
 """Hybrid-parallel model wrappers (paddle_tpu/distributed/meta_parallel/
 engines.py; reference fleet/meta_parallel/tensor_parallel.py,
-sharding_parallel.py).
+sharding_parallel.py, segment_parallel.py).
 
 In the TPU package one process holds every array, so its wrappers have
 nothing to synchronize. Here each rank starts from its own copy, and the
 wrapper makes the copies agree before training: TensorParallel broadcasts
-every parameter over the data-parallel and sharding groups from their
+every parameter over the data-parallel, sep and sharding groups from their
 first rank, and the replicated (not ``is_distributed``) ones over the
 model-parallel group from its first rank; ShardingParallel broadcasts over
-the sharding group. The segment (sep) engine is not ported (ROADMAP.md,
-queue 1, item 5).
+the sharding group; SegmentParallel over the data-parallel and sep groups.
+None of them splits the inputs or reduces a gradient (the reference's
+SegmentParallel neither: engines.py:83-88); a model run over 'sep' splits
+the sequence and runs its attention as a ring itself
+(ops/kernels/ring_attention.py).
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ from ...nn.layer.layers import Layer
 from .. import collective
 from ..fleet.layers.mpu.mp_ops import _live
 
-__all__ = ["MetaParallelBase", "TensorParallel", "ShardingParallel"]
+__all__ = ["MetaParallelBase", "TensorParallel", "ShardingParallel",
+           "SegmentParallel"]
 
 
 def _broadcast_params(params, group):
@@ -69,6 +73,7 @@ class TensorParallel(MetaParallelBase):
     def _prepare_for_model(self):
         params = list(self._layers.parameters())
         _broadcast_params(params, self._hcg.get_data_parallel_group())
+        _broadcast_params(params, self._hcg.get_sep_parallel_group())
         _broadcast_params(params, self._hcg.get_sharding_parallel_group())
         _broadcast_params(
             [p for p in params if not getattr(p, "is_distributed", False)],
@@ -82,3 +87,14 @@ class ShardingParallel(MetaParallelBase):
     def _prepare_for_model(self):
         _broadcast_params(list(self._layers.parameters()),
                           self._hcg.get_sharding_parallel_group())
+
+
+class SegmentParallel(MetaParallelBase):
+    """Model wrapper for a segment-parallel (sep) topology (reference
+    fleet/meta_parallel/segment_parallel.py:26): every parameter broadcast
+    over the data-parallel and the sep groups from their first rank."""
+
+    def _prepare_for_model(self):
+        params = list(self._layers.parameters())
+        _broadcast_params(params, self._hcg.get_data_parallel_group())
+        _broadcast_params(params, self._hcg.get_sep_parallel_group())

@@ -26,8 +26,11 @@ __all__ = ["AXES", "Mesh", "CommunicateTopology", "HybridCommunicateGroup",
 
 AXES = ("dp", "pp", "sharding", "sep", "mp")  # outermost -> innermost
 
-# the fused groups the port's layers and trainer reduce over
-_FUSED = (("dp", "sharding"), ("dp", "sep"), ("pp", "mp"))
+# the fused groups the port's layers and trainer reduce over: the data
+# ranks (dp x sharding), and with them the sep ranks, whose sequence shards
+# are more of the global batch's tokens
+_FUSED = (("dp", "sharding"), ("dp", "sep"), ("dp", "sharding", "sep"),
+          ("pp", "mp"))
 
 _current_hcg: Optional["HybridCommunicateGroup"] = None
 _current_mesh: Optional["Mesh"] = None
@@ -198,8 +201,8 @@ class HybridCommunicateGroup:
         return nxt, prev
 
     def get_group(self, *axes) -> collective.Group:
-        """This rank's group over ``axes`` (one axis, or a fused pair made
-        up front: dp+sharding, dp+sep, pp+mp)."""
+        """This rank's group over ``axes`` (one axis, or fused axes made up
+        front: dp+sharding, dp+sep, dp+sharding+sep, pp+mp)."""
         return self._groups[tuple(axes)]
 
     # parallel mode dispatch (reference fleet/model.py:32)
@@ -315,6 +318,15 @@ class HybridCommunicateGroup:
 
     def get_sep_parallel_group(self):
         return self.get_group("sep")
+
+    def get_sep_parallel_neighbours(self):
+        """The global ranks of the previous and the next rank on this
+        rank's sep ring (sep rank r - 1 and r + 1, mod sep): the ring
+        attention's K/V come from the first and go to the second."""
+        n, r = self._sep_degree, self._sep_rank
+        coord = self._topo.get_coord(self.global_rank)._asdict()
+        return tuple(self._topo.get_rank(**dict(coord, sep=(r + d) % n))
+                     for d in (-1, 1))
 
     # -- fused axes
     def get_dp_sep_parallel_group(self):

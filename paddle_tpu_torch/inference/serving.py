@@ -687,6 +687,21 @@ class _Request:
         return len(self.prompt) + len(self.generated)
 
 
+# the side stream every decode window's pre-capture warm-up runs on, one a
+# device: PyTorch keeps a cuBLAS workspace for each stream a GEMM has run on
+# (for the process), so a new stream a capture left one more behind each
+# time, and clearing them (torch._C._cuda_clearCublasWorkspaces) frees the
+# workspace that graphs captured earlier still point at
+_WARMUP_STREAMS = {}
+
+
+def _warmup_stream(dev) -> "torch.cuda.Stream":
+    stream = _WARMUP_STREAMS.get(dev)
+    if stream is None:
+        stream = _WARMUP_STREAMS[dev] = torch.cuda.Stream(dev)
+    return stream
+
+
 class _DecodeWindow:
     """One decode window's static buffers and its step body: the
     counterpart of the reference's ``_decode_window_fn`` (serving.py:
@@ -786,7 +801,7 @@ class _DecodeWindow:
         saved = self.buf.clone()
         self.bt.zero_()
         self.step.zero_()
-        side = torch.cuda.Stream(dev)
+        side = _warmup_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             self.body()

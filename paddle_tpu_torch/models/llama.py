@@ -38,8 +38,14 @@ pipelined path) each rank holds num_hidden_layers / pp layers, and the
 micro-batches go through them as a ring of sends and receives
 (distributed/meta_parallel/pipeline_parallel.py::spmd_pipeline).
 
-Not ported here: ring attention over a 'sep' mesh axis, and
-``generate_static`` (the compile tier).
+Over a mesh with a 'sep' axis each rank holds 1/sep of every sequence (sep
+rank r the positions r·S/sep onwards): RoPE rotates at those global
+positions, and attention runs as a ring over the sep group
+(ops/kernels/ring_attention.py: the K/V shards passed round, each hop
+through the flash kernels), as the reference's ``shard_map`` over 'sep'
+(llama.py:486-509) does.
+
+Not ported here: ``generate_static`` (the compile tier).
 """
 from __future__ import annotations
 
@@ -56,6 +62,7 @@ from ..nn import functional as F
 from ..ops import manipulation, search
 from ..ops.kernels import flash_attention as fa
 from ..ops.kernels import resolve_device
+from ..ops.kernels import ring_attention as ra
 from ..ops.kernels import rms_norm as rn
 
 __all__ = ["LlamaConfig", "LLAMA_PRESETS", "init_stacked_params",
@@ -230,10 +237,11 @@ def shard_leaf(t: torch.Tensor, spec, layout) -> torch.Tensor:
 
 class _Par:
     """The stacked core's collectives over one rank's shards: Megatron's
-    tensor parallelism over 'mp' and FSDP gathers over 'sharding'
+    tensor parallelism over 'mp', FSDP gathers over 'sharding'
     (distributed/fleet/layers/mpu/mp_ops.py,
-    distributed/meta_parallel/sharding_optimizer.py). With a hybrid group of
-    one rank each collective runs over its one-rank group."""
+    distributed/meta_parallel/sharding_optimizer.py) and ring attention
+    over 'sep'. With a hybrid group of one rank each collective runs over
+    its one-rank group."""
 
     def __init__(self, hcg, config: LlamaConfig):
         from ..distributed.fleet.layers.mpu import mp_ops
@@ -244,6 +252,9 @@ class _Par:
         self.sharding = hcg.get_sharding_parallel_group()
         self.mp_size = hcg.get_model_parallel_world_size()
         self.mp_rank = hcg.get_model_parallel_rank()
+        self.sep = hcg.get_sep_parallel_group()
+        self.sep_size = hcg.get_sep_parallel_world_size()
+        self.sep_rank = hcg.get_sep_parallel_rank()
         specs = param_specs(config)["blocks"]
         # the dimension of a layer's leaf that 'sharding' splits
         self.block_dims = {k: v.index("sharding") - 1
@@ -282,12 +293,15 @@ class _Par:
                                            self.mp, self.mp_rank).mean()
 
 
-def _rope(q, k, theta):
-    """Rotary embedding on rotating halves (llama.py:452-468)."""
+def _rope(q, k, theta, offset: int = 0):
+    """Rotary embedding on rotating halves (llama.py:452-468), at positions
+    ``offset`` to ``offset`` + S - 1 (a sep rank's shard of the sequence
+    starts at its global position)."""
     _, s, _, hd = q.shape
     inv = 1.0 / (theta ** (torch.arange(0, hd, 2, dtype=torch.float32,
                                         device=q.device) / hd))
-    pos = torch.arange(s, dtype=torch.float32, device=q.device)
+    pos = torch.arange(offset, offset + s, dtype=torch.float32,
+                       device=q.device)
     freqs = torch.outer(pos, inv)
     emb = torch.cat([freqs, freqs], dim=-1)
     cos = emb.cos()[None, :, None, :]
@@ -303,7 +317,8 @@ def _rope(q, k, theta):
 
 def _qkv(p, x, config: LlamaConfig, par: Optional[_Par] = None):
     """RMSNorm -> q, k, v projections -> RoPE -> GQA repeat, [B, S, H, D]
-    (H/mp heads a rank over a mesh)."""
+    (H/mp heads a rank over a mesh; over 'sep', S is the rank's shard and
+    RoPE rotates it at its global positions)."""
     tp = par.mp_size if par is not None else 1
     nh, kvh, hd = (config.num_attention_heads // tp,
                    config.num_key_value_heads // tp, config.head_dim)
@@ -314,7 +329,8 @@ def _qkv(p, x, config: LlamaConfig, par: Optional[_Par] = None):
     q = (hx @ p["wq"]).reshape(b, s, nh, hd)
     k = (hx @ p["wk"]).reshape(b, s, kvh, hd)
     v = (hx @ p["wv"]).reshape(b, s, kvh, hd)
-    q, k = _rope(q, k, config.rope_theta)
+    q, k = _rope(q, k, config.rope_theta,
+                 par.sep_rank * s if par is not None else 0)
     if nh != kvh:
         rep = nh // kvh
         k = k.repeat_interleave(rep, dim=2)       # jnp.repeat(k, rep, 2)
@@ -340,11 +356,15 @@ def _after_attn(p, x, attn, config: LlamaConfig,
 def _block(p, x, config: LlamaConfig, par: Optional[_Par] = None):
     """One decoder block (llama.py:471-518); over a mesh its leaves are
     gathered over 'sharding' first (inside the remat'd region, so the
-    recomputation gathers them again)."""
+    recomputation gathers them again), and over 'sep' attention is the
+    ring over the sep group."""
     if par is not None:
         p = par.gather_block(p)
     q, k, v = _qkv(p, x, config, par)
-    attn = fa.flash_attention_bshd(q, k, v, is_causal=True)
+    if par is not None and par.sep_size > 1:
+        attn = ra.ring_attention_bshd(q, k, v, par.sep, is_causal=True)
+    else:
+        attn = fa.flash_attention_bshd(q, k, v, is_causal=True)
     return _after_attn(p, x, attn, config, par)
 
 
@@ -398,21 +418,26 @@ def _block_save_attn(p, x, config: LlamaConfig):
     return checkpoint(_after_attn, p, x, attn, config, use_reentrant=False)
 
 
-def _check_mesh(mesh):
+def _check_mesh(mesh, hcg=None):
+    """A mesh whose 'sep' axis splits the sequence runs over a hybrid group
+    of that sep degree, whose sep group carries the ring: without one
+    (``hcg`` None, or another degree) it raises ValueError."""
     if mesh is None:
         return
-    shape = getattr(mesh, "shape", mesh)
-    if dict(shape).get("sep", 1) > 1:
-        raise NotImplementedError(
-            "paddle_tpu_torch: ring attention over a 'sep' mesh axis is "
-            "not ported yet (ROADMAP.md, queue 1, item 5)")
+    sep = dict(getattr(mesh, "shape", mesh)).get("sep", 1)
+    have = None if hcg is None else hcg.get_sep_parallel_world_size()
+    if sep > 1 and have != sep:
+        raise ValueError(
+            f"a mesh with sep={sep} splits each sequence over {sep} ranks: "
+            f"pass the hybrid group of that mesh (hcg=), which runs the "
+            f"ring attention; got "
+            + ("no hybrid group" if hcg is None else f"one of sep={have}"))
 
 
 def _trunk(params, input_ids, config: LlamaConfig, remat: bool = True,
-           mesh=None, par: Optional[_Par] = None):
+           par: Optional[_Par] = None):
     """Embedding -> the blocks in order (llama.py:521-544); with ``par``
     (a hybrid group's collectives), on this rank's shards."""
-    _check_mesh(mesh)
     if par is not None and config.remat_policy == "save_attn":
         raise NotImplementedError(
             "paddle_tpu_torch: remat_policy='save_attn' over a mesh is not "
@@ -465,11 +490,14 @@ def loss_fn_stacked(params, batch, config: LlamaConfig, remat: bool = True,
                     mesh=None, hcg=None):
     """Next-token LM loss; batch = (input_ids [B, S], labels [B, S])
     (llama.py:570-576). With a hybrid group ``hcg``, ``params`` are this
-    rank's shards, ``batch`` its rows, and the loss their mean. A mesh with
-    a 'sep' axis > 1 raises: ring attention is not ported yet."""
+    rank's shards, ``batch`` its rows (over 'sep', its shard of each
+    sequence, labels beside their tokens), and the loss the mean over its
+    tokens. A ``mesh`` with a 'sep' axis > 1 needs the ``hcg`` of that
+    mesh (ValueError otherwise)."""
     input_ids, labels = batch
+    _check_mesh(mesh, hcg)
     par = None if hcg is None else _Par(hcg, config)
-    x = _trunk(params, input_ids, config, remat, mesh=mesh, par=par)
+    x = _trunk(params, input_ids, config, remat, par=par)
     if par is not None:
         return par.head_loss(params, x, labels, config)
     return _head_loss(params, x, labels, config)
@@ -523,9 +551,9 @@ def loss_fn_pipelined(params, batch, config: LlamaConfig, mesh=None,
     stage)."""
     from ..distributed.meta_parallel.pipeline_parallel import spmd_pipeline
 
-    _check_mesh(mesh)
     if hcg is None:
         raise ValueError("loss_fn_pipelined runs over a hybrid group (hcg)")
+    _check_mesh(mesh, hcg)
     if config.remat_policy == "save_attn":
         raise NotImplementedError(
             "paddle_tpu_torch: remat_policy='save_attn' over a mesh is not "

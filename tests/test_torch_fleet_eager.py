@@ -3,7 +3,8 @@ gloo ranks on the CPU: fleet.init with hybrid_configs, the tensor-parallel
 layers (gathered) against their dense forms, ZeRO stage 1, DataParallel,
 and the eager LlamaForCausalLM at mp 2 x dp 2 through distributed_model /
 distributed_optimizer held to the JAX package's eager model run in this
-process; the Fleet modes not ported raise, naming ROADMAP.md.
+process; the segment-parallel mode's wrapper; the parameter-server mode,
+not ported, raises naming ROADMAP.md.
 
 Ranks are spawned (paddle_tpu_torch.distributed.spawn) from rank
 functions in tests/torch_dist_workers.py, which import only torch and the
@@ -184,26 +185,23 @@ def test_eager_llama_mp2_dp2_matches_jax_eager_model(tmp_path,
     assert moved >= 0.5 * lr
 
 
-class _ModeHCG:
-    def __init__(self, mode):
-        self.mode = mode
+def test_fleet_segment_parallel_mode_wraps_and_broadcasts(tmp_path):
+    res = _spawn(W.segment_parallel, tmp_path)
+    for r, got in enumerate(res):
+        # dp 2 x sep 2: sep ranks are consecutive (mp is 1)
+        assert got["mode"] == "segment_parallel"
+        assert got["kind"] == "SegmentParallel"
+        assert got["sep_ranks"] == [r - r % 2, r - r % 2 + 1]
+        assert not np.array_equal(got["before"], res[0]["before"]) or r == 0
+        # every rank holds rank 0's parameters: broadcast over dp, then sep
+        np.testing.assert_array_equal(got["after"], res[0]["before"])
+        # the wrapper splits nothing: its forward is the layer's
+        np.testing.assert_array_equal(got["y"], got["y_inner"])
 
-    def get_parallel_mode(self):
-        return self.mode
 
-
-@pytest.mark.parametrize("mode", ["segment_parallel"])
-def test_fleet_modes_not_ported_raise_naming_roadmap(mode):
+def test_fleet_parameter_server_mode_raises_naming_roadmap():
     from paddle_tpu_torch.distributed.fleet import fleet as F
 
-    saved = dict(F._fleet_state)
-    F._fleet_state.update(hcg=_ModeHCG(mode), initialized=True)
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            F.distributed_model(object())
-    finally:
-        F._fleet_state.clear()
-        F._fleet_state.update(saved)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         F.init_server()
 

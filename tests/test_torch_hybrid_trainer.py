@@ -176,11 +176,16 @@ def test_converter_slices_tile_the_reference_arrays():
 
 def test_trainer_refuses_what_is_not_ported():
     cfg = TL.LlamaConfig(**CFG)
-    # sep (ring attention) is not ported; the reference's own refusals
-    # raise ValueError: micro-batches without a 'pp' axis, and layers that
-    # pp does not divide
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a sep mesh larger than the world (one process) raises naming it, as
+    # dp 2 does, and a sep mesh with no hybrid group behind it raises; the
+    # reference's own refusals raise ValueError: micro-batches without a
+    # 'pp' axis, and layers that pp does not divide
+    with pytest.raises(ValueError, match="world"):
         HybridTrainer(cfg, mesh={"sep": 2}, device="cpu")
+    params = TL.init_stacked_params(cfg, seed=0, device="cpu")
+    ids = torch.zeros(2, 32, dtype=torch.long)
+    with pytest.raises(ValueError, match="no hybrid group"):
+        TL.loss_fn_stacked(params, (ids, ids), cfg, mesh={"sep": 2})
     with pytest.raises(ValueError, match="requires a mesh with a 'pp'"):
         HybridTrainer(cfg, pipeline_micro_batches=2, device="cpu")
     with pytest.raises(ValueError, match="divide evenly over pp=4"):

@@ -178,7 +178,9 @@ def test_cpu_path_launches_no_kernel_and_sep_mesh_raises():
     assert logits.shape == (2, 128, tcfg.vocab_size)
     assert logits.dtype == torch.float32
     assert all(n == 0 for n in launch_counts().values())
-    with pytest.raises(NotImplementedError):
+    # a sep mesh splits the sequence over the ranks of a hybrid group: it
+    # raises without one
+    with pytest.raises(ValueError, match="sep=2"):
         TL.loss_fn_stacked(params, (torch.tensor(ids).long(),
                                     torch.tensor(labels).long()), tcfg,
                            mesh={"dp": 1, "sep": 2})
@@ -215,13 +217,11 @@ def test_trainer_three_steps_match_jax_trainer():
 
 def test_trainer_rejects_a_mesh_of_many_devices():
     # a mesh larger than the initialized world (here one process) raises,
-    # a pp axis too; sep is not ported and raises
+    # a pp axis and a sep axis too
     _, tcfg = _config()
-    for mesh in ({"dp": 2, "mp": 1}, {"pp": 2}):
+    for mesh in ({"dp": 2, "mp": 1}, {"pp": 2}, {"sep": 2}):
         with pytest.raises(ValueError, match="world"):
             HybridTrainer(tcfg, mesh=mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        HybridTrainer(tcfg, mesh={"sep": 2}, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         if torch.cuda.is_available():
             pytest.skip("this host has CUDA: the default device is valid")

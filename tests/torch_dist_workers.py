@@ -790,3 +790,185 @@ def trainer_pipeline(out_dir, cfg_dict, np_params, batches, lr, jobs):
         res[job["name"]] = out
     _dump(out_dir, rank, res)
     dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# sequence-dimension parallelism: ring attention, the sep trainer, SP
+# ---------------------------------------------------------------------------
+
+def ring_attention(out_dir, cases):
+    """fleet.init at sep = world, then ring_attention_bhsd over its sep
+    group for each case
+    (q, k, v, the cotangent w [B, H, S, D] whole, and causal): this rank's
+    shards in, its O and the gradients of sum(O * w) out; and the kernels'
+    launches (none on the CPU)."""
+    dist, rank = _start()
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.ops.kernels.ring_attention import \
+        ring_attention_bhsd
+
+    world = dist.get_world_size()
+    _, hcg = _fleet(dist, sep_degree=world)
+    group = hcg.get_sep_parallel_group()
+    reset_launch_counts()
+    res = {"mode": hcg.get_parallel_mode(), "sep_ranks": group.ranks,
+           "neighbours": hcg.get_sep_parallel_neighbours()}
+    for name, case in cases.items():
+        dtype = getattr(torch, case["dtype"])
+        shard = [torch.tensor(case[x]).chunk(world, dim=2)[rank]
+                 .to(dtype).contiguous() for x in ("q", "k", "v", "w")]
+        q, k, v = (t.requires_grad_(True) for t in shard[:3])
+        out = ring_attention_bhsd(q, k, v, group, is_causal=case["causal"])
+        (out.float() * shard[3].float()).sum().backward()
+        res[name] = {n: _np(t) for n, t in (("o", out), ("dq", q.grad),
+                                             ("dk", k.grad), ("dv", v.grad))}
+        res[name]["dtypes"] = [str(t.dtype) for t in (out, q.grad, k.grad,
+                                                      v.grad)]
+    res["launches"] = launch_counts()
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+def trainer_sep(out_dir, cfg_dict, np_params, batches, lr, jobs):
+    """HybridTrainer over meshes with a 'sep' axis: per job (mesh,
+    micro-batches) 3 steps from the reference's parameters: losses, clip
+    norms, the gathered state (rank 0), whether every leaf is bit for bit
+    equal on every rank of this rank's sep group after the steps, and the
+    ValueError of a sequence that sep does not divide."""
+    dist, rank = _start()
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.utils import stacked_params_from_paddle_tpu
+
+    cfg = _llama_config(cfg_dict)
+    res = {}
+    for job in jobs:
+        tr = HybridTrainer(cfg, job["mesh"], learning_rate=lr,
+                           pipeline_micro_batches=job.get("n_micro"),
+                           device="cpu")
+        mine = TL.leaves(stacked_params_from_paddle_tpu(np_params, tr.hcg))
+        with torch.no_grad():
+            for name, t in TL.leaves(tr.params).items():
+                t.copy_(mine[name])
+        out = {"losses": [], "norms": [], "coords": tr.hcg.layout().coords}
+        ids, labels = tr.place_batch(*batches[0])
+        out["placed"] = tuple(ids.shape)
+        for ids, labels in batches:
+            out["losses"].append(float(tr.step(ids, labels)))
+            out["norms"].append(float(tr.last_grad_norm))
+        sep = tr.hcg.get_sep_parallel_group()
+        out["sep_replicas_equal"] = all(
+            all(torch.equal(piece, t) for piece in
+                gather_along(t.detach()[None], sep, 0))
+            for tree in (tr.params, tr.opt_state["m"], tr.opt_state["v"])
+            for t in TL.leaves(tree).values())
+        ids, labels = batches[0]
+        try:
+            tr.place_batch(ids[:, :-1], labels[:, :-1])
+        except ValueError as e:
+            out["odd_sequence"] = str(e)
+        out["state"] = tr.elastic_state()
+        if rank != 0:
+            out.pop("state")
+        res[job["name"]] = out
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+def sequence_parallel(out_dir, x, w, seq_x, seq_w, col_w, col_b, row_w,
+                      row_b):
+    """fleet.init(mp = world): the four SP ops forward and backward on
+    torch tensors (ScatterOp also on an eager Tensor), then
+    ColumnSequenceParallelLinear -> RowSequenceParallelLinear over this
+    rank's slice of ``seq_x`` [S, B, in] with the given full weights, the
+    gradient of sum(y * seq_w) with the allreduce hooks registered;
+    everything gathered back whole."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.fleet import sequence_parallel_utils \
+        as SP
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+
+    world = dist.get_world_size()
+    fleet, hcg = _fleet(dist, mp_degree=world)
+    mp = hcg.get_model_parallel_group()
+    x, w = torch.tensor(x), torch.tensor(w)
+    part = x.shape[0] // world
+    mine = slice(rank * part, (rank + 1) * part)
+    out = {}
+
+    def run(op, inp, weight, *args):
+        inp = inp.clone().requires_grad_(True)
+        y = op.apply(inp, *args)
+        (y * weight).sum().backward()
+        return _np(y), _np(inp.grad)
+
+    out["scatter"] = run(SP.ScatterOp, x, w[mine])
+    out["gather"] = run(SP.GatherOp, x[mine], w)
+    out["scatter_axis1"] = run(SP.ScatterOp, x, w[:, rank * 2:rank * 2 + 2],
+                               1)
+    # a rank-dependent input or cotangent, so that the sums show
+    out["allgather"] = run(SP.AllGatherOp, x[mine], w * (rank + 1))
+    out["reduce_scatter"] = run(SP.ReduceScatterOp, x * (rank + 1), w[mine])
+    t = paddle.to_tensor(x.numpy(), stop_gradient=False)
+    y = SP.ScatterOp.apply(t)
+    (y * paddle.to_tensor(w[mine].numpy())).sum().backward()
+    out["scatter_eager"] = (_np(y), _np(t.grad), type(y).__name__)
+
+    col = SP.ColumnSequenceParallelLinear(col_w.shape[0], col_w.shape[1],
+                                          has_bias=True)
+    row = SP.RowSequenceParallelLinear(row_w.shape[0], row_w.shape[1],
+                                       has_bias=True)
+    cols = slice(rank * col_w.shape[1] // world,
+                 (rank + 1) * col_w.shape[1] // world)
+    with torch.no_grad():
+        col.weight._value.copy_(torch.tensor(col_w)[:, cols])
+        col.bias._value.copy_(torch.tensor(col_b)[cols])
+        row.weight._value.copy_(torch.tensor(row_w)[cols])
+        row.bias._value.copy_(torch.tensor(row_b))
+    model = paddle.nn.LayerList([col, row])
+    SP.register_sequence_parallel_allreduce_hooks(model)
+    seq_x, seq_w = torch.tensor(seq_x), torch.tensor(seq_w)
+    part = seq_x.shape[0] // world
+    mine = slice(rank * part, (rank + 1) * part)
+    xs = paddle.to_tensor(seq_x[mine].numpy(), stop_gradient=False)
+    ys = row(col(xs))
+    (ys * paddle.to_tensor(seq_w[mine].numpy())).sum().backward()
+    out["pair"] = {
+        "y": gather_along(ys._value.detach(), mp, 0).numpy(),
+        "x_grad": gather_along(xs.grad._value, mp, 0).numpy(),
+        "col_w_grad": gather_along(col.weight.grad._value, mp, 1).numpy(),
+        "col_b_grad": gather_along(col.bias.grad._value, mp, 0).numpy(),
+        "row_w_grad": gather_along(row.weight.grad._value, mp, 0).numpy(),
+        "row_b_grad": row.bias.grad.numpy(),
+        "marked": [p.sequence_parallel for p in (col.weight, col.bias,
+                                                 row.weight, row.bias)],
+        "local_y": tuple(ys.shape)}
+    fleet.barrier_worker()
+    _dump(out_dir, rank, out)
+    dist.destroy_process_group()
+
+
+def segment_parallel(out_dir):
+    """fleet.init(dp 2, sep 2) and distributed_model of a Linear drawn from
+    a seed of each rank's own: the wrapper's kind, the parameters before
+    and after it, and its forward against the layer's."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+
+    fleet, hcg = _fleet(dist, dp_degree=2, sep_degree=2)
+    paddle.seed(100 + rank)
+    layer = paddle.nn.Linear(4, 3)
+    before = _np(layer.weight)
+    model = fleet.distributed_model(layer)
+    x = paddle.to_tensor(np.arange(8, dtype=np.float32).reshape(2, 4))
+    out = {"mode": hcg.get_parallel_mode(), "kind": type(model).__name__,
+           "sep_ranks": hcg.get_sep_parallel_group().ranks,
+           "before": before, "after": _np(layer.weight),
+           "y": _np(model(x)), "y_inner": _np(layer(x))}
+    fleet.barrier_worker()
+    _dump(out_dir, rank, out)
+    dist.destroy_process_group()
