@@ -172,6 +172,18 @@ Phases, each of which fails the run with a non-zero exit:
      causal), forward and backward, bit for bit the incubate function and
      launching each varlen kernel once; flash_attn through the flash
      kernels, bit for bit F.scaled_dot_product_attention;
+  6f. MoE, after the registry ops: moe_block_stacked at Mixtral-8x7B's
+     sparse-layer widths (hidden 4096, expert width 14336, 8 experts,
+     top-2; the reference's expert, GELU between w1 and w2; capacity
+     factor 1.5; f32), one warm-up and 3 timed forward + backward steps at
+     16,384 tokens (ms a step, tokens/s, peak memory, the bound of its
+     expert products at the f32 peak, the kept pairs against the buffer's
+     E·C rows, one profiled step: the expert GEMMs' share of the device
+     time); the same widths at 512 tokens on the card against the CPU
+     (slots equal; output, aux loss and every gradient within their
+     tolerances); MoELayer and FusedEcMoe at a small width against the
+     CPU. It reaches no hand-written kernel and adds no entry to the
+     kernels line;
   6e. hybrid parallelism over NCCL: min(cards, 4) ranks spawned, one a
      card (paddle_tpu_torch.distributed.spawn, start method "spawn"; they
      load the kernels phase 1 built), each printed with its card. On one
@@ -198,8 +210,22 @@ Phases, each of which fails the run with a non-zero exit:
      holding 2048 positions of each). Over 'sep' the parity jobs run the
      ring at sep 2 (2 cards) and at sep 4, sep 2 x mp 2, sep 2 x sharding
      2 and pp 2 x sep 2 (4 cards), each sep rank's launches held to its
-     ring's hops and every leaf bit for bit equal over the sep group. The
-     rows take one warm-up and 10 timed steps (ms,
+     ring's hops and every leaf bit for bit equal over the sep group.
+     remat_policy="save_attn" through the mesh path (one card: an all-ones
+     mesh, the "save_attn_mesh" path; 2 cards mp 2; 4 cards sep 2 x mp 2
+     and pp 2 x mp 2) is held to "full" on the same mesh, the flash
+     forward once a layer a step (as "full" under pp); the eager Llama
+     under group_sharded_parallel (one card: "p_g_os" in a world of one,
+     AMP O1 bf16, the "group_sharded" path; 2 cards "os_g" and "p_g_os", 4
+     cards "p_g_os", at 7B's width, 2 layers, f32) is held to rank 0's
+     plain eager step; moe_block_stacked over the world as an expert group
+     (2 and 4 cards, Mixtral's widths, 2048 tokens, 3 SGD steps) is held
+     to rank 0's group=None run with the slots equal. With 4 cards two
+     more rows: the eager Llama-2 7B under "p_g_os" at sharding 4 (AMP O1
+     bf16, one 4096-token sequence a card; run first: bytes held between
+     steps and at peak), and moe_block_stacked at ep 4 (16,384 tokens, 2
+     experts a card: the exchange's host sync, bytes and NCCL time against
+     the expert GEMMs'). The rows take one warm-up and 10 timed steps (ms,
      the median of the later 5 and the window's slope, tokens/s a card,
      share of 989 TF/s, peak memory a card, the host's share of each
      step, launches a step on every stage) and one profiled step on rank
@@ -282,6 +308,10 @@ PRETRAIN_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dkv",
 # the three flash kernels
 SEP_RANKS = (2, 4)
 PATHS["sep"] = PRETRAIN_KERNELS
+# the eager Llama under group_sharded_parallel "p_g_os", and the mesh
+# trainer under remat_policy="save_attn" (phase 6e's one-card jobs)
+PATHS["group_sharded"] = TRAINING_KERNELS
+PATHS["save_attn_mesh"] = TRAINING_KERNELS
 # the flash sources whose instantiations ptxas -v reports on
 PTXAS_SOURCES = ("flash_attention_fwd.cu", "flash_attention_bwd.cu")
 # the weight-streaming modes of phase 4e, int4 first so that the int8
@@ -2614,6 +2644,239 @@ def phase_registry_ops(dev):
             "flash_attn_launches": res[0][1], "documents": len(lens)}
 
 
+# ---------------------------------------------------------------------------
+# phase 6f: MoE (moe_block_stacked) at Mixtral-8x7B's sparse-layer widths
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's sparse layer (Mistral AI's published config.json: hidden
+# 4096, intermediate 14336, 8 local experts, 2 experts a token) with the
+# reference's own expert (GELU between w1 and w2, no bias) and capacity
+# factor 1.5, in f32 as the reference computes it
+MOE_D, MOE_F, MOE_E, MOE_K, MOE_CF = 4096, 14336, 8, 2, 1.5
+MOE_TOKENS = TRAIN_BATCH * TRAIN_SEQ       # 16,384 a step: C = 6144
+MOE_CHECK_TOKENS = 512                     # the card-vs-CPU check
+MOE_SEED = 4321
+MOE_LR = 1.0                               # tests/test_moe_ep.py's SGD
+# the card against the CPU (TF32 off): the output within 1e-4 and every
+# gradient within 1e-3 of the CPU's largest magnitude, the aux loss within
+# 1e-5 relative, the slots equal (the training parity phase's 1e-3 for
+# the gradients: f32 sums over 4096 and 14336 terms in other orders)
+MOE_OUT_TOL, MOE_GRAD_TOL, MOE_AUX_RTOL = 1e-4, 1e-3, 1e-5
+
+
+def _moe_params(dev, gen):
+    """{wg [D, E], w1 [E, D, F], w2 [E, F, D]} in f32, normal draws scaled
+    by 1/sqrt(fan-in), from ``gen`` on ``dev``."""
+    d, f, e = MOE_D, MOE_F, MOE_E
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=dev) \
+            * shape[-2] ** -0.5
+    return {"wg": draw(d, e), "w1": draw(e, d, f), "w2": draw(e, f, d)}
+
+
+def _moe_expert_flops(e, capacity):
+    """The expert products of a forward and backward step: two GEMMs of
+    2·C·D·F a expert forward, twice that backward."""
+    return 12 * e * capacity * MOE_D * MOE_F
+
+
+def _is_gemm(name):
+    return any(s in name for s in ("gemm", "cutlass", "xmma", "nvjet",
+                                   "sm90_", "sm80_"))
+
+
+def _moe_loss(TM, p, x, y, total_rows, n=1, group=None):
+    """The loss of tests/test_moe_ep.py, mean((out - y)^2) + 0.01·aux on
+    the global batch, as this rank's share (its rows' squared errors over
+    the global S·D, the aux term over the n ranks of the group), and the
+    output and aux."""
+    out, aux = TM.moe_block_stacked(p, x, MOE_K, MOE_CF, group=group)
+    loss = ((out - y) ** 2).sum() / (total_rows * x.shape[1]) \
+        + 0.01 * aux / n
+    return loss, out, aux
+
+
+def _moe_small_layers(dev):
+    """MoELayer (d 64, 4 experts, exact GELU) and FusedEcMoe (64 -> 128,
+    4 experts, tanh GELU) on the card against the same layers on the CPU:
+    the outputs, the aux loss and every gradient within 1e-5 of the CPU's
+    largest magnitude (plus 1e-6)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.incubate.distributed.models import moe as TM
+    from paddle_tpu_torch.incubate.nn import FusedEcMoe
+
+    rng = np.random.RandomState(7)
+    x = rng.randn(2, 32, 64).astype(np.float32)
+    gate = rng.randn(2, 32, 4).astype(np.float32)
+    worst = {}
+    for name in ("MoELayer", "FusedEcMoe"):
+        res = {}
+        for place in ("cpu", "gpu:0"):
+            paddle.set_device(place)
+            paddle.seed(8)
+            layer = TM.MoELayer(64, num_experts=4, capacity_factor=1.0) \
+                if name == "MoELayer" else FusedEcMoe(64, 128, 4)
+            if place != "cpu":
+                layer.set_state_dict(res["cpu"]["state"])
+            xt = paddle.to_tensor(x, stop_gradient=False)
+            if name == "MoELayer":
+                out = layer(xt)
+                total = out.sum() + layer.aux_loss
+            else:
+                out = layer(xt, paddle.to_tensor(gate))
+                total = out.sum()
+            total.backward()
+            res[place] = {
+                "state": {k: v.numpy() for k, v in
+                          layer.state_dict().items()},
+                "out": out.numpy(), "x_grad": xt.grad.numpy(),
+                "aux": None if name != "MoELayer"
+                else float(layer.aux_loss.numpy()),
+                "grads": {k: p.grad.numpy() for k, p in
+                          layer.named_parameters()}}
+        cpu, gpu = res["cpu"], res["gpu:0"]
+        pairs = [("out", gpu["out"], cpu["out"]),
+                 ("x_grad", gpu["x_grad"], cpu["x_grad"])] + [
+            (k, gpu["grads"][k], v) for k, v in cpu["grads"].items()]
+        ratios = {k: float(np.abs(a - b).max())
+                  / (1e-5 * float(np.abs(b).max()) + 1e-6)
+                  for k, a, b in pairs}
+        if cpu["aux"] is not None:
+            ratios["aux"] = abs(gpu["aux"] - cpu["aux"]) / (
+                1e-5 * abs(cpu["aux"]) + 1e-6)
+        worst[name] = max(ratios.items(), key=lambda kv: kv[1])
+        if worst[name][1] > 1.0:
+            raise AssertionError(f"moe: {name} on the card disagrees with "
+                                 f"the CPU: {ratios}")
+    paddle.set_device("gpu:0")
+    return worst
+
+
+def phase_moe(dev):
+    """moe_block_stacked at Mixtral-8x7B's sparse-layer widths, f32: one
+    warm-up and 3 timed forward + backward steps at MOE_TOKENS tokens (ms a
+    step, tokens/s, peak memory, the step's bound from the expert
+    products at the f32 peak), the kept pairs against the buffer's E·C
+    rows, one profiled step (the expert GEMMs' share of the device time
+    against gating, dispatch and combine); then the same widths at
+    MOE_CHECK_TOKENS tokens on the card against the CPU (the slots equal;
+    the output, the aux loss and every gradient within their
+    tolerances), and MoELayer and FusedEcMoe at a small width against the
+    CPU. The MoE path reaches no hand-written kernel: this phase prints its
+    own line and adds no entry to the kernels line."""
+    from paddle_tpu_torch.incubate.distributed.models import moe as TM
+
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    params = _moe_params(dev, gen)
+    x = torch.randn(MOE_TOKENS, MOE_D, generator=gen, device=dev)
+    y = torch.randn(MOE_TOKENS, MOE_D, generator=gen, device=dev)
+    leaves = {k: v.requires_grad_(True) for k, v in params.items()}
+
+    def step():
+        for t in leaves.values():
+            t.grad = None
+        loss, _, _ = _moe_loss(TM, leaves, x, y, MOE_TOKENS)
+        loss.backward()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    losses = [float(step())]
+    step_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step()))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"moe: losses not finite: {losses}")
+    with torch.no_grad():
+        slot, _, capacity, _ = TM.topk_sort_dispatch(
+            x @ leaves["wg"], MOE_CF, MOE_K)
+        kept = int((slot >= 0).sum())
+    prof = profile_kernels(step)
+    total_us = sum(us for _, us in prof.values())
+    gemm_us = sum(us for k, (_, us) in prof.items() if _is_gemm(k))
+    top = sorted(((k[:60], n, us / 1e3) for k, (n, us) in prof.items()),
+                 key=lambda r: -r[2])[:10]
+    flops = _moe_expert_flops(MOE_E, capacity)
+    med = statistics.median(step_ms)
+    out = {"tokens": MOE_TOKENS, "capacity": capacity, "step_ms": step_ms,
+           "step_ms_median": med,
+           "tokens_per_s": MOE_TOKENS / (med / 1e3),
+           "peak_memory_gb": peak / 1e9,
+           "peak_over_start_gb": (peak - start) / 1e9, "losses": losses,
+           "kept_pairs": kept, "pairs": MOE_TOKENS * MOE_K,
+           "buffer_rows": MOE_E * capacity,
+           "padding_share_of_buffer": 1 - kept / (MOE_E * capacity),
+           "expert_tflop_a_step": flops / 1e12,
+           "bound_ms_f32": flops / F32_OPS_PER_S * 1e3,
+           "device_ms_profiled": total_us / 1e3,
+           "gemm_share_of_device_time": gemm_us / max(total_us, 1e-9),
+           "gemm_device_ms": gemm_us / 1e3,
+           "other_device_ms": (total_us - gemm_us) / 1e3, "top": top}
+    del leaves, params, x, y, slot
+    torch.cuda.empty_cache()
+    out["check"] = _moe_check(dev)
+    out["small_layers_worst_over_tol"] = _moe_small_layers(dev)
+    log(json.dumps({"moe": out}))
+    return out
+
+
+def _moe_check(dev):
+    """moe_block_stacked at the full widths on MOE_CHECK_TOKENS tokens,
+    forward and backward on the card and on the CPU from the same
+    numbers (the CPU under one_cpu_thread): the slots equal, the output,
+    aux and gradients within MOE_OUT_TOL / MOE_AUX_RTOL / MOE_GRAD_TOL."""
+    from paddle_tpu_torch.incubate.distributed.models import moe as TM
+
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED + 1)
+    params = _moe_params(dev, gen)
+    x = torch.randn(MOE_CHECK_TOKENS, MOE_D, generator=gen, device=dev)
+    y = torch.randn(MOE_CHECK_TOKENS, MOE_D, generator=gen, device=dev)
+    res = {}
+    for name, place in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = {k: v.detach().to(place).requires_grad_(True)
+             for k, v in params.items()}
+        xs = x.detach().to(place).requires_grad_(True)
+        ctx = one_cpu_thread() if name == "cpu" else \
+            contextlib.nullcontext()
+        with ctx:
+            loss, o, aux = _moe_loss(TM, p, xs, y.to(place),
+                                     MOE_CHECK_TOKENS)
+            loss.backward()
+            with torch.no_grad():
+                slot = TM.topk_sort_dispatch(xs @ p["wg"], MOE_CF,
+                                             MOE_K)[0]
+        res[name] = {"out": o.detach().cpu(), "aux": float(aux.detach()),
+                      "slot": slot.cpu(), "x": xs.grad.cpu(),
+                      **{k: t.grad.cpu() for k, t in p.items()}}
+        del p, xs
+    gpu, cpu = res["card"], res["cpu"]
+    if not torch.equal(gpu["slot"], cpu["slot"]):
+        raise AssertionError("moe: the card's slots differ from the CPU's")
+    ratios = {"out": float((gpu["out"] - cpu["out"]).abs().max())
+              / (MOE_OUT_TOL * float(cpu["out"].abs().max())),
+              "aux": abs(gpu["aux"] - cpu["aux"])
+              / (MOE_AUX_RTOL * abs(cpu["aux"]))}
+    for k in ("x", "wg", "w1", "w2"):
+        ratios[k] = float((gpu[k] - cpu[k]).abs().max()) \
+            / (MOE_GRAD_TOL * float(cpu[k].abs().max()))
+    log(f"moe check ({MOE_CHECK_TOKENS} tokens, card vs CPU): worst over "
+        f"tolerance {ratios}; kept pairs "
+        f"{int((cpu['slot'] >= 0).sum())}")
+    if max(ratios.values()) > 1.0:
+        raise AssertionError(f"moe: the card disagrees with the CPU: "
+                             f"{ratios}")
+    del params, x, y
+    torch.cuda.empty_cache()
+    return {"tokens": MOE_CHECK_TOKENS, "slots_equal": True,
+            "worst_over_tol": ratios}
+
+
 def _packed_qkv(x, w, heads):
     """q, k, v [T, heads, D] from a hidden state x [T, hidden] through
     bias-free projections w[n] [hidden, hidden]."""
@@ -3580,6 +3843,10 @@ HYBRID_TIMEOUT_S = {1: 420, 2: 600, 4: 1500}
 ENGINE_LOSS_RTOL = 1e-4
 ENGINE_PARAM_SHARE = 3e-2
 ENGINE_PARAM_LR = 6.0
+# the group-sharded jobs' AdamW moments: every element within this share
+# of the leaf's largest magnitude (the moments are linear in the clipped
+# gradients and their squares: no sign to flip near eps)
+ENGINE_MOMENT_RTOL = 1e-3
 
 
 def _hybrid_config(width, dtype, layers=None):
@@ -3617,9 +3884,31 @@ def _hybrid_plan(world):
                      mesh={"dp": 1, "pp": 1, "sharding": 1, "sep": 1,
                            "mp": 1},
                      batch=TRAIN_BATCH, seq=TRAIN_SEQ, path=True),
-                dict(engines, name="engines_flagship_pp1", mesh={"pp": 1})]
+                dict(engines, name="engines_flagship_pp1", mesh={"pp": 1}),
+                # remat_policy="save_attn" through the mesh path, held to
+                # "full" on the same mesh (the "save_attn_mesh" path)
+                dict(kind="save_attn", name="flagship_2l_bf16_world1_save_attn",
+                     width="flagship", dtype="bfloat16", layers=2,
+                     mesh={"dp": 1, "pp": 1, "sharding": 1, "sep": 1,
+                           "mp": 1},
+                     batch=TRAIN_BATCH, seq=TRAIN_SEQ, path="save_attn_mesh"),
+                # the eager Llama under group_sharded_parallel "p_g_os" in
+                # an NCCL world of one, AMP O1 bf16, held to the plain
+                # eager step (the "group_sharded" path)
+                dict(kind="group_sharded",
+                     name="eager_flagship_2l_p_g_os_world1",
+                     width="flagship", dtype="bfloat16", layers=2,
+                     level="p_g_os", amp=True, batch=TRAIN_BATCH,
+                     seq=TRAIN_SEQ, path="group_sharded")]
     parity = dict(kind="parity", width="llama2-7b", dtype="float32",
                   layers=2, batch=2, seq=512, path=False)
+    # the eager Llama at 7B's width under group_sharded_parallel (f32, 2
+    # layers, 4 x 512: 2 or 1 rows a rank) against rank 0's plain step
+    sharded = dict(kind="group_sharded", width="llama2-7b",
+                   dtype="float32", layers=2, batch=4, seq=512, path=False)
+    # moe_block_stacked over the world as an expert group at Mixtral's
+    # widths, 2048 global tokens, against rank 0's group=None
+    moe = dict(kind="moe", tokens=2048, steps=3, path=False)
     # the pipelined trainer at 7B's width: 4 layers, 8 x 512 in 4
     # micro-batches of 2 rows (each splits into halves under overlap_sends)
     pipe = dict(parity, layers=4, batch=8, n_micro=4, pipeline=True)
@@ -3629,13 +3918,24 @@ def _hybrid_plan(world):
                 dict(pipe, name="7b_width_4l_f32_pp2", mesh={"pp": 2}),
                 dict(pipe, name="7b_width_4l_f32_pp2_overlap",
                      mesh={"pp": 2}, overlap=True),
-                dict(engines, name="engines_flagship_pp2", mesh={"pp": 2})]
-    # the sep 2 x mp 2 row first: it holds every leaf and its f32 moments
-    # at half the model a rank (~47 GB, ~60 GB with the update's
-    # temporaries), and each job's NCCL communicators stay allocated
-    # after it (the hybrid groups are not destroyed), which before it took
-    # ~18 GB a card
-    return [dict(kind="row", name="llama2_7b_sep2_mp2", width="llama2-7b",
+                dict(engines, name="engines_flagship_pp2", mesh={"pp": 2}),
+                dict(sharded, name="eager_7b_width_2l_f32_os_g_sh2",
+                     level="os_g"),
+                dict(sharded, name="eager_7b_width_2l_f32_p_g_os_sh2",
+                     level="p_g_os"),
+                dict(moe, name="moe_mixtral_ep2"),
+                dict(parity, kind="save_attn",
+                     name="7b_width_2l_f32_mp2_save_attn", mesh={"mp": 2})]
+    # the sep 2 x mp 2 row first of the jobs that make hybrid groups: it
+    # holds every leaf and its f32 moments at half the model a rank (~47
+    # GB, ~60 GB with the update's temporaries); the group-sharded row
+    # before it runs over the world's own communicator. Each job's groups
+    # are destroyed after it (_drop_groups): their NCCL communicators took
+    # ~49 GB a card after 14 jobs, and the 15th ran out of memory
+    return [dict(kind="group_sharded_row", name="llama2_7b_eager_p_g_os_sh4",
+                 width="llama2-7b", layers=None, level="p_g_os", seq=4096,
+                 steps=10, path=False),
+            dict(kind="row", name="llama2_7b_sep2_mp2", width="llama2-7b",
                  dtype="bfloat16", layers=None, mesh={"sep": 2, "mp": 2},
                  # 4 sequences of 4096 (16,384 tokens a step), each sep
                  # rank holding 2048 positions of each at 16 heads a rank
@@ -3664,7 +3964,19 @@ def _hybrid_plan(world):
             dict(kind="row", name="llama2_7b_pp2_mp2", width="llama2-7b",
                  dtype="bfloat16", layers=None, mesh={"pp": 2, "mp": 2},
                  seq=4096, batch=8, n_micro=8, steps=10, path=False,
-                 pipeline=True)]
+                 pipeline=True),
+            dict(sharded, name="eager_7b_width_2l_f32_p_g_os_sh4",
+                 level="p_g_os"),
+            dict(moe, name="moe_mixtral_ep4"),
+            # 16,384 global tokens: 4,096 and 2 experts a card
+            dict(kind="moe_row", name="moe_mixtral_ep4_row",
+                 tokens=MOE_TOKENS, steps=10, path=False),
+            dict(parity, kind="save_attn",
+                 name="7b_width_2l_f32_sep2_mp2_save_attn",
+                 mesh={"sep": 2, "mp": 2}),
+            dict(pipe, kind="save_attn", pipeline=False,
+                 name="7b_width_4l_f32_pp2_mp2_save_attn",
+                 mesh={"pp": 2, "mp": 2})]
 
 
 def _hybrid_batches(cfg, batch, seq, steps, dev, seed=5):
@@ -4312,6 +4624,553 @@ def _full_param_count(cfg):
     return 2 * v * h + h + cfg.num_hidden_layers * layer
 
 
+def _moe_rank_inputs(dev, tokens, rank, world):
+    """Every rank draws the whole MoE parameters and batch from MOE_SEED
+    (each leaf whole, then sliced: any world starts from the numbers of
+    one process) and keeps its rows and its E / world experts."""
+    gen = torch.Generator(device=dev).manual_seed(MOE_SEED)
+    full = _moe_params(dev, gen)
+    x = torch.randn(tokens, MOE_D, generator=gen, device=dev)
+    y = torch.randn(tokens, MOE_D, generator=gen, device=dev)
+    rows, per = tokens // world, MOE_E // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    local = {"wg": full["wg"].clone(),
+             "w1": full["w1"][rank * per:(rank + 1) * per].clone(),
+             "w2": full["w2"][rank * per:(rank + 1) * per].clone()}
+    return full, local, x, y, x[mine].clone(), y[mine].clone()
+
+
+def _moe_sgd(TM, p, x, y, tokens, steps, group=None, n=1):
+    """``steps`` SGD steps (MOE_LR) of _moe_loss; over a group the wg
+    gradient summed over it first. The losses summed over the group."""
+    from paddle_tpu_torch.distributed import collective
+
+    losses = []
+    for t in p.values():
+        t.requires_grad_(True)
+    for _ in range(steps):
+        loss, _, _ = _moe_loss(TM, p, x, y, tokens, n, group)
+        loss.backward()
+        with torch.no_grad():
+            if group is not None:
+                collective.all_reduce(p["wg"].grad, group=group)
+            for t in p.values():
+                t -= MOE_LR * t.grad
+                t.grad = None
+        total = loss.detach().clone()
+        if group is not None:
+            collective.all_reduce(total, group=group)
+        losses.append(float(total))
+    return losses
+
+
+def _moe_parity(job, dist, dev):
+    """moe_block_stacked over an expert group of the world at Mixtral's
+    widths (``tokens`` global tokens, each rank its rows and E / world
+    experts) against rank 0's group=None run of the global batch: the
+    slots of each rank's all-gathered logits equal rank 0's, and 3 SGD
+    steps of the loss of tests/test_moe_ep.py: the losses within 1e-5
+    relative, every parameter (the experts gathered) within 1e-5 of its
+    largest magnitude, or bit for bit (which, is logged)."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.incubate.distributed.models import moe as TM
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = collective._get_default_group()
+    tokens = job["tokens"]
+    full, p, _, _, xs, ys = _moe_rank_inputs(dev, tokens, rank, world)
+    with torch.no_grad():
+        logits = dist.all_gather(None, xs @ p["wg"], group=group)
+        slot = TM.topk_sort_dispatch(logits, MOE_CF, MOE_K)[0]
+    slots = dist.all_gather(None, slot, group=group)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    losses = _moe_sgd(TM, p, xs, ys, tokens, job["steps"], group, world)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    experts = {k: dist.all_gather(None, p[k].detach(), group=group)
+               for k in ("w1", "w2")}
+    out = {"world": world, "tokens": tokens, "losses": losses,
+           "step_ms": [ms / job["steps"]]}
+    if rank == 0:
+        _, _, x, y, _, _ = _moe_rank_inputs(dev, tokens, 0, 1)
+        ref = {k: v.clone() for k, v in full.items()}
+        with torch.no_grad():
+            ref_slot = TM.topk_sort_dispatch(x @ ref["wg"], MOE_CF,
+                                             MOE_K)[0]
+        ref_losses = _moe_sgd(TM, ref, x, y, tokens, job["steps"])
+        slots_equal = all(torch.equal(s, ref_slot)
+                          for s in slots.chunk(world, 0))
+        got = dict(experts, wg=p["wg"].detach())
+        ratios = {k: float((got[k] - ref[k].detach()).abs().max())
+                  / (1e-5 * float(ref[k].detach().abs().max()))
+                  for k in got}
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        bits = all(torch.equal(got[k], ref[k].detach()) for k in got) \
+            and losses == ref_losses
+        ok = slots_equal and rel <= 1e-5 and max(ratios.values()) <= 1.0
+        out.update(ref_losses=ref_losses, loss_rel=rel,
+                   slots_equal=slots_equal, worst_over_tol=ratios,
+                   bits_equal=bits, ok=ok,
+                   kept_pairs=int((ref_slot >= 0).sum()))
+        log(f"moe {job['name']}: losses {losses} vs group=None "
+            f"{ref_losses} (rel {rel:.2e}); slots equal {slots_equal}; "
+            f"parameters over 1e-5 of their largest magnitude {ratios}; "
+            f"bits equal {bits}")
+        if not ok:
+            raise AssertionError(f"moe {job['name']}: the expert group "
+                                 f"disagrees with group=None")
+        del ref, x, y
+    del full, p, experts
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_row(job, dist, dev):
+    """moe_block_stacked over an expert group of the world at Mixtral's
+    widths, ``tokens`` global tokens (tokens / world a card, E / world
+    experts a card), one warm-up and ``steps`` timed SGD steps: ms a step,
+    tokens/s a card, peak memory a card, each call's exchange plan (its
+    host sync: the count matrix read to the host) timed, the rows and
+    bytes each exchange moves, and one profiled step on rank 0 (the NCCL
+    all-to-all kernels' device time against the expert GEMMs')."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.incubate.distributed.models import moe as TM
+
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = collective._get_default_group()
+    tokens = job["tokens"]
+    full, p, _, _, xs, ys = _moe_rank_inputs(dev, tokens, rank, world)
+    del full
+    torch.cuda.empty_cache()
+    plans = []
+    route = TM._route
+
+    def timed_route(*args, **kwargs):
+        t = time.perf_counter()
+        r = route(*args, **kwargs)
+        plans.append(((time.perf_counter() - t) * 1e3, r[0], r[1]))
+        return r
+
+    TM._route = timed_route
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        _moe_sgd(TM, p, xs, ys, tokens, 1, group, world)
+        step_ms, losses = [], []
+        for _ in range(job["steps"]):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t = time.perf_counter()
+            losses += _moe_sgd(TM, p, xs, ys, tokens, 1, group, world)
+            torch.cuda.synchronize()
+            dist.barrier()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        prof = None
+        dist.barrier()
+        if rank == 0:
+            prof = profile_kernels(
+                lambda: _moe_sgd(TM, p, xs, ys, tokens, 1, group, world))
+        else:
+            _moe_sgd(TM, p, xs, ys, tokens, 1, group, world)
+        dist.barrier()
+    finally:
+        TM._route = route
+    capacity = max(int(MOE_CF * tokens * MOE_K / MOE_E), 1)
+    sent = [sum(s) for _, s, _ in plans]
+    steady = statistics.median(step_ms[len(step_ms) // 2:])
+    flops = _moe_expert_flops(MOE_E // world, capacity)
+    out = {"world": world, "tokens": tokens, "tokens_a_card": tokens // world,
+           "experts_a_card": MOE_E // world, "capacity": capacity,
+           "losses": losses, "step_ms": step_ms, "step_ms_steady": steady,
+           "tokens_per_s_per_card": tokens / world / (steady / 1e3),
+           "peak_memory_gb": peak / 1e9,
+           "route_host_ms": [ms for ms, _, _ in plans],
+           "route_host_ms_median": statistics.median(
+               ms for ms, _, _ in plans),
+           "rows_sent_a_call": sent,
+           # dispatch and combine forward, their reverse in the backward
+           "exchange_mb_a_direction": statistics.median(sent) * MOE_D * 4
+           / 1e6,
+           "expert_tflop_a_step_a_card": flops / 1e12,
+           "expert_bound_ms_f32": flops / F32_OPS_PER_S * 1e3}
+    if prof is not None:
+        nccl = {k: v for k, v in prof.items() if "nccl" in k.lower()}
+        a2a = {k: v for k, v in nccl.items() if "sendrecv" in k.lower()
+               or "alltoall" in k.lower()}
+        gemm_us = sum(us for k, (_, us) in prof.items() if _is_gemm(k))
+        out["profile"] = {
+            "all_to_all_device_ms": sum(us for _, us in a2a.values()) / 1e3,
+            "all_to_all_kernels": sum(n for n, _ in a2a.values()),
+            "nccl_device_ms": sum(us for _, us in nccl.values()) / 1e3,
+            "expert_gemm_device_ms": gemm_us / 1e3,
+            "device_ms": sum(us for _, us in prof.values()) / 1e3,
+            "top": sorted(((k[:60], n, us / 1e3) for k, (n, us) in
+                           prof.items()), key=lambda r: -r[2])[:10]}
+    del p, xs, ys
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sharded_eager(cfg, level, group, clip=True):
+    """The eager LlamaForCausalLM from HYBRID_SEED with AdamW (and the
+    global-norm clip), through group_sharded_parallel at ``level`` over
+    ``group`` (None: plain)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.distributed.meta_parallel import \
+        group_sharded_parallel
+    from paddle_tpu_torch.models import llama as TL
+
+    paddle.seed(HYBRID_SEED)
+    model = TL.LlamaForCausalLM(cfg)
+    opt = optimizer.AdamW(
+        learning_rate=HYBRID_LR, parameters=model.parameters(),
+        grad_clip=optimizer.ClipGradByGlobalNorm(1.0) if clip else None)
+    if level is not None:
+        model, opt, _ = group_sharded_parallel(model, opt, level,
+                                               group=group)
+    torch.cuda.empty_cache()
+    return model, opt
+
+
+def _eager_loss_step(model, opt, ids, labels, amp):
+    """One eager step (under AMP O1 bf16 with ``amp``): its loss."""
+    if amp:
+        return _eager_step(model, opt, ids, labels)
+    loss = model(ids, labels=labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss
+
+
+def _clip_norms(opt, group):
+    """The list to which each step of ``opt`` appends the global norm of
+    the gradient that its clip sees: a plain optimizer's clip as it
+    computes it; a sharding optimizer's read after its reduction (stage 1
+    the averaged full gradients, stages 2-3 the slices' squares summed
+    over ``group``)."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.meta_parallel import \
+        DygraphShardingOptimizer
+
+    norms = []
+    if not isinstance(opt, DygraphShardingOptimizer):
+        clip = opt._grad_clip
+        norm_of = clip.global_norm
+
+        def global_norm(grads):
+            norm = norm_of(grads)
+            norms.append(float(norm))
+            return norm
+
+        clip.global_norm = global_norm
+        return norms
+    reduce = opt.reduce_gradients
+
+    def reduce_gradients():
+        reduce()
+        grads = [p._value.grad for p in opt._inner_opt._parameter_list
+                 if p._value.grad is not None] if opt.stage == 1 else \
+            list(opt._grad_slices.values())
+        sq = sum(g.float().square().sum() for g in grads)
+        if opt.stage > 1 and opt._n > 1:
+            collective.all_reduce(sq, group=group)
+        norms.append(float(torch.sqrt(sq)))
+
+    opt.reduce_gradients = reduce_gradients
+    return norms
+
+
+def _group_sharded_parity(job, dist, dev):
+    """group_sharded_parallel of the eager LlamaForCausalLM at ``level``
+    over the world (each rank its rows of a ``batch`` x ``seq`` batch), 3
+    AdamW steps with the global-norm clip (under AMP O1 bf16 with
+    ``amp``), each held to the eager step's launches, against rank 0's
+    unsharded model stepped on the whole batch on its card: bit for bit, or
+    the losses and the clip's global norm each step within ENGINE_LOSS_RTOL
+    relative, every parameter as the engines job holds it
+    (ENGINE_PARAM_SHARE, ENGINE_PARAM_LR) and every AdamW moment within
+    ENGINE_MOMENT_RTOL of its largest magnitude (AdamW's update and a
+    clipped gradient do not change when every gradient is scaled: the norm
+    and the moments are what show a group average taken wrong). Stage 3's
+    parameter bytes held between steps are the slices'."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.distributed import collective
+
+    cfg = _hybrid_config(job["width"], job["dtype"], job["layers"])
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = collective._get_default_group()
+    amp = job.get("amp", False)
+    batches = _hybrid_batches(cfg, job["batch"], job["seq"], 3, dev)
+    rows = job["batch"] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    model, opt = _sharded_eager(cfg, job["level"], group)
+    norms = _clip_norms(opt, group)
+    torch.cuda.synchronize()
+    param_bytes = sum(p._value.numel() * p._value.element_size()
+                      for p in model.parameters())
+    reset_launch_counts()
+    losses, per_step, step_ms = [], [], []
+    for ids, labels in batches:
+        before = launch_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        loss = _eager_loss_step(model, opt, paddle.to_tensor(ids[mine]),
+                                paddle.to_tensor(labels[mine]), amp)
+        total = loss.detach()._value.float().clone()
+        collective.all_reduce(total, op="avg", group=group)
+        losses.append(float(total))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k: v - before[k]
+                         for k, v in launch_counts().items()})
+    counts = launch_counts()
+    _check_launches(per_step, _training_launches(cfg),
+                    f"group_sharded {job['name']}")
+    state = model.state_dict()          # full values: collective
+    moments = {k: v._value for k, v in opt.state_dict().items()
+               if k != "_step_count"}   # likewise
+    if rank != 0:
+        del moments
+    out = {"level": job["level"], "world": world, "losses": losses,
+           "norms": norms,
+           "step_ms": step_ms, "per_step": per_step[-1], "counts": counts,
+           "param_bytes_held": param_bytes,
+           "param_bytes_full": sum(v._value.numel() * v._value.element_size()
+                                   for v in state.values())}
+    if rank == 0:
+        plain, popt = _sharded_eager(cfg, None, None)
+        ref_norms = _clip_norms(popt, None)
+        ref_losses = [float(_eager_loss_step(
+            plain, popt, paddle.to_tensor(i), paddle.to_tensor(l), amp))
+            for i, l in batches]
+        ref = {k: v._value.detach() for k, v in plain.state_dict().items()}
+        ref_moments = {k: v._value for k, v in popt.state_dict().items()
+                       if k != "_step_count"}
+        if sorted(moments) != sorted(ref_moments) or \
+                len(norms) != len(ref_norms) or not norms:
+            raise AssertionError(
+                f"group_sharded {job['name']}: moments {sorted(moments)} "
+                f"vs {sorted(ref_moments)}, norms {norms} vs {ref_norms}")
+        bits = losses == ref_losses and norms == ref_norms and all(
+            torch.equal(state[k]._value, v) for k, v in ref.items()) and \
+            all(torch.equal(moments[k], v) for k, v in ref_moments.items())
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+        norm_rel = max(abs(a - b) / abs(b) for a, b in zip(norms, ref_norms))
+        big = share = 0.0
+        for k, want in ref.items():
+            diff = (state[k]._value.detach().float() - want.float()).abs()
+            tol = 1e-3 * float(want.abs().max()) + 0.1 * HYBRID_LR
+            big = max(big, float(diff.max()) / HYBRID_LR)
+            share = max(share, float((diff > tol).float().mean()))
+        moment_rel = max(
+            float((moments[k].float() - want.float()).abs().max())
+            / max(float(want.abs().max()), 1e-30)
+            for k, want in ref_moments.items())
+        ok = bits or (rel <= ENGINE_LOSS_RTOL and share <= ENGINE_PARAM_SHARE
+                      and big <= ENGINE_PARAM_LR
+                      and norm_rel <= ENGINE_LOSS_RTOL
+                      and moment_rel <= ENGINE_MOMENT_RTOL)
+        out.update(ref_losses=ref_losses, loss_rel=rel, ref_norms=ref_norms,
+                   norm_rel=norm_rel, worst_moment_rel=moment_rel,
+                   bits_equal=bits, worst_param_over_lr=big,
+                   worst_share_over_tol=share, ok=ok)
+        log(f"group_sharded {job['name']}: losses {losses} vs unsharded "
+            f"{ref_losses} (rel {rel:.2e}); clip norms {norms} vs "
+            f"{ref_norms} (rel {norm_rel:.2e}); bits equal {bits}; "
+            f"parameters worst {big:.3f} lr, share off {share:.2e}; "
+            f"moments worst {moment_rel:.2e} of their largest; parameter "
+            f"bytes held {param_bytes} of {out['param_bytes_full']}")
+        if not ok:
+            raise AssertionError(f"group_sharded {job['name']} disagrees "
+                                 f"with the unsharded eager step")
+        del plain, popt, ref, ref_moments, moments
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _group_sharded_row(job, dist, dev):
+    """The eager Llama-2 7B (32 layers, f32 parameters, recompute) under
+    group_sharded_parallel "p_g_os" over the world, AMP O1 bf16, AdamW, one
+    sequence of ``seq`` a rank: one warm-up and ``steps`` timed steps
+    (ms a step, tokens/s a card, share of 989 TF/s), the bytes held a card
+    between steps and at peak, launches a step, and one profiled step on
+    rank 0 (NCCL kernels' device time against the rest)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.distributed import collective
+
+    cfg = _hybrid_config(job["width"], "bfloat16", job["layers"])
+    world, rank = dist.get_world_size(), dist.get_rank()
+    group = collective._get_default_group()
+    t0 = time.perf_counter()
+    model, opt = _sharded_eager(cfg, job["level"], group, clip=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batches = _hybrid_batches(cfg, world, job["seq"], job["steps"] + 2, dev)
+    mine = slice(rank, rank + 1)
+
+    def step(i):
+        ids, labels = batches[i]
+        return float(_eager_step(model, opt, paddle.to_tensor(ids[mine]),
+                                 paddle.to_tensor(labels[mine])))
+
+    warm = step(0)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_launch_counts()
+    losses, step_ms, per_step = [], [], []
+    for i in range(1, job["steps"] + 1):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        dist.barrier()
+        t = time.perf_counter()
+        losses.append(step(i))
+        torch.cuda.synchronize()
+        dist.barrier()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k: v - before[k]
+                         for k, v in launch_counts().items()})
+    peak = torch.cuda.max_memory_allocated(dev)
+    counts = launch_counts()
+    _check_launches(per_step, _training_launches(cfg),
+                    f"group_sharded {job['name']}")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"group_sharded 7B losses: {losses}")
+    dist.barrier()
+    prof = profile_kernels(lambda: step(len(batches) - 1)) if rank == 0 \
+        else step(len(batches) - 1)
+    dist.barrier()
+    steady = statistics.median(step_ms[len(step_ms) // 2:])
+    full_params = _full_param_count(cfg)
+    fpt = model_flops_per_token(cfg, full_params, job["seq"])
+    tps = job["seq"] / (steady / 1e3)
+    out = {"level": job["level"], "world": world, "init_s": init_s,
+           "warmup_loss": warm, "losses": losses, "step_ms": step_ms,
+           "step_ms_steady": steady, "step_ms_slope_per_step": _slope(step_ms),
+           "tokens_per_s_per_card": tps,
+           "share_of_989_tflops": tps * fpt / BF16_OPS_PER_S,
+           "held_between_steps_gb": held / 1e9, "peak_memory_gb": peak / 1e9,
+           "param_bytes_a_card_gb": sum(
+               p._value.numel() * p._value.element_size()
+               for p in model.parameters()) / 1e9,
+           "params": full_params, "per_step": per_step[-1],
+           "counts": counts,
+           # stage 1 at this size: f32 parameters and gradients whole and
+           # the moments' slices, before any activation
+           "stage1_would_hold_gb": (2 * 4 * full_params
+                                    + 2 * 4 * full_params / world) / 1e9}
+    if rank == 0:
+        nccl_us = sum(us for k, (_, us) in prof.items()
+                      if "nccl" in k.lower())
+        comp_us = sum(us for k, (_, us) in prof.items()
+                      if "nccl" not in k.lower())
+        out["profile"] = {"nccl_device_ms": nccl_us / 1e3,
+                          "compute_device_ms": comp_us / 1e3,
+                          "top": sorted(((k[:60], n, us / 1e3) for k, (n, us)
+                                         in prof.items()),
+                                        key=lambda r: -r[2])[:10]}
+    del model, opt
+    torch.cuda.empty_cache()
+    return out
+
+
+def _save_attn_parity(job, dist, dev):
+    """The mesh trainer under remat_policy "full", then "save_attn", 3
+    steps each from the same seed: the losses, clip norms and every leaf
+    (gathered) of save_attn bit for bit those of full, or within
+    _hybrid_parity's tolerances; each step's launches held, the flash
+    forward's once a layer (and hop) under save_attn where full runs it
+    twice, and under pp the same as full (whole blocks recomputed)."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.models import llama as TL
+
+    runs = {}
+    for policy in ("full", "save_attn"):
+        cfg = _hybrid_config(job["width"], job["dtype"], job["layers"])
+        cfg.remat_policy = policy
+        batches = _hybrid_batches(cfg, job["batch"], job["seq"], 3, dev)
+        tr = HybridTrainer(cfg, job["mesh"], learning_rate=HYBRID_LR,
+                           seed=HYBRID_SEED, device=dev,
+                           pipeline_micro_batches=job.get("n_micro"))
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        losses, step_ms, per_step, norms, _ = _timed_steps(dist, tr,
+                                                           batches)
+        want = _launches_of(tr, job["batch"])
+        if policy == "save_attn" and not tr.pipelined:
+            want["flash_attention_fwd"] //= 2
+        _check_launches(per_step, want, f"save_attn {job['name']} {policy}")
+        leaves = {pre + ":" + n: tr._full(n, t).detach()
+                  for pre, tree in (("p", tr.params),
+                                    ("m", tr.opt_state["m"]),
+                                    ("v", tr.opt_state["v"]))
+                  for n, t in TL.leaves(tree).items()}
+        runs[policy] = dict(losses=losses, norms=norms, step_ms=step_ms,
+                            per_step=per_step[-1], counts=launch_counts(),
+                            leaves=leaves)
+        del tr
+        torch.cuda.empty_cache()
+    full, saved = runs["full"], runs["save_attn"]
+    bits = full["losses"] == saved["losses"] and \
+        full["norms"] == saved["norms"] and all(
+            torch.equal(v, saved["leaves"][k])
+            for k, v in full["leaves"].items())
+    rel = max(abs(a - b) / abs(b) for a, b in zip(saved["losses"],
+                                                   full["losses"]))
+    norm_rel = max(abs(a - b) / abs(b) for a, b in zip(saved["norms"],
+                                                        full["norms"]))
+    by_leaf = {} if bits else {
+        k: _held_leaf(k[0], saved["leaves"][k], v,
+                      [full["leaves"][m + k[1:]] for m in "mv"])
+        for k, v in full["leaves"].items()}
+    failed = [k for k, v in by_leaf.items() if not v["ok"]]
+    ok = bits or (rel <= 1e-4 and norm_rel <= 1e-5 and not failed)
+    out = {"mesh": job["mesh"], "bits_equal": bits, "loss_rel": rel,
+           "grad_norm_rel": norm_rel, "ok": ok,
+           "stage": None, "counts": saved["counts"],
+           "per_step": saved["per_step"], "full_per_step": full["per_step"],
+           "losses": saved["losses"], "full_losses": full["losses"],
+           "step_ms": saved["step_ms"], "full_step_ms": full["step_ms"]}
+    fwd = "flash_attention_fwd"
+    log(f"save_attn {job['name']} rank {dist.get_rank()}: bits equal to "
+        f"full {bits}; flash forward a step {saved['per_step'][fwd]} (full "
+        f"{full['per_step'][fwd]}); losses {saved['losses']} vs "
+        f"{full['losses']}")
+    if not ok:
+        raise AssertionError(f"save_attn {job['name']}: disagrees with "
+                             f"full: losses rel {rel:.2e}, norms rel "
+                             f"{norm_rel:.2e}, leaves {failed}")
+    return out
+
+
+def _drop_groups(dist, made_before):
+    """Destroy the process groups a job made (every rank, after a barrier;
+    the world's own group, id 0, stays) and drop the current hybrid group:
+    their NCCL communicators would otherwise stay allocated for the rest
+    of the run, ~3.5 GB a card a job on four H100s, until a later job runs
+    out of memory. A collection then frees what the job left in reference
+    cycles (an optimizer whose method a job wrapped holds its parameters
+    and moments until one runs)."""
+    import gc
+
+    from paddle_tpu_torch.distributed import collective, topology
+
+    dist.barrier()
+    topology.set_hybrid_communicate_group(None)
+    for gid in sorted(set(collective._groups) - made_before - {0}):
+        collective.destroy_process_group(collective._groups[gid])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def _hybrid_rank(out_dir, plan):
     """One rank of phase_hybrid (a spawned process): NCCL, its own card,
     the plan's jobs in order; its results (or its error) to
@@ -4323,6 +5182,7 @@ def _hybrid_rank(out_dir, plan):
     torch.backends.cudnn.allow_tf32 = False
     import paddle_tpu_torch.distributed as dist
     from paddle_tpu_torch import resolve_device
+    from paddle_tpu_torch.distributed import collective
 
     dist.init_parallel_env()
     rank = dist.get_rank()
@@ -4332,10 +5192,16 @@ def _hybrid_rank(out_dir, plan):
            "backend": dist.get_backend()}
     try:
         for job in plan:
+            made_before = set(collective._groups)
             fn = {"parity": _hybrid_parity, "row": _hybrid_row,
-                  "engines": _pipeline_engines}[job["kind"]]
+                  "engines": _pipeline_engines, "moe": _moe_parity,
+                  "moe_row": _moe_row,
+                  "group_sharded": _group_sharded_parity,
+                  "group_sharded_row": _group_sharded_row,
+                  "save_attn": _save_attn_parity}[job["kind"]]
             log(f"hybrid rank {rank}: {job['name']} starts")
             res[job["name"]] = fn(job, dist, dev)
+            _drop_groups(dist, made_before)
             log(f"hybrid rank {rank}: {job['name']} done")
     finally:
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -4361,7 +5227,7 @@ def phase_hybrid(dev, world=None):
     torch.cuda.empty_cache()
     log(f"hybrid: world {world}, parent holds "
         f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on {dev}; jobs "
-        f"{[(j['name'], j['mesh']) for j in plan]}")
+        f"{[(j['name'], j.get('mesh')) for j in plan]}")
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out_dir = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="hybrid-")
     t0 = time.perf_counter()
@@ -4391,8 +5257,11 @@ def phase_hybrid(dev, world=None):
             mine["engines_by_rank"] = [r[job["name"]]["engines"]
                                        for r in ranks]
         else:
-            mine["step_ms_by_rank"] = [r[job["name"]]["step_ms"]
+            mine["step_ms_by_rank"] = [r[job["name"]].get("step_ms")
                                        for r in ranks]
+        if job["kind"] in ("moe_row", "group_sharded_row"):
+            mine["peak_memory_gb_by_rank"] = [
+                r[job["name"]]["peak_memory_gb"] for r in ranks]
         if job["kind"] == "row":
             mine["peak_memory_gb_by_rank"] = [
                 r[job["name"]]["peak_memory_gb"] for r in ranks]
@@ -4409,9 +5278,13 @@ def phase_hybrid(dev, world=None):
                     for p in mine["profiles"]}
         out["jobs"][job["name"]] = mine
         log(json.dumps({"hybrid": {job["name"]: mine}}))
-        if job["path"]:
+        if job["path"] is True:
             out["counts"] = r0["counts"]
             out["launches_per_step"] = r0["per_step"]
+        elif job["path"]:
+            out.setdefault("path_counts", {})[job["path"]] = r0["counts"]
+            out.setdefault("path_per_step", {})[job["path"]] = \
+                r0["per_step"]
         if job.get("pipeline"):
             # every stage's launches (each rank's), and a step's on the
             # first rank of each stage
@@ -6179,6 +7052,7 @@ def main():
     eager = phase_eager(dev)
     pretrain = {kind: phase_pretrain(dev, kind) for kind in PRETRAIN}
     phase_registry_ops(dev)
+    phase_moe(dev)
     hybrid = phase_hybrid(dev)
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
                   stream, artifact, eager, pretrain)
@@ -6190,6 +7064,7 @@ def main():
                "hybrid": hybrid["counts"],
                "pipeline": Counter(hybrid["pipeline_counts"]),
                "sep": sep["counts"]}
+    by_path.update(hybrid["path_counts"])
     by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
                         "decode_step": r["metrics"]["decode_launches_per_step"]
@@ -6211,6 +7086,7 @@ def main():
                                  hybrid["pipeline_per_step"].items()}
                              for k in TRAINING_KERNELS},
                 "sep": sep["per_call"]})
+    per_step.update(hybrid["path_per_step"])
     per_step.update({kind: r["metrics"]["launches_per_step"]
                      for kind, r in pretrain.items()})
     line = []

@@ -281,10 +281,12 @@ class Parameter(Tensor):
     ``is_firstly_shared`` is True on the first of them only (a global-norm
     clip counts it there). ``sequence_parallel`` marks a parameter whose
     gradient each mp rank computes from its slice of the sequence
-    (fleet/sequence_parallel_utils.py)."""
+    (fleet/sequence_parallel_utils.py). ``_stage3`` is the record of a
+    parameter held as this rank's slice between steps (ZeRO stage 3,
+    distributed/meta_parallel/sharding_optimizer.py), None otherwise."""
 
     __slots__ = ("is_distributed", "split_axis", "is_firstly_shared",
-                 "sequence_parallel")
+                 "sequence_parallel", "_stage3")
 
     def __init__(self, data, dtype=None, name=None, trainable=True,
                  place=None):
@@ -296,6 +298,7 @@ class Parameter(Tensor):
         self.split_axis = None
         self.is_firstly_shared = True
         self.sequence_parallel = False
+        self._stage3 = None
 
     @property
     def trainable(self):

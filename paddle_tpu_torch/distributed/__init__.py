@@ -1,6 +1,8 @@
 """paddle_tpu_torch.distributed (paddle_tpu/distributed): collectives over
 torch.distributed, the hybrid topology, collective Fleet, the
-tensor-parallel layers, ZeRO stage 1, DataParallel and HybridTrainer.
+tensor-parallel layers, ZeRO stages 1-3 and group_sharded_parallel,
+DataParallel, HybridTrainer, and the MoE exchange (``utils``:
+global_scatter, global_gather).
 
 The TPU package is single-controller: one process holds every parameter as
 a full array, GSPMD inserts the collectives, and its ``spawn`` runs the
@@ -13,19 +15,25 @@ the function calls init_parallel_env (or fleet.init) itself, as in Paddle.
 
 Pipeline parallelism (meta_parallel: PipelineLayer, the 1F1B, interleaved
 and zero-bubble engines, spmd_pipeline) sends the activations between the
-pp ranks over point-to-point groups of the topology.
+pp ranks over point-to-point groups of the topology. Sequence-dimension
+parallelism runs attention as a ring over the sep group
+(ops/kernels/ring_attention.py, HybridTrainer's 'sep' axis,
+SegmentParallel), and Megatron's sequence parallelism over mp
+(fleet/sequence_parallel_utils.py). MoE expert parallelism
+(incubate/distributed/models/moe: moe_block_stacked over an expert group)
+exchanges tokens with all_to_all_single.
 
-Not ported yet (ROADMAP.md, queue 1, item 5 and after): sep with ring
-attention, MoE, sequence parallel, the group-sharded stage 2-3 wrappers,
-auto_parallel and launch; the store, transport, watchdog, resilience
-supervisor and checkpoint tiers (items 6 and 8).
+Not ported yet (ROADMAP.md, queue 1): auto_parallel and launch; the store,
+transport, watchdog, resilience supervisor and checkpoint tiers (items 6
+and 8).
 """
 from __future__ import annotations
 
 import os
 import time
 
-from . import collective, env, fleet, meta_parallel, resilience, topology
+from . import (collective, env, fleet, meta_parallel, resilience, topology,
+               utils)
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
                          all_reduce, all_to_all, all_to_all_single, barrier,
                          batch_isend_irecv, broadcast, broadcast_object_list,
@@ -40,7 +48,7 @@ from .topology import (HybridCommunicateGroup, build_mesh,
                        get_hybrid_communicate_group, get_mesh)
 
 __all__ = ["collective", "env", "fleet", "meta_parallel", "resilience",
-           "topology", "spawn",
+           "topology", "utils", "spawn",
            "P2POp", "ReduceOp", "all_gather", "all_gather_object",
            "all_reduce", "all_to_all", "all_to_all_single", "barrier",
            "batch_isend_irecv", "broadcast", "broadcast_object_list",

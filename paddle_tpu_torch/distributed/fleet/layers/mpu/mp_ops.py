@@ -27,7 +27,8 @@ import torch
 from .... import collective
 
 __all__ = ["_c_identity", "_mp_allreduce", "_c_split", "_c_concat",
-           "gather_along", "reduce_scatter_along", "all_reduce_live",
+           "gather_along", "gather_leaf", "reduce_scatter_along",
+           "all_reduce_live",
            "vocab_parallel_nll"]
 
 
@@ -70,6 +71,28 @@ def reduce_scatter_along(t: torch.Tensor, group, dim: int) -> torch.Tensor:
     out = torch.empty(pieces[0].shape, dtype=t.dtype, device=t.device)
     collective.reduce_scatter(out, list(pieces), group=group)
     return out
+
+
+class _GatherLeaf(torch.autograd.Function):
+    """The full tensor from its shards along ``dim`` (gathered here, or
+    ``full`` when a prefetch gathered it); the gradient reduce-scattered
+    (summed) back to the shard."""
+
+    @staticmethod
+    def forward(ctx, shard, group, dim, full=None):
+        ctx.group, ctx.dim = group, dim
+        return gather_along(shard, group, dim) if full is None else full
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_along(g, ctx.group, ctx.dim), None, None, None
+
+
+def gather_leaf(shard, group, dim=0, full=None):
+    """``gather_along`` as an autograd function whose backward sums the
+    gradient over the group and hands each rank its piece (the FSDP
+    gather of a parameter shard, and MoE's gather of the router logits)."""
+    return _GatherLeaf.apply(shard, group, dim, full)
 
 
 def _slice(t, group, dim):

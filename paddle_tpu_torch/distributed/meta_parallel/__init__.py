@@ -1,9 +1,9 @@
 """meta_parallel (paddle_tpu/distributed/meta_parallel/): the
-tensor-parallel layers, ZeRO stage 1, the hybrid optimizer, the model
-wrappers, and pipeline parallelism (pp_layers, pipeline_schedules, the
-1F1B / interleaved / zero-bubble engines and spmd_pipeline). The
-group-sharded stage 2-3 wrappers are not ported (ROADMAP.md, queue 1,
-item 5)."""
+tensor-parallel layers, ZeRO stages 1-3 and the group-sharded wrappers
+(group_sharded_parallel), the hybrid optimizer, the model wrappers
+(TensorParallel, ShardingParallel, SegmentParallel), and pipeline
+parallelism (pp_layers, pipeline_schedules, the 1F1B / interleaved /
+zero-bubble engines and spmd_pipeline)."""
 from .engines import (MetaParallelBase, SegmentParallel, ShardingParallel,
                       TensorParallel)
 from .hybrid_optimizer import HybridParallelOptimizer
@@ -17,7 +17,10 @@ from .pipeline_parallel import (PipelineParallel,
 from .pp_layers import LayerDesc, PipelineLayer, SharedLayerDesc
 from .sharding_optimizer import (DygraphShardingOptimizer,
                                  DygraphShardingOptimizerV2,
-                                 all_gather_params, stage3_forward)
+                                 GroupShardedOptimizerStage2,
+                                 GroupShardedStage2, GroupShardedStage3,
+                                 all_gather_params, group_sharded_parallel,
+                                 stage3_forward)
 
 __all__ = ["MetaParallelBase", "TensorParallel", "ShardingParallel",
            "SegmentParallel",
@@ -27,5 +30,6 @@ __all__ = ["MetaParallelBase", "TensorParallel", "ShardingParallel",
            "PipelineParallelWithInterleave", "PipelineParallelZeroBubble",
            "spmd_pipeline", "spmd_pipeline_interleaved", "LayerDesc",
            "PipelineLayer", "SharedLayerDesc", "DygraphShardingOptimizer",
-           "DygraphShardingOptimizerV2", "all_gather_params",
-           "stage3_forward"]
+           "DygraphShardingOptimizerV2", "GroupShardedOptimizerStage2",
+           "GroupShardedStage2", "GroupShardedStage3",
+           "group_sharded_parallel", "all_gather_params", "stage3_forward"]

@@ -8,7 +8,10 @@ wrapper makes the copies agree before training: TensorParallel broadcasts
 every parameter over the data-parallel, sep and sharding groups from their
 first rank, and the replicated (not ``is_distributed``) ones over the
 model-parallel group from its first rank; ShardingParallel broadcasts over
-the sharding group; SegmentParallel over the data-parallel and sep groups.
+the sharding group; SegmentParallel over the data-parallel and sep
+groups. Under ZeRO stage 3 TensorParallel and
+ShardingParallel then hold every parameter as its slice over the sharding
+group, gathered at use (sharding_optimizer.py::shard_layer).
 None of them splits the inputs or reduces a gradient (the reference's
 SegmentParallel neither: engines.py:83-88); a model run over 'sep' splits
 the sequence and runs its attention as a ring itself
@@ -46,10 +49,16 @@ class MetaParallelBase(Layer):
         return self._layers(*inputs, **kwargs)
 
     def state_dict(self, *args, **kwargs):
-        return self._layers.state_dict(*args, **kwargs)
+        """Full tensors (under stage 3 gathered: collective)."""
+        from .sharding_optimizer import full_state_dict
+
+        return full_state_dict(self._layers, *args, **kwargs)
 
     def set_state_dict(self, state_dict, *args, **kwargs):
-        return self._layers.set_state_dict(state_dict, *args, **kwargs)
+        from .sharding_optimizer import set_full_state_dict
+
+        return set_full_state_dict(self._layers, state_dict, *args,
+                                   **kwargs)
 
     def parameters(self, *args, **kwargs):
         return self._layers.parameters(*args, **kwargs)
@@ -69,6 +78,21 @@ class MetaParallelBase(Layer):
         return self
 
 
+    def _stage3(self):
+        """Under ZeRO stage 3 (``sharding_configs["stage"]`` 3 with
+        sharding > 1) every parameter held as its slice over the sharding
+        group, gathered by each layer's forward pre-hook
+        (sharding_optimizer.py::shard_layer)."""
+        cfg = {} if self._strategy is None else \
+            self._strategy.hybrid_configs.get("sharding_configs", {}) or {}
+        if cfg.get("stage", 1) == 3 and \
+                self._hcg.get_sharding_parallel_world_size() > 1:
+            from .sharding_optimizer import shard_layer
+
+            shard_layer(self._layers,
+                        self._hcg.get_sharding_parallel_group())
+
+
 class TensorParallel(MetaParallelBase):
     def _prepare_for_model(self):
         params = list(self._layers.parameters())
@@ -78,15 +102,18 @@ class TensorParallel(MetaParallelBase):
         _broadcast_params(
             [p for p in params if not getattr(p, "is_distributed", False)],
             self._hcg.get_model_parallel_group())
+        self._stage3()
 
 
 class ShardingParallel(MetaParallelBase):
     """Model wrapper for a sharding-only topology: the optimizer
-    (sharding_optimizer.py) partitions the state."""
+    (sharding_optimizer.py) partitions the state; at stage 3 the
+    parameters too."""
 
     def _prepare_for_model(self):
         _broadcast_params(list(self._layers.parameters()),
                           self._hcg.get_sharding_parallel_group())
+        self._stage3()
 
 
 class SegmentParallel(MetaParallelBase):

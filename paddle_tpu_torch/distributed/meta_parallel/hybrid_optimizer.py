@@ -7,10 +7,15 @@ norm is the global one. Here each rank holds shards, and the step is, in
 order:
 
 1. the gradients averaged over the data-parallel group (dp > 1);
-2. with sharding > 1, averaged over the sharding group too, and the update
-   left to DygraphShardingOptimizer (stage 1);
-3. the global-norm clip (``_HybridClip``), which counts each logical
-   element once: a distributed (mp-split) parameter's sum of squares is
+2. with sharding > 1, the update left to DygraphShardingOptimizer at
+   ``sharding_configs["stage"]``: stage 1 averages the gradients over the
+   sharding group, stage 2 reduce-scatters each into this rank's slice,
+   stage 3 takes the slices its gathers reduce-scattered (the model
+   wrapped by ``fleet.distributed_model``, whose pre-hooks gather the
+   parameters; sharding_optimizer.py);
+3. the global-norm clip (``_HybridClip``; at stages 2-3 over the slices,
+   their squares summed over the sharding group), which counts each
+   logical element once: a distributed (mp-split) parameter's sum of squares is
    summed over the model-parallel group, a replicated one's (the RMSNorm
    weights, a replicated LM head) is taken once, since every mp rank holds
    the same gradient for it; over pp the stages' sums are added (each
@@ -39,9 +44,14 @@ class _HybridClip:
         self._params = parameters
         self.clip_norm = inner_clip.clip_norm
 
-    def global_norm(self, grads):
-        live = [p for p in self._params
-                if not p.stop_gradient and p._value.grad is not None]
+    def global_norm(self, grads, params=None, sharding=None):
+        """The norm of ``grads``, the gradients of ``params`` (None: the
+        optimizer's parameters that hold a gradient). With ``sharding``
+        (ZeRO stages 2-3) each gradient is this rank's slice, and the
+        squares are summed over that group too."""
+        live = params if params is not None else [
+            p for p in self._params
+            if not p.stop_gradient and p._value.grad is not None]
         pp = self._hcg.get_pipe_parallel_group()
         if not live and not (_live(pp) and pp.nranks > 1):
             return None
@@ -54,8 +64,13 @@ class _HybridClip:
         zero = torch.zeros((), dtype=torch.float32,
                            device=self._params[0]._value.device)
         total = sum(dist_sq, zero)
+        rep = sum(rep_sq, zero)
+        if sharding is not None:
+            both = torch.stack([total, rep])
+            all_reduce_live(both, sharding)
+            total, rep = both[0], both[1]
         all_reduce_live(total, self._hcg.get_model_parallel_group())
-        total = total + sum(rep_sq, zero)
+        total = total + rep
         all_reduce_live(total, pp)
         return torch.sqrt(total)
 
@@ -102,6 +117,8 @@ class HybridParallelOptimizer:
                                           group=group)
 
     def step(self):
+        if self._sharding is not None:
+            self._sharding.release_params()
         self._reduce_data_parallel()
         if self._sharding is not None:
             self._sharding.step()
@@ -109,7 +126,7 @@ class HybridParallelOptimizer:
             self._inner_opt.step()
 
     def clear_grad(self, set_to_zero=True):
-        self._inner_opt.clear_grad()
+        (self._sharding or self._inner_opt).clear_grad()
 
     clear_gradients = clear_grad
 
@@ -123,7 +140,7 @@ class HybridParallelOptimizer:
         return (self._sharding or self._inner_opt).state_dict()
 
     def set_state_dict(self, state):
-        return self._inner_opt.set_state_dict(state)
+        return (self._sharding or self._inner_opt).set_state_dict(state)
 
     @property
     def _learning_rate(self):

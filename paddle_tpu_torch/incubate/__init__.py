@@ -1,3 +1,3 @@
-from . import nn
+from . import distributed, nn
 
-__all__ = ["nn"]
+__all__ = ["distributed", "nn"]

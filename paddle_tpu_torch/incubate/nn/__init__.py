@@ -1,3 +1,4 @@
 from . import functional
+from .layer import FusedEcMoe
 
-__all__ = ["functional"]
+__all__ = ["functional", "FusedEcMoe"]

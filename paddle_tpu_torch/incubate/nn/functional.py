@@ -25,7 +25,10 @@ dense [B, S, H, D] entry over F.scaled_dot_product_attention.
 
 ``fused_rotary_position_embedding`` and ``swiglu`` are eager ops (through
 core/dispatch.py::apply; they take and return Tensors), the eager Llama's
-(incubate/nn/functional/__init__.py:58-181).
+(incubate/nn/functional/__init__.py:58-181). ``fused_ec_moe`` is the
+expert-computation MoE block (:424-443), an eager op too: every expert's
+FFN on every token, mixed by the softmax of the gate, GELU in the tanh
+form as the reference's ``jax.nn.gelu``.
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from ...ops.kernels.varlen_attention import (segment_ids_from_cu_seqlens,
 __all__ = ["swiglu", "fused_rotary_position_embedding",
            "block_multihead_attention", "paged_metadata",
            "PagedMetadata", "flash_attention", "flash_attn_unpadded",
-           "flash_attn_varlen_qkvpacked"]
+           "flash_attn_varlen_qkvpacked", "fused_ec_moe"]
 
 
 def swiglu(x, y=None, name=None):
@@ -371,3 +374,27 @@ def flash_attn_varlen_qkvpacked(qkv, cu_seqlens_q, cu_seqlens_k,
                                max_seqlen_k, scale, dropout, causal,
                                return_softmax, training=training,
                                generator=generator)
+
+
+def fused_ec_moe(x, gate, bmm0_weight, bmm0_bias, bmm1_weight, bmm1_bias,
+                 act_type):
+    """out = sum_e softmax(gate)_e * ffn_e(x): x [B, S, H], gate [B, S, E],
+    bmm0_weight [E, H, I], bmm0_bias [E, 1, I], bmm1_weight [E, I, H],
+    bmm1_bias [E, 1, H]; ``act_type`` "gelu" (the tanh form) or "relu"
+    (reference incubate/nn/functional/fused_ec_moe.py)."""
+    if act_type not in ("gelu", "relu"):
+        raise ValueError(f"fused_ec_moe: act_type {act_type!r} is not "
+                         f"gelu or relu")
+
+    def fn(xa, ga, w0, b0, w1, b1):
+        probs = torch.softmax(ga.float(), dim=-1).to(xa.dtype)
+        h = torch.einsum("bsh,ehi->bsei", xa, w0) \
+            + b0.reshape(1, 1, w0.shape[0], -1)
+        h = TF.gelu(h, approximate="tanh") if act_type == "gelu" \
+            else torch.relu(h)
+        o = torch.einsum("bsei,eih->bseh", h, w1) \
+            + b1.reshape(1, 1, w1.shape[0], -1)
+        return torch.einsum("bseh,bse->bsh", o, probs)
+
+    return apply(fn, x, gate, bmm0_weight, bmm0_bias, bmm1_weight,
+                 bmm1_bias, op_name="fused_ec_moe")

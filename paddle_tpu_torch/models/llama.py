@@ -245,9 +245,8 @@ class _Par:
 
     def __init__(self, hcg, config: LlamaConfig):
         from ..distributed.fleet.layers.mpu import mp_ops
-        from ..distributed.meta_parallel import sharding_optimizer as so
 
-        self.ops, self.gather_leaf = mp_ops, so._gather_leaf
+        self.ops, self.gather_leaf = mp_ops, mp_ops.gather_leaf
         self.mp = hcg.get_model_parallel_group()
         self.sharding = hcg.get_sharding_parallel_group()
         self.mp_size = hcg.get_model_parallel_world_size()
@@ -370,52 +369,106 @@ def _block(p, x, config: LlamaConfig, par: Optional[_Par] = None):
 
 class _SavedAttention(torch.autograd.Function):
     """The attention half of a block under remat_policy="save_attn": RMSNorm,
-    the q, k, v projections, RoPE and causal flash attention. It keeps what
-    the reference's ``save_only_these_names("flash_attn_out")``
-    (llama.py:534-540) keeps, the attention output O (and its LSE, which
-    the flash backward needs beside it), and its inputs, which the block
-    keeps anyway; q, k and v are recomputed in the backward and fed to the
-    flash backward with the saved O and LSE. The numbers are those of
-    ``_qkv`` then ``flash_attention_bshd``."""
+    the q, k, v projections, RoPE and causal flash attention (over 'sep'
+    the ring). It keeps what the reference's
+    ``save_only_these_names("flash_attn_out")`` (llama.py:534-540) keeps,
+    the attention output O (and its LSE, which the flash backward needs
+    beside it), and its inputs, which the block keeps anyway: over a mesh
+    the weights' shards, not their FSDP-gathered whole, which the backward
+    gathers again (as the reference frees the gathered weights between the
+    forward and the backward). q, k and v are recomputed in the backward
+    and fed to the flash backward (the ring's backward over 'sep') with the
+    saved O and LSE; the gathered weights' gradients are reduce-scattered
+    back to the shards. The numbers are those of ``_block``'s attention."""
 
     @staticmethod
-    def forward(ctx, x, ln_attn, wq, wk, wv, config):
-        p = {"ln_attn": ln_attn, "wq": wq, "wk": wk, "wv": wv}
-        q, k, v = _qkv_bhsd(p, x, config)
-        o, lse = fa.forward_with_lse(q, k, v, None, 0, True, 0.0)
+    def forward(ctx, x, ln_attn, wq, wk, wv, config, par):
+        p = {"ln_attn": ln_attn, **_gather_qkv(par, wq, wk, wv)}
+        q, k, v = _qkv_bhsd(p, x, config, par)
+        if _ring(par):
+            o, lse = ra.ring_forward(q, k, v, par.sep, True)
+        else:
+            o, lse = fa.forward_with_lse(q, k, v, None, 0, True, 0.0)
         ctx.save_for_backward(x, ln_attn, wq, wk, wv, o, lse)
-        ctx.config = config
+        ctx.config, ctx.par = config, par
         return o.transpose(1, 2)
 
     @staticmethod
     def backward(ctx, do):
         x, ln_attn, wq, wk, wv, o, lse = ctx.saved_tensors
+        par = ctx.par
+        full = _gather_qkv(par, wq, wk, wv)
         inputs = [t.detach().requires_grad_(need) for t, need in
-                  zip((x, ln_attn, wq, wk, wv), ctx.needs_input_grad)]
+                  zip((x, ln_attn, full["wq"], full["wk"], full["wv"]),
+                      ctx.needs_input_grad)]
         with torch.enable_grad():
             p = dict(zip(("ln_attn", "wq", "wk", "wv"), inputs[1:]))
-            q, k, v = _qkv_bhsd(p, inputs[0], ctx.config)
-        dq, dk, dv = fa.backward(q.detach(), k.detach(), v.detach(), None,
-                                 0, o, lse, do.transpose(1, 2), True, 0.0)
+            q, k, v = _qkv_bhsd(p, inputs[0], ctx.config, par)
+        do = do.transpose(1, 2)
+        qkv = (q.detach(), k.detach(), v.detach())
+        if _ring(par):
+            dq, dk, dv = ra.ring_backward(*qkv, o, lse, do, par.sep, True)
+        else:
+            dq, dk, dv = fa.backward(*qkv, None, 0, o, lse, do, True, 0.0)
         wanted = [t for t in inputs if t.requires_grad]
         grads = iter(torch.autograd.grad((q, k, v), wanted, (dq, dk, dv)))
-        return tuple(next(grads) if t.requires_grad else None
-                     for t in inputs) + (None,)
+        out = [next(grads) if t.requires_grad else None for t in inputs]
+        if par is not None:
+            from ..distributed.fleet.layers.mpu.mp_ops import \
+                reduce_scatter_along
+
+            for i, key in enumerate(("wq", "wk", "wv"), start=2):
+                if out[i] is not None:
+                    out[i] = reduce_scatter_along(out[i], par.sharding,
+                                                  par.block_dims[key])
+        return tuple(out) + (None, None)
 
 
-def _qkv_bhsd(p, x, config: LlamaConfig):
+def _ring(par):
+    """Whether attention runs as the ring over a sep group of processes."""
+    return par is not None and par.sep_size > 1 and \
+        par.sep.process_group is not None
+
+
+def _gather_qkv(par, wq, wk, wv):
+    """The q, k, v weights whole over 'sharding' (no autograd record: the
+    saved-attention Function reduce-scatters their gradients itself)."""
+    w = {"wq": wq, "wk": wk, "wv": wv}
+    if par is None:
+        return w
+    from ..distributed.fleet.layers.mpu.mp_ops import gather_along
+
+    return {k: gather_along(t.detach(), par.sharding, par.block_dims[k])
+            for k, t in w.items()}
+
+
+def _qkv_bhsd(p, x, config: LlamaConfig, par: Optional[_Par] = None):
     """``_qkv`` in the flash kernels' layout: [B, H, S, D] views, as
     ``flash_attention_bshd`` makes them."""
-    return tuple(t.transpose(1, 2) for t in _qkv(p, x, config))
+    return tuple(t.transpose(1, 2) for t in _qkv(p, x, config, par))
 
 
-def _block_save_attn(p, x, config: LlamaConfig):
+_MLP_KEYS = ("wo", "ln_mlp", "w_gate", "w_up", "w_down")
+
+
+def _after_attn_gathered(p, x, attn, config: LlamaConfig,
+                         par: Optional[_Par] = None):
+    """``_after_attn`` with the rest of the block's leaves gathered over
+    'sharding' first (inside the checkpointed region)."""
+    if par is not None:
+        p = par.gather_block(p)
+    return _after_attn(p, x, attn, config, par)
+
+
+def _block_save_attn(p, x, config: LlamaConfig, par: Optional[_Par] = None):
     """remat_policy="save_attn": the attention half keeps only its output
     O and LSE (``_SavedAttention``), and the rest of the block is
     checkpointed, so the attention forward is not run again."""
     attn = _SavedAttention.apply(x, p["ln_attn"], p["wq"], p["wk"], p["wv"],
-                                 config)
-    return checkpoint(_after_attn, p, x, attn, config, use_reentrant=False)
+                                 config, par)
+    rest = {k: p[k] for k in _MLP_KEYS}
+    return checkpoint(_after_attn_gathered, rest, x, attn, config, par,
+                      use_reentrant=False)
 
 
 def _check_mesh(mesh, hcg=None):
@@ -438,10 +491,6 @@ def _trunk(params, input_ids, config: LlamaConfig, remat: bool = True,
            par: Optional[_Par] = None):
     """Embedding -> the blocks in order (llama.py:521-544); with ``par``
     (a hybrid group's collectives), on this rank's shards."""
-    if par is not None and config.remat_policy == "save_attn":
-        raise NotImplementedError(
-            "paddle_tpu_torch: remat_policy='save_attn' over a mesh is not "
-            "ported (ROADMAP.md, queue 1, item 5); use 'full'")
     x = params["embed"][input_ids] if par is None else \
         par.embed(params["embed"], input_ids)
     if config.dtype == "bfloat16":
@@ -450,17 +499,19 @@ def _trunk(params, input_ids, config: LlamaConfig, remat: bool = True,
 
 
 def _blocks(blocks, x, config: LlamaConfig, remat: bool = True,
-            par: Optional[_Par] = None):
-    """The stacked layers of ``blocks`` in order over ``x``."""
+            par: Optional[_Par] = None, policy: Optional[str] = None):
+    """The stacked layers of ``blocks`` in order over ``x``, remat'd under
+    ``policy`` (the config's remat_policy when None)."""
     # unbind once: its backward stacks the layers' gradients in one op
     per_layer = zip(*(blocks[key].unbind(0) for key in _BLOCK_KEYS))
     remat = remat and torch.is_grad_enabled()
+    policy = policy or config.remat_policy
     for vals in per_layer:
         p = dict(zip(_BLOCK_KEYS, vals))
         if not remat:
             x = _block(p, x, config, par)
-        elif config.remat_policy == "save_attn":
-            x = _block_save_attn(p, x, config)
+        elif policy == "save_attn":
+            x = _block_save_attn(p, x, config, par)
         else:
             x = checkpoint(_block, p, x, config, par, use_reentrant=False)
     return x
@@ -554,10 +605,6 @@ def loss_fn_pipelined(params, batch, config: LlamaConfig, mesh=None,
     if hcg is None:
         raise ValueError("loss_fn_pipelined runs over a hybrid group (hcg)")
     _check_mesh(mesh, hcg)
-    if config.remat_policy == "save_attn":
-        raise NotImplementedError(
-            "paddle_tpu_torch: remat_policy='save_attn' over a mesh is not "
-            "ported (ROADMAP.md, queue 1, item 5); use 'full'")
     input_ids, labels = batch
     n_micro, mb, s = input_ids.shape
     par = _Par(hcg, config)
@@ -571,7 +618,9 @@ def loss_fn_pipelined(params, batch, config: LlamaConfig, mesh=None,
                         device="meta")
 
     def stage_fn(blocks, h):
-        return _blocks(blocks, h, config, remat, par)
+        # the reference's stage function recomputes whole blocks whatever
+        # the remat_policy (llama.py:612-620)
+        return _blocks(blocks, h, config, remat, par, policy="full")
 
     ys = spmd_pipeline(stage_fn, params["blocks"], x, n_micro,
                        overlap_sends=overlap_sends, group=hcg)

@@ -47,9 +47,9 @@ import torch
 
 from . import flash_attention as fa
 
-__all__ = ["ring_attention_bhsd", "ring_attention_bshd", "hop_causal",
-           "hop_forward", "hop_backward", "merge", "compose_forward",
-           "compose_backward"]
+__all__ = ["ring_attention_bhsd", "ring_attention_bshd", "ring_forward",
+           "ring_backward", "hop_causal", "hop_forward", "hop_backward",
+           "merge", "compose_forward", "compose_backward"]
 
 
 # ---------------------------------------------------------------------------
@@ -172,6 +172,55 @@ def _kv_ring(kv, ring):
             kv = nxt[0]
 
 
+def ring_forward(q, k, v, group, causal: bool = True):
+    """(O in q's dtype, LSE [B, H, S/n] f32) of this rank's [B, H, S/n, D]
+    shards over the ring of ``group``: the forward of
+    ``ring_attention_bhsd`` without its autograd record (a caller that
+    keeps O and LSE, as remat_policy="save_attn" does, feeds them to
+    ``ring_backward``)."""
+    ring = _Ring(group)
+    return _forward_hops(q.contiguous(), ring.idx, ring.n, causal,
+                         _kv_ring(torch.stack([k, v]), ring))
+
+
+def _ring_backward(q, kv, o, lse, do, ring, causal):
+    n, idx = ring.n, ring.idx
+    do = do.contiguous()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    acc = None      # f32 [2, ...] dK/dV of the shard held this hop
+    for hop in range(n):
+        src = (idx - hop) % n
+        # one batch: the K/V held now on to the next rank (it needs them
+        # at hop + 1) with the accumulator finished last hop, and from the
+        # previous rank the next K/V and this hop's accumulator
+        sends = ([kv] if hop < n - 1 else []) + ([acc] if hop > 0 else [])
+        bufs, tasks = ring.post(sends)
+        part = hop_backward(q, kv[0], kv[1], o, lse, do, idx, src, causal)
+        if part is not None:
+            dq += part[0].float()
+        _wait(tasks)
+        if hop < n - 1:
+            kv = bufs[0]
+        acc = bufs[-1] if hop > 0 else torch.zeros(
+            kv.shape, dtype=torch.float32, device=kv.device)
+        if part is not None:
+            acc[0] += part[1].float()
+            acc[1] += part[2].float()
+    if n > 1:
+        # the last accumulator goes home: rank idx + 1's shard
+        bufs, tasks = ring.post([acc])
+        _wait(tasks)
+        acc = bufs[0]
+    return dq.to(q.dtype), acc[0].to(kv.dtype), acc[1].to(kv.dtype)
+
+
+def ring_backward(q, k, v, o, lse, do, group, causal: bool = True):
+    """(dQ, dK, dV) of this rank's shards from the final O and LSE that
+    ``ring_forward`` gave: the ring's backward hops over ``group``."""
+    return _ring_backward(q.contiguous(), torch.stack([k, v]), o, lse, do,
+                          _Ring(group), causal)
+
+
 class _RingAttention(torch.autograd.Function):
     """The reference's ``_ring_core`` custom VJP over the sep group: the
     forward keeps q, k, v (this rank's shards), O and LSE."""
@@ -190,39 +239,8 @@ class _RingAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, kv, o, lse = ctx.saved_tensors
-        ring, causal = ctx.ring, ctx.causal
-        n, idx = ring.n, ring.idx
-        do = do.contiguous()
-        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-        acc = None      # f32 [2, ...] dK/dV of the shard held this hop
-        for hop in range(n):
-            src = (idx - hop) % n
-            # one batch: the K/V held now on to the next rank (it needs
-            # them at hop + 1) with the accumulator finished last hop, and
-            # from the previous rank the next K/V and this hop's
-            # accumulator
-            sends = ([kv] if hop < n - 1 else []) + \
-                ([acc] if hop > 0 else [])
-            bufs, tasks = ring.post(sends)
-            part = hop_backward(q, kv[0], kv[1], o, lse, do, idx, src,
-                                causal)
-            if part is not None:
-                dq += part[0].float()
-            _wait(tasks)
-            if hop < n - 1:
-                kv = bufs[0]
-            acc = bufs[-1] if hop > 0 else torch.zeros(
-                kv.shape, dtype=torch.float32, device=kv.device)
-            if part is not None:
-                acc[0] += part[1].float()
-                acc[1] += part[2].float()
-        if n > 1:
-            # the last accumulator goes home: rank idx + 1's shard
-            bufs, tasks = ring.post([acc])
-            _wait(tasks)
-            acc = bufs[0]
-        return (dq.to(q.dtype), acc[0].to(kv.dtype), acc[1].to(kv.dtype),
-                None, None)
+        return _ring_backward(q, kv, o, lse, do, ctx.ring, ctx.causal) \
+            + (None, None)
 
 
 def ring_attention_bhsd(q, k, v, group, is_causal: bool = True):

@@ -8,7 +8,7 @@ import torch
 from ..core.dispatch import apply
 from ..core.tensor import Tensor, to_torch
 
-__all__ = ["reshape", "concat", "transpose", "unsqueeze", "repeat_interleave",
+__all__ = ["reshape", "concat", "stack", "transpose", "unsqueeze", "repeat_interleave",
            "take_along_axis", "put_along_axis"]
 
 
@@ -54,6 +54,17 @@ def concat(x, axis=0, name=None):
             d = torch.promote_types(d, t.dtype)
         return torch.cat([t.to(d) for t in xs], dim=ax)
     return apply(fn, *list(x), op_name="concat")
+
+
+def stack(x, axis=0, name=None):
+    """The inputs stacked along a new ``axis`` (promoted dtype, as
+    ``concat``)."""
+    def fn(*xs):
+        d = xs[0].dtype
+        for t in xs[1:]:
+            d = torch.promote_types(d, t.dtype)
+        return torch.stack([t.to(d) for t in xs], dim=int(axis))
+    return apply(fn, *list(x), op_name="stack")
 
 
 def repeat_interleave(x, repeats, axis=None, name=None):

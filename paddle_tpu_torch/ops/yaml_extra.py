@@ -13,10 +13,17 @@ autograd graph kept) and returns (out, None, None, None):
   varlen forward and its two backward kernels on a card); a dense
   ``attn_mask`` raises, as in the reference.
 
+Beside them, the MoE helper ops (yaml_extra.py:571-626): ``number_count``,
+``assign_pos``, ``limit_by_capacity``, ``prune_gate_by_capacity``,
+``random_routing`` (its uniform draw from a torch.Generator seeded with
+``seed``, or given) and the dense-expert ``moe`` block.
+
 The rest of the reference's yaml_extra ops are ROADMAP.md's queue 1, item
 10.
 """
 from __future__ import annotations
+
+import torch
 
 from ..core.tensor import Tensor
 from .registry import register
@@ -90,3 +97,77 @@ def _flash_attn_varlen_qkvpacked_op(qkv, cu_seqlens_q, cu_seqlens_k, **kw):
     out, _ = incf.flash_attn_varlen_qkvpacked(_t(qkv), cu_seqlens_q,
                                               cu_seqlens_k, **fwd_kw)
     return out._value, None, None, None
+
+
+# ---------------------------------------------------------------------------
+# MoE helper ops (yaml_extra.py:571-626)
+# ---------------------------------------------------------------------------
+
+@_reg("number_count", differentiable=False)
+def _number_count(numbers, upper_range):
+    """How many of ``numbers`` fall on each of 0 .. upper_range - 1, a
+    number outside the range counted at its clipped end (int64)."""
+    n = int(upper_range)
+    flat = torch.as_tensor(numbers).reshape(-1).long().clamp(0, n - 1)
+    return torch.zeros(n, dtype=torch.int64, device=flat.device) \
+        .scatter_add_(0, flat, torch.ones_like(flat))
+
+
+@_reg("assign_pos", differentiable=False)
+def _assign_pos(x, cum_count, eff_num_len):
+    """The first ``eff_num_len`` token indices in expert order (a stable
+    sort of the expert ids)."""
+    flat = torch.as_tensor(x).reshape(-1)
+    return torch.argsort(flat, stable=True)[:int(eff_num_len)]
+
+
+@_reg("limit_by_capacity", differentiable=False)
+def _limit_by_capacity(expert_count, capacity, n_worker):
+    counts = torch.as_tensor(expert_count).reshape(int(n_worker), -1)
+    cap = torch.as_tensor(capacity, device=counts.device)
+    return torch.minimum(counts, cap[None, :]).reshape(-1)
+
+
+@_reg("prune_gate_by_capacity", differentiable=False)
+def _prune_gate_by_capacity(gate_idx, expert_count, n_expert, n_worker):
+    """Each token's gate index, or -1 where it is past its expert's
+    count, in token order (an index outside the experts, as -1, counts
+    nowhere and stays as it is)."""
+    g = torch.as_tensor(gate_idx).reshape(-1).long()
+    counts = torch.as_tensor(expert_count).reshape(-1)
+    total = int(n_expert) * int(n_worker)
+    one_hot = (g[:, None] == torch.arange(total, device=g.device)).long()
+    pos = (one_hot.cumsum(dim=0) * one_hot).sum(dim=-1) - 1
+    return torch.where(pos < counts[g], g, torch.full_like(g, -1))
+
+
+@_reg("random_routing", differentiable=False)
+def _random_routing(prob, topk_value, topk_idx, seed=0, draw=None):
+    """topk_idx where prob beats a uniform draw, else -1. The reference
+    draws from jax.random, which this package cannot reproduce bit for
+    bit: here the draw comes from a torch.Generator seeded with ``seed``
+    (the port's default generator when 0), or is given as ``draw``."""
+    prob = torch.as_tensor(prob)
+    if draw is None:
+        if seed:
+            gen = torch.Generator(device=prob.device).manual_seed(int(seed))
+        else:
+            from ..framework.random import generator
+            gen = generator(prob.device)
+        draw = torch.rand(prob.shape, generator=gen, device=prob.device)
+    keep = prob.reshape(-1) > torch.as_tensor(draw).reshape(-1)
+    idx = torch.as_tensor(topk_idx).reshape(-1)
+    return torch.where(keep, idx, torch.full_like(idx, -1))
+
+
+@_reg("moe")
+def _moe(x, gate, bmm0_w, bmm1_w, act_type="gelu"):
+    """The dense-expert MoE block: every expert's FFN (GELU in its tanh
+    form, as jax.nn.gelu's default, or ReLU) mixed by the softmax of
+    ``gate`` (experts on the weights' leading dim)."""
+    probs = torch.softmax(gate, dim=-1)
+    h = torch.einsum("bsd,edf->ebsf", x, bmm0_w)
+    h = torch.nn.functional.gelu(h, approximate="tanh") \
+        if act_type == "gelu" else torch.relu(h)
+    y = torch.einsum("ebsf,efd->ebsd", h, bmm1_w)
+    return torch.einsum("ebsd,bse->bsd", y, probs)

@@ -126,6 +126,9 @@ def test_sharding_stage1_holds_a_slice_of_each_moment(tmp_path):
         want = sorted([(18 if r < 3 else 16,)] * 2
                       + [(2 if r < 3 else 1,)] * 2)
         assert shapes == want, got["moments"]
+        # its state_dict gathers them whole, as the reference's arrays
+        assert sorted(got["full_moments"].values()) == \
+            sorted([(10, 7)] * 2 + [(7,)] * 2), got["full_moments"]
         np.testing.assert_allclose(got["w"], got["ref_w"], atol=1e-6)
         np.testing.assert_allclose(got["b"], got["ref_b"], atol=1e-6)
         np.testing.assert_array_equal(got["w"], res[0]["w"])

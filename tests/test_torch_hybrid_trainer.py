@@ -201,3 +201,25 @@ def test_trainer_refuses_what_is_not_ported():
         HybridTrainer(TL.LlamaConfig(**dict(CFG, num_attention_heads=2,
                                             num_key_value_heads=2)),
                       mesh={"mp": 4}, device="cpu")
+
+
+def test_save_attn_over_mp2_sharding2_matches_reference_and_full(tmp_path):
+    mesh = {"sharding": 2, "mp": 2}
+    _, np_params = _jax_trainer(mesh)
+    batches = _batches(3)
+    jt = JTrainer(JL.LlamaConfig(**CFG, remat_policy="save_attn"),
+                  _jax_mesh(mesh), learning_rate=LR, seed=0)
+    lj = [float(jt.step(ids, labels)) for ids, labels in batches]
+    jobs = [dict(name="full", mesh=mesh),
+            dict(name="save_attn", mesh=mesh, policy="save_attn")]
+    got = _spawn(W.trainer_sep, tmp_path, CFG, np_params, batches, LR, jobs)
+    saved, full = got["save_attn"], got["full"]
+    np.testing.assert_allclose(saved["losses"], lj, rtol=1e-5)
+    _hold_state(jt.elastic_state(), saved["state"])
+    assert saved["losses"] == full["losses"]
+    assert saved["norms"] == full["norms"]
+    assert all(np.array_equal(saved["state"][k], full["state"][k])
+               for k in saved["state"])
+    layers = CFG["num_hidden_layers"]
+    assert saved["forwards_per_step"] == layers
+    assert full["forwards_per_step"] == 2 * layers

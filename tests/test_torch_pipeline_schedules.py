@@ -35,12 +35,14 @@ GRID = [(p, m, v) for p in (1, 2, 3, 4) for m in (1, 2, 4, 5, 8, 12)
 @pytest.fixture(autouse=True)
 def _cpu_one_thread():
     threads = torch.get_num_threads()
+    device = paddle.get_device()
     torch.set_num_threads(1)
     paddle.set_device("cpu")
     saved = jtopology.get_hybrid_communicate_group()
     jtopology.set_hybrid_communicate_group(None)
     yield
     jtopology.set_hybrid_communicate_group(saved)
+    paddle.set_device(device)
     torch.set_num_threads(threads)
 
 

@@ -24,6 +24,13 @@ and the two packages' one-process trainers differ by up to 1.3e-4, while
 the port's pipelined trainer stays within 3.8e-5 of its one-process one.
 The leaves every pp rank holds whole (embedding, final norm, head) must be
 bit for bit equal on every pp rank after the steps.
+
+remat_policy="save_attn" at pp 2 recomputes whole blocks, as the
+reference's stage function does (llama.py:620): held to the reference's
+pipelined trainer with save_attn as above, and bit for bit to the port's
+"full" job of the same mesh and micro-batches, with the flash forward
+called twice a layer a micro-batch on each stage (once more in the
+recomputation).
 """
 import pickle
 
@@ -55,6 +62,10 @@ JOBS = {
     2: [dict(name="pp2_one_micro", mesh={"pp": 2}, n_micro=1),
         dict(name="pp2_overlap", mesh={"pp": 2}, n_micro=2, overlap=True)],
 }
+# remat_policy="save_attn" under pp: whole blocks recomputed, as the
+# reference's stage function does (beside the "full" job of the mesh)
+SAVE_ATTN = {2: [dict(name="pp2_one_micro_save_attn", mesh={"pp": 2},
+                      n_micro=1, policy="save_attn")], 4: []}
 BATCH = {4: 8, 2: 4}
 
 
@@ -98,8 +109,9 @@ def _run(world, tmp_path_factory):
         np_params = _np_params()
         batches = _batches(3, BATCH[world])
         ref, norms = {}, {}
-        for job in JOBS[world]:
-            jt = JTrainer(JL.LlamaConfig(**CFG), _jax_mesh(job["mesh"]),
+        for job in JOBS[world] + SAVE_ATTN[world]:
+            jt = JTrainer(JL.LlamaConfig(**CFG, remat_policy=job.get(
+                              "policy", "full")), _jax_mesh(job["mesh"]),
                           learning_rate=LR, seed=0,
                           pipeline_micro_batches=job["n_micro"],
                           overlap_sends=job.get("overlap", False))
@@ -111,7 +123,7 @@ def _run(world, tmp_path_factory):
         torch.set_num_threads(threads)
     out = tmp_path_factory.mktemp(f"trainer_world{world}")
     dist.spawn(W.trainer_pipeline, args=(str(out), CFG, np_params, batches,
-                                         LR, JOBS[world]),
+                                         LR, JOBS[world] + SAVE_ATTN[world]),
                nprocs=world, backend="gloo", timeout=240)
     ranks = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
              for r in range(world)]
@@ -212,3 +224,22 @@ def test_elastic_state_at_pp2_mp2_loads_at_dp4(runs):
     assert got["reload_exact"]
     np.testing.assert_allclose(got["dp_loss"], got["losses"][-1], rtol=1e-6)
     assert got["after_gap"] <= 1e-5
+
+
+@pytest.mark.parametrize("runs", [2], ids=["world2"], indirect=True)
+def test_save_attn_under_pp_recomputes_whole_blocks(runs):
+    world, ref, _, ranks = runs
+    losses, state = ref["pp2_one_micro_save_attn"]
+    layers = CFG["num_hidden_layers"] // 2
+    for got in ranks:
+        saved, full = got["pp2_one_micro_save_attn"], got["pp2_one_micro"]
+        np.testing.assert_allclose(saved["losses"], losses, rtol=1e-5)
+        assert saved["losses"] == full["losses"]
+        assert saved["norms"] == full["norms"]
+        assert saved["forwards_per_step"] == full["forwards_per_step"] \
+            == 2 * layers
+    _hold_state(state, ranks[0]["pp2_one_micro_save_attn"]["state"],
+                moments=5e-4)
+    a = ranks[0]["pp2_one_micro_save_attn"]["state"]
+    b = ranks[0]["pp2_one_micro"]["state"]
+    assert all(np.array_equal(a[k], b[k]) for k in a)

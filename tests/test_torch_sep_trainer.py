@@ -56,6 +56,9 @@ JOBS = {
         dict(name="sep2xsh2", mesh={"sep": 2, "sharding": 2}),
         dict(name="pp2xsep2", mesh={"pp": 2, "sep": 2}, n_micro=4)],
 }
+# remat_policy="save_attn" over 'sep' (beside the "full" job of its mesh)
+SAVE_ATTN = {2: [dict(name="sep2_save_attn", mesh={"sep": 2},
+                      policy="save_attn")], 4: []}
 BATCH = 4
 
 
@@ -134,8 +137,9 @@ def _run(world, tmp_path_factory):
         np_params = _np_params()
         batches = _batches(3, BATCH)
         ref = {}
-        for job in JOBS[world]:
-            jt = JTrainer(JL.LlamaConfig(**CFG), _jax_mesh(job["mesh"]),
+        for job in JOBS[world] + SAVE_ATTN[world]:
+            jt = JTrainer(JL.LlamaConfig(**CFG, remat_policy=job.get(
+                              "policy", "full")), _jax_mesh(job["mesh"]),
                           learning_rate=LR, seed=0,
                           pipeline_micro_batches=job.get("n_micro"))
             jt.load_elastic_state(_fresh_state(np_params))
@@ -146,7 +150,7 @@ def _run(world, tmp_path_factory):
         torch.set_num_threads(threads)
     out = tmp_path_factory.mktemp(f"sep_trainer_world{world}")
     dist.spawn(W.trainer_sep, args=(str(out), CFG, np_params, batches, LR,
-                                    JOBS[world]),
+                                    JOBS[world] + SAVE_ATTN[world]),
                nprocs=world, backend="gloo", timeout=240)
     ranks = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
              for r in range(world)]
@@ -204,3 +208,22 @@ def test_sep_mesh_without_its_hybrid_group_raises():
     # a sep mesh larger than the initialized world (one process)
     with pytest.raises(ValueError, match="world"):
         HybridTrainer(cfg, mesh={"sep": 2}, device="cpu")
+
+
+@pytest.mark.parametrize("runs", [2], ids=["world2"], indirect=True)
+def test_save_attn_over_sep_matches_reference_and_full_policy(runs):
+    world, ref, _, ranks = runs
+    losses, state = ref["sep2_save_attn"]
+    layers = CFG["num_hidden_layers"]
+    for got in ranks:
+        saved, full = got["sep2_save_attn"], got["sep2"]
+        np.testing.assert_allclose(saved["losses"], losses, rtol=1e-5)
+        assert saved["losses"] == full["losses"]
+        assert saved["norms"] == full["norms"]
+        hops = saved["coords"]["sep"] + 1
+        assert saved["forwards_per_step"] == layers * hops
+        assert full["forwards_per_step"] == 2 * layers * hops
+        assert saved["sep_replicas_equal"]
+    _hold_state(state, ranks[0]["sep2_save_attn"]["state"])
+    a, b = ranks[0]["sep2_save_attn"]["state"], ranks[0]["sep2"]["state"]
+    assert all(np.array_equal(a[k], b[k]) for k in a)

@@ -178,10 +178,34 @@ def raiser(out_dir):
 # HybridTrainer over a mesh
 # ---------------------------------------------------------------------------
 
-def _llama_config(cfg_dict):
+def _llama_config(cfg_dict, policy=None):
+    """The config, under remat policy ``policy`` (the dict's when None)."""
     from paddle_tpu_torch.models import llama as TL
 
+    if policy is not None:
+        cfg_dict = dict(cfg_dict, remat_policy=policy)
     return TL.LlamaConfig(**cfg_dict)
+
+
+class _FlashForwards:
+    """Counts the flash forward's calls while entered (the kernel's
+    wrapper, whose plain version runs on the CPU): each attention's
+    forward, each ring hop's, and each recomputation's."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+        self._fa, self._orig, self.n = fa, fa.forward_with_lse, 0
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self._orig(*args, **kwargs)
+
+        fa.forward_with_lse = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._fa.forward_with_lse = self._orig
 
 
 def _trainer_from(cfg, mesh, np_params, lr, clip=1.0):
@@ -417,9 +441,11 @@ def sharding_stage1(out_dir, lr):
              * 0.25).backward()
         ref_opt.step()
         ref_opt.clear_grad()
-    moments = {k: tuple(v.shape) for k, v in opt.state_dict().items()
+    moments = {k: tuple(v.shape) for k, v in opt.local_state_dict().items()
                if k != "_step_count"}
-    out = {"moments": moments,
+    full = {k: tuple(v.shape) for k, v in opt.state_dict().items()
+            if k != "_step_count"}
+    out = {"moments": moments, "full_moments": full,
            "w": lin.weight.numpy(), "b": lin.bias.numpy(),
            "ref_w": ref.weight.numpy(), "ref_b": ref.bias.numpy()}
     out.update(_stage3(hcg.get_sharding_parallel_group(), rank))
@@ -740,8 +766,9 @@ def pipeline_spmd(out_dir, ws, wv, x, g, n_micro):
 
 def trainer_pipeline(out_dir, cfg_dict, np_params, batches, lr, jobs):
     """HybridTrainer over meshes with a 'pp' axis: per job (mesh,
-    micro-batches, overlap_sends) 3 steps: losses, clip norms, the gathered
-    state, and this rank's replicated leaves; with ``elastic`` a snapshot
+    micro-batches, overlap_sends, remat policy) 3 steps: losses, clip
+    norms, the flash forward's calls a step, the gathered state, and this
+    rank's replicated leaves; with ``elastic`` a snapshot
     after the second step loaded under dp = world and the third step
     there."""
     dist, rank = _start()
@@ -749,9 +776,9 @@ def trainer_pipeline(out_dir, cfg_dict, np_params, batches, lr, jobs):
     from paddle_tpu_torch.models import llama as TL
     from paddle_tpu_torch.utils import stacked_params_from_paddle_tpu
 
-    cfg = _llama_config(cfg_dict)
     res = {}
     for job in jobs:
+        cfg = _llama_config(cfg_dict, job.get("policy"))
         tr = HybridTrainer(cfg, job["mesh"], learning_rate=lr,
                            pipeline_micro_batches=job["n_micro"],
                            overlap_sends=job.get("overlap", False),
@@ -764,11 +791,13 @@ def trainer_pipeline(out_dir, cfg_dict, np_params, batches, lr, jobs):
                "coords": tr.hcg.layout().coords,
                "local_shapes": {k: tuple(v.shape) for k, v in
                                 TL.leaves(tr.params).items()}}
-        for i, (ids, labels) in enumerate(batches):
-            if job.get("elastic") and i == len(batches) - 1:
-                snap = tr.elastic_state()
-            out["losses"].append(float(tr.step(ids, labels)))
-            out["norms"].append(float(tr.last_grad_norm))
+        with _FlashForwards() as forwards:
+            for i, (ids, labels) in enumerate(batches):
+                if job.get("elastic") and i == len(batches) - 1:
+                    snap = tr.elastic_state()
+                out["losses"].append(float(tr.step(ids, labels)))
+                out["norms"].append(float(tr.last_grad_norm))
+        out["forwards_per_step"] = forwards.n / len(batches)
         out["replicated"] = {k: v.detach().numpy().copy() for k, v in
                              TL.leaves(tr.params).items()
                              if "blocks" not in k}
@@ -830,10 +859,11 @@ def ring_attention(out_dir, cases):
 
 
 def trainer_sep(out_dir, cfg_dict, np_params, batches, lr, jobs):
-    """HybridTrainer over meshes with a 'sep' axis: per job (mesh,
-    micro-batches) 3 steps from the reference's parameters: losses, clip
-    norms, the gathered state (rank 0), whether every leaf is bit for bit
-    equal on every rank of this rank's sep group after the steps, and the
+    """HybridTrainer over meshes (with a 'sep' axis, or any): per job
+    (mesh, micro-batches, remat policy) 3 steps from the reference's
+    parameters: losses, clip norms, the flash forward's calls a step, the
+    gathered state (rank 0), whether every leaf is bit for bit equal on
+    every rank of this rank's sep group after the steps, and the
     ValueError of a sequence that sep does not divide."""
     dist, rank = _start()
     from paddle_tpu_torch.distributed.fleet import HybridTrainer
@@ -842,9 +872,9 @@ def trainer_sep(out_dir, cfg_dict, np_params, batches, lr, jobs):
     from paddle_tpu_torch.models import llama as TL
     from paddle_tpu_torch.utils import stacked_params_from_paddle_tpu
 
-    cfg = _llama_config(cfg_dict)
     res = {}
     for job in jobs:
+        cfg = _llama_config(cfg_dict, job.get("policy"))
         tr = HybridTrainer(cfg, job["mesh"], learning_rate=lr,
                            pipeline_micro_batches=job.get("n_micro"),
                            device="cpu")
@@ -855,9 +885,11 @@ def trainer_sep(out_dir, cfg_dict, np_params, batches, lr, jobs):
         out = {"losses": [], "norms": [], "coords": tr.hcg.layout().coords}
         ids, labels = tr.place_batch(*batches[0])
         out["placed"] = tuple(ids.shape)
-        for ids, labels in batches:
-            out["losses"].append(float(tr.step(ids, labels)))
-            out["norms"].append(float(tr.last_grad_norm))
+        with _FlashForwards() as forwards:
+            for ids, labels in batches:
+                out["losses"].append(float(tr.step(ids, labels)))
+                out["norms"].append(float(tr.last_grad_norm))
+        out["forwards_per_step"] = forwards.n / len(batches)
         sep = tr.hcg.get_sep_parallel_group()
         out["sep_replicas_equal"] = all(
             all(torch.equal(piece, t) for piece in
@@ -971,4 +1003,301 @@ def segment_parallel(out_dir):
            "y": _np(model(x)), "y_inner": _np(layer(x))}
     fleet.barrier_worker()
     _dump(out_dir, rank, out)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# MoE expert parallelism and the group-sharded stages
+# ---------------------------------------------------------------------------
+
+def moe_ep(out_dir, params_np, x, y, steps, lr, scatter):
+    """moe_block_stacked over an expert group of the world: rank r holds
+    rows r·S/n of x and its E / n experts. The slots of the routing over
+    the all-gathered logits; ``steps`` SGD steps of the loss
+    mean((out - y)^2) + 0.01·aux on the global batch, each rank's share
+    written so that the ranks' losses sum to it (its rows' squared errors
+    over S·D, the aux term over n), the wg gradients summed over the
+    group: the summed losses, the first step's output rows and aux, the
+    parameters after (rank 0, the experts gathered); then global_scatter /
+    global_gather of ``scatter``'s rows and their gradient, and the
+    ValueErrors."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.utils import (global_gather,
+                                                    global_scatter)
+    from paddle_tpu_torch.incubate.distributed.models import moe as TM
+
+    world = dist.get_world_size()
+    group = dist.new_group(list(range(world)))
+    rows = x.shape[0] // world
+    mine = slice(rank * rows, (rank + 1) * rows)
+    xs, ys = torch.from_numpy(x[mine].copy()), torch.from_numpy(y[mine].copy())
+    p = {k: v.requires_grad_(True) for k, v in
+         TM.moe_params_from_paddle_tpu(params_np, rank, world).items()}
+    logits = dist.all_gather(None, xs @ p["wg"].detach(), group=group)
+    res = {"slot": TM.topk_sort_dispatch(logits, 1.5, 2)[0].numpy(),
+           "losses": []}
+    total_rows, d = x.shape
+    for step in range(steps):
+        out, aux = TM.moe_block_stacked(p, xs, group=group)
+        loss = ((out - ys) ** 2).sum() / (total_rows * d) \
+            + 0.01 * aux / world
+        loss.backward()
+        with torch.no_grad():
+            dist.all_reduce(p["wg"].grad, group=group)
+            for t in p.values():
+                t -= lr * t.grad
+                t.grad = None
+        total = loss.detach().clone()
+        dist.all_reduce(total, group=group)
+        res["losses"].append(float(total))
+        if step == 0:
+            res["out0"] = _np(out)
+            res["aux0"] = float(aux)
+    res["wg"] = _np(p["wg"])
+    for key in ("w1", "w2"):
+        res[key] = _np(dist.all_gather(None, p[key].detach(), group=group))
+    # global_scatter / global_gather: rank r's rows of the global array
+    per = scatter.shape[0] // world
+    local = torch.from_numpy(scatter[rank * per:(rank + 1) * per].copy())
+    counts = torch.full((world * 2,), per // (2 * world), dtype=torch.int64)
+    src = local.clone().requires_grad_(True)
+    out = global_scatter(src, counts, counts, group=group)
+    (out * torch.arange(out.numel(), dtype=torch.float32)
+     .reshape(out.shape)).sum().backward()
+    res["scattered"] = _np(out)
+    res["scatter_grad"] = _np(src.grad)
+    res["round_trip"] = _np(global_gather(out, counts, counts, group=group))
+    eager = global_scatter(paddle.to_tensor(local.numpy()), None, None,
+                           group=group)
+    res["eager_kind"] = type(eager).__name__
+    res["eager_equal"] = bool(np.array_equal(_np(eager), res["scattered"]))
+    errors = {}
+    for name, call in (
+            ("rows", lambda: global_scatter(local[:-1], None, None,
+                                            group=group)),
+            ("counts", lambda: global_scatter(
+                local, torch.arange(world * 2), counts, group=group)),
+            ("experts", lambda: TM.moe_block_stacked(
+                {"wg": torch.zeros(x.shape[1], 2 * world + 1),
+                 "w1": p["w1"], "w2": p["w2"]}, xs, group=group))):
+        try:
+            call()
+        except ValueError as e:
+            errors[name] = str(e)
+    res["errors"] = errors
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+def _eager_llama(cfg_dict, state, hcg=None):
+    from paddle_tpu_torch.models import llama as TL
+    from paddle_tpu_torch.utils import state_dict_from_paddle_tpu
+
+    model = TL.LlamaForCausalLM(TL.LlamaConfig(**cfg_dict))
+    missing, unexpected = model.set_state_dict(
+        state_dict_from_paddle_tpu(state, hcg))
+    assert missing == [] and unexpected == [], (missing, unexpected)
+    return model
+
+
+def _adamw(model, lr):
+    from paddle_tpu_torch import optimizer
+
+    return optimizer.AdamW(learning_rate=lr, parameters=model.parameters(),
+                           weight_decay=0.1,
+                           grad_clip=optimizer.ClipGradByGlobalNorm(1.0))
+
+
+def _record_clip_norms(opt, norms):
+    """Append to ``norms``, each step, the global norm of the gradient that
+    ``opt``'s update clips: a hybrid clip's norm as it computes it (Fleet),
+    else read after the sharding optimizer's reduction (stage 1 the
+    averaged full gradients, stages 2-3 the slices' squares summed over
+    its group)."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.meta_parallel.hybrid_optimizer import \
+        _HybridClip
+
+    clip = opt._inner_opt._grad_clip
+    if isinstance(clip, _HybridClip):
+        norm_of = clip.global_norm
+
+        def global_norm(*args, **kwargs):
+            norm = norm_of(*args, **kwargs)
+            norms.append(float(norm))
+            return norm
+
+        clip.global_norm = global_norm
+        return
+    reduce = opt.reduce_gradients
+
+    def reduce_gradients():
+        reduce()
+        if opt.stage == 1:
+            grads = [p._value.grad for p in opt._inner_opt._parameter_list
+                     if p._value.grad is not None]
+        else:
+            grads = list(opt._grad_slices.values())
+        sq = sum(g.float().square().sum() for g in grads)
+        if opt.stage > 1 and opt._n > 1:
+            collective.all_reduce(sq, group=opt._group)
+        norms.append(float(torch.sqrt(sq)))
+
+    opt.reduce_gradients = reduce_gradients
+
+
+def _full_moments(opt, model, mp=None):
+    """The optimizer's state_dict moments as numpy arrays, each gathered
+    over ``mp`` where its parameter is split."""
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+
+    params = list(model.parameters())
+    out = {}
+    for key, v in opt.state_dict().items():
+        if key == "_step_count":
+            continue
+        t = v._value.detach()
+        p = params[int(key.split(".")[0][len("param_"):])]
+        if mp is not None and getattr(p, "is_distributed", False):
+            t = gather_along(t, mp, p.split_axis)
+        out[key] = t.float().numpy().copy()
+    return out
+
+
+def _sharded_steps(model, opt, batches, group, rank_in, n):
+    """Each step on this sharding rank's rows of the global batch; the
+    losses averaged over ``group``."""
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+
+    losses = []
+    for ids, labels in batches:
+        rows = ids.shape[0] // n
+        mine = slice(rank_in * rows, (rank_in + 1) * rows)
+        loss = model(paddle.to_tensor(ids[mine]),
+                     labels=paddle.to_tensor(labels[mine]))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        total = loss.detach()._value.clone()
+        if n > 1:
+            dist.all_reduce(total, op="avg", group=group)
+        losses.append(float(total))
+    return losses
+
+
+def group_sharded(out_dir, cfg_dict, state, batches, lr, jobs):
+    """group_sharded_parallel of the eager Llama at each job's level over
+    sharding 2 (ranks {0, 1} and {2, 3}, each pair the same job) or 4,
+    3 AdamW steps with the global-norm clip: the losses, the clip's norm
+    each step, the full state_dict after, each parameter's local storage,
+    the optimizer's full moments; with ``reload`` a fresh model and
+    optimizer loaded from both state_dicts and one more step beside the
+    first's. Then the fleet jobs (fleet.init mp 2 x sharding 2 with
+    sharding_configs stage 2 or 3, distributed_model and
+    distributed_optimizer): the losses, the clip's norms, and the full
+    parameters and moments, gathered over mp. And a Linear of 70 weights
+    and 7 biases under "p_g_os" at sharding 4 against AdamW on the ranks'
+    mean gradient, its parameters and moments."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import nn, optimizer
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+    from paddle_tpu_torch.distributed.meta_parallel import \
+        group_sharded_parallel
+
+    pairs = [dist.new_group([0, 1]), dist.new_group([2, 3])]
+    world = dist.new_group([0, 1, 2, 3])
+    res = {}
+    for job in jobs:
+        if "fleet" in job:
+            continue
+        n = job["sharding"]
+        group = world if n == 4 else pairs[rank // 2]
+        model = _eager_llama(cfg_dict, state)
+        model, opt, _ = group_sharded_parallel(model, _adamw(model, lr),
+                                               job["level"], group=group)
+        norms = []
+        _record_clip_norms(opt, norms)
+        out = {"losses": _sharded_steps(model, opt, batches, group,
+                                        group.rank, n),
+               "norms": list(norms)}
+        out["local"] = {k: p._value.numel()
+                        for k, p in model.named_parameters()}
+        sd = model.state_dict()
+        out["params"] = {k: _np(v) for k, v in sd.items()}
+        osd = opt.state_dict()
+        out["moments"] = _full_moments(opt, model)
+        out["kind"] = type(model).__name__
+        if job.get("reload"):
+            again = _eager_llama(cfg_dict, state)
+            again, opt2, _ = group_sharded_parallel(
+                again, _adamw(again, lr), job["level"], group=group)
+            assert again.set_state_dict(sd) == ([], [])
+            opt2.set_state_dict(osd)
+            out["next_loss"] = _sharded_steps(model, opt, batches[:1],
+                                              group, group.rank, n)[0]
+            out["reload_loss"] = _sharded_steps(again, opt2, batches[:1],
+                                                group, group.rank, n)[0]
+            a, b = model.state_dict(), again.state_dict()
+            out["reload_gap"] = max(float((a[k]._value - b[k]._value)
+                                          .abs().max()) for k in a)
+        res[job["name"]] = out
+    # an uneven layer at stage 3: 70 weights and 7 biases over 4 ranks
+    paddle.seed(3)
+    lin = nn.Linear(10, 7)
+    paddle.seed(3)
+    ref = nn.Linear(10, 7)
+    lin_s, lin_opt, _ = group_sharded_parallel(
+        lin, optimizer.AdamW(learning_rate=lr, parameters=lin.parameters(),
+                             weight_decay=0.1), "p_g_os", group=world)
+    ref_opt = optimizer.AdamW(learning_rate=lr, parameters=ref.parameters(),
+                              weight_decay=0.1)
+    every = np.random.RandomState(100)
+    xs_all = [every.rand(4, 4, 10).astype(np.float32) for _ in range(2)]
+    for step in range(2):
+        (lin_s(paddle.to_tensor(xs_all[step][rank])) ** 2).mean().backward()
+        lin_opt.step()
+        lin_opt.clear_grad()
+        for k in range(4):
+            ((ref(paddle.to_tensor(xs_all[step][k])) ** 2).mean()
+             * 0.25).backward()
+        ref_opt.step()
+        ref_opt.clear_grad()
+    full = lin_s.state_dict()
+    res["uneven"] = {"local": [p._value.numel() for p in lin.parameters()],
+                     "w": _np(full["weight"]), "b": _np(full["bias"]),
+                     "ref_w": _np(ref.weight), "ref_b": _np(ref.bias),
+                     "moments": _full_moments(lin_opt, lin),
+                     "ref_moments": _full_moments(ref_opt, ref)}
+    for job in jobs:
+        if "fleet" not in job:
+            continue
+        fleet, hcg = _fleet(dist, sharding_configs={"stage": job["stage"]},
+                            **job["fleet"])
+        model = _eager_llama(cfg_dict, state, hcg)
+        model = fleet.distributed_model(model)
+        opt = fleet.distributed_optimizer(_adamw(model, lr))
+        n = hcg.get_sharding_parallel_world_size()
+        norms = []
+        _record_clip_norms(opt, norms)
+        out = {"losses": _sharded_steps(
+            model, opt, batches, hcg.get_sharding_parallel_group(),
+            hcg.get_sharding_parallel_rank(), n), "norms": norms}
+        mp = hcg.get_model_parallel_group()
+        out["moments"] = _full_moments(opt, model, mp)
+        sd = model.state_dict()
+        out["params"] = {}
+        for name, p in model.named_parameters():
+            t = sd[name]._value.detach()
+            if getattr(p, "is_distributed", False):
+                t = gather_along(t, mp, p.split_axis)
+            out["params"][name] = t.numpy().copy()
+        out["local"] = {k: p._value.numel()
+                        for k, p in model.named_parameters()}
+        res[job["name"]] = out
+    _dump(out_dir, rank, res)
     dist.destroy_process_group()
