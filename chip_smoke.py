@@ -33,7 +33,10 @@ Phases, each of which fails the run with a non-zero exit:
      bias, and GPT-2 [8, 12, 1024, 64] causal; O, LSE, dQ, dK and dV held
      to the plain versions as in phase 2, then each kernel timed beside its
      bound, its plain version and SDPA with dropout_p=0.1 (new *_d64_* rows
-     of the kernels line);
+     of the kernels line); and the BERT shape's second half of the batch
+     with the dropout hash's bh offset (a data-parallel rank's rows): O
+     held to the whole batch's plain version, the gradients to the
+     shard's at that offset;
   2c. sep: the ring attention's hops at the training shape (q/k/v [4, 16,
      4096, 128] bf16 causal) for 2 and 4 virtual sep ranks on this card,
      composed from ops/kernels/ring_attention.py's own hop functions (every
@@ -233,7 +236,25 @@ Phases, each of which fails the run with a non-zero exit:
      (NCCL and point-to-point kernels' device time against the rest, the
      flash kernels', and how much of the point-to-point time ran beside
      compute). ``python3 chip_smoke.py --hybrid`` runs the build and this
-     phase alone at worlds 2 and 4;
+     phase alone at worlds 2 and 4, each followed by phase 6g at that
+     world;
+  6g. auto-parallel through the launcher, after the hybrid phase: ``python
+     -m paddle_tpu_torch.distributed.launch --nproc_per_node W --log_dir
+     <dir> <worker>`` as a user runs it (NCCL; the worker a stub under
+     paddle_tpu_torch/build/ that calls launch_worker), W = 1 over a
+     ("dp", "mp") mesh [[0]] (``--hybrid``: W = 2 at mp 2 and W = 4 at dp 2
+     x mp 2). Each worker, on its own card: 2 layers at BERT-base's width
+     (f32, dropout 0) with the FFN weights sharded on "mp", 3
+     dist.to_static steps, rank 0 holding the losses and every gathered
+     parameter and moment to its unsharded one-process step on its card;
+     then BertForPretraining(BertConfig()) at 32 x 512 global under
+     strategy.amp bf16, dropout 0.1, 3 warm-up and 8 timed steps, each
+     held to 12 flash forward (D = 64, dropout), 12 dK/dV and 12 dQ
+     launches and no dense attention: step ms, tokens/s a card, share of
+     989 TF/s, peak memory, a profiled step's flash, NCCL and copy device
+     ms; at W = 1 the TrainStep step of 6c timed in turns with it. The
+     launches are the "auto_parallel" path of the kernels line (the BERT
+     D = 64 rows);
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
@@ -1290,6 +1311,46 @@ def phase_flash_d64(dev, results, probes):
                    o, lse, errs, worst, sdpa)
         del q, k, v, do, o, lse
         torch.cuda.empty_cache()
+    _d64_offset_check(dev, gen, p, RTOL, FLOOR)
+
+
+def _d64_offset_check(dev, gen, p, rtol, floor):
+    """A data-parallel rank's rows (auto-parallel's SDPA on a batch
+    shard): the BERT shape's batch in two, the kernels on the second half
+    with the dropout hash's bh offset 16 x 12. Its O is held to the plain
+    version of the whole batch (rows 16..31: the one-process mask), and
+    its dQ, dK and dV to the plain backward of the shard at the same
+    offset, with phase_flash_kernels' tolerances."""
+    from paddle_tpu_torch.framework.random import generator
+    from paddle_tpu_torch.ops.kernels import flash_attention as FA
+
+    b, S = D64_SHAPES["bert"]["batch"], D64_SHAPES["bert"]["seq"]
+    q, k, v, do, _ = _d64_inputs(dev, gen, b, S, False)
+    half, heads = b // 2, q.shape[1]
+    off = half * heads
+    seed = FA.seed_from_generator(generator(dev))
+    qs, ks, vs, dos = (t[half:].contiguous() for t in (q, k, v, do))
+    o, lse = FA.forward_with_lse(qs, ks, vs, None, seed, False, p, off)
+    dq, dk, dv = FA.backward(qs, ks, vs, None, seed, o, lse, dos, False, p,
+                             off)
+    o_all, lse_all = FA._forward_ref(q, k, v, None, seed, False, p)
+    dq2, dk2, dv2 = FA._backward_ref(qs, ks, vs, None, seed, o, lse, dos,
+                                     False, p, off)
+    torch.cuda.synchronize()
+    ratios = {n: _worst_of_tol(a, r, rtol, floor)
+              for n, (a, r) in (("O", (o, o_all[half:])), ("dQ", (dq, dq2)),
+                                ("dK", (dk, dk2)), ("dV", (dv, dv2)))}
+    el = _max_err(lse, lse_all[half:])
+    ok = el <= 1e-3 and max(ratios.values()) <= 1.0
+    log(f"flash attention D=64 bh offset {off} (rows {half}..{b - 1} of "
+        f"[{b}, {heads}, {S}, 64], dropout {p}): worst error / tol "
+        + ", ".join(f"{n} {r:.3f}" for n, r in ratios.items())
+        + f"; LSE max_abs_err {el:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("flash attention kernels with a bh offset "
+                             "disagree with the one-process plain version")
+    del q, k, v, do, o_all, lse_all
+    torch.cuda.empty_cache()
 
 
 def _d64_times(dev, results, probes, model, q, k, v, do, seed, causal, o,
@@ -1360,7 +1421,7 @@ def _d64_times(dev, results, probes, model, q, k, v, do, seed, causal, o,
             if "bwd" in kernel else "dense f32 forward",
             tflops=r["ops"] / ms / 1e9, bound_share=bnd / ms,
             worst_ratio_at_shape=worst[kernel], kernel=kernel,
-            paths=[model])
+            paths=[model] + (["auto_parallel"] if model == "bert" else []))
         probes[name] = (r["fn"], r["symbol"], 5, results[name])
         log(f"{name}: {ms:.3f} ms a call, {r['plain_ms']:.3f} ms plain, "
             f"library {r['library_ms']:.3f} ms ({r['library']}), bound "
@@ -5297,6 +5358,347 @@ def phase_hybrid(dev, world=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 6g. auto-parallel through the launcher
+# ---------------------------------------------------------------------------
+
+# BERT-base at bench.py::bench_bert's batch, as one global batch over the
+# mesh; 3 warm-up and 8 timed to_static steps; the parity job's 2 layers at
+# BERT-base's width, f32, 3 steps
+LAUNCH_ROW = dict(batch=32, seq=512, warmup=3, steps=8, lr=1e-4)
+LAUNCH_PARITY = dict(batch=8, seq=512, layers=2, steps=3, lr=1e-3)
+# the parity's tolerances against rank 0's unsharded one-process step on
+# its card (f32; the mp reductions run in another order): each loss within
+# 1e-4 relative; each parameter within 1e-4 of its largest magnitude plus
+# half the learning rate (AdamW moves an element by about lr times the sign
+# of its gradient), the k projections' biases (a zero gradient) within 3 lr
+# of where they started; each moment within 1e-3 of its largest magnitude
+# plus 1e-12
+LAUNCH_LOSS_RTOL = 1e-4
+LAUNCH_PARAM_SHARE = 1e-4
+LAUNCH_MOMENT_SHARE = 1e-3
+LAUNCH_TIMEOUT_S = {1: 420, 2: 480, 4: 600}
+# the TrainStep step timed in turns with the Engine's at W = 1
+LAUNCH_TURNS = 4
+LAUNCH_WORKER = """import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+sys.exit(chip_smoke.launch_worker(sys.argv[1:]))
+"""
+
+
+def _mlm_loss(cfg):
+    """The MLM logits' cross entropy (bench.py::bench_bert's loss)."""
+    from paddle_tpu_torch.nn import functional as F
+
+    def loss(outs, labels):
+        return F.cross_entropy(outs[0].reshape([-1, cfg.vocab_size]),
+                               labels.reshape([-1]))
+    return loss
+
+
+def _place_ffn(dist, model, mesh):
+    """tests/test_static_engine.py's placements: every encoder FFN weight
+    sharded on "mp" (linear1 by columns, linear2 by rows)."""
+    for name, p in model.named_parameters():
+        if "linear1.weight" in name:
+            dist.shard_tensor(p, mesh, [dist.Replicate(), dist.Shard(1)])
+        elif "linear2.weight" in name:
+            dist.shard_tensor(p, mesh, [dist.Replicate(), dist.Shard(0)])
+
+
+def _launch_parity(dist, paddle, mesh, rank, dev):
+    """2 layers at BERT-base's width (f32, dropout 0), the FFN placed on
+    "mp", 3 dist.to_static steps (AdamW); rank 0 then runs the unsharded
+    one-process step on its card (forward, backward, a zero gradient for a
+    leaf the loss does not reach, as the Engine's step, AdamW) and holds
+    the losses and every gathered parameter and moment to it."""
+    from paddle_tpu_torch.core.tensor import full_value
+    from paddle_tpu_torch.models import bert as TB
+
+    c = LAUNCH_PARITY
+    cfg = TB.BertConfig(num_hidden_layers=c["layers"], dropout=0.0)
+
+    def build():
+        paddle.seed(0)
+        return TB.BertForPretraining(cfg)
+
+    batches = [_pretrain_batch("bert", cfg, c["batch"], c["seq"], seed=i)
+               for i in range(c["steps"])]
+    model = build()
+    start = {k: v.numpy() for k, v in model.state_dict().items()}
+    _place_ffn(dist, model, mesh)
+    opt = paddle.optimizer.AdamW(learning_rate=c["lr"],
+                                 parameters=model.parameters())
+    dm = dist.to_static(model, loss=_mlm_loss(cfg), optimizer=opt,
+                        mesh=mesh)
+    losses = [float(dm(*b).numpy()) for b in batches]
+    engine = dm.engine
+    params = {k: full_value(v).detach() for k, v in engine._params.items()}
+    moments = {k: {sk: full_value(sv) for sk, sv in st.items()}
+               for k, st in engine._opt_states.items()}
+    out = {"losses": losses}
+    if rank != 0:
+        return out
+    ref = build()
+    ropt = paddle.optimizer.AdamW(learning_rate=c["lr"],
+                                  parameters=ref.parameters())
+    loss_fn = _mlm_loss(cfg)
+    ref_losses = []
+    for ids, labels in batches:
+        loss = loss_fn(ref(ids), labels)
+        loss.backward()
+        for p in ref.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p._value)
+        ropt.step()
+        ropt.clear_grad()
+        ref_losses.append(float(loss))
+    named = dict(ref.named_parameters())
+    lr = c["lr"]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    ratios = {}
+    for k, p in named.items():
+        r = p._value.detach()
+        if "k_proj.bias" in k:
+            moved = float((params[k].cpu() - torch.from_numpy(start[k]))
+                          .abs().max())
+            ratios[k] = moved / (3 * lr)
+            continue
+        tol = LAUNCH_PARAM_SHARE * float(r.abs().max()) + 0.5 * lr
+        ratios[k] = float((params[k] - r).abs().max()) / tol
+        st = ropt._accumulators[id(p)]
+        for sk, m in st.items():
+            tol = LAUNCH_MOMENT_SHARE * float(m.abs().max()) + 1e-12
+            ratios[f"{k}.{sk}"] = float((moments[k][sk] - m).abs().max()) \
+                / tol
+    worst = max(ratios, key=ratios.get)
+    out.update(ref_losses=ref_losses, loss_rel=loss_rel,
+               worst_ratio=ratios[worst], worst=worst,
+               leaves=len(named), held=len(ratios))
+    if loss_rel > LAUNCH_LOSS_RTOL or ratios[worst] > 1.0:
+        raise AssertionError(f"launch parity: losses {losses} against "
+                             f"{ref_losses} (rel {loss_rel:.2e}), worst "
+                             f"{worst} at {ratios[worst]:.3f} of its "
+                             f"tolerance")
+    return out
+
+
+def _launch_row(dist, paddle, mesh, rank, dev, world):
+    """BertForPretraining(BertConfig()) (dropout 0.1) by dist.to_static
+    under strategy.amp bf16 over the mesh, the FFN on "mp": the global
+    batch of LAUNCH_ROW, warm-up, then timed steps, each held to 12 flash
+    forward (D = 64, bf16, dropout 0.1), 12 dK/dV and 12 dQ launches and
+    no dense attention on this rank; the peak memory, a profiled step's
+    flash, NCCL and copy device ms. At world 1 the TrainStep step of
+    phase_pretrain (amp.decorate O2) is timed in turns with it."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.models import bert as TB
+
+    c = LAUNCH_ROW
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    paddle.seed(0)
+    cfg = TB.BertConfig()
+    model = TB.BertForPretraining(cfg)
+    n_params = sum(p.size for p in model.parameters())
+    _place_ffn(dist, model, mesh)
+    opt = paddle.optimizer.AdamW(learning_rate=c["lr"],
+                                 parameters=model.parameters())
+    strategy = dist.Strategy({"amp": {"enable": True,
+                                      "dtype": "bfloat16"}})
+    dm = dist.to_static(model, loss=_mlm_loss(cfg), optimizer=opt,
+                        strategy=strategy, mesh=mesh)
+    ids, labels = _pretrain_batch("bert", cfg, c["batch"], c["seq"], seed=0)
+    warm = [float(dm(ids, labels).numpy()) for _ in range(c["warmup"])]
+    L = cfg.num_hidden_layers
+    expect = {"flash_attention_fwd": L, "flash_attention_bwd_dkv": L,
+              "flash_attention_bwd_dq": L, "aligned16_copies": 0}
+    want_fwd = [(ATTN_DROPOUT, 64, torch.bfloat16, False, False)] * L
+    losses, step_ms = [], []
+    reset_launch_counts()
+    with _attention_routes() as routes:
+        for _ in range(c["steps"]):
+            before = launch_counts()
+            routes["fwd"].clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss = float(dm(ids, labels).numpy())
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(loss)
+            per = {k: v - before[k] for k, v in launch_counts().items()}
+            for name, n in expect.items():
+                if per[name] != n:
+                    raise AssertionError(f"launch row: a step launched "
+                                         f"{name} {per[name]} times, not {n}")
+            if routes["fwd"] != want_fwd or routes["dense"]:
+                raise AssertionError(f"launch row: flash forwards "
+                                     f"{routes['fwd']}, dense attention "
+                                     f"{routes['dense']} times")
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite(warm + losses)):
+        raise AssertionError(f"launch row: losses {warm}, {losses}")
+    ms = statistics.median(step_ms)
+    tokens = c["batch"] * c["seq"]
+    tps_card = tokens / (ms / 1e3) / world
+    fpt = model_flops_per_token(cfg, n_params, c["seq"])
+    prof = profile_kernels(lambda: dm(ids, labels).numpy())
+    by_class = _device_ms_by_class(prof)
+    flash = sum(us for k, (n, us) in prof.items() if "flash_" in k) / 1e3
+    nccl = sum(us for k, (n, us) in prof.items() if "nccl" in k.lower()) \
+        / 1e3
+    copy = by_class.get("copy_cast", (0, 0.0))[1]
+    out = {"world": world, "mesh": mesh.shape, "batch": c["batch"],
+           "seq": c["seq"], "rows_here": c["batch"] // mesh.shape[0],
+           "n_params": n_params, "step_ms": step_ms, "step_ms_median": ms,
+           "tokens_per_s_per_card": tps_card,
+           "share_of_989_tflops": tps_card * fpt / BF16_OPS_PER_S,
+           "peak_memory_gb": peak / 1e9, "warmup_losses": warm,
+           "losses": losses, "launches_per_step": per, "counts": counts,
+           "profiled_step": {"flash_ms": flash, "nccl_ms": nccl,
+                             "copy_ms": copy,
+                             "device_ms": sum(us for _, us in prof.values())
+                             / 1e3,
+                             "by_class": by_class}}
+    if world == 1:
+        out["turns"] = _launch_turns(paddle, dm, cfg, ids, labels)
+    return out
+
+
+def _launch_turns(paddle, dm, cfg, ids, labels):
+    """The Engine's step and phase_pretrain's TrainStep step (amp.decorate
+    O2 bf16) in turns on this one card: what DTensor's dispatch costs."""
+    paddle.seed(0)
+    from paddle_tpu_torch.models import bert as TB
+
+    model = paddle.amp.decorate(TB.BertForPretraining(cfg), level="O2",
+                                dtype="bfloat16")
+    opt = paddle.optimizer.AdamW(learning_rate=LAUNCH_ROW["lr"],
+                                 parameters=model.parameters())
+    step = _pretrain_step("bert", cfg, model, opt)
+    float(step(ids, labels))
+    times = {"engine": [], "train_step": []}
+    fns = {"engine": lambda: float(dm(ids, labels).numpy()),
+           "train_step": lambda: float(step(ids, labels))}
+    for _ in range(LAUNCH_TURNS):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    med = {k: statistics.median(v) for k, v in times.items()}
+    return {"ms": times, "median_ms": med,
+            "engine_over_train_step": med["engine"] / med["train_step"]}
+
+
+def launch_worker(argv):
+    """One worker of phase_launch, started by the launcher: NCCL from its
+    environment, a dp x mp ProcessMesh over the world, the parity job,
+    then the row; its results to <out_dir>/rank<r>.json."""
+    import faulthandler
+
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir, dp, mp = argv[0], int(argv[1]), int(argv[2])
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+
+    env = dist.init_parallel_env()
+    rank, world = env.rank, env.world_size
+    dev = torch.device("cuda", torch.cuda.current_device())
+    res = {"rank": rank, "world": world, "local_rank": env.local_rank,
+           "device": str(dev), "card": torch.cuda.get_device_name(dev),
+           "uuid": str(torch.cuda.get_device_properties(dev).uuid),
+           "backend": dist.get_backend(),
+           "endpoint": env.current_endpoint}
+    mesh = dist.ProcessMesh(np.arange(world).reshape(dp, mp),
+                            dim_names=["dp", "mp"])
+    paddle.set_device(f"gpu:{dev.index}")
+    res["parity"] = _launch_parity(dist, paddle, mesh, rank, dev)
+    res["row"] = _launch_row(dist, paddle, mesh, rank, dev, world)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_launch(dev, world, mesh):
+    """``python -m paddle_tpu_torch.distributed.launch --nproc_per_node
+    world --log_dir <dir> <worker>`` as a user runs it (NCCL, one worker a
+    card), each worker running launch_worker over a ``mesh`` = (dp, mp)
+    ProcessMesh. Fails if the launcher returns non-zero (every workerlog's
+    tail printed), a worker is not on its own card, or a worker's checks
+    fail. The parent first lets go of the cached device memory it holds no
+    more."""
+    import gc
+
+    from paddle_tpu_torch.ops.kernels import _build
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="launch-")
+    script = os.path.join(out_dir, "launch_worker.py")
+    with open(script, "w") as f:
+        f.write(LAUNCH_WORKER.format(root=HERE))
+    log_dir = os.path.join(out_dir, "log")
+    cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+           "--nproc_per_node", str(world), "--max_restart", "0",
+           "--log_dir", log_dir, script, out_dir, str(mesh[0]),
+           str(mesh[1])]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    log(f"launch: world {world}, mesh dp {mesh[0]} x mp {mesh[1]}, parent "
+        f"holds {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB; "
+        f"{' '.join(cmd[1:6])} ...")
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, cwd=HERE, env=env, capture_output=True,
+                           text=True, timeout=LAUNCH_TIMEOUT_S[world])
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            for i in range(world):
+                path = os.path.join(log_dir, f"workerlog.{i}")
+                tail = open(path).read()[-4000:] if os.path.exists(path) \
+                    else "(none)"
+                log(f"launch: workerlog.{i} tail:\n{tail}")
+            raise AssertionError(f"launch: the launcher returned "
+                                 f"{r.returncode}: {r.stderr[-2000:]}")
+        ranks = []
+        for i in range(world):
+            with open(os.path.join(out_dir, f"rank{i}.json")) as f:
+                ranks.append(json.load(f))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    cards = [(w["device"], w["uuid"]) for w in ranks]
+    log(f"launch: world {world} ran {wall:.1f} s; workers on " + ", ".join(
+        f"{w['rank']}: {w['device']} {w['card']} ({w['backend']}, "
+        f"{w['endpoint']})" for w in ranks))
+    if sorted(d for d, _ in cards) != sorted(
+            f"cuda:{i}" for i in range(world)) or \
+            len({u for _, u in cards}) != world:
+        raise AssertionError(f"launch: workers not each on their own card: "
+                             f"{cards}")
+    row = ranks[0]["row"]
+    out = {"world": world, "mesh": list(mesh), "wall_s": wall,
+           "parity": ranks[0]["parity"],
+           "row": {k: v for k, v in row.items() if k != "counts"},
+           "step_ms_by_rank": [w["row"]["step_ms_median"] for w in ranks],
+           "peak_memory_gb_by_rank": [w["row"]["peak_memory_gb"]
+                                      for w in ranks],
+           "launches_per_step_by_rank": [
+               {k: w["row"]["launches_per_step"][k]
+                for k in PRETRAIN_KERNELS} for w in ranks]}
+    log(json.dumps({"launch": out}))
+    return dict(out, counts=row["counts"],
+                launches_per_step=row["launches_per_step"])
+
+
 KERNEL_CLASSES = (
     ("attention", ("flash_", "varlen_")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
@@ -6993,6 +7395,8 @@ def main_hybrid():
     pipeline = Counter()
     for world in worlds:
         pipeline.update(phase_hybrid(dev, world)["pipeline_counts"])
+        # once the ranks have let go of the cards: mp 2, then dp 2 x mp 2
+        phase_launch(dev, world, (world // 2, 2))
     log(json.dumps({"pipeline_launches_every_stage": {
         k: pipeline[k] for k in TRAINING_KERNELS}}))
     if min(pipeline[k] for k in TRAINING_KERNELS) <= 0:
@@ -7054,6 +7458,7 @@ def main():
     phase_registry_ops(dev)
     phase_moe(dev)
     hybrid = phase_hybrid(dev)
+    launch = phase_launch(dev, 1, (1, 1))
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
                   stream, artifact, eager, pretrain)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
@@ -7063,7 +7468,7 @@ def main():
                "artifact": artifact["counts"], "eager": eager["counts"],
                "hybrid": hybrid["counts"],
                "pipeline": Counter(hybrid["pipeline_counts"]),
-               "sep": sep["counts"]}
+               "sep": sep["counts"], "auto_parallel": launch["counts"]}
     by_path.update(hybrid["path_counts"])
     by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
@@ -7085,7 +7490,8 @@ def main():
                                  for job, stages in
                                  hybrid["pipeline_per_step"].items()}
                              for k in TRAINING_KERNELS},
-                "sep": sep["per_call"]})
+                "sep": sep["per_call"],
+                "auto_parallel": launch["launches_per_step"]})
     per_step.update(hybrid["path_per_step"])
     per_step.update({kind: r["metrics"]["launches_per_step"]
                      for kind, r in pretrain.items()})

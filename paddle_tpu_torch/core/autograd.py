@@ -4,13 +4,15 @@
 The TPU package records its own tape (GradNode, its engine and sweep),
 because JAX has no eager autograd; torch records the graph on every op
 already, so grad mode here is torch's own, and ``backward`` / ``grad``
-are torch.autograd's on the wrapped tensors.
+are torch.autograd's on the wrapped tensors (under DTensor's
+implicit_replication when the roots are DTensors, as their forward ops
+ran: core/dispatch.py).
 """
 from __future__ import annotations
 
 import torch
 
-from .tensor import Tensor, to_torch
+from .tensor import Tensor, replication_scope, to_torch
 
 __all__ = ["no_grad", "enable_grad", "set_grad_enabled", "is_grad_enabled",
            "backward", "grad"]
@@ -39,7 +41,8 @@ def backward(tensors, grad_tensors=None, retain_graph=False):
             raise RuntimeError(
                 "grad can be implicitly created only for scalar outputs; "
                 f"got shape {tuple(r.shape)}")
-    torch.autograd.backward(roots, seeds, retain_graph=retain_graph)
+    with replication_scope(roots):
+        torch.autograd.backward(roots, seeds, retain_graph=retain_graph)
 
 
 def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
@@ -49,10 +52,12 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
     ``allow_unused``)."""
     single = isinstance(inputs, Tensor)
     ins = _values(inputs)
-    gs = torch.autograd.grad(_values(outputs), ins,
-                             grad_outputs=_values(grad_outputs),
-                             retain_graph=retain_graph,
-                             create_graph=create_graph,
-                             allow_unused=allow_unused)
+    outs = _values(outputs)
+    with replication_scope(outs):
+        gs = torch.autograd.grad(outs, ins,
+                                 grad_outputs=_values(grad_outputs),
+                                 retain_graph=retain_graph,
+                                 create_graph=create_graph,
+                                 allow_unused=allow_unused)
     out = [None if g is None else Tensor._wrap(g) for g in gs]
     return out[:1] if single else out

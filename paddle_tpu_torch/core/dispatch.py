@@ -12,6 +12,13 @@ through. In order, it
    the framework's: torch records the graph);
 4. wraps the torch tensors it returns (alone, or in a tuple or list).
 
+Under auto-parallel the torch tensors may be DTensors. An op with a
+DTensor argument runs under DTensor's ``implicit_replication``: a plain
+tensor beside it (an argument, or one the op makes, such as a dropout
+mask) is taken as replicated on the mesh (each rank holds all of it), as
+the TPU package mixes sharded and unsharded arrays. Nothing is gathered
+for it.
+
 None of the TPU package's per-signature jit cache, GradNode recording or
 pullback trampolines is needed: torch runs each op eagerly and records its
 backward. The registry's call tally comes along (ops/registry.py).
@@ -24,7 +31,7 @@ from typing import Callable
 import torch
 
 from . import amp_state
-from .tensor import Tensor
+from .tensor import Tensor, dtensor_class
 
 __all__ = ["apply", "defop", "add_op_observer", "remove_op_observer",
            "check_nan_inf", "set_flags"]
@@ -87,6 +94,20 @@ def _wrap(out):
     return out
 
 
+def _holds_dtensor(targs, tkw) -> bool:
+    """True when an argument is a DTensor."""
+    dt = dtensor_class()
+    if dt is None:
+        return False
+
+    def visit(x):
+        if isinstance(x, (list, tuple)):
+            return any(visit(v) for v in x)
+        return isinstance(x, dt)
+
+    return visit(targs) or visit(list(tkw.values()))
+
+
 def _leaves(out):
     if isinstance(out, torch.Tensor):
         return [out]
@@ -108,11 +129,14 @@ def apply(fn: Callable, *args, op_name: str = None,
     targs = [_unwrap(a, cast) for a in args]
     tkw = {k: _unwrap(v, cast) for k, v in kwargs.items()} if kwargs \
         else kwargs
-    if differentiable or not torch.is_grad_enabled():
-        out = fn(*targs, **tkw)
+    if _holds_dtensor(targs, tkw):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        with implicit_replication():
+            out = _run(fn, targs, tkw, differentiable)
     else:
-        with torch.no_grad():
-            out = fn(*targs, **tkw)
+        out = _run(fn, targs, tkw, differentiable)
     if _flags["check_nan_inf"] or op_observers:
         leaves = _leaves(out)
         if _flags["check_nan_inf"]:
@@ -120,6 +144,13 @@ def apply(fn: Callable, *args, op_name: str = None,
         for obs in op_observers:
             obs(name, leaves)
     return _wrap(out)
+
+
+def _run(fn, targs, tkw, differentiable):
+    if differentiable or not torch.is_grad_enabled():
+        return fn(*targs, **tkw)
+    with torch.no_grad():
+        return fn(*targs, **tkw)
 
 
 def check_nan_inf(name, tensors):

@@ -7,6 +7,11 @@ autograd graph on ``_value`` itself, so ``stop_gradient`` is the inverse of
 ``torch.autograd.backward`` on the wrapped roots. The op methods
 (``t.reshape``, ``t + u``, ...) are patched on by
 ``paddle_tpu_torch.ops.patch_tensor_methods`` at import time.
+
+Under auto-parallel ``_value`` may be a DTensor. ``numpy()``, ``item()``
+and ``tolist()`` then give the full array, as ``np.asarray`` of a sharded
+jax array does (a collective: every rank of the mesh calls them), and
+``set_value`` takes a full value and keeps this rank's shard of it.
 """
 from __future__ import annotations
 
@@ -16,7 +21,67 @@ import torch
 from .dtype import convert_dtype, dtype_name
 from .place import Place, place_of, to_torch_device
 
-__all__ = ["Tensor", "Parameter", "to_torch"]
+__all__ = ["Tensor", "Parameter", "to_torch", "dtensor_class", "full_value",
+           "shard_of", "replication_scope"]
+
+
+def dtensor_class():
+    """torch's DTensor class once torch.distributed.tensor is imported
+    (by whoever made a DTensor), else None: until then nothing is one."""
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")
+    return None if mod is None else mod.DTensor
+
+
+def replication_scope(tensors):
+    """DTensor's ``implicit_replication()`` where one of ``tensors`` is a
+    DTensor (a plain tensor met beside one, in the ops or their backward,
+    is taken as replicated), else a null context."""
+    import contextlib
+
+    dt = dtensor_class()
+    if dt is None or not any(isinstance(t, dt) for t in tensors):
+        return contextlib.nullcontext()
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    return implicit_replication()
+
+
+def full_value(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or the full tensor of a DTensor (gathered)."""
+    dt = dtensor_class()
+    if dt is not None and isinstance(t, dt):
+        return t.full_tensor()
+    return t
+
+
+def shard_of(full: torch.Tensor, mesh, placements) -> torch.Tensor:
+    """This rank's shard of ``full`` as a DTensor on the DeviceMesh
+    ``mesh`` with ``placements`` (DTensor's; sliced here, nothing sent).
+    A Partial mesh dimension keeps the value on its first rank and the
+    reduction's identity elsewhere."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    shape, offset = compute_local_shape_and_global_offset(full.shape, mesh,
+                                                          placements)
+    local = full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    coord = mesh.get_coordinate()
+    for i, p in enumerate(placements):
+        if p.is_partial() and coord[i] != 0:
+            op = getattr(p, "reduce_op", "sum")
+            if op == "sum":
+                local = torch.zeros_like(local)
+            elif op == "product":
+                local = torch.ones_like(local)
+    # a copy: a view would keep the whole full tensor alive
+    local = local.clone(memory_format=torch.contiguous_format)
+    return DTensor.from_local(local, mesh, placements, run_check=False,
+                              shape=full.shape,
+                              stride=torch.empty(full.shape,
+                                                 device="meta").stride())
 
 
 def to_torch(data, dtype=None, place=None) -> torch.Tensor:
@@ -50,7 +115,10 @@ def to_torch(data, dtype=None, place=None) -> torch.Tensor:
 
 
 class Tensor:
-    __slots__ = ("_value", "name", "persistable", "__weakref__")
+    # _dist_attr: the mesh and placements auto_parallel.shard_tensor gave
+    # this Tensor (unset otherwise)
+    __slots__ = ("_value", "name", "persistable", "_dist_attr",
+                 "__weakref__")
 
     def __init__(self, data, dtype=None, place=None, stop_gradient=True,
                  name=None, persistable=False):
@@ -155,7 +223,7 @@ class Tensor:
     # -- conversion ---------------------------------------------------------
     def numpy(self):
         """A host numpy copy; bfloat16 (which numpy lacks) as float32."""
-        t = self._value.detach()
+        t = full_value(self._value.detach())
         if t.dtype == torch.bfloat16:
             t = t.float()
         return t.cpu().numpy()
@@ -163,10 +231,10 @@ class Tensor:
     def item(self, *args):
         if args:
             return self.numpy().item(*args)
-        return self._value.detach().item()
+        return full_value(self._value.detach()).item()
 
     def tolist(self):
-        return self._value.detach().tolist()
+        return full_value(self._value.detach()).tolist()
 
     def astype(self, dtype):
         from .dispatch import apply
@@ -201,13 +269,28 @@ class Tensor:
 
     # -- mutation (gradient-free, in place on the wrapped tensor) ----------
     def set_value(self, value):
-        """Replace the values, keeping shape, dtype and device."""
-        v = to_torch(value, place=self._value.device)
-        if tuple(v.shape) != tuple(self._value.shape):
+        """Replace the values, keeping shape, dtype and device (a DTensor's
+        placements too: ``value`` is the full value, or a DTensor)."""
+        dt = dtensor_class()
+        target = self._value
+        if dt is not None and isinstance(value, Tensor) \
+                and isinstance(value._value, dt):
+            value = value._value
+        if dt is not None and isinstance(value, dt):
+            value = value.full_tensor() if not isinstance(target, dt) else \
+                value.redistribute(target.device_mesh, target.placements)
+        v = to_torch(value, place=target.device)
+        if tuple(v.shape) != tuple(target.shape):
             raise ValueError(f"set_value shape mismatch: {tuple(v.shape)} "
-                             f"vs {tuple(self._value.shape)}")
+                             f"vs {tuple(target.shape)}")
         with torch.no_grad():
-            self._value.copy_(v)
+            if dt is not None and isinstance(target, dt):
+                if not isinstance(v, dt):
+                    v = shard_of(v.to(target.dtype), target.device_mesh,
+                                 target.placements)
+                target.to_local().copy_(v.to_local())
+            else:
+                target.copy_(v)
         return self
 
     def copy_(self, other, blocking=True):

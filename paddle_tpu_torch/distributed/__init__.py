@@ -23,17 +23,27 @@ SegmentParallel), and Megatron's sequence parallelism over mp
 (incubate/distributed/models/moe: moe_block_stacked over an expert group)
 exchanges tokens with all_to_all_single.
 
-Not ported yet (ROADMAP.md, queue 1): auto_parallel and launch; the store,
-transport, watchdog, resilience supervisor and checkpoint tiers (items 6
-and 8).
+The semi-auto API (auto_parallel: ProcessMesh, the placements,
+shard_tensor, reshard, to_static and the Engine) runs over
+``torch.distributed.tensor`` (DTensor). ``python -m
+paddle_tpu_torch.distributed.launch`` starts one worker a card with the
+environment above, its rendezvous through the store (store.py).
+
+Not ported yet (ROADMAP.md, queue 1): the transport, watchdog, elastic
+re-formation, resilience supervisor and checkpoint tiers (items 6 and 8).
 """
 from __future__ import annotations
 
 import os
 import time
 
-from . import (collective, env, fleet, meta_parallel, resilience, topology,
-               utils)
+from . import (auto_parallel, collective, env, fleet, meta_parallel,
+               resilience, topology, utils)
+from .auto_parallel.api import (DistModel, dtensor_from_fn, reshard,
+                                shard_layer, shard_optimizer, shard_tensor,
+                                to_static, unshard_dtensor)
+from .auto_parallel.placement import Partial, Placement, Replicate, Shard
+from .auto_parallel.process_mesh import ProcessMesh
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
                          all_reduce, all_to_all, all_to_all_single, barrier,
                          batch_isend_irecv, broadcast, broadcast_object_list,
@@ -47,8 +57,14 @@ from .parallel import DataParallel
 from .topology import (HybridCommunicateGroup, build_mesh,
                        get_hybrid_communicate_group, get_mesh)
 
-__all__ = ["collective", "env", "fleet", "meta_parallel", "resilience",
-           "topology", "utils", "spawn",
+__all__ = ["auto_parallel", "collective", "env", "fleet", "meta_parallel",
+           "resilience", "topology", "utils", "spawn",
+           "shard_tensor", "reshard", "shard_layer", "shard_optimizer",
+           "to_static", "dtensor_from_fn", "unshard_dtensor", "DistModel",
+           "ProcessMesh", "Placement", "Shard", "Replicate", "Partial",
+           "ReduceType", "ShardingStage1", "ShardingStage2",
+           "ShardingStage3", "Strategy", "DistAttr", "split",
+           "shard_dataloader", "shard_scaler",
            "P2POp", "ReduceOp", "all_gather", "all_gather_object",
            "all_reduce", "all_to_all", "all_to_all_single", "barrier",
            "batch_isend_irecv", "broadcast", "broadcast_object_list",
@@ -64,6 +80,125 @@ __all__ = ["collective", "env", "fleet", "meta_parallel", "resilience",
 
 alltoall = all_to_all
 alltoall_single = all_to_all_single
+
+
+class ReduceType:
+    """The reduction of a Partial placement (reference auto_parallel
+    ReduceType); ``Partial(ReduceType.kRedMax)`` is ``Partial("max")``."""
+
+    kRedSum = 0
+    kRedMax = 1
+    kRedMin = 2
+    kRedProd = 3
+    kRedAvg = 4
+    kRedAny = 5
+    kRedAll = 6
+
+
+class ShardingStage1:
+    """The to_static sharding level (reference auto_parallel/strategy.py
+    ShardingStage1), accepted as the reference accepts it."""
+
+    def __init__(self, mesh_dim=None):
+        self.mesh_dim = mesh_dim
+        self.stage = 1
+
+
+class ShardingStage2(ShardingStage1):
+    def __init__(self, mesh_dim=None):
+        super().__init__(mesh_dim)
+        self.stage = 2
+
+
+class ShardingStage3(ShardingStage1):
+    def __init__(self, mesh_dim=None):
+        super().__init__(mesh_dim)
+        self.stage = 3
+
+
+class Strategy:
+    """reference auto_parallel Strategy: the to_static configuration
+    (sharding, gradient_merge, pipeline and amp as attribute bags, from an
+    optional dict). The Engine honours ``amp``."""
+
+    class _Bag:
+        def __init__(self, **kw):
+            self.__dict__.update(kw)
+
+    def __init__(self, config=None):
+        cfg = config or {}
+
+        def bag(key, **defaults):
+            merged = dict(defaults)
+            merged.update(cfg.get(key, {}))
+            return Strategy._Bag(**merged)
+
+        self.sharding = bag("sharding", enable=False, degree=1, stage=1)
+        self.gradient_merge = bag("gradient_merge", enable=False,
+                                  k_steps=1, avg=True)
+        self.pipeline = bag("pipeline", enable=False,
+                            schedule_mode="1F1B", micro_batch_size=1,
+                            accumulate_steps=1)
+        self.amp = bag("amp", enable=False, dtype="bfloat16", level="O1")
+
+
+class DistAttr:
+    """reference DistAttr(mesh, sharding_specs): the spec form (a mesh
+    axis name or None a tensor dim) mapped onto placements."""
+
+    def __init__(self, mesh, sharding_specs):
+        self.process_mesh = mesh
+        self.sharding_specs = list(sharding_specs)
+
+    def placements(self):
+        out = []
+        for dim_name in getattr(self.process_mesh, "dim_names",
+                                [None] * 1):
+            try:
+                idx = self.sharding_specs.index(dim_name)
+                out.append(Shard(idx))
+            except ValueError:
+                out.append(Replicate())
+        return out
+
+
+def split(x, size, operation, axis=0, num_partitions=1, gather_out=True,
+          weight_attr=None, bias_attr=None, name=None):
+    """reference distributed.split: a row- or column-parallel linear, or
+    a vocab-parallel embedding, over the model-parallel group, applied to
+    ``x``."""
+    from .meta_parallel import mp_layers as _mp
+
+    if operation == "linear":
+        in_f, out_f = size
+        if axis == 0:
+            layer = _mp.RowParallelLinear(
+                in_f, out_f, weight_attr=weight_attr,
+                input_is_parallel=False, has_bias=bias_attr is not False)
+        else:
+            layer = _mp.ColumnParallelLinear(
+                in_f, out_f, weight_attr=weight_attr,
+                gather_output=gather_out,
+                has_bias=bias_attr is not False)
+        return layer(x)
+    if operation == "embedding":
+        n, dim = size
+        layer = _mp.VocabParallelEmbedding(n, dim, weight_attr=weight_attr)
+        return layer(x)
+    raise ValueError(f"unsupported operation {operation}")
+
+
+def shard_dataloader(dataloader, meshes, shard_dims=None, is_dataset=False):
+    """reference auto_parallel shard_dataloader: every rank iterates the
+    global batches and the Engine takes each rank's rows
+    (static_engine.py::_stage_batch), so the loader passes through."""
+    return dataloader
+
+
+def shard_scaler(scaler):
+    """reference auto_parallel shard_scaler: the scaler's state is
+    replicated, nothing to change."""
+    return scaler
 
 
 def is_available():

@@ -178,7 +178,17 @@ def destroy_process_group(group=None):
     process may init_parallel_env again after)."""
     if group is None:
         _groups.clear()
+        from .auto_parallel.process_mesh import clear_device_meshes
+
+        clear_device_meshes()
         if _env.is_initialized():
+            # every rank reaches the teardown before any rank goes: a gloo
+            # rank that destroys the world while a peer is still inside its
+            # last collective or its own teardown aborts the peer
+            # ("terminate called without an active exception", a joinable
+            # thread destroyed; 3 of 30 fresh 4-rank runs with one rank's
+            # teardown delayed)
+            tdist.barrier()
             tdist.destroy_process_group()
         return
     _groups.pop(group.id, None)

@@ -1,13 +1,53 @@
-"""The errors of live weight publishing: the port's own copies of
-paddle_tpu/distributed/resilience/errors.py's PublishRejectedError and
-WeightTransferError (:156-200), with the reference's arguments, attributes
-and messages. The rest of that taxonomy (transport, collectives, engine
-liveness) comes with the modules that raise it (ROADMAP.md, queue 1)."""
+"""The errors of live weight publishing and of the rendezvous store: the
+port's own copies of paddle_tpu/distributed/resilience/errors.py's
+PublishRejectedError and WeightTransferError (:156-200), TransportError,
+StoreTimeoutError and StaleGenerationError (:22-23, 119-155), with the
+reference's arguments, attributes and messages. The rest of that taxonomy
+(the transport's, collectives', engine liveness) comes with the modules
+that raise it (ROADMAP.md, queue 1)."""
 from __future__ import annotations
 
 from typing import Optional
 
-__all__ = ["PublishRejectedError", "WeightTransferError"]
+__all__ = ["PublishRejectedError", "WeightTransferError", "TransportError",
+           "StoreTimeoutError", "StaleGenerationError"]
+
+
+class TransportError(RuntimeError):
+    """Base class for eager-transport failures."""
+
+
+class StoreTimeoutError(TransportError, TimeoutError):
+    """A rendezvous-store read (``get``/``wait``) expired. Names the key,
+    the store endpoint and the budget, and subclasses ``TimeoutError``."""
+
+    def __init__(self, key: str, endpoint: Optional[str],
+                 timeout_s: Optional[float], op: str = "get"):
+        self.key = key
+        self.endpoint = endpoint
+        self.timeout_s = timeout_s
+        self.op = op
+        super().__init__(
+            f"store {op} on key {key!r} at {endpoint or '<unknown>'} "
+            f"timed out after {timeout_s}s")
+
+
+class StaleGenerationError(RuntimeError):
+    """A fenced store write carried a generation older than the fence:
+    the writer was partitioned out of a re-formed group. Not a
+    TransportError: the write fails fast and is never retried."""
+
+    def __init__(self, key: str, domain: str, write_gen: int,
+                 fence_gen: int):
+        self.key = key
+        self.domain = domain
+        self.write_gen = write_gen
+        self.fence_gen = fence_gen
+        super().__init__(
+            f"fenced write to {key!r} refused: generation {write_gen} "
+            f"is stale (fence for domain {domain!r} is at generation "
+            f"{fence_gen}) — this rank was partitioned out of the "
+            f"re-formed group and must rejoin through rendezvous")
 
 
 class PublishRejectedError(RuntimeError):

@@ -803,22 +803,21 @@ class LlamaForCausalLM(nn.Layer):
         self.lm_head = None if config.tie_word_embeddings else \
             nn.Linear(config.hidden_size, config.vocab_size,
                       bias_attr=False)
-        if self.lm_head is None and _mp_degree() > 1:
-            raise NotImplementedError(
-                "paddle_tpu_torch: tied word embeddings under mp (a "
-                "vocab-sharded table as the head) are not ported "
-                "(ROADMAP.md, queue 1, item 5)")
 
     def forward(self, input_ids, labels=None, kv_caches=None):
         """Logits [B, S, vocab] in f32 (bf16 under AMP O1: the head is
         a white-listed linear), or with ``labels`` the mean next-token
         cross entropy, or with ``kv_caches`` (logits, new caches)."""
+        new_caches = None
         if kv_caches is not None:
             h, new_caches = self.model(input_ids, kv_caches)
         else:
             h = self.model(input_ids)
         if self.lm_head is not None:
             logits = self.lm_head(h.astype("float32"))
+        elif getattr(self.model.embed_tokens, "world_size", 1) > 1:
+            return self._tied_vocab_parallel(h, labels, kv_caches,
+                                             new_caches)
         else:
             from ..ops.linalg import matmul
 
@@ -833,6 +832,37 @@ class LlamaForCausalLM(nn.Layer):
         if kv_caches is not None:
             return logits, new_caches
         return logits
+
+    def _tied_vocab_parallel(self, h, labels, kv_caches, new_caches):
+        """The head over the vocab-sharded table (tied embeddings under
+        mp): each rank's logits against its rows of the table, in f32 as
+        the reference's (llama.py:307), the hidden state's gradient summed
+        over mp (``_c_identity``); with labels the mean of the port's
+        vocab-parallel cross entropy, else the logits gathered. The
+        table's gradient is the lookup's plus the head's (one Parameter)."""
+        from ..core.dispatch import apply
+        from ..distributed.fleet.layers.mpu import mp_ops
+
+        emb = self.model.embed_tokens
+        group, rank = emb.mp_group, emb.rank
+        x = mp_ops._c_identity(h.astype("float32"), group)
+
+        def head(a, w):
+            return torch.matmul(a, w.float().t())
+
+        logits = apply(head, x, emb.weight, op_name="matmul")
+        if labels is None:
+            logits = mp_ops._c_concat(logits, group)
+            return (logits, new_caches) if kv_caches is not None \
+                else logits
+
+        def loss(lg, lab):
+            per = mp_ops.vocab_parallel_nll(
+                lg.reshape(-1, lg.shape[-1]), lab.reshape(-1), group, rank)
+            valid = lab.reshape(-1) != -100
+            per = torch.where(valid, per, torch.zeros_like(per))
+            return per.sum() / torch.clamp(valid.float().sum(), min=1.0)
+        return apply(loss, logits, labels, op_name="cross_entropy")
 
     @classmethod
     def from_preset(cls, name: str):

@@ -18,7 +18,13 @@ with the same custom gradient (``_FlashAttention``, the counterpart of the
 
 Dropout inside the kernels and their plain versions is the keep bit of a
 hash of the global (q, k) position (``_hash_keep``), bit for bit the TPU
-package's, so forward and backward regenerate the same mask. Key-padding
+package's, so forward and backward regenerate the same mask. The hash's
+(batch, head) index ``bh`` takes an offset (``bh_offset``, 0 by default):
+a rank holding rows r0.. of a batch passes r0 * H, so that its mask is
+the one-process mask's rows. The kernels get it folded into the seed
+(``kernel_seed``): the hash adds seed + C * bh (mod 2**32), and
+C * (bh + off) = C * bh + C * off, so seed + C * off with the kernel's own
+bh is the same bit. Key-padding
 masks ([B|1, 1, 1, Sk]) stream through the kernels as an additive [B, Sk]
 f32 bias clamped to -1e30; a row whose keys are all padded averages V
 uniformly (flash_attention.py:26-27).
@@ -43,6 +49,10 @@ __all__ = ["flash_attention_bhsd", "flash_attention_bshd",
 launches_fwd = 0
 launches_bwd_dkv = 0
 launches_bwd_dq = 0
+# the multiply-adds x 2 of those launches (never reset): FlopCounterMode
+# cannot see a launch through ctypes, so the auto-parallel Engine's
+# cost_analysis adds them
+launched_flops = 0
 
 DEFAULT_BLOCK_Q = 512          # the TPU kernels' blocks, for the routing
 DEFAULT_BLOCK_K = 512
@@ -86,11 +96,11 @@ def _hash_keep(seed, bh, q_idx, k_idx, thresh):
 
 
 def _full_keep_mask(seed, b, h, sq, sk, dropout_p, device, q_offset=0,
-                    k_offset=0):
+                    k_offset=0, bh_offset=0):
     """[b, h, sq, sk] keep mask, identical to the kernels' tiles."""
     thresh = _dropout_threshold(dropout_p)
-    bh = torch.arange(b * h, dtype=torch.int64, device=device) \
-        .reshape(b, h, 1, 1)
+    bh = (bh_offset + torch.arange(b * h, dtype=torch.int64,
+                                   device=device)).reshape(b, h, 1, 1)
     qi = (q_offset + torch.arange(sq, dtype=torch.int64, device=device)) \
         .reshape(1, 1, sq, 1)
     ki = (k_offset + torch.arange(sk, dtype=torch.int64, device=device)) \
@@ -154,7 +164,7 @@ def _logits(q, k, kmask, causal):
     return s
 
 
-def _forward_ref(q, k, v, kmask, seed, causal, dropout_p):
+def _forward_ref(q, k, v, kmask, seed, causal, dropout_p, bh_offset=0):
     """Plain version of the forward kernel: dense O and LSE in f32 (the XLA
     route of ``_forward_with_lse``, flash_attention.py:276-293), with the
     kernel's normalisation by the row sum of exp(s - max): a row whose keys
@@ -168,10 +178,11 @@ def _forward_ref(q, k, v, kmask, seed, causal, dropout_p):
     den = e.sum(dim=-1, keepdim=True)
     lse = (m + torch.log(den))[..., 0]
     return _dropout_pv(e / den, v, seed, b, h, sq, sk, dropout_p,
-                       q.dtype), lse
+                       q.dtype, bh_offset), lse
 
 
-def _forward_fallback(q, k, v, kmask, seed, causal, dropout_p):
+def _forward_fallback(q, k, v, kmask, seed, causal, dropout_p,
+                      bh_offset=0):
     """The reference's dense route for shapes its kernel does not take
     (flash_attention.py:276-293) as written: probs = exp(s - LSE), so a
     fully padded row sums V where the kernel averages it."""
@@ -180,18 +191,21 @@ def _forward_fallback(q, k, v, kmask, seed, causal, dropout_p):
     s = _logits(q, k, kmask, causal)
     lse = torch.logsumexp(s, dim=-1)
     return _dropout_pv(torch.exp(s - lse[..., None]), v, seed, b, h, sq,
-                       sk, dropout_p, q.dtype), lse
+                       sk, dropout_p, q.dtype, bh_offset), lse
 
 
-def _dropout_pv(probs, v, seed, b, h, sq, sk, dropout_p, dtype):
+def _dropout_pv(probs, v, seed, b, h, sq, sk, dropout_p, dtype,
+                bh_offset=0):
     if dropout_p > 0.0:
-        keep = _full_keep_mask(seed, b, h, sq, sk, dropout_p, v.device)
+        keep = _full_keep_mask(seed, b, h, sq, sk, dropout_p, v.device,
+                               bh_offset=bh_offset)
         probs = torch.where(keep, probs, torch.zeros_like(probs)) \
             * (1.0 / (1.0 - dropout_p))
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(dtype)
 
 
-def _backward_ref(q, k, v, kmask, seed, o, lse, do, causal, dropout_p):
+def _backward_ref(q, k, v, kmask, seed, o, lse, do, causal, dropout_p,
+                  bh_offset=0):
     """Plain version of the backward: the scan of flash_attention.py:
     570-623 over one block of all keys, as dense f32 tensor code. Returns
     (dq, dk, dv) in the inputs' dtypes."""
@@ -204,7 +218,8 @@ def _backward_ref(q, k, v, kmask, seed, o, lse, do, causal, dropout_p):
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     if dropout_p > 0.0:
         inv = 1.0 / (1.0 - dropout_p)
-        keep = _full_keep_mask(seed, b, h, sq, sk, dropout_p, q.device)
+        keep = _full_keep_mask(seed, b, h, sq, sk, dropout_p, q.device,
+                               bh_offset=bh_offset)
         zero = torch.zeros_like(p)
         p_used = torch.where(keep, p, zero) * inv
         dp_eff = torch.where(keep, dp, zero) * inv
@@ -281,6 +296,15 @@ def _dropout_args(seed, dropout_p):
     return 0, 0, 0, 1.0
 
 
+def kernel_seed(seed, bh_offset):
+    """The seed the kernels take for ``seed`` with the hash's (batch,
+    head) index offset by ``bh_offset``: the hash adds seed + C * bh
+    (mod 2**32), linear in bh, so seed + C * bh_offset with the kernel's
+    own bh gives the same bits (an int32, as the seeds drawn here)."""
+    u = (int(seed) + _mul32(int(bh_offset) & _M32, 0xC2B2AE3D)) & _M32
+    return u - 2 ** 32 if u >= 2 ** 31 else u
+
+
 def _launch_fwd(q, k, v, kmask, seed, causal, dropout_p):
     global launches_fwd
     _check(q, k, v, kmask, causal)
@@ -303,7 +327,17 @@ def _launch_fwd(q, k, v, kmask, seed, causal, dropout_p):
         _DTYPE_CODE[q.dtype], stream)
     _build.check(err, "flash_attention_fwd")
     launches_fwd += 1
+    _add_flops(2, q, k, causal)
     return o, lse
+
+
+def _add_flops(products, q, k, causal):
+    """``products`` [Sq, Sk] x D matrix products of one launch, halved
+    when causal."""
+    global launched_flops
+    b, h, sq, d = q.shape
+    n = 2 * products * b * h * sq * k.shape[2] * d
+    launched_flops += n // 2 if causal else n
 
 
 def _bwd_args(q, k, v, kmask, seed, causal, dropout_p, do, lse, delta):
@@ -328,6 +362,7 @@ def _launch_bwd_dkv(q, k, v, kmask, seed, do, lse, delta, causal,
         *ptrs, dk.data_ptr(), dv.data_ptr(), *rest)
     _build.check(err, "flash_attention_bwd_dkv")
     launches_bwd_dkv += 1
+    _add_flops(4, q, k, causal)       # S, dP, dV, dK
     return dk, dv
 
 
@@ -341,6 +376,7 @@ def _launch_bwd_dq(q, k, v, kmask, seed, do, lse, delta, causal,
     err = _entry("pt_flash_attention_bwd_dq")(*ptrs, dq.data_ptr(), *rest)
     _build.check(err, "flash_attention_bwd_dq")
     launches_bwd_dq += 1
+    _add_flops(3, q, k, causal)       # S, dP, dQ
     return dq
 
 
@@ -387,50 +423,56 @@ def _on_kernels(q, k, causal):
 
 
 def forward_with_lse(q, k, v, kmask=None, seed=0, causal=False,
-                     dropout_p=0.0):
+                     dropout_p=0.0, bh_offset=0):
     """(O, LSE [B, H, Sq] f32) of [B, H, S, D] inputs
     (flash_attention.py:266-293): at a kernel shape, the kernel on a CUDA
     tensor and its plain version on the CPU; at other shapes the
     reference's dense fallback."""
     if _on_kernels(q, k, causal):
-        return _launch_fwd(q, k, v, kmask, seed, causal, dropout_p)
+        return _launch_fwd(q, k, v, kmask, kernel_seed(seed, bh_offset),
+                           causal, dropout_p)
     if _kernel_ok(q, k, causal):
-        return _forward_ref(q, k, v, kmask, seed, causal, dropout_p)
-    return _forward_fallback(q, k, v, kmask, seed, causal, dropout_p)
+        return _forward_ref(q, k, v, kmask, seed, causal, dropout_p,
+                            bh_offset)
+    return _forward_fallback(q, k, v, kmask, seed, causal, dropout_p,
+                             bh_offset)
 
 
 def backward(q, k, v, kmask, seed, o, lse, do, causal=False,
-             dropout_p=0.0):
+             dropout_p=0.0, bh_offset=0):
     """(dQ, dK, dV): the two backward kernels on a CUDA tensor of a kernel
     shape, else the plain version (flash_attention.py:558-623)."""
     if _on_kernels(q, k, causal):
-        return _launch_bwd(q, k, v, kmask, seed, o, lse, do, causal,
-                           dropout_p)
+        return _launch_bwd(q, k, v, kmask, kernel_seed(seed, bh_offset), o,
+                           lse, do, causal, dropout_p)
     return _backward_ref(q, k, v, kmask, seed, o, lse, do, causal,
-                         dropout_p)
+                         dropout_p, bh_offset)
 
 
 class _FlashAttention(torch.autograd.Function):
     """The ``_flash_attention`` custom VJP (flash_attention.py:547-626):
     the forward saves q, k, v, O, LSE, the key-padding bias and the seed;
-    the backward returns no gradient for the bias and the seed."""
+    the backward returns no gradient for the bias, the seed and the bh
+    offset."""
 
     @staticmethod
-    def forward(ctx, q, k, v, kmask, seed, causal, dropout_p):
+    def forward(ctx, q, k, v, kmask, seed, causal, dropout_p, bh_offset=0):
         if _on_kernels(q, k, causal):
             # the copies the kernels read are the ones the backward keeps
             q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o, lse = forward_with_lse(q, k, v, kmask, seed, causal, dropout_p)
+        o, lse = forward_with_lse(q, k, v, kmask, seed, causal, dropout_p,
+                                  bh_offset)
         ctx.save_for_backward(q, k, v, o, lse, kmask)
         ctx.seed, ctx.causal, ctx.dropout_p = seed, causal, dropout_p
+        ctx.bh_offset = bh_offset
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse, kmask = ctx.saved_tensors
         dq, dk, dv = backward(q, k, v, kmask, ctx.seed, o, lse, do,
-                              ctx.causal, ctx.dropout_p)
-        return dq, dk, dv, None, None, None, None
+                              ctx.causal, ctx.dropout_p, ctx.bh_offset)
+        return dq, dk, dv, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -452,9 +494,14 @@ def _as_key_padding_mask(mask, b, sk):
 
 
 def flash_attention_bhsd(q, k, v, mask=None, is_causal=False,
-                         dropout_p=0.0, generator=None):
+                         dropout_p=0.0, generator=None, bh_offset=0):
     """[B, H, S, D] layout. ``dropout_p > 0`` draws its int32 seed from
-    ``generator`` (the default generator when None)."""
+    ``generator`` (the default generator when None); ``bh_offset`` is
+    added to the dropout hash's (batch, head) index. DTensor inputs run
+    on their local shards (``_dtensor_attention``)."""
+    if _is_dtensor(q, k, v, mask):
+        return _dtensor_attention(q, k, v, mask, is_causal, dropout_p,
+                                  generator)
     b, sk = q.shape[0], k.shape[2]
     causal = bool(is_causal)
     kmask = _as_key_padding_mask(mask, b, sk) if mask is not None else None
@@ -466,7 +513,71 @@ def flash_attention_bhsd(q, k, v, mask=None, is_causal=False,
         return _attention_ref(q, k, v, mask, causal, dropout_p, generator)
     seed = seed_from_generator(generator) if dropout_p > 0.0 else 0
     return _FlashAttention.apply(q, k, v, kmask, seed, causal,
-                                 float(dropout_p))
+                                 float(dropout_p), int(bh_offset))
+
+
+# ---------------------------------------------------------------------------
+# DTensor inputs (auto-parallel)
+# ---------------------------------------------------------------------------
+
+def _is_dtensor(*ts):
+    from ...core.tensor import dtensor_class
+
+    dt = dtensor_class()
+    return dt is not None and any(isinstance(t, dt) for t in ts)
+
+
+def local_form(placements, dropout_p):
+    """The placements attention runs under on local shards: each mesh
+    dimension's Shard(0) (batch) kept, Shard(1) (heads) kept without
+    dropout, everything else replicated. Attention is independent over
+    batch and heads, so each rank runs the kernels on its own shard. With
+    dropout a head shard is gathered: the hash's index of a (row, head)
+    pair is not an offset of the local one there."""
+    from torch.distributed.tensor import Replicate
+
+    return tuple(p if p.is_shard(0) or (p.is_shard(1) and dropout_p == 0.0)
+                 else Replicate() for p in placements)
+
+
+def _dtensor_attention(q, k, v, mask, is_causal, dropout_p, generator):
+    """Attention of [B, H, S, D] DTensors on this rank's shards: q, k, v
+    redistributed to ``local_form`` of q's placements (a plain tensor is
+    taken as replicated), the mask sharded as q on the dims it spans, the
+    kernels (or their plain versions) run on the local shards with the
+    shard's batch offset in the dropout hash, and the output a DTensor of
+    the same placements, through the gradient too."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+
+    lead = next(t for t in (q, k, v) if isinstance(t, DTensor))
+    mesh = lead.device_mesh
+    form = local_form(lead.placements if isinstance(q, DTensor)
+                      else [Replicate()] * mesh.ndim, dropout_p)
+
+    def to_form(t, pls):
+        if not isinstance(t, DTensor):
+            t = DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        return t.redistribute(mesh, pls)
+
+    q, k, v = (to_form(t, form) for t in (q, k, v))
+    local_mask = None
+    if mask is not None:
+        mform = tuple(p if p.is_shard() and mask.dim() == 4
+                      and mask.shape[p.dim] == q.shape[p.dim]
+                      else Replicate() for p in form)
+        local_mask = to_form(mask, mform).to_local()
+    _, offset = compute_local_shape_and_global_offset(q.shape, mesh, form)
+    heads = q.shape[1]
+    out = flash_attention_bhsd(q.to_local(), k.to_local(), v.to_local(),
+                               local_mask, is_causal, dropout_p, generator,
+                               bh_offset=offset[0] * heads)
+    return DTensor.from_local(out.contiguous(), mesh, form, run_check=False,
+                              shape=q.shape,
+                              stride=torch.empty(q.shape,
+                                                 device="meta").stride())
 
 
 def flash_attention_bshd(q, k, v, mask=None, is_causal=False,

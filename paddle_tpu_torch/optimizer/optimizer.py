@@ -16,7 +16,7 @@ from typing import Dict
 import torch
 
 from ..core.place import to_torch_device
-from ..core.tensor import Tensor, to_torch
+from ..core.tensor import Tensor, dtensor_class, to_torch
 
 __all__ = ["Optimizer", "SGD", "Adam", "AdamW", "ClipGradByGlobalNorm"]
 
@@ -67,8 +67,10 @@ class Optimizer:
 
     # -- learning rate ------------------------------------------------------
     def get_lr(self) -> float:
-        """The learning rate (a float: LR schedulers are not ported)."""
-        return float(self._learning_rate)
+        """The learning rate: a float, or the value of a scheduler (an
+        object called for its current rate, as Paddle's LRScheduler)."""
+        lr = self._learning_rate
+        return float(lr() if callable(lr) else lr)
 
     def set_lr(self, value):
         self._learning_rate = float(value)
@@ -76,7 +78,13 @@ class Optimizer:
 
     # -- state --------------------------------------------------------------
     def _zeros(self, p):
-        return torch.zeros(p._value.shape, dtype=torch.float32,
+        v = p._value
+        dt = dtensor_class()
+        if dt is not None and isinstance(v, dt):
+            # a DTensor parameter's moments take its placements
+            # (auto_parallel.shard_optimizer)
+            return torch.zeros_like(v, dtype=torch.float32)
+        return torch.zeros(v.shape, dtype=torch.float32,
                            device=to_torch_device())
 
     def _init_state(self, p) -> dict:

@@ -67,7 +67,10 @@ def load_params_from_paddle_tpu(module, named):
     parameters of the same names, in place; the names and shapes must
     match. ``module`` is a torch module or an eager Layer (the GPT and BERT
     models carry over so: both packages name their parameters alike and
-    keep Linear weights [in, out]). Returns ``module``."""
+    keep Linear weights [in, out]). An eager parameter placed by
+    ``distributed.shard_tensor`` (a DTensor value) takes this rank's shard
+    of the full array, every rank passing the same state (auto-parallel:
+    the CPU tests load the reference's weights so). Returns ``module``."""
     own = dict(module.named_parameters())
     if set(named) != set(own):
         raise KeyError(f"parameter names differ: missing "

@@ -15,7 +15,9 @@ ranks' gradients, 1e-6 (the mean taken by the all-reduce, in another
 order); the eager Llama as tests/test_torch_eager_llama.py holds the
 one-process f32 model: the loss within 1e-5 relative, the parameters after
 one step within 1e-4 of their largest magnitude plus a tenth of the
-learning rate.
+learning rate. The eager Llama is held with tied word embeddings too (the
+vocab-sharded table as the head): the table's gradient, the lookup's and
+the head's summed, within 1e-4 of its largest magnitude.
 """
 import os
 import pickle
@@ -157,9 +159,11 @@ def _jax_single_process():
     jtopology.set_hybrid_communicate_group(saved)
 
 
+@pytest.mark.parametrize("tied", [False, True])
 def test_eager_llama_mp2_dp2_matches_jax_eager_model(tmp_path,
-                                                     _jax_single_process):
-    cfg = dict(vars(JL.LLAMA_PRESETS["debug"]))
+                                                     _jax_single_process,
+                                                     tied):
+    cfg = dict(vars(JL.LLAMA_PRESETS["debug"]), tie_word_embeddings=tied)
     lr = 1e-3
     jpaddle.seed(0)
     jm = JL.LlamaForCausalLM(JL.LlamaConfig(**cfg))
@@ -168,13 +172,21 @@ def test_eager_llama_mp2_dp2_matches_jax_eager_model(tmp_path,
     ids = rng.randint(0, cfg["vocab_size"], (4, 32)).astype(np.int64)
     labels = np.roll(ids, -1, 1).astype(np.int64)
     got = _spawn(W.eager_llama, tmp_path, cfg, state, ids, labels, lr)[0]
-    assert got["kinds"] == ["ColumnParallelLinear", "Linear",
-                            "RowParallelLinear", "VocabParallelEmbedding"]
+    # tied: no head of its own (lm_head None), the table is the head
+    assert got["kinds"] == sorted(["ColumnParallelLinear",
+                                   "NoneType" if tied else "Linear",
+                                   "RowParallelLinear",
+                                   "VocabParallelEmbedding"])
     opt = jpaddle.optimizer.AdamW(
         learning_rate=lr, parameters=jm.parameters(), weight_decay=0.1,
         grad_clip=jpaddle.nn.ClipGradByGlobalNorm(1.0))
     loss = jm(jpaddle.to_tensor(ids), labels=jpaddle.to_tensor(labels))
     loss.backward()
+    # the table's gradient: the lookup's plus, tied, the head's
+    table_grad = np.asarray(jm.model.embed_tokens.weight.grad.numpy())
+    np.testing.assert_allclose(
+        got["table_grad"], table_grad, rtol=0,
+        atol=1e-4 * float(np.abs(table_grad).max()))
     opt.step()
     np.testing.assert_allclose(got["loss"], float(loss.numpy()), rtol=1e-5)
     after = {n: np.asarray(p.numpy()) for n, p in jm.named_parameters()}

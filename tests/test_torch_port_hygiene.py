@@ -76,6 +76,9 @@ def test_import_leaves_jax_unloaded():
             "import paddle_tpu_torch.ops.yaml_extra, paddle_tpu_torch.jit; "
             "import paddle_tpu_torch.distributed.fleet.trainer; "
             "import paddle_tpu_torch.ops.kernels.flash_attention; "
+            "import paddle_tpu_torch.distributed.auto_parallel; "
+            "import paddle_tpu_torch.distributed.store; "
+            "import paddle_tpu_torch.distributed.launch.main; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -113,3 +116,23 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     opt = paddle.optimizer.AdamW(parameters=[p], learning_rate=0.1)
     with pytest.raises(RuntimeError, match="CUDA"):
         opt.step()                            # the moments' default place
+
+
+def test_launcher_engine_and_device_mesh_default_to_cuda():
+    # one worker a card and NCCL by default: without CUDA each raises
+    # instead of falling back to CPU workers or gloo
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.launch import main as launch
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch.Controller(launch.parse_args(["train.py"]))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        dist.init_parallel_env()
+    mesh = dist.ProcessMesh([0], dim_names=["dp"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.to_device_mesh()
+    engine = dist.auto_parallel.Engine(paddle.nn.Layer())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.prepare(mesh=mesh)

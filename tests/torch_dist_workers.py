@@ -534,6 +534,7 @@ def eager_llama(out_dir, cfg_dict, state, ids, labels, lr):
              type(model.model.layers[0].self_attn.q_proj).__name__,
              type(model.model.layers[0].mlp.down_proj).__name__,
              type(model.lm_head).__name__}
+    table = model.model.embed_tokens.weight
     model = fleet.distributed_model(model)
     opt = fleet.distributed_optimizer(optimizer.AdamW(
         learning_rate=lr, parameters=model.parameters(), weight_decay=0.1,
@@ -543,15 +544,23 @@ def eager_llama(out_dir, cfg_dict, state, ids, labels, lr):
     loss = model(paddle.to_tensor(ids[r * rows:(r + 1) * rows]),
                  labels=paddle.to_tensor(labels[r * rows:(r + 1) * rows]))
     loss.backward()
+    mp = hcg.get_model_parallel_group()
+    # the table's gradient (with tied embeddings: the lookup's and the
+    # head's), whole over mp and averaged over dp (the global batch's)
+    from paddle_tpu_torch.distributed.fleet.layers.mpu.mp_ops import \
+        gather_along
+
+    g = gather_along(table._value.grad, mp, 0).clone()
+    dist.all_reduce(g, op="avg", group=hcg.get_data_parallel_group())
     opt.step()
     opt.clear_grad()
     total = loss.detach()._value.clone()
     dist.all_reduce(total, op="avg", group=hcg.get_data_parallel_group())
-    mp = hcg.get_model_parallel_group()
     params = {name: _gathered(p, mp) for name, p in model.named_parameters()}
     if rank == 0:
         _dump(out_dir, rank, {"loss": float(total), "params": params,
-                              "kinds": sorted(kinds)})
+                              "kinds": sorted(kinds),
+                              "table_grad": g.numpy()})
     dist.destroy_process_group()
 
 
@@ -1299,5 +1308,218 @@ def group_sharded(out_dir, cfg_dict, state, batches, lr, jobs):
         out["local"] = {k: p._value.numel()
                         for k, p in model.named_parameters()}
         res[job["name"]] = out
+    _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# auto-parallel (DTensor)
+# ---------------------------------------------------------------------------
+
+def _ap_model(cfg_dict, params, unused=False, frozen=()):
+    """BertForSequenceClassification (4 classes) on a 2 x 2 dp x mp
+    ProcessMesh: the FFN weights sharded on mp as tests/
+    test_static_engine.py places them, then the reference's parameters
+    loaded into the DTensors (each rank keeps its shard)."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.utils import load_params_from_paddle_tpu
+
+    model = TB.BertForSequenceClassification(TB.BertConfig(**cfg_dict),
+                                             num_classes=4)
+    if unused:
+        model.unused = nn.Linear(4, 4)       # a leaf the loss does not reach
+    mesh = dist.ProcessMesh(np.arange(4).reshape(2, 2),
+                            dim_names=["dp", "mp"])
+    for name, p in model.named_parameters():
+        if "linear1.weight" in name:
+            dist.shard_tensor(p, mesh, [dist.Replicate(), dist.Shard(1)])
+        elif "linear2.weight" in name:
+            dist.shard_tensor(p, mesh, [dist.Replicate(), dist.Shard(0)])
+    load_params_from_paddle_tpu(model, {
+        k: v for k, v in params.items()
+        if unused or not k.startswith("unused.")})
+    for name, p in model.named_parameters():
+        if name in frozen:
+            p.stop_gradient = True
+    return model, mesh
+
+
+class _CE:
+    def __init__(self):
+        from paddle_tpu_torch import nn
+
+        self.ce = nn.CrossEntropyLoss()
+
+    def __call__(self, logits, label):
+        return self.ce(logits, label)
+
+
+def _ap_engine(cfg_dict, params, lr, clip=None, **kw):
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import optimizer
+
+    model, mesh = _ap_model(cfg_dict, params, **kw)
+    opt = optimizer.AdamW(learning_rate=lr, parameters=model.parameters(),
+                          grad_clip=None if clip is None else
+                          optimizer.ClipGradByGlobalNorm(clip))
+    engine = dist.auto_parallel.Engine(model, loss=_CE(), optimizer=opt)
+    engine.prepare(mesh=mesh)
+    return engine, model, opt
+
+
+def _ap_state(engine):
+    """Losses aside: the full parameters and moments of the Engine."""
+    from paddle_tpu_torch.core.tensor import full_value
+
+    params = {k: full_value(v).detach().numpy().copy()
+              for k, v in engine._params.items()}
+    moments = {k: {sk: full_value(sv).numpy().copy()
+                   for sk, sv in st.items()}
+               for k, st in engine._opt_states.items()}
+    return params, moments
+
+
+def auto_parallel(out_dir, cfg_dict, params, batches, lr, attn):
+    """The auto-parallel jobs at 4 gloo ranks on a 2 x 2 dp x mp mesh:
+    Engine steps (plain, and with a frozen and an unreached leaf),
+    state_dict mid-training, save/load, evaluate/predict, to_static's
+    DistModel, reshard/unshard, and SDPA over dp-sharded DTensors."""
+    dist, rank = _start()
+    import paddle_tpu_torch as paddle
+
+    paddle.set_device("cpu")
+    res = {"placements": None}
+
+    def batch(i):
+        x, y = batches[i]
+        return paddle.to_tensor(x), paddle.to_tensor(y)
+
+    # Engine parity: 3 steps
+    engine, model, _ = _ap_engine(cfg_dict, params, lr)
+    res["placements"] = {
+        k: [type(p).__name__ + (f"({p.dim})" if p.is_shard() else "")
+            for p in v.placements]
+        for k, v in engine._params.items() if "layers.0." in k}
+    res["losses"] = [float(engine.run_step(*batch(i)).numpy())
+                     for i in range(3)]
+    res["params"], res["moments"] = _ap_state(engine)
+    res["step_count"] = engine.optimizer._step_count
+    # evaluate / predict, and to_static's DistModel in eval and train mode
+    res["eval"] = engine.evaluate([batch(3)])["loss"]
+    res["predict"] = engine.predict([(batch(3)[0],)])[0]
+    res["cost"] = engine.cost_analysis(*batch(0))
+    try:
+        engine.dist_main_program("train", *batch(0))
+    except NotImplementedError as e:
+        res["program"] = str(e)
+    model2, mesh = _ap_model(cfg_dict, params)
+    from paddle_tpu_torch import optimizer
+
+    opt2 = optimizer.AdamW(learning_rate=lr, parameters=model2.parameters())
+    dm = dist.to_static(model2, loss=_CE(), optimizer=opt2, mesh=mesh)
+    res["dm_train"] = [float(dm(*batch(i)).numpy()) for i in range(2)]
+    dm.eval()
+    res["dm_eval"] = float(dm(*batch(3)).numpy())
+    dm.train()
+    res["dm_train"].append(float(dm(*batch(2)).numpy()))
+    sd = dm.state_dict()
+    res["dm_state_names"] = sorted(sd)
+
+    # the global-norm clip over the sharded gradients
+    engine, model, _ = _ap_engine(cfg_dict, params, lr, clip=0.05)
+    res["clip_losses"], res["clip_norms"] = [], []
+    for i in range(3):
+        res["clip_losses"].append(float(engine.run_step(*batch(i)).numpy()))
+        res["clip_norms"].append(float(engine.last_grad_norm))
+    res["clip_params"], _ = _ap_state(engine)
+
+    # frozen embedding and an unreached leaf
+    frozen = ("bert.embeddings.word_embeddings.weight",)
+    engine, model, _ = _ap_engine(cfg_dict, params, lr, unused=True,
+                                  frozen=frozen)
+    res["fz_losses"] = [float(engine.run_step(*batch(i)).numpy())
+                        for i in range(3)]
+    sd = engine.state_dict()
+    res["fz_params"] = {k: v.numpy() for k, v in sd.items()}
+
+    # state_dict mid-training, then continue; save, load, resume
+    engine, model, _ = _ap_engine(cfg_dict, params, lr)
+    engine.run_step(*batch(0))
+    sd = {k: v.numpy() for k, v in engine.state_dict().items()}
+    engine.run_step(*batch(1))
+    res["mid_sd"] = sd
+    res["mid_after"] = {k: v.numpy()
+                        for k, v in model.state_dict().items()}
+    path = os.path.join(out_dir, "ckpt")
+    engine.save(path, training=True)
+    fresh, _, _ = _ap_engine(cfg_dict, params, lr)
+    fresh.load(path)
+    res["resumed_loss"] = float(fresh.run_step(*batch(2)).numpy())
+    res["resumed_params"], res["resumed_moments"] = _ap_state(fresh)
+
+    # fit steps the caller's scheduler after each step (reference
+    # static_engine.py:235-255); a mesh that is not the world's raises
+    class Halving:
+        def __init__(self):
+            self.lr, self.steps = lr, 0
+
+        def __call__(self):
+            return self.lr
+
+        def step(self):
+            self.lr, self.steps = self.lr / 2, self.steps + 1
+
+    engine, model, opt = _ap_engine(cfg_dict, params, lr)
+    opt._learning_rate = sched = Halving()
+    history = engine.fit([batch(0), batch(1), batch(2)], epochs=1,
+                         verbose=0)
+    res["fit"] = (history, sched.steps, sched.lr)
+    try:
+        dist.ProcessMesh([0, 1], dim_names=["x"]).to_device_mesh()
+        res["bad_mesh"] = None
+    except ValueError as e:
+        res["bad_mesh"] = str(e)
+
+    # reshard / unshard, bit for bit
+    full = torch.from_numpy(np.arange(48, dtype=np.float32).reshape(8, 6)
+                            / 7.0)
+    t = dist.shard_tensor(paddle.Tensor(full.clone()), mesh,
+                          [dist.Shard(0), dist.Replicate()])
+    r1 = dist.reshard(t, mesh, [dist.Replicate(), dist.Replicate()])
+    r2 = dist.reshard(r1, mesh, [dist.Replicate(), dist.Shard(1)])
+    res["reshard"] = [tuple(t._value.to_local().shape),
+                      tuple(r1._value.to_local().shape),
+                      tuple(r2._value.to_local().shape)]
+    res["reshard_equal"] = all(
+        torch.equal(dist.unshard_dtensor(x)._value, full)
+        for x in (t, r1, r2)) and np.array_equal(r2.numpy(), full.numpy())
+
+    # attention on dp-sharded q, k, v (kernel shape: the plain versions)
+    q, k, v, g, p = attn
+    from paddle_tpu_torch.nn import functional as F
+
+    def run(sharded):
+        ts = [paddle.to_tensor(a) for a in (q, k, v)]
+        if sharded:
+            ts = [dist.shard_tensor(x, mesh, [dist.Shard(0),
+                                              dist.Replicate()])
+                  for x in ts]
+        for x in ts:
+            x.stop_gradient = False
+        paddle.seed(11)
+        out = F.scaled_dot_product_attention(*ts, dropout_p=p,
+                                             training=True)
+        gt = paddle.to_tensor(g)
+        if sharded:
+            gt = dist.shard_tensor(gt, mesh, [dist.Shard(0),
+                                              dist.Replicate()])
+        (out * gt).sum().backward()
+        return [out.numpy()] + [x.grad.numpy() for x in ts]
+
+    res["attn_sharded"], res["attn_plain"] = run(True), run(False)
+    p = 0.0
+    res["attn_nodrop"] = run(False)[0]
     _dump(out_dir, rank, res)
     dist.destroy_process_group()
