@@ -255,6 +255,21 @@ Phases, each of which fails the run with a non-zero exit:
      ms; at W = 1 the TrainStep step of 6c timed in turns with it. The
      launches are the "auto_parallel" path of the kernels line (the BERT
      D = 64 rows);
+  6h. vision, after the launcher (phase_vision): ResNet-50 as
+     bench.py::bench_resnet50 writes it (resnet50(num_classes=1000),
+     amp.decorate O2 bf16, Momentum(0.1, 0.9), TrainStep with
+     CrossEntropyLoss under auto_cast O1, batch 256 x 224 from
+     RandomState(0) staged once): a warm-up and 8 timed steps (step ms
+     median, fastest and slowest, images/s, the share of 989 TF/s from the
+     model's own conv and fc FLOPs x 3, peak memory over the phase's
+     start, the losses, finite), every hand-written kernel's counter 0;
+     MNIST LeNet through paddle_tpu_torch.Model (prepare, fit over the
+     synthetic MNIST at batch 64 with the data on the host, evaluate: wall
+     s, samples/s, ms a batch, the last loss and the accuracy); and the
+     card against the CPU in f32 (_vision_parity: ResNet-50 on running
+     statistics, its train-mode loss and running statistics, ResNet-18's
+     train-mode step, LeNet's fit losses). No kernel of the port is on
+     this path: conv and pooling are cuDNN's and PyTorch's ops;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
@@ -263,7 +278,10 @@ Phases, each of which fails the run with a non-zero exit:
      GPT-2 pretraining step (with their device time by kernel class), by
      torch.profiler, with the device kernels a replayed decode step
      launches in all (the artifact engine's too); the composition
-     rope_append replaced, its device time and kernels a call.
+     rope_append replaced, its device time and kernels a call; the
+     ResNet-50 step's device ms by kernel class (each kernel attributed to
+     the op, layer or autograd node that launched it) and busy share, and
+     the LeNet fit's busy share.
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
@@ -5699,6 +5717,501 @@ def phase_launch(dev, world, mesh):
                 launches_per_step=row["launches_per_step"])
 
 
+# ---------------------------------------------------------------------------
+# 6h. vision: ResNet-50 and MNIST LeNet
+# ---------------------------------------------------------------------------
+
+# bench.py::bench_resnet50's row on the card, not cut
+VISION_ROW = dict(batch=256, size=224, steps=8)
+# the card-against-CPU sizes (_vision_parity)
+VISION_PARITY = dict(batch=4, size=32, train_size=64)
+LENET_FIT = dict(batch_size=64, parity_batches=8)
+# card against CPU, f32 with TF32 off (the other training phases' bounds)
+VISION_LOSS_RTOL = 1e-4
+VISION_GRAD_SHARE = 1e-3
+VISION_PARAM_SHARE = 1e-3
+VISION_STATS_RTOL = 1e-3
+VISION_STATS_ATOL = 1e-5
+VISION_R18_STATS_TOL = 1e-5
+LENET_LOSS_RTOL = 1e-5
+# the ResNet-50 step's device kernels by class (profile phase): each
+# kernel is attributed to the op that launched it (the profiler's
+# correlation), that op's enclosing ranges (a "vision::<Layer>" range a
+# leaf layer's forward, "vision::Momentum" around the optimizer's step)
+# and, for the backward, autograd's "evaluate_function: <Node>" range
+VISION_LAYER_CLASS = {"Conv2D": "conv_fwd", "BatchNorm2D": "bn",
+                      "ReLU": "relu", "MaxPool2D": "pooling",
+                      "AdaptiveAvgPool2D": "pooling", "Linear": "fc",
+                      "CrossEntropyLoss": "loss", "Momentum": "momentum"}
+VISION_BACKWARD_CLASS = (
+    ("ConvolutionBackward", "conv_bwd"), ("_BatchNormTrainBackward", "bn"),
+    ("ReluBackward", "relu"), ("ThresholdBackward", "relu"),
+    ("ClampMinBackward", "relu"), ("AddBackward", "residual_add"),
+    ("ToCopyBackward", "amp_cast_copy"), ("MaxPool2DWithIndices", "pooling"),
+    ("AdaptiveAvgPool2DBackward", "pooling"), ("MmBackward", "fc"),
+    ("AddmmBackward", "fc"), ("MatmulBackward", "fc"))
+_COPY_OPS = ("aten::_to_copy", "aten::copy_", "aten::to")
+
+
+def _vision_kernel_class(chain, kernel):
+    """The class of one device kernel launched by the innermost op of
+    ``chain`` (the op's name, then its enclosing ops' and ranges')."""
+    if "nchwToNhwc" in kernel or "nhwcToNchw" in kernel:
+        return "layout_transpose"
+    node = next((n.split("evaluate_function: ", 1)[1] for n in chain
+                 if "evaluate_function: " in n), None)
+    if node is not None:
+        cls = next((c for sub, c in VISION_BACKWARD_CLASS if sub in node),
+                   "loss_other_backward")
+    else:
+        label = next((n.split("::", 1)[1] for n in chain
+                      if n.startswith("vision::")), None)
+        cls = VISION_LAYER_CLASS.get(label, "residual_add"
+                                     if chain[0] == "aten::add" else "other")
+        if cls != "momentum" and chain[0] in _COPY_OPS:
+            cls = "amp_cast_copy"
+    if cls == "bn":
+        cls = "bn_reduce" if "reduce_kernel" in kernel else "bn_elementwise"
+    elif cls == "conv_bwd":
+        cls = "conv_dgrad" if "dgrad" in kernel else "conv_wgrad" \
+            if "wgrad" in kernel else "conv_bwd_gemm"
+    return cls
+
+
+def _vision_profile(step, model, opt):
+    """{class: (launches, device ms)} of one profiled ``step``, each
+    leaf layer's forward inside a "vision::<class name>" range and the
+    optimizer's step inside "vision::Momentum"; the device ms the ops
+    claimed, and the step's device ms in all. The profiler's first
+    records are padded as profile_kernels pads them."""
+    from torch.autograd.profiler import record_function
+    from torch.profiler import ProfilerActivity, profile
+
+    ranges, hooks = [], []
+
+    def pre(layer, inputs):
+        r = record_function(f"vision::{type(layer).__name__}")
+        r.__enter__()
+        ranges.append(r)
+
+    def post(layer, inputs, out):
+        ranges.pop().__exit__(None, None, None)
+
+    for layer in model.sublayers():
+        if type(layer).__name__ in VISION_LAYER_CLASS:
+            hooks += [layer.register_forward_pre_hook(pre),
+                      layer.register_forward_post_hook(post)]
+    inner = opt.step
+
+    def opt_step():
+        with record_function("vision::Momentum"):
+            inner()
+
+    opt.step = opt_step
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_PAD_LAUNCHES):
+                torch.cuda._sleep(1)
+            step()
+            torch.cuda.synchronize()
+    finally:
+        del opt.step
+        for h in hooks:
+            h.remove()
+    out, claimed = {}, 0.0
+    for evt in prof.events():
+        if not evt.kernels:
+            continue
+        chain, e = [], evt
+        while e is not None:
+            chain.append(e.name)
+            e = e.cpu_parent
+        for k in evt.kernels:
+            if "spin_kernel" in k.name:
+                continue
+            cls = _vision_kernel_class(chain, k.name)
+            n, ms = out.get(cls, (0, 0.0))
+            out[cls] = (n + 1, ms + k.duration / 1e3)
+            claimed += k.duration / 1e3
+    total = sum(evt.self_device_time_total for evt in prof.key_averages()
+                if _is_device_kernel_row(evt)
+                and "spin_kernel" not in evt.key) / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1][1])), claimed, \
+        total
+
+
+def _forward_flops(paddle, model, size):
+    """2 x the multiply-adds of one image's forward at ``size``, from the
+    model's own conv and fc shapes (forward post hooks on every Conv2D
+    and Linear, one eval forward of a batch of 1)."""
+    macs = []
+
+    def hook(layer, inputs, out):
+        if isinstance(layer, paddle.nn.Conv2D):
+            k = layer.weight.shape
+            macs.append(out.size * k[1] * k[2] * k[3])
+        else:
+            macs.append(layer.weight.shape[0] * layer.weight.shape[1])
+
+    hooks = [l.register_forward_post_hook(hook)
+             for l in model.sublayers()
+             if isinstance(l, (paddle.nn.Conv2D, paddle.nn.Linear))]
+    model.eval()
+    with paddle.no_grad():
+        model(paddle.to_tensor(np.zeros((1, 3, size, size), np.float32)))
+    model.train()
+    for h in hooks:
+        h.remove()
+    return 2 * sum(macs), len(macs)
+
+
+def _zero_kernel_counts(counts, what):
+    """The port's hand-written kernels must not launch on a vision path
+    (the counters stay 0, so nothing else is timed by mistake)."""
+    bad = {k: v for k, v in counts.items() if v}
+    if bad:
+        raise AssertionError(f"{what}: hand-written kernels launched {bad}")
+
+
+def phase_vision(dev):
+    """The vision slice on the card. ResNet-50 as bench.py::bench_resnet50
+    writes it, at full size: resnet50(num_classes=1000) from seed 0,
+    amp.decorate O2 bf16 (batch norms f32), Momentum(0.1, 0.9),
+    TrainStep with CrossEntropyLoss, each step under auto_cast O1 bf16,
+    batch 256 x 3 x 224 x 224 from RandomState(0) staged once on the card;
+    a warm-up, then VISION_ROW["steps"] timed steps (step ms median,
+    fastest and slowest, images/s, the share of 989 TF/s from the model's
+    own conv and fc FLOPs x 3, peak memory over the phase's start, the
+    losses, finite); the hand-written kernels' counters stay 0. Then MNIST
+    LeNet through paddle_tpu_torch.Model: prepare(Adam(1e-3),
+    CrossEntropyLoss(), Accuracy()), fit(vision.datasets.MNIST("train"),
+    batch_size=64, epochs=1, verbose=0) (4096 synthetic samples, data on
+    the host, the model on the card; wall s, samples/s, ms a batch, the
+    last loss), then evaluate(MNIST("test")). Then the card against the
+    CPU (_vision_parity). Device busy shares and the step's device ms by
+    kernel class come from the profile phase."""
+    import gc
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+
+    b, size, steps = (VISION_ROW[k] for k in ("batch", "size", "steps"))
+    paddle.set_device("gpu:0")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    paddle.seed(0)
+    model = resnet50(num_classes=1000)
+    fwd_flops, n_layers = _forward_flops(paddle, model, size)
+    model = paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+    dtypes = {(type(l).__name__ == "BatchNorm2D", p.dtype)
+              for l in model.sublayers(include_self=True)
+              for p in l._parameters.values() if p is not None}
+    if dtypes != {(True, torch.float32), (False, torch.bfloat16)}:
+        raise AssertionError(f"resnet50: O2 parameter dtypes {dtypes}")
+    opt = paddle.optimizer.Momentum(parameters=model.parameters(),
+                                    learning_rate=0.1, momentum=0.9)
+    train_step = TrainStep(model, paddle.nn.CrossEntropyLoss(), opt)
+    rng = np.random.RandomState(0)
+    x = paddle.to_tensor(rng.randn(b, 3, size, size).astype(np.float32))
+    y = paddle.to_tensor(rng.randint(0, 1000, (b,)).astype(np.int64))
+
+    def step():
+        with paddle.amp.auto_cast(True, level="O1", dtype="bfloat16"):
+            return train_step(x, y)
+
+    n_params = sum(p.size for p in model.parameters())
+    t = time.perf_counter()
+    warm = float(step())
+    log(f"resnet50: {n_params / 1e6:.2f}M parameters, {n_layers} conv/fc "
+        f"layers, {fwd_flops / 1e9:.3f} GFLOP a 224 image forward; warm-up "
+        f"step {time.perf_counter() - t:.2f} s, loss {warm:.4f}")
+    reset_launch_counts()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = step()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    counts = launch_counts()
+    _zero_kernel_counts(counts, "resnet50")
+    peak = torch.cuda.max_memory_allocated(dev)
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f"resnet50 losses not finite: {warm} {losses}")
+    ms = statistics.median(step_ms)
+    ips = b / (ms / 1e3)
+    step_flops = 3 * fwd_flops * b
+    metrics = {"batch": b, "image_size": size, "steps": steps,
+               "n_params": n_params, "step_ms": step_ms,
+               "step_ms_median": ms, "step_ms_min": min(step_ms),
+               "step_ms_max": max(step_ms), "images_per_s": ips,
+               "forward_flops_per_image": fwd_flops,
+               "train_flops_per_step": step_flops,
+               "share_of_989_tflops": step_flops / (ms / 1e3)
+               / BF16_OPS_PER_S,
+               "warmup_loss": warm, "losses": losses,
+               "peak_memory_gb": peak / 1e9,
+               "peak_over_start_gb": (peak - start) / 1e9,
+               "hand_written_kernel_launches": counts}
+    log(json.dumps({"resnet50": metrics}))
+
+    # MNIST LeNet through Model: host data, the model on the card
+    paddle.seed(0)
+    lenet = paddle.Model(LeNet())
+    lenet.prepare(paddle.optimizer.Adam(learning_rate=1e-3,
+                                        parameters=lenet.parameters()),
+                  paddle.nn.CrossEntropyLoss(), paddle.metric.Accuracy())
+    train = paddle.vision.datasets.MNIST(mode="train")
+    seen = []
+    record = type("Record", (paddle.callbacks.Callback,), {
+        "on_train_batch_end": lambda s, i, logs=None:
+        seen.append(logs["loss"])})()
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    lenet.fit(train, batch_size=LENET_FIT["batch_size"], epochs=1,
+              verbose=0, callbacks=[record])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    logs = lenet.evaluate(paddle.vision.datasets.MNIST(mode="test"),
+                          batch_size=LENET_FIT["batch_size"], verbose=0)
+    _zero_kernel_counts(launch_counts(), "lenet fit")
+    if not (len(seen) == len(train) // LENET_FIT["batch_size"]
+            and np.isfinite(seen).all() and np.isfinite(logs["loss"])):
+        raise AssertionError(f"lenet fit: {len(seen)} batches, {logs}")
+    if lenet.network.parameters()[0]._value.device.type != "cuda":
+        raise AssertionError("lenet: the model is not on the card")
+    lenet_metrics = {"samples": len(train), "batches": len(seen),
+                     "fit_wall_s": wall,
+                     "samples_per_s": len(train) / wall,
+                     "ms_per_batch": wall / len(seen) * 1e3,
+                     "first_loss": seen[0], "last_loss": seen[-1],
+                     "eval": {k: float(v) for k, v in logs.items()}}
+    log(json.dumps({"lenet_fit": lenet_metrics}))
+    parity = _vision_parity(dev)
+    return dict(metrics=metrics, lenet=lenet_metrics, parity=parity,
+                step=step, model=model, opt=opt, lenet_model=lenet,
+                lenet_data=train)
+
+
+def _vision_state(layer):
+    return {k: v._value.detach().cpu().clone()
+            for k, v in layer.state_dict().items()}
+
+
+def _vision_share(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max()
+                 / max(float(want.abs().max()), 1e-30))
+
+
+def _resnet_on(paddle, device, state, depth=50):
+    from paddle_tpu_torch.vision import models
+
+    paddle.set_device(device)
+    m = getattr(models, f"resnet{depth}")(num_classes=10)
+    m.set_state_dict(state)
+    return m
+
+
+def _vision_grads(paddle, model, x, y, train):
+    model.train() if train else model.eval()
+    loss = paddle.nn.CrossEntropyLoss()(model(paddle.to_tensor(x)),
+                                        paddle.to_tensor(y))
+    loss.backward()
+    grads = {n: p.grad._value.detach().cpu().clone()
+             for n, p in model.named_parameters()}
+    model.clear_gradients()
+    return float(loss), grads
+
+
+def _vision_steps(paddle, model, x, y, train, steps):
+    """``steps`` Momentum TrainStep steps: the losses, the state after
+    them, and the velocities after the first (its gradients: no decay)."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    opt = paddle.optimizer.Momentum(learning_rate=0.1, momentum=0.9,
+                                    parameters=model.parameters())
+    step = TrainStep(model, paddle.nn.CrossEntropyLoss(), opt, train=train)
+    names = {id(p): n for n, p in model.named_parameters()}
+    losses, grads = [], None
+    for _ in range(steps):
+        losses.append(float(step(paddle.to_tensor(x), paddle.to_tensor(y))))
+        if grads is None:
+            grads = {names[id(p)]: opt._accumulators[id(p)]["velocity"]
+                     .cpu().clone() for p in opt._parameter_list}
+    return losses, _vision_state(model), grads
+
+
+def _vision_parity(dev):
+    """The card against the CPU, f32 with TF32 off. ResNet-50
+    (num_classes=10) from one seed at batch 4 x 32 x 32 with its batch
+    norms on their running statistics: the loss within 1e-4 relative,
+    every gradient within 1e-3 of its leaf's largest magnitude, and after
+    2 Momentum TrainStep steps (train=False) the losses, every parameter
+    within 1e-3 of its largest magnitude and the buffers unchanged. On
+    batch statistics a freshly drawn ResNet-50's f32 gradients are
+    ill-conditioned (tools/torch_vision_conditioning.py on the CPU, f32
+    against float64: 54% and 14% of a leaf's largest magnitude at the
+    worst leaf, batch 4 at 32 x 32 and 64 x 64), so its train-mode step at
+    batch 4 x 64 x 64 holds the loss (1e-4 relative) and the running
+    statistics it leaves (1e-3 relative, 1e-5 absolute); and ResNet-18,
+    the family's BasicBlock member, takes the train-mode bounds at batch
+    4 x 64 x 64 for one Momentum step (f32 within 6.2e-6 of float64 there;
+    2.0e-3 after a second step of lr 0.1): the loss within 1e-4
+    relative, every gradient (the step's velocities) within 1e-3 of its
+    leaf's largest magnitude, every parameter after it within 1e-3 and
+    the running statistics within 1e-5 (relative and absolute).
+    LeNet: the per-batch losses of 8
+    batches of Model.fit(shuffle=False) from the same weights within
+    1e-5 relative. The CPU passes run on one thread (one_cpu_thread), the
+    card's ResNet passes under ``cudnn.deterministic`` (restored after):
+    with the algorithms cuDNN picks by default, 1 of 4 repeats of the
+    2-step check put layer3.2.bn1.bias 1.4e-3 of its largest magnitude
+    off, every other repeat and every repeat with deterministic
+    algorithms or without cuDNN 1e-6 (tools/torch_vision_probe.py
+    steps)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.vision.models import LeNet, resnet18, resnet50
+
+    bsz, size, tsize = (VISION_PARITY[k] for k in
+                        ("batch", "size", "train_size"))
+    rng = np.random.RandomState(1)
+    x = rng.randn(bsz, 3, size, size).astype(np.float32)
+    y = rng.randint(0, 10, (bsz,)).astype(np.int64)
+    xt = rng.randn(bsz, 3, tsize, tsize).astype(np.float32)
+    yt = rng.randint(0, 10, (bsz,)).astype(np.int64)
+    paddle.set_device("cpu")
+    paddle.seed(3)
+    state = _vision_state(resnet50(num_classes=10))
+    state18 = _vision_state(resnet18(num_classes=10))
+    out, worst = {}, {}
+
+    def runs(device):
+        return {"eval": _vision_grads(
+            paddle, _resnet_on(paddle, device, state), x, y, False),
+            "steps": _vision_steps(paddle, _resnet_on(
+                paddle, device, state), x, y, False, 2),
+            "train": _vision_steps(paddle, _resnet_on(
+                paddle, device, state), xt, yt, True, 1),
+            "r18": _vision_steps(paddle, _resnet_on(
+                paddle, device, state18, 18), xt, yt, True, 1)}
+
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        with one_cpu_thread():
+            cpu = runs("cpu")
+        torch.backends.cudnn.deterministic = True
+        card = runs("gpu:0")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        paddle.set_device("gpu:0")
+    (cl, cg), (gl, gg) = cpu["eval"], card["eval"]
+    out["eval_loss_rel"] = abs(gl - cl) / abs(cl)
+    worst["eval_grad"] = max((_vision_share(gg[k], v), k)
+                             for k, v in cg.items())
+    (cls, cs, _), (gls, gs, _) = cpu["steps"], card["steps"]
+    out["steps_loss_rel"] = max(abs(a - c) / abs(c)
+                                for a, c in zip(gls, cls))
+    worst["steps_param"] = max((_vision_share(gs[k], v), k)
+                               for k, v in cs.items()
+                               if not k.endswith(("_mean", "_variance")))
+    buffers_kept = all(torch.equal(gs[k], state[k]) for k in state
+                       if k.endswith(("_mean", "_variance")))
+
+    def stats_off(got, want, rtol, atol):
+        return [k for k, v in want.items()
+                if k.endswith(("_mean", "_variance")) and not torch.allclose(
+                    got[k].double(), v.double(), rtol=rtol, atol=atol)]
+
+    (tl, ts, _), (gtl, gts, _) = cpu["train"], card["train"]
+    out["train_loss_rel"] = abs(gtl[0] - tl[0]) / abs(tl[0])
+    stats_bad = stats_off(gts, ts, VISION_STATS_RTOL, VISION_STATS_ATOL)
+    (rl, rs, rg), (grl, grs, grg) = cpu["r18"], card["r18"]
+    out["r18_loss_rel"] = abs(grl[0] - rl[0]) / abs(rl[0])
+    worst["r18_grad"] = max((_vision_share(grg[k], v), k)
+                            for k, v in rg.items())
+    worst["r18_param"] = max((_vision_share(grs[k], v), k)
+                             for k, v in rs.items()
+                             if not k.endswith(("_mean", "_variance")))
+    worst["r18_stats"] = max((_vision_share(grs[k], v), k)
+                             for k, v in rs.items()
+                             if k.endswith(("_mean", "_variance")))
+    r18_stats_bad = stats_off(grs, rs, VISION_R18_STATS_TOL,
+                              VISION_R18_STATS_TOL)
+
+    # LeNet: 8 batches of fit, shuffle off, from the same weights
+    paddle.set_device("cpu")
+    paddle.seed(5)
+    lstate = _vision_state(LeNet())
+    lenet_losses = {}
+    try:
+        for device in ("cpu", "gpu:0"):
+            paddle.set_device(device)
+            net = LeNet()
+            net.set_state_dict(lstate)
+            model = paddle.Model(net)
+            model.prepare(paddle.optimizer.Adam(
+                learning_rate=1e-3, parameters=model.parameters()),
+                paddle.nn.CrossEntropyLoss())
+            seen = []
+            record = type("Record", (paddle.callbacks.Callback,), {
+                "on_train_batch_end": lambda s, i, logs=None:
+                seen.append(logs["loss"])})()
+            ctx = one_cpu_thread() if device == "cpu" else \
+                contextlib.nullcontext()
+            with ctx:
+                model.fit(paddle.vision.datasets.MNIST(mode="train"),
+                          batch_size=LENET_FIT["batch_size"], epochs=1,
+                          verbose=0, shuffle=False, callbacks=[record],
+                          num_iters=LENET_FIT["parity_batches"])
+            lenet_losses[device] = seen
+    finally:
+        paddle.set_device("gpu:0")
+    out["lenet_loss_rel"] = max(
+        abs(a - c) / abs(c) for a, c in zip(lenet_losses["gpu:0"],
+                                            lenet_losses["cpu"]))
+    out["worst"] = {k: {"share": v[0], "leaf": v[1]}
+                    for k, v in worst.items()}
+    log(json.dumps({"vision_parity": out}))
+    fails = []
+    if out["eval_loss_rel"] > VISION_LOSS_RTOL:
+        fails.append("eval loss")
+    if worst["eval_grad"][0] > VISION_GRAD_SHARE:
+        fails.append(f"gradient {worst['eval_grad']}")
+    if out["steps_loss_rel"] > VISION_LOSS_RTOL:
+        fails.append("step losses")
+    if worst["steps_param"][0] > VISION_PARAM_SHARE:
+        fails.append(f"parameter {worst['steps_param']}")
+    if not buffers_kept:
+        fails.append("running statistics moved with train=False")
+    if out["train_loss_rel"] > VISION_LOSS_RTOL:
+        fails.append("train-mode loss")
+    if stats_bad:
+        fails.append(f"running statistics {stats_bad[:4]}")
+    if out["r18_loss_rel"] > VISION_LOSS_RTOL:
+        fails.append("resnet18 loss")
+    if worst["r18_grad"][0] > VISION_GRAD_SHARE:
+        fails.append(f"resnet18 gradient {worst['r18_grad']}")
+    if worst["r18_param"][0] > VISION_PARAM_SHARE:
+        fails.append(f"resnet18 parameter {worst['r18_param']}")
+    if r18_stats_bad:
+        fails.append(f"resnet18 running statistics {r18_stats_bad[:4]}")
+    if len(lenet_losses["gpu:0"]) != LENET_FIT["parity_batches"] or \
+            out["lenet_loss_rel"] > LENET_LOSS_RTOL:
+        fails.append(f"lenet losses {lenet_losses}")
+    if fails:
+        raise AssertionError(f"vision parity: {fails}")
+    return out
+
+
 KERNEL_CLASSES = (
     ("attention", ("flash_", "varlen_")),
     ("gemm", ("nvjet", "gemm", "cutlass", "xmma", "sm90_")),
@@ -5732,7 +6245,7 @@ def _kernels_a_step(prof, steps):
 
 
 def phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream, artifact, eager, pretrain):
+                  stream, artifact, eager, pretrain, vision):
     """Under torch.profiler, last (the profiler stays attached to the
     process once started, and would slow what follows): each kernel's
     device time, and the device time of one fresh-prefill step, of one
@@ -5748,7 +6261,10 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
     RMSNorm 2L + 1, paged attention and RoPE-and-append L times a step and
     the varlen forward never. Each decode window's device kernels a step,
     in all, are logged. A probe with no kernel symbol (a
-    composition of tensor ops) records its device kernels a call too."""
+    composition of tensor ops) records its device kernels a call too. The
+    ResNet-50 step's device ms by kernel class (_vision_profile) and busy
+    share, and the LeNet fit's busy share (a second epoch profiled against
+    the first's wall time)."""
     from paddle_tpu_torch.inference import ServingEngine
 
     for name, (fn, symbol, calls, target) in probes.items():
@@ -5865,7 +6381,27 @@ def phase_profile(dev, serving, training, packed, kernels, probes, int8,
             f"{pretrain_prof[kind]['device_ms_by_class']}")
     pm = packed["metrics"]
     packed_ms, packed_top = summary(profile_kernels(packed["step"]), 1)
+    vm = vision["metrics"]
+    prof_v = profile_kernels(vision["step"])
+    resnet_ms, resnet_top = summary(prof_v, 1)
+    classes, claimed, total = _vision_profile(
+        vision["step"], vision["model"], vision["opt"])
+    log(f"profile: resnet50 step device ms by kernel class {classes} "
+        f"({claimed:.3f} of {total:.3f} ms attributed to an op)")
+    lm = vision["lenet"]
+    prof_l = profile_kernels(lambda: vision["lenet_model"].fit(
+        vision["lenet_data"], batch_size=LENET_FIT["batch_size"], epochs=1,
+        verbose=0))
+    lenet_ms, lenet_top = summary(prof_l, 1)
     prof = {
+        "resnet50": {"step_device_ms": resnet_ms,
+                     "device_busy": resnet_ms / vm["step_ms_median"],
+                     "device_kernels_a_step": _kernels_a_step(prof_v, 1),
+                     "device_ms_by_class": classes,
+                     "attributed_ms": claimed, "top": resnet_top},
+        "lenet_fit": {"fit_device_ms": lenet_ms,
+                      "device_busy": lenet_ms / (lm["fit_wall_s"] * 1e3),
+                      "top": lenet_top},
         "pretrain": pretrain_prof,
         "eager_training_step_device_ms": eager_ms,
         "eager_training_device_busy": eager_ms / em["step_ms_median"],
@@ -7459,8 +7995,9 @@ def main():
     phase_moe(dev)
     hybrid = phase_hybrid(dev)
     launch = phase_launch(dev, 1, (1, 1))
+    vision = phase_vision(dev)
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
-                  stream, artifact, eager, pretrain)
+                  stream, artifact, eager, pretrain, vision)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
                "packed_training": packed["counts"],

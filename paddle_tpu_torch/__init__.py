@@ -18,7 +18,12 @@ eager (dygraph) surface: Tensor over a torch tensor, the op funnel
 the eager models.llama.LlamaForCausalLM with its training loop and
 generate, and hybrid parallelism over torch.distributed (distributed:
 collectives, Fleet, the tensor-parallel layers, ZeRO stage 1, and
-HybridTrainer over a dp x sharding x mp mesh, one process a card). The
+HybridTrainer over a dp x sharding x mp mesh, one process a card), and
+the vision slice: conv, pooling and batch norm (nn.functional and their
+Layers; cuDNN's and PyTorch's own ops, none of them a Pallas kernel in the
+reference), Momentum with the LR schedulers (optimizer.lr) and the
+regularizers, io (datasets, samplers, DataLoader), save / load, metric,
+hapi.Model, and vision (the datasets, LeNet, the ResNet family). The
 eager surface creates tensors on the default place,
 "gpu:0"; ``set_device("cpu")`` selects the CPU.
 """
@@ -30,9 +35,13 @@ from .core.dispatch import set_flags
 from .core.place import CPUPlace, CUDAPlace, Place, get_device, set_device
 from .core.tensor import Parameter, Tensor
 from .ops import *  # noqa: F401,F403
-from . import (amp, distributed, framework, incubate, inference, jit,
-               models, nn, ops, optimizer, utils)
+from . import (amp, distributed, framework, hapi, incubate, inference, io,
+               jit, metric, models, nn, ops, optimizer, regularizer, utils,
+               vision)
+from .framework.io import async_save, clear_async_save_task_queue, load, save
 from .framework.random import get_rng_state, seed, set_rng_state
+from .hapi import callbacks
+from .hapi.model import Model
 from .ops.kernels import launch_counts, reset_launch_counts, resolve_device
 
 bool = bool_  # paddle.bool

@@ -1,6 +1,6 @@
 """AMP (paddle_tpu/amp/__init__.py): ``auto_cast`` at O1 and O2,
-``decorate`` at O2 (LayerNorm and RMSNorm kept in float32) and
-``GradScaler``.
+``decorate`` at O2 (the batch norms, LayerNorm and RMSNorm kept in
+float32) and ``GradScaler``.
 
 bfloat16 shares float32's exponent range, so O1 bf16 needs no loss
 scaling: GradScaler with bf16 stays a pass-through in effect, and its
@@ -43,15 +43,18 @@ def decorate(models, optimizers=None, level="O1", dtype="bfloat16",
              master_weight=None, save_dtype=None, master_grad=False,
              excluded_layers=None):
     """O2: cast the models' float parameters to the AMP dtype, except those
-    of norm layers (LayerNorm, RMSNorm: amp/__init__.py:65-90, whose batch
-    and group norms the port has not yet) and of ``excluded_layers``."""
-    from ..nn.layer.norm import LayerNorm, RMSNorm
+    of norm layers (the batch norms, LayerNorm, RMSNorm: amp/__init__.py:
+    65-90, whose GroupNorm the port has not yet) and of
+    ``excluded_layers``. Buffers (a batch norm's running statistics) keep
+    their dtype."""
+    from ..nn.layer.norm import LayerNorm, RMSNorm, _BatchNormBase
 
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)
     if level == "O2":
         target = convert_dtype(dtype)
-        skip = (LayerNorm, RMSNorm) + tuple(excluded_layers or ())
+        skip = (_BatchNormBase, LayerNorm, RMSNorm) \
+            + tuple(excluded_layers or ())
         for model in model_list:
             for layer in model.sublayers(include_self=True):
                 if isinstance(layer, skip):

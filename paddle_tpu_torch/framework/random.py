@@ -10,11 +10,18 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["seed", "get_rng_state", "set_rng_state", "generator"]
+__all__ = ["seed", "get_rng_state", "set_rng_state", "generator",
+           "default_seed"]
 
 _DEFAULT_SEED = 34342423252
 _seed = _DEFAULT_SEED
 _generators: dict = {}
+
+
+def default_seed():
+    """The seed before any ``seed(s)`` (io.random_split draws from it, as
+    the reference does)."""
+    return _DEFAULT_SEED
 
 
 def seed(s: int):

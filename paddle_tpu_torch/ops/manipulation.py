@@ -9,7 +9,7 @@ from ..core.dispatch import apply
 from ..core.tensor import Tensor, to_torch
 
 __all__ = ["reshape", "concat", "stack", "transpose", "unsqueeze", "repeat_interleave",
-           "take_along_axis", "put_along_axis"]
+           "take_along_axis", "put_along_axis", "flatten"]
 
 
 def _ints(shape):
@@ -22,6 +22,17 @@ def reshape(x, shape, name=None):
     """``shape`` may hold one -1 (inferred)."""
     s = _ints(shape)
     return apply(lambda a: a.reshape(s), x, op_name="reshape")
+
+
+def flatten(x, start_axis=0, stop_axis=-1, name=None):
+    """Axes ``start_axis`` to ``stop_axis`` merged into one
+    (ops/manipulation.py:64-71); a Tensor method too (``x.flatten(1)``)."""
+    def fn(a):
+        nd = a.dim()
+        s = start_axis % nd if nd else 0
+        e = stop_axis % nd if nd else 0
+        return a.reshape(tuple(a.shape[:s]) + (-1,) + tuple(a.shape[e + 1:]))
+    return apply(fn, x, op_name="flatten")
 
 
 def transpose(x, perm, name=None):

@@ -1,13 +1,20 @@
 """Optimizers of the eager surface (paddle_tpu/optimizer/optimizer.py:
-55-369): the Optimizer base, SGD, Adam, AdamW and the gradient clips.
+55-369): the Optimizer base, SGD, Momentum, Adam, AdamW and the gradient
+clips.
 
 The TPU package jits one fused update over the parameter pytree; here the
 update runs as ``torch._foreach_*`` ops over the parameter list, in place,
-with the TPU package's f32 arithmetic: gradients and moments in f32, the
-bias corrections 1 - beta^t computed in f32, AdamW's decay added to the
-update (decoupled, ``_decay_tag``), and the new value cast back to the
-parameter's dtype. The moments are made on the default place
-(core/place.py), as Paddle makes its accumulators on the expected place.
+with the TPU package's f32 arithmetic: gradients, velocities and moments
+in f32, the bias corrections 1 - beta^t computed in f32, AdamW's decay
+added to the update (decoupled, ``_decay_tag``). Adam writes the new f32
+value back cast to the parameter's dtype; SGD and Momentum subtract the
+step cast to the parameter's dtype first, ``p - (lr * upd).astype(p.dtype)``
+(on a bf16 parameter the step is rounded before the subtraction, and the
+bits differ from rounding the f32 difference once). The weight
+decay is a float (L2) or a regularizer (regularizer.py: L2Decay, L1Decay).
+The learning rate is a float or an LRScheduler (optimizer/lr.py). The
+state is made on the default place (core/place.py), as Paddle makes its
+accumulators on the expected place.
 """
 from __future__ import annotations
 
@@ -17,8 +24,11 @@ import torch
 
 from ..core.place import to_torch_device
 from ..core.tensor import Tensor, dtensor_class, to_torch
+from ..regularizer import _normalize_weight_decay
+from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "ClipGradByGlobalNorm"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW",
+           "ClipGradByGlobalNorm"]
 
 # parameters a foreach group updates at most: bounds the f32 temporaries
 # (four of the group's size) at ~2 GB
@@ -29,6 +39,16 @@ def _f32(x) -> float:
     """A Python float holding the f32 rounding of ``x``: multiplying an
     f32 tensor by it is the TPU package's f32 arithmetic."""
     return float(torch.tensor(x, dtype=torch.float32))
+
+
+def _decayed(gs, pf, wd):
+    """The gradients with a weight-decay tag's term added
+    (optimizer.py::_decay_tag): a float is L2, g + wd * p; ("l1", coeff)
+    is L1, g + coeff * sign(p)."""
+    if isinstance(wd, tuple):
+        return torch._foreach_add(gs, torch._foreach_mul(
+            [p.sign() for p in pf], _f32(wd[1])))
+    return torch._foreach_add(gs, torch._foreach_mul(pf, _f32(wd)))
 
 
 class ClipGradByGlobalNorm:
@@ -60,7 +80,7 @@ class Optimizer:
             raise ValueError("parameters must be provided (eager mode)")
         self._parameter_list = list(parameters)
         self._learning_rate = learning_rate
-        self._weight_decay = float(weight_decay or 0.0)
+        self._weight_decay = _normalize_weight_decay(weight_decay)
         self._grad_clip = grad_clip
         self._accumulators: Dict[int, dict] = {}
         self._step_count = 0
@@ -68,13 +88,18 @@ class Optimizer:
     # -- learning rate ------------------------------------------------------
     def get_lr(self) -> float:
         """The learning rate: a float, or the value of a scheduler (an
-        object called for its current rate, as Paddle's LRScheduler)."""
+        LRScheduler, or any object called for its current rate)."""
         lr = self._learning_rate
         return float(lr() if callable(lr) else lr)
 
     def set_lr(self, value):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("cannot set_lr when using an LRScheduler")
         self._learning_rate = float(value)
         return self._learning_rate
+
+    def set_lr_scheduler(self, scheduler):
+        self._learning_rate = scheduler
 
     # -- state --------------------------------------------------------------
     def _zeros(self, p):
@@ -97,8 +122,8 @@ class Optimizer:
         return st
 
     def _decay(self, p, index):
-        """The weight decay of one parameter: none where AdamW's
-        ``apply_decay_param_fun`` refuses its name."""
+        """The weight-decay tag of one parameter (``_decayed``): none where
+        AdamW's ``apply_decay_param_fun`` refuses its name."""
         fn = getattr(self, "_apply_decay_param_fun", None)
         if fn is not None and not fn(p.name or f"param_{index}"):
             return 0.0
@@ -139,6 +164,13 @@ class Optimizer:
         for p, n in zip(params, new):
             p._value.copy_(n)
 
+    @staticmethod
+    def _subtract(params, steps):
+        """p - step.astype(p.dtype): each f32 step rounded to its
+        parameter's dtype, then subtracted in that dtype."""
+        for p, s in zip(params, steps):
+            p._value.sub_(s.to(p._value.dtype))
+
     @torch.no_grad()
     def clear_grad(self, set_to_zero=True):
         for p in self._parameter_list:
@@ -148,8 +180,11 @@ class Optimizer:
 
     # -- serialization ------------------------------------------------------
     def state_dict(self):
-        """{"_step_count": n, "<param name>.<moment>": Tensor copy, ...}."""
+        """{"_step_count": n, "<param name>.<moment>": Tensor copy, ...},
+        with "LR_Scheduler" (its state_dict) under a scheduler."""
         out = {"_step_count": self._step_count}
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
         for i, p in enumerate(self._parameter_list):
             st = self._accumulators.get(id(p))
             for k, v in (st or {}).items():
@@ -161,6 +196,9 @@ class Optimizer:
         """Restore from ``state_dict()`` (Tensors, torch tensors or numpy
         arrays, put on the default place)."""
         self._step_count = int(state.get("_step_count", 0))
+        if "LR_Scheduler" in state and isinstance(self._learning_rate,
+                                                  LRScheduler):
+            self._learning_rate.set_state_dict(state["LR_Scheduler"])
         for i, p in enumerate(self._parameter_list):
             prefix = (p.name or f"param_{i}") + "."
             st = {k[len(prefix):]: to_torch(v, torch.float32,
@@ -181,12 +219,39 @@ class SGD(Optimizer):
     def _update_group(self, items, lr, wd):
         ps = [p for p, _ in items]
         gs = [g.float() for _, g in items]
-        pf = [p._value.float() for p in ps]
         if wd:
-            # L2: grad + wd * param
-            gs = torch._foreach_add(gs, torch._foreach_mul(pf, _f32(wd)))
-        new = torch._foreach_sub(pf, torch._foreach_mul(gs, lr))
-        self._write_back(ps, new)
+            gs = _decayed(gs, [p._value.float() for p in ps], wd)
+        self._subtract(ps, torch._foreach_mul(gs, lr))
+
+
+class Momentum(Optimizer):
+    """v = momentum * v + g (f32 velocity, the decay in g); the step is
+    lr * v, or lr * (g + momentum * v) with Nesterov
+    (optimizer.py:289-311)."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None, multi_precision=False):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name, multi_precision)
+        self._momentum = momentum
+        self._nesterov = use_nesterov
+
+    def _init_state(self, p):
+        return {"velocity": self._zeros(p)}
+
+    def _update_group(self, items, lr, wd):
+        ps = [p for p, _ in items]
+        v = [self._get_state(p)["velocity"] for p in ps]
+        gs = [g.float() for _, g in items]
+        if wd:
+            gs = _decayed(gs, [p._value.float() for p in ps], wd)
+        mom = _f32(self._momentum)
+        torch._foreach_mul_(v, mom)
+        torch._foreach_add_(v, gs)
+        upd = torch._foreach_add(gs, torch._foreach_mul(v, mom)) \
+            if self._nesterov else v
+        self._subtract(ps, torch._foreach_mul(upd, lr))
 
 
 class Adam(Optimizer):
@@ -223,7 +288,7 @@ class Adam(Optimizer):
         bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** t)
         bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** t)
         if wd and not self._decoupled():
-            gs = torch._foreach_add(gs, torch._foreach_mul(pf, _f32(wd)))
+            gs = _decayed(gs, pf, wd)
         # m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g g
         torch._foreach_mul_(m, _f32(b1))
         torch._foreach_add_(m, torch._foreach_mul(gs, _f32(1 - b1)))
@@ -242,7 +307,7 @@ class Adam(Optimizer):
         torch._foreach_div_(upd, vhat)
         del vhat
         if wd and self._decoupled():
-            torch._foreach_add_(upd, torch._foreach_mul(pf, _f32(wd)))
+            upd = _decayed(upd, pf, wd)
         torch._foreach_mul_(upd, lr)
         new = torch._foreach_sub(pf, upd)
         self._write_back(ps, new)

@@ -15,7 +15,8 @@ import torch
 
 __all__ = ["params_from_paddle_tpu", "stacked_params_from_paddle_tpu",
            "load_params_from_paddle_tpu", "state_dict_from_paddle_tpu",
-           "stage_state_dict_from_paddle_tpu"]
+           "stage_state_dict_from_paddle_tpu",
+           "load_state_dict_from_paddle_tpu"]
 
 # parameter names of PagedCausalLM in both packages
 _SERVING_NAMES = re.compile(
@@ -84,6 +85,27 @@ def load_params_from_paddle_tpu(module, named):
                                  f"{tuple(p.shape)}")
             p.copy_(src)
     return module
+
+
+def load_state_dict_from_paddle_tpu(layer, state):
+    """Copy a TPU-package Layer's ``state_dict()`` (``{name: numpy
+    array}``: its parameters and its persistable buffers, a batch norm's
+    ``_mean`` and ``_variance``) into the eager Layer ``layer``'s entries
+    of the same names, in place, each cast to its entry's dtype on its
+    device. A name missing on either side, or a shape that differs,
+    raises. Returns ``layer``."""
+    own = layer.state_dict()
+    if set(state) != set(own):
+        raise KeyError(f"state names differ: missing "
+                       f"{sorted(set(own) - set(state))}, unexpected "
+                       f"{sorted(set(state) - set(own))}")
+    for name, target in own.items():
+        src = tensor_from_numpy(state[name])
+        if tuple(src.shape) != tuple(target.shape):
+            raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                             f"{tuple(target.shape)}")
+        target.set_value(src.to(target.dtype))
+    return layer
 
 
 def params_from_paddle_tpu(named, mesh=None) -> dict:

@@ -1,0 +1,8 @@
+"""Vision models (paddle_tpu/vision/models): LeNet and the ResNet family.
+The other ten families are ROADMAP.md's queue 1, item 10e."""
+from .lenet import LeNet
+from .resnet import (ResNet, resnet18, resnet34, resnet50, resnet101,
+                     resnet152, resnext50_32x4d, resnext50_64x4d,
+                     resnext101_32x4d, resnext101_64x4d,
+                     resnext152_32x4d, resnext152_64x4d,
+                     wide_resnet50_2, wide_resnet101_2)

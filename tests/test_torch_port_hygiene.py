@@ -79,6 +79,10 @@ def test_import_leaves_jax_unloaded():
             "import paddle_tpu_torch.distributed.auto_parallel; "
             "import paddle_tpu_torch.distributed.store; "
             "import paddle_tpu_torch.distributed.launch.main; "
+            "import paddle_tpu_torch.vision.models.resnet; "
+            "import paddle_tpu_torch.hapi.model, paddle_tpu_torch.io; "
+            "import paddle_tpu_torch.metric, paddle_tpu_torch.framework.io; "
+            "import paddle_tpu_torch.optimizer.lr; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'paddle_tpu')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -136,3 +140,35 @@ def test_launcher_engine_and_device_mesh_default_to_cuda():
     engine = dist.auto_parallel.Engine(paddle.nn.Layer())
     with pytest.raises(RuntimeError, match="CUDA"):
         engine.prepare(mesh=mesh)
+
+
+def test_vision_entry_points_default_to_cuda(tmp_path):
+    # the vision slice's models, data pipeline, metrics' op and load make
+    # their tensors on the default place, "gpu:0": without CUDA each
+    # raises instead of running on the CPU
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device is valid")
+    import numpy as np
+
+    from paddle_tpu_torch.vision.models import LeNet, resnet50
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resnet50()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LeNet()
+    loader = paddle.io.DataLoader(
+        paddle.vision.datasets.FakeImageDataset(8), batch_size=4,
+        num_workers=2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(iter(loader))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.nn.BatchNorm2D(3)
+    path = str(tmp_path / "w.pdparams")
+    paddle.save({"w": np.zeros(2, np.float32)}, path)
+    assert isinstance(paddle.load(path, return_numpy=True)["w"], np.ndarray)
+    import pickle
+
+    with open(path, "wb") as f:
+        pickle.dump({"w": ("__tensor__", np.zeros(2, np.float32))}, f)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        paddle.load(path)

@@ -17,7 +17,8 @@ Tolerances: the ops move numbers without arithmetic (exact) or sum two
 ranks' f32 values (1e-6 relative); the layers against the reference's
 f32 products within 1e-5 relative and 1e-6 absolute (f32 sums split over
 ranks), as tests/test_torch_fleet_eager.py holds the tensor-parallel
-layers.
+layers. In the same world, SyncBatchNorm over each rank's half of a batch
+against the reference's BatchNorm2D over the whole batch.
 """
 import pickle
 
@@ -83,13 +84,25 @@ def _run(tmp_path_factory):
            "row_b_grad": jrow.bias.grad.numpy()}
     weights = [np.asarray(p.numpy()) for p in (jcol.weight, jcol.bias,
                                                jrow.weight, jrow.bias)]
+    # SyncBatchNorm's job: the reference's BatchNorm2D over the whole batch
+    bn_x = rng.randn(6, 3, 4, 5).astype(np.float32) * 2.0 + 1.0
+    bn_g = rng.randn(6, 3, 4, 5).astype(np.float32)
+    bn_wb = (np.linspace(0.5, 1.5, 3).astype(np.float32),
+             np.linspace(-0.2, 0.3, 3).astype(np.float32))
+    jbn = jpaddle.nn.BatchNorm2D(3)
+    jbn.weight.set_value(bn_wb[0])
+    jbn.bias.set_value(bn_wb[1])
+    jy = jbn(jpaddle.to_tensor(bn_x))
+    (jy * jpaddle.to_tensor(bn_g)).sum().backward()
+    ref_bn = {"y": jy.numpy(), "w_grad": jbn.weight.grad.numpy(),
+              "b_grad": jbn.bias.grad.numpy()}
     out = tmp_path_factory.mktemp("sequence_parallel")
     dist.spawn(W.sequence_parallel, args=(str(out), x, w, seq_x, seq_w,
-                                          *weights),
+                                          *weights, (bn_x, bn_g, bn_wb)),
                nprocs=WORLD, backend="gloo", timeout=180)
     ranks = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
              for r in range(WORLD)]
-    return {"x": x, "w": w, "ref": ref, "ranks": ranks}
+    return {"x": x, "w": w, "ref": ref, "ranks": ranks, "ref_bn": ref_bn}
 
 
 def test_scatter_and_gather_ops_forward_and_backward(run):
@@ -135,6 +148,25 @@ def test_sequence_parallel_linear_pair_matches_reference_layers(run):
         for key, want in ref.items():
             np.testing.assert_allclose(pair[key], want, rtol=1e-5,
                                        atol=1e-6, err_msg=key)
+
+
+def test_sync_batch_norm_matches_reference_whole_batch(run):
+    """Each rank's half of the batch through SyncBatchNorm (statistics
+    all-reduced) against the reference's BatchNorm2D on the whole batch:
+    the outputs, and the weight's and bias's gradients summed over the
+    ranks (within 1e-5: E[x^2] - E[x]^2 against the two-pass variance);
+    the running buffers are left as they were."""
+    ref = run["ref_bn"]
+    got = [r["sync_bn"] for r in run["ranks"]]
+    np.testing.assert_allclose(np.concatenate([g["y"] for g in got]),
+                               ref["y"], rtol=1e-5, atol=1e-5)
+    for key in ("w_grad", "b_grad"):
+        np.testing.assert_allclose(sum(g[key] for g in got), ref[key],
+                                   rtol=1e-5, atol=1e-5)
+    for g in got:
+        assert g["kind"] == "SyncBatchNorm"
+        np.testing.assert_array_equal(g["buffers"][0], np.zeros(3))
+        np.testing.assert_array_equal(g["buffers"][1], np.ones(3))
 
 
 @pytest.fixture

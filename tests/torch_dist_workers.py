@@ -919,13 +919,15 @@ def trainer_sep(out_dir, cfg_dict, np_params, batches, lr, jobs):
 
 
 def sequence_parallel(out_dir, x, w, seq_x, seq_w, col_w, col_b, row_w,
-                      row_b):
+                      row_b, bn=None):
     """fleet.init(mp = world): the four SP ops forward and backward on
     torch tensors (ScatterOp also on an eager Tensor), then
     ColumnSequenceParallelLinear -> RowSequenceParallelLinear over this
     rank's slice of ``seq_x`` [S, B, in] with the given full weights, the
     gradient of sum(y * seq_w) with the allreduce hooks registered;
-    everything gathered back whole."""
+    everything gathered back whole. With ``bn`` (x, cotangent, (weight,
+    bias)): a SyncBatchNorm over this rank's slice of the batch, its
+    output and its weight's and bias's gradients of sum(y * g)."""
     dist, rank = _start()
     import paddle_tpu_torch as paddle
     from paddle_tpu_torch.distributed.fleet import sequence_parallel_utils \
@@ -988,6 +990,20 @@ def sequence_parallel(out_dir, x, w, seq_x, seq_w, col_w, col_b, row_w,
         "marked": [p.sequence_parallel for p in (col.weight, col.bias,
                                                  row.weight, row.bias)],
         "local_y": tuple(ys.shape)}
+    if bn is not None:
+        bn_x, bn_g, (bn_w, bn_b) = bn
+        part = bn_x.shape[0] // world
+        mine = slice(rank * part, (rank + 1) * part)
+        layer = paddle.nn.SyncBatchNorm(bn_x.shape[1])
+        layer.weight.set_value(bn_w)
+        layer.bias.set_value(bn_b)
+        y = layer(paddle.to_tensor(bn_x[mine]))
+        (y * paddle.to_tensor(bn_g[mine])).sum().backward()
+        out["sync_bn"] = {"y": _np(y), "w_grad": _np(layer.weight.grad),
+                          "b_grad": _np(layer.bias.grad),
+                          "kind": type(layer).__name__,
+                          "buffers": (_np(layer._mean),
+                                      _np(layer._variance))}
     fleet.barrier_worker()
     _dump(out_dir, rank, out)
     dist.destroy_process_group()
