@@ -270,6 +270,26 @@ Phases, each of which fails the run with a non-zero exit:
      statistics, its train-mode loss and running statistics, ResNet-18's
      train-mode step, LeNet's fit losses). No kernel of the port is on
      this path: conv and pooling are cuDNN's and PyTorch's ops;
+  6i. training resilience, after the profile phase (phase_resilience; a
+     torch.profiler session slows later host work): a fresh flagship
+     trainer through HybridTrainer.run_elastic for 8 steps under the
+     supervisor (snapshots every 2, step_<N> checkpoints every 4 in a
+     temporary directory removed at the end) inside a Profiler with a
+     scheduler; the phase's step_fn wrapper makes step 1's loss NaN once
+     (SKIP) and steps 5 and 6's (SKIP, then ROLLBACK to the step-4
+     snapshot). Fails unless every supervised step launches the training
+     phase's counts, the SKIP leaves every parameter and moment bitwise,
+     the replayed steps 4 and 5 give their first losses bit for bit, a
+     fresh trainer resumed from the step-8 checkpoint gives the
+     uninterrupted step 8's loss bit for bit, and the exported chrome
+     trace holds train/step and train/snapshot beside flash kernels.
+     Prints the host's memory and disk, the plain step against the
+     supervised one in turns, the elastic_state copy's and the snapshot
+     copy's ms, the checkpoint's bytes, save and load s, and the train/*
+     counters; the supervised run's launches (counts set to 0 just
+     before it) are the "resilience" path of the kernels line. Before it,
+     one greedy eager generate timed in turns with and without the
+     funnel's dispatch/calls counter;
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
@@ -282,6 +302,20 @@ Phases, each of which fails the run with a non-zero exit:
      ResNet-50 step's device ms by kernel class (each kernel attributed to
      the op, layer or autograd node that launched it) and busy share, and
      the LeNet fit's busy share.
+``python3 chip_smoke.py --elastic`` (four cards; also the end of
+``--hybrid``) runs the build, the comm watchdog's rows (WATCHDOG_ROWS:
+the Llama-2 7B at mp 2 x sharding 2 and at pp 2 x mp 2, every collective
+recorded, the step with the watchdog off and on in turns and the
+record's own µs a call) and
+phase_elastic: two elastic launcher controllers (``--nnodes 1:2``, cards
+0,1 and 2,3) train BERT-base by dist.to_static at dp 2 x mp 2 with a
+distributed checkpoint every 2 steps; once the step-8 checkpoint exists
+one controller's process group is killed, and the other must re-form at
+world 2, load the world-4 checkpoint into its dp 1 x mp 2 mesh (every
+full tensor's digest equal to the world-4 job's at that checkpoint) and
+train on, its losses held to an uninterrupted world-2 job from the same
+checkpoint.
+
 The last line is {"ok": true, "device": {...}}; the line before it holds
 the kernels' numbers. Imports only torch, numpy and paddle_tpu_torch.
 """
@@ -334,7 +368,7 @@ PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
          "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS,
          "eager": TRAINING_KERNELS, "hybrid": TRAINING_KERNELS,
-         "pipeline": TRAINING_KERNELS}
+         "pipeline": TRAINING_KERNELS, "resilience": TRAINING_KERNELS}
 # the models' attention at head dim 64 (GPT-2 small and BERT-base: 12 heads
 # of 64), dropout 0.1 inside the flash kernels (their general
 # instantiations): the shapes a pretraining step gives them
@@ -4055,7 +4089,7 @@ def _hybrid_plan(world):
                  mesh={"sep": 2, "mp": 2}),
             dict(pipe, kind="save_attn", pipeline=False,
                  name="7b_width_4l_f32_pp2_mp2_save_attn",
-                 mesh={"pp": 2, "mp": 2})]
+                 mesh={"pp": 2, "mp": 2})] + WATCHDOG_ROWS
 
 
 def _hybrid_batches(cfg, batch, seq, steps, dev, seed=5):
@@ -5250,6 +5284,101 @@ def _drop_groups(dist, made_before):
     torch.cuda.empty_cache()
 
 
+# the comm watchdog off and on in turns on paths whose every collective
+# goes through distributed/collective.py (each records, always): the Llama-2
+# 7B rows (full width and depth, bf16, remat) at mp 2 x sharding 2 (one
+# sequence of 4096 a data rank) and at pp 2 x mp 2 (8 sequences in 8
+# micro-batches), one warm-up each, then 2 x `turns` steps in the order
+# off, on, on, off, off, on, ...; and the record's own host cost a call, in
+# turns (`record_calls` records of an all_reduce on a CUDA tensor)
+WATCHDOG_ROW = dict(kind="watchdog_row", name="llama2_7b_mp2_sh2_watchdog",
+                    width="llama2-7b", dtype="bfloat16", layers=None,
+                    mesh={"mp": 2, "sharding": 2}, seq=4096, turns=4,
+                    record_calls=4000, path=False)
+WATCHDOG_ROWS = [WATCHDOG_ROW,
+                 dict(WATCHDOG_ROW, name="llama2_7b_pp2_mp2_watchdog",
+                      mesh={"pp": 2, "mp": 2}, batch=8, n_micro=8)]
+
+
+def _turn_order(n):
+    """off, on, on, off, off, on, ... for n turns (each state first in
+    half of the pairs)."""
+    return [("off", "on")[(k + k // 2) % 2] for k in range(n)]
+
+
+def _watchdog_row(job, dist, dev):
+    """A row of WATCHDOG_ROWS on one rank: the step's ms with the comm
+    watchdog off and on in turns, the collectives a step
+    (comm/collective_count), and the µs a call of the comm record
+    (record_collective + issued) with the watchdog off and on, in
+    turns."""
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.distributed.watchdog import (
+        disable_comm_watchdog, enable_comm_watchdog)
+    from paddle_tpu_torch.profiler import metrics as M
+
+    cfg = _hybrid_config(job["width"], job["dtype"], job["layers"])
+    t0 = time.perf_counter()
+    tr = HybridTrainer(cfg, job["mesh"], learning_rate=HYBRID_LR,
+                       seed=HYBRID_SEED, device=dev,
+                       pipeline_micro_batches=job.get("n_micro"))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    order = _turn_order(2 * job["turns"])
+    batches = _hybrid_batches(cfg, job.get("batch", tr._data_ranks),
+                              job["seq"], 1 + len(order), dev)
+    warm = float(tr.step(*batches[0]))
+    torch.cuda.synchronize()
+    count = M.counter("comm/collective_count")
+    turns = {"off": [], "on": []}
+    colls, losses = [], []
+    for how, batch in zip(order, batches[1:]):
+        if how == "on":
+            enable_comm_watchdog(600.0)
+        else:
+            disable_comm_watchdog()
+        c0 = count.value
+        lo, ms, _, _, _ = _timed_steps(dist, tr, [batch])
+        turns[how].append(ms[0])
+        colls.append(count.value - c0)
+        losses += lo
+    disable_comm_watchdog()
+    if not all(np.isfinite([warm] + losses)):
+        raise AssertionError(f"watchdog row: losses {warm}, {losses}")
+    # the record alone, a call (nothing is sent)
+    g = tr.hcg.get_model_parallel_group()
+    t = torch.ones(1024, device=dev)
+    record_us = {"off": [], "on": []}
+    for how in _turn_order(4):
+        if how == "on":
+            enable_comm_watchdog(600.0)
+        else:
+            disable_comm_watchdog()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(job["record_calls"]):
+            collective.record_collective("all_reduce", g.id, g.ranks,
+                                         t).issued(t)
+        record_us[how].append((time.perf_counter() - t1) * 1e6
+                              / job["record_calls"])
+    disable_comm_watchdog()
+    torch.cuda.synchronize()
+    med = {k: statistics.median(v) for k, v in turns.items()}
+    per_step = statistics.median(colls)
+    rec = {k: statistics.median(v) for k, v in record_us.items()}
+    return {"init_s": init_s, "order": order, "step_ms": turns,
+            "median_step_ms": med,
+            "on_over_off": med["on"] / med["off"],
+            "collectives_a_step": colls, "record_us": record_us,
+            "median_record_us": rec,
+            # what the always-on records cost a step, by the record's
+            # own time a call
+            "record_ms_a_step": {k: per_step * v / 1e3
+                                 for k, v in rec.items()},
+            "losses": [warm] + losses}
+
+
 def _hybrid_rank(out_dir, plan):
     """One rank of phase_hybrid (a spawned process): NCCL, its own card,
     the plan's jobs in order; its results (or its error) to
@@ -5277,7 +5406,8 @@ def _hybrid_rank(out_dir, plan):
                   "moe_row": _moe_row,
                   "group_sharded": _group_sharded_parity,
                   "group_sharded_row": _group_sharded_row,
-                  "save_attn": _save_attn_parity}[job["kind"]]
+                  "save_attn": _save_attn_parity,
+                  "watchdog_row": _watchdog_row}[job["kind"]]
             log(f"hybrid rank {rank}: {job['name']} starts")
             res[job["name"]] = fn(job, dist, dev)
             _drop_groups(dist, made_before)
@@ -5289,18 +5419,19 @@ def _hybrid_rank(out_dir, plan):
     dist.destroy_process_group()
 
 
-def phase_hybrid(dev, world=None):
+def phase_hybrid(dev, world=None, plan=None):
     """Hybrid parallelism over NCCL: ``world`` (min(cards, 4) when None)
-    ranks spawned one a card, each running _hybrid_plan(world)'s jobs;
-    fails if a rank fails. The parent first lets go of the cached device
-    memory it holds no more, so rank 0 on its card has room."""
+    ranks spawned one a card, each running ``plan``'s jobs
+    (_hybrid_plan(world)'s when None); fails if a rank fails. The parent
+    first lets go of the cached device memory it holds no more, so rank 0
+    on its card has room."""
     import gc
 
     from paddle_tpu_torch.distributed import spawn
     from paddle_tpu_torch.ops.kernels import _build
 
     world = world or min(torch.cuda.device_count(), 4)
-    plan = _hybrid_plan(world)
+    plan = plan or _hybrid_plan(world)
     gc.collect()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6209,6 +6340,772 @@ def _vision_parity(dev):
         fails.append(f"lenet losses {lenet_losses}")
     if fails:
         raise AssertionError(f"vision parity: {fails}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6i. training resilience: the flagship under the supervisor
+# ---------------------------------------------------------------------------
+
+# run_elastic over 8 steps of a fresh flagship trainer (step 0 to 8):
+# in-memory snapshots every 2 steps (one kept: each is a full host copy),
+# step_<N> disk checkpoints every 4, the guard rolling back on the 2nd
+# anomaly in a row. The phase's step_fn wrapper makes step 1's loss NaN
+# once (SKIP: the state from before it is put back) and steps 5 and 6's
+# once each (SKIP, then ROLLBACK to the step-4 snapshot: 4 and 5 replay).
+# 11 supervised steps in all, ~15 s each at the flagship (PERF.md §5).
+RESILIENCE = dict(steps=8, snapshot_every=2, ckpt_every=4, keep=2,
+                  max_consecutive=2, skip=1, nan_run=(5, 6), turns=2)
+# the torch.profiler window, in wrapper calls: steps 2 and 3, with the
+# step-4 snapshot and checkpoint between them and the next call
+RESILIENCE_PROFILE = dict(closed=3, ready=0, record=2, repeat=1)
+# host copies of the flat state the supervisor may hold at once: the
+# caller's, the initial, the current, the new one and two snapshots
+RESILIENCE_HOST_COPIES = 6
+
+
+def _resilience_batch(cfg, dev, step):
+    rng = np.random.RandomState(100 + step)
+    ids = rng.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ))
+    return (torch.tensor(ids, device=dev),
+            torch.tensor(np.roll(ids, -1, axis=1), device=dev))
+
+
+def _state_bytes(trainer):
+    from paddle_tpu_torch.models import llama
+
+    n = sum(t.numel() for t in llama.leaves(trainer.params).values())
+    return 3 * 4 * n          # p (sent out as f32), m and v
+
+
+def _host_room(need, dirs):
+    """Host memory available and the free disk of each candidate
+    directory: fails when the machine cannot hold ``need`` bytes of state
+    copies; returns the first directory with room for two checkpoints."""
+    with open("/proc/meminfo") as f:
+        mem = {l.split(":")[0]: int(l.split()[1]) * 1024 for l in f}
+    room = {"mem_total_gb": mem["MemTotal"] / 1e9,
+            "mem_available_gb": mem["MemAvailable"] / 1e9,
+            "need_gb": need["memory"] / 1e9}
+    chosen = None
+    for d in dirs:
+        os.makedirs(d, exist_ok=True)
+        free = shutil.disk_usage(d).free
+        room[f"disk_free_gb:{d}"] = free / 1e9
+        if chosen is None and free > need["disk"]:
+            chosen = d
+    log(json.dumps({"resilience_host": room}))
+    if mem["MemAvailable"] < need["memory"]:
+        raise AssertionError(f"resilience: {mem['MemAvailable'] / 1e9:.1f} "
+                             f"GB of host memory available, the supervised "
+                             f"flagship needs {need['memory'] / 1e9:.1f}")
+    if chosen is None:
+        raise AssertionError(f"resilience: no directory with "
+                             f"{need['disk'] / 1e9:.1f} GB free: {room}")
+    return chosen
+
+
+def _bits_of(trainer):
+    """Clones of every parameter and Adam moment on the card."""
+    from paddle_tpu_torch.models import llama
+
+    out = {}
+    for prefix, tree in (("p", trainer.params),
+                         ("m", trainer.opt_state["m"]),
+                         ("v", trainer.opt_state["v"])):
+        for k, t in llama.leaves(tree).items():
+            out[f"{prefix}:{k}"] = t.detach().clone()
+    return out
+
+
+def _same_bits(trainer, held):
+    from paddle_tpu_torch.models import llama
+
+    for prefix, tree in (("p", trainer.params),
+                         ("m", trainer.opt_state["m"]),
+                         ("v", trainer.opt_state["v"])):
+        for k, t in llama.leaves(tree).items():
+            if not torch.equal(t, held[f"{prefix}:{k}"]):
+                return f"{prefix}:{k}"
+    return None
+
+
+def _trace_check(path):
+    """The exported chrome trace holds the train/step and train/snapshot
+    spans as torch.profiler annotations beside the flash kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = Counter()
+    for e in events:
+        name = e.get("name", "")
+        cat = e.get("cat", "")
+        if name in ("train/step", "train/snapshot") and cat != "host_span":
+            names[name] += 1
+        elif cat == "kernel" and "flash" in name:
+            names["flash_kernels"] += 1
+        elif cat == "host_span":
+            names["host:" + name] += 1
+    return dict(names)
+
+
+def phase_resilience(dev):
+    """6i (after the profile phase: a torch.profiler session slows the
+    host work of the phases after it). A fresh flagship trainer (bf16,
+    seed 1234) runs HybridTrainer.run_elastic for RESILIENCE["steps"]
+    steps inside a Profiler with a scheduler, its disk checkpoints in a
+    temporary directory removed at the end. Fails unless every supervised
+    step launches the training phase's kernel counts; step 1's SKIP leaves
+    every parameter and moment bitwise as before it; the rollback's
+    replayed losses of steps 4 and 5 equal their first pass's bit for bit
+    (the step's kernels are deterministic: the flash backward and the
+    RMSNorm gradient sum in a fixed order); a fresh trainer restored by
+    resume_from_latest from the newest checkpoint (step 8) takes step 8 to
+    the loss the supervised trainer's own next step gives, bit for bit;
+    and the exported trace holds
+    train/step and train/snapshot annotations beside flash kernels. Then
+    in turns: the plain step, the supervised step (the step, its
+    elastic_state host copy and the loss read) and the snapshot's copy;
+    the elastic_state copy alone; the checkpoint's bytes, save and load
+    seconds; the train/*, ckpt/* and comm/* counters."""
+    import gc
+
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch import profiler as P
+    from paddle_tpu_torch.distributed.fleet import HybridTrainer
+    from paddle_tpu_torch.distributed.resilience import recovery
+    from paddle_tpu_torch.distributed.resilience import supervisor as S
+    from paddle_tpu_torch.distributed.resilience.guards import GuardConfig
+    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.profiler import metrics as M
+
+    c = RESILIENCE
+    cfg = _flagship_config()
+    L = cfg.num_hidden_layers
+    expect = {"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+              "flash_attention_fwd": 2 * L,
+              "flash_attention_bwd_dkv": L, "flash_attention_bwd_dq": L,
+              "aligned16_copies": 0}
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = HybridTrainer(cfg, learning_rate=3e-4, seed=1234, device=dev)
+    nbytes = _state_bytes(trainer)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    where = _host_room({"memory": RESILIENCE_HOST_COPIES * nbytes,
+                        "disk": 2.2 * nbytes},
+                       [tempfile.gettempdir(), str(_build.BUILD_DIR)])
+    root = tempfile.mkdtemp(dir=where, prefix="resilience-")
+    trace_dir = os.path.join(root, "trace")
+    batches, at = {}, {}
+
+    def batch_fn(step):
+        # the supervisor's step index (a SKIP puts the trainer's own count
+        # back with its state, so the two part)
+        at["step"] = step
+        if step not in batches:
+            batches[step] = _resilience_batch(cfg, dev, step)
+        return batches[step]
+
+    counters0 = {k: v for k, v in M.snapshot()["counters"].items()}
+    passes, held, skip_bits, per_step = {}, {}, [], []
+    nan_once = {c["skip"], *c["nan_run"]}
+    fired = set()
+    orig = trainer.step
+    saves = []
+    orig_save = recovery.save_checkpoint
+
+    def timed_save(state, root_, step, keep=None):
+        t = time.perf_counter()
+        path = orig_save(state, root_, step, keep=keep)
+        saves.append((step, time.perf_counter() - t))
+        return path
+
+    try:
+        with P.Profiler(scheduler=P.make_scheduler(**RESILIENCE_PROFILE),
+                        on_trace_ready=P.export_chrome_tracing(
+                            trace_dir, "resilience")) as prof:
+
+            def step(ids, labels):
+                s = at["step"]
+                prof.step()
+                if s == c["skip"] + 1:
+                    skip_bits.append(_same_bits(trainer, held.pop("bits")))
+                if s == c["skip"] and s not in fired:
+                    held["bits"] = _bits_of(trainer)
+                before = launch_counts()
+                loss = orig(ids, labels)
+                true = float(loss)
+                per = {k: v - before[k] for k, v in launch_counts().items()}
+                per_step.append(per)
+                for name, n in expect.items():
+                    if per[name] != n:
+                        raise AssertionError(
+                            f"resilience: supervised step {s} launched "
+                            f"{name} {per[name]} times, not {n}")
+                passes.setdefault(s, []).append(true)
+                if s in nan_once and s not in fired:
+                    fired.add(s)
+                    return torch.tensor(float("nan"), device=dev)
+                return loss
+
+            trainer.step = step
+            recovery.save_checkpoint = timed_save
+            sup_cfg = S.SupervisorConfig(
+                world_size=1, snapshot_every=c["snapshot_every"],
+                snapshots_kept=1, ckpt_root=os.path.join(root, "ckpt"),
+                ckpt_every=c["ckpt_every"], keep=c["keep"],
+                guard=GuardConfig(max_consecutive=c["max_consecutive"],
+                                  warmup_steps=100))
+            # the path's launches: every count set to 0 just before it
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            state, report = trainer.run_elastic(batch_fn, c["steps"],
+                                                config=sup_cfg)
+            run_s = time.perf_counter() - t0
+            path_counts = launch_counts()
+        del trainer.step
+        recovery.save_checkpoint = orig_save
+        del state
+        calls = sum(len(v) for v in passes.values())
+        replay = {s: passes[s] for s in (4, 5)}
+        checks = {
+            "report": {k: report[k] for k in ("final_step", "restarts",
+                                              "rollbacks", "skipped",
+                                              "anomalies")},
+            "skip_params_bitwise": skip_bits == [None],
+            "replayed_losses_bitwise": all(
+                len(v) == 2 and v[0] == v[1] for v in replay.values()),
+            "calls": calls}
+        if report["final_step"] != c["steps"] or report["rollbacks"] != 1 \
+                or report["skipped"] != 2 or report["anomalies"] != 3:
+            raise AssertionError(f"resilience: report {checks['report']}")
+        if not checks["skip_params_bitwise"]:
+            raise AssertionError(f"resilience: after the SKIP of step "
+                                 f"{c['skip']} the state differs "
+                                 f"({skip_bits})")
+        if not checks["replayed_losses_bitwise"]:
+            raise AssertionError(f"resilience: replayed losses {replay}")
+        losses = report["losses"]
+        # every step but the skipped one ends with a finite loss
+        if not all(np.isfinite(x) for s, x in enumerate(losses)
+                   if s != c["skip"]):
+            raise AssertionError(f"resilience: losses {losses}")
+        trace = _trace_check(os.path.join(trace_dir, "resilience.json"))
+        if not (trace.get("train/step") and trace.get("train/snapshot")
+                and trace.get("flash_kernels")):
+            raise AssertionError(f"resilience: the profile holds {trace}")
+
+        # in turns: the plain step, the supervised step, the snapshot copy;
+        # the first plain step is the uninterrupted run's step 8
+        ids, labels = batch_fn(c["steps"])
+        times = {"plain": [], "supervised": [], "elastic_state": [],
+                 "snapshot_copy": []}
+        plain_losses = []
+        for _ in range(c["turns"]):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            plain_losses.append(float(trainer.step(ids, labels)))
+            times["plain"].append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            loss = trainer.step(ids, labels)
+            st = trainer.elastic_state()
+            float(loss)
+            times["supervised"].append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            snap = S._copy_state(st)
+            times["snapshot_copy"].append((time.perf_counter() - t) * 1e3)
+            del st, snap
+            t = time.perf_counter()
+            st = trainer.elastic_state()
+            times["elastic_state"].append((time.perf_counter() - t) * 1e3)
+            del st
+        med = {k: statistics.median(v) for k, v in times.items()}
+
+        # the disk tier: a fresh trainer from the newest checkpoint
+        found = recovery.latest_checkpoint(os.path.join(root, "ckpt"))
+        ck_step, ck_path = found
+        ck_bytes = sum(os.path.getsize(os.path.join(ck_path, f))
+                       for f in os.listdir(ck_path))
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = HybridTrainer(cfg, learning_rate=3e-4, seed=99, device=dev)
+        targets = {k: torch.from_numpy(v)
+                   for k, v in fresh.elastic_state().items()}
+        t = time.perf_counter()
+        got = recovery.resume_from_latest(targets, os.path.join(root,
+                                                                "ckpt"))
+        load_s = time.perf_counter() - t
+        fresh.load_elastic_state({k: v.numpy() for k, v in targets.items()})
+        del targets
+        ids, labels = batch_fn(ck_step)
+        resumed = float(fresh.step(ids, labels))
+        if got != ck_step or ck_step != c["steps"] \
+                or resumed != plain_losses[0]:
+            raise AssertionError(f"resilience: resumed at {got} "
+                                 f"({ck_step}), loss {resumed} against "
+                                 f"{plain_losses[0]}")
+        del fresh
+    finally:
+        recovery.save_checkpoint = orig_save
+        shutil.rmtree(root, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    counters = {k: v - counters0.get(k, 0)
+                for k, v in M.snapshot()["counters"].items()
+                if k.startswith(("train/", "ckpt/", "comm/"))
+                and v - counters0.get(k, 0)}
+    out = {"steps": c["steps"], "run_s": run_s, "calls": calls,
+           "checks": checks, "losses": losses,
+           "replayed": {str(k): v for k, v in replay.items()},
+           "launches_per_step": per_step[-1],
+           "turns_ms": times, "median_ms": med,
+           "supervised_over_plain": med["supervised"] / med["plain"],
+           "state_bytes": nbytes, "checkpoint": {
+               "step": ck_step, "bytes": ck_bytes,
+               "save_s": [s for _, s in saves], "load_s": load_s,
+               "resumed_loss": resumed,
+               "uninterrupted_loss": plain_losses[0], "dir": where},
+           "profile": trace, "counters": counters}
+    log(json.dumps({"resilience": out}))
+    return dict(out, counts=path_counts)
+
+
+def _dispatch_turns(eager, rounds=4, tokens=4):
+    """The funnel's dispatch/calls counter (and its span check) on every
+    eager op: one greedy generate of ``tokens`` tokens after the eager
+    phase's prompt, with the counter and with a stand-in that counts
+    nothing, in turns."""
+    from paddle_tpu_torch.core import dispatch
+
+    class _Off:
+        def inc(self, v=1):
+            pass
+
+    model, prompt = eager["model"], eager["prompt"]
+    model.eval()
+    real = dispatch._m_calls
+    times = {"counted": [], "uncounted": []}
+    try:
+        model.generate(prompt, max_new_tokens=tokens)
+        for _ in range(rounds):
+            for name in ("counted", "uncounted"):
+                dispatch._m_calls = real if name == "counted" else _Off()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                model.generate(prompt, max_new_tokens=tokens)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t) * 1e3 / tokens)
+    finally:
+        dispatch._m_calls = real
+        model.train()
+    med = {k: statistics.median(v) for k, v in times.items()}
+    out = {"ms_per_token": times, "median_ms_per_token": med,
+           "counter_cost_ms_per_token": med["counted"] - med["uncounted"]}
+    log(json.dumps({"dispatch_counters": out}))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 6j (--hybrid, four cards). elastic re-formation through the launcher
+# ---------------------------------------------------------------------------
+
+# BERT-base by dist.to_static (phase 6g's row: BertConfig(), bf16 AMP,
+# dropout 0.1, the FFN on "mp", AdamW) at dp 2 x mp 2 over two elastic
+# controllers of two cards each; the checkpoint (every DTensor shard, the
+# moments and the optimizer's step) every 2 steps; node B killed once the
+# step-8 checkpoint exists (the world-4 run's first step a warm-up, the
+# next 2 x `turns` with the comm watchdog off and on in turns, in the
+# order off, on, on, off, ...); node A re-forms at dp 1 x mp 2 and trains
+# on to `steps`. The reshard is held by a digest of every full tensor
+# (_state_digest): the world-4 job's at the step-8 checkpoint, taken
+# before the kill, against the world-2 ranks' of what load_state_dict
+# placed in their mesh, exactly. The re-formed run's losses are held to an
+# uninterrupted world-2 run from the same checkpoint within
+# ELASTIC_LOSS_RTOL (the same mesh, seeds, data and kernels: expected to
+# agree to the bit; the tolerance covers an NCCL reduction order chosen
+# differently in another process).
+ELASTIC_JOB = dict(batch=32, seq=512, steps=14, save_every=2, kill_after=8,
+                   lr=1e-4, pause_s=1.5, ttl=5.0, turns=3, timeout_s=600)
+ELASTIC_LOSS_RTOL = 1e-5
+ELASTIC_WORKER = """import sys
+sys.path.insert(0, {root!r})
+import chip_smoke
+sys.exit(chip_smoke.elastic_worker(sys.argv[1:]))
+"""
+
+
+def _engine_state(engine):
+    """The Engine's training state as one flat dict for save_state_dict /
+    load_state_dict: every parameter and moment (DTensors, each rank its
+    shard) and the optimizer's step."""
+    d = {f"p:{k}": v for k, v in engine._params.items()}
+    for k, st in engine._opt_states.items():
+        for sk, sv in st.items():
+            d[f"o:{k}:{sk}"] = sv
+    d["step"] = torch.tensor(int(engine.optimizer._step_count))
+    return d
+
+
+def _state_digest(state):
+    """{key: [sum, position-weighted sum]} of each tensor's full value
+    (a DTensor gathered first: a collective, every rank calls it) read as
+    32-bit words (bytes where the size is not a multiple of 4), in
+    wrapping int64 arithmetic: exact, the same whatever the reduction
+    order, and changed by a moved, swapped or altered element."""
+    out = {}
+    for k in sorted(state):
+        v = state[k]
+        full = v.full_tensor() if hasattr(v, "full_tensor") else v
+        flat = full.detach().contiguous().reshape(-1)
+        words = flat.view(torch.int32 if flat.numel()
+                          * flat.element_size() % 4 == 0 else torch.uint8)
+        w = words.long()
+        pos = torch.arange(w.numel(), device=w.device) % 8191 + 1
+        out[k] = [int(w.sum()), int((w * pos).sum())]
+    return out
+
+
+def _elastic_dump(out_dir, name, res):
+    tmp = os.path.join(out_dir, name + ".tmp")
+    with open(tmp, "w") as f:
+        json.dump(res, f)
+    os.replace(tmp, os.path.join(out_dir, name))
+
+
+def elastic_worker(argv):
+    """One worker of phase_elastic, started by the launcher: NCCL from its
+    environment, a dp x mp = (world / 2) x 2 ProcessMesh, BERT-base by
+    dist.to_static. ``argv``: out_dir, checkpoint root, and "elastic" (a
+    worker of the elastic job: a fresh start at generation 0, else resumed
+    from the newest checkpoint; a checkpoint every
+    ELASTIC_JOB["save_every"] steps; at world 4 the step timed with the
+    comm watchdog off and on in turns, then the watchdog on and, from the
+    kill step on, a pause after each step for the parent's kill) or
+    "reference:<step>" (the uninterrupted world-2 run from that
+    checkpoint). Results go to <out_dir>/<mode>_g<generation>_r<rank>.json
+    as they come."""
+    import faulthandler
+
+    faulthandler.enable()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir, ckpt, mode = argv[0], argv[1], argv[2]
+    import paddle_tpu_torch as paddle
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed.checkpoint import load_state_dict
+    from paddle_tpu_torch.distributed.resilience.recovery import (
+        latest_checkpoint, save_checkpoint)
+    from paddle_tpu_torch.distributed.watchdog import (
+        comm_task_manager, disable_comm_watchdog, enable_comm_watchdog)
+    from paddle_tpu_torch.models import bert as TB
+    from paddle_tpu_torch.profiler import metrics as M
+
+    c = ELASTIC_JOB
+    env = dist.init_parallel_env()
+    rank, world = env.rank, env.world_size
+    gen = int(os.environ.get("PADDLE_ELASTIC_GENERATION", "0"))
+    dev = torch.device("cuda", torch.cuda.current_device())
+    paddle.set_device(f"gpu:{dev.index}")
+    mesh = dist.ProcessMesh(np.arange(world).reshape(world // 2, 2),
+                            dim_names=["dp", "mp"])
+    paddle.seed(0)
+    cfg = TB.BertConfig()
+    model = TB.BertForPretraining(cfg)
+    _place_ffn(dist, model, mesh)
+    opt = paddle.optimizer.AdamW(learning_rate=c["lr"],
+                                 parameters=model.parameters())
+    strategy = dist.Strategy({"amp": {"enable": True,
+                                      "dtype": "bfloat16"}})
+    dm = dist.to_static(model, loss=_mlm_loss(cfg), optimizer=opt,
+                        strategy=strategy, mesh=mesh)
+    engine = dm.engine
+    engine._ensure_prepared()
+    name = f"{mode.split(':')[0]}_g{gen}_r{rank}.json"
+    import torch.distributed as tdist
+
+    c10d = tdist.distributed_c10d
+    res = {"rank": rank, "world": world, "generation": gen,
+           # what the comm watchdog's escalation can abort with here
+           "nccl_abort": {"ProcessGroup.abort": hasattr(tdist.group.WORLD,
+                                                         "abort"),
+                          "_abort_process_group": hasattr(
+                              c10d, "_abort_process_group")},
+           "mesh": list(mesh.shape), "device": str(dev),
+           "card": torch.cuda.get_device_name(dev), "mode": mode,
+           "losses": {}, "save_ms": [], "step_done_at": {}}
+    start = 0
+    path = None
+    if mode.startswith("reference:"):
+        start = int(mode.split(":")[1])
+        path = os.path.join(ckpt, f"step_{start:08d}")
+    elif gen > 0:
+        found = latest_checkpoint(ckpt)
+        if found is not None:
+            start, path = found
+    if path is not None:
+        state = _engine_state(engine)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        load_state_dict(state, path)
+        torch.cuda.synchronize()
+        res["load_ms"] = (time.perf_counter() - t) * 1e3
+        engine.optimizer._step_count = int(state["step"])
+        res["loaded"] = {"path": os.path.basename(path),
+                         "opt_step": int(state["step"])}
+        res["digest_loaded"] = _state_digest(state)
+    res["start"] = start
+
+    def step(i):
+        paddle.seed(1000 + i)
+        ids, labels = _pretrain_batch("bert", cfg, c["batch"], c["seq"],
+                                      seed=100 + i)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss = float(dm(ids, labels).numpy())
+        torch.cuda.synchronize()
+        res["losses"][str(i)] = loss
+        res["step_done_at"][str(i)] = time.time()
+        return (time.perf_counter() - t) * 1e3
+
+    # the world-4 run's first step warms up; the next ones run with the
+    # comm watchdog off and on in turns (real steps of the run); then it
+    # stays on for the job
+    first = mode == "elastic" and world == 4
+    order = _turn_order(2 * c["turns"]) if first else []
+    n_turns = len(order)
+    if n_turns:
+        res["watchdog_turns_ms"] = {"off": [], "on": []}
+        res["watchdog_turn_order"] = order
+        res["warmup_ms"] = step(start)
+        start_turns = start + 1
+    i = start + (1 if n_turns else 0)
+    while i < c["steps"]:
+        if n_turns and i - start_turns < n_turns:
+            how = order[i - start_turns]
+            if how == "on":
+                enable_comm_watchdog(600.0)
+            else:
+                disable_comm_watchdog()
+            res["watchdog_turns_ms"][how].append(step(i))
+        else:
+            if n_turns and i - start_turns == n_turns:
+                enable_comm_watchdog(600.0)
+            res["step_ms_" + str(i)] = step(i)
+        i += 1
+        if mode == "elastic" and i % c["save_every"] == 0:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save_checkpoint(_engine_state(engine), ckpt, i)
+            res["save_ms"].append((time.perf_counter() - t) * 1e3)
+            res.setdefault("saved", []).append(i)
+            res["shard_bytes"] = os.path.getsize(os.path.join(
+                ckpt, f"step_{i:08d}", f"{rank}_0.distcp"))
+            if first and i == c["kill_after"]:
+                # what the checkpoint holds, for the re-formed job's check
+                res["digest"] = {"step": i, "leaves": _state_digest(
+                    _engine_state(engine))}
+        snap = M.snapshot()
+        res["comm"] = {k: v for k, v in snap["counters"].items()
+                       if k.startswith("comm/")}
+        res["watchdog"] = {"enabled": comm_task_manager.enabled,
+                           "pending": len(comm_task_manager.pending()),
+                           "group_stats": {
+                               str(g): st for g, st in
+                               comm_task_manager.group_stats().items()}}
+        _elastic_dump(out_dir, name, res)
+        if first and i >= c["kill_after"]:
+            time.sleep(c["pause_s"])
+    disable_comm_watchdog()
+    res["done"] = True
+    _elastic_dump(out_dir, name, res)
+    dist.destroy_process_group()
+    return 0
+
+
+def _worker_logs(log_dir):
+    out = {}
+    for root, _, files in os.walk(log_dir):
+        for f in files:
+            with open(os.path.join(root, f), errors="replace") as fh:
+                out[os.path.relpath(os.path.join(root, f), log_dir)] = \
+                    fh.read()[-3000:]
+    return out
+
+
+def phase_elastic(dev):
+    """An elastic job as a user runs it: two launcher controllers
+    (``python -m paddle_tpu_torch.distributed.launch --nnodes 1:2
+    --master <store> --devices 0,1`` and ``--devices 2,3``, a short
+    ``--elastic_ttl``, ``--ckpt_dir``) on a rendezvous store this process
+    serves, each worker running elastic_worker. Once the step-4 checkpoint
+    exists, node B's process group is killed; node A must re-form at world
+    2 (generation 1), load the world-4 checkpoint into its dp 1 x mp 2
+    mesh and train to the last step. Then an uninterrupted world-2 job
+    (``--nproc_per_node 2``) runs from the same checkpoint, and the
+    re-formed run's losses are held to it. Prints the kill-to-first-step
+    seconds, the checkpoint's bytes a rank, save and load ms, the step
+    with the comm watchdog on and off in turns, and the comm/* counters.
+    Fails if a job fails, the resume step is 0, or a loss is off."""
+    import gc
+    import signal
+
+    from paddle_tpu_torch.distributed.resilience.recovery import \
+        latest_checkpoint
+    from paddle_tpu_torch.distributed.store import TCPStore
+    from paddle_tpu_torch.ops.kernels import _build
+
+    c = ELASTIC_JOB
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = tempfile.mkdtemp(dir=_build.BUILD_DIR, prefix="elastic-")
+    ckpt = os.path.join(out_dir, "ckpt")
+    script = os.path.join(out_dir, "elastic_worker.py")
+    with open(script, "w") as f:
+        f.write(ELASTIC_WORKER.format(root=HERE))
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    store = TCPStore("127.0.0.1", 0, is_master=True)
+    launch = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch"]
+
+    def node(name, cards):
+        cmd = launch + ["--nnodes", "1:2", "--master",
+                        f"127.0.0.1:{store.port}", "--devices", cards,
+                        "--host", "127.0.0.1", "--job_id", "elastic",
+                        "--elastic_ttl", str(c["ttl"]),
+                        "--elastic_timeout", "120", "--max_restart", "2",
+                        "--ckpt_dir", ckpt, "--log_dir",
+                        os.path.join(out_dir, "log" + name), script,
+                        out_dir, ckpt, "elastic"]
+        return subprocess.Popen(cmd, cwd=HERE, env=env,
+                                start_new_session=True,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE, text=True)
+
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        # both controllers at once, so the first generation has both
+        # nodes (one that settles alone grows to both at the next)
+        a, b = node("A", "0,1"), node("B", "2,3")
+        procs = [a, b]
+        g4 = None
+        while g4 is None:
+            for f in sorted(os.listdir(out_dir)):
+                if f.startswith("elastic_g") and f.endswith("_r0.json"):
+                    with open(os.path.join(out_dir, f)) as fh:
+                        r0 = json.load(fh)
+                    if r0["world"] == 4 and "digest" in r0:
+                        g4 = r0
+            if a.poll() is not None or b.poll() is not None or \
+                    time.perf_counter() - t0 > c["timeout_s"]:
+                raise AssertionError(
+                    f"elastic: no step-{c['kill_after']} checkpoint at "
+                    f"world 4 (controllers {a.poll()}, {b.poll()}): "
+                    f"{_worker_logs(out_dir)}")
+            time.sleep(0.1)
+        # the step with the comm watchdog off and on, measured by the
+        # world-4 job before the kill
+        log(json.dumps({"elastic_before_kill": {
+            "generation": g4["generation"],
+            "watchdog_turns_ms": g4.get("watchdog_turns_ms"),
+            "comm": g4.get("comm"), "losses": g4["losses"]}}))
+        killed_at = time.time()
+        os.killpg(b.pid, signal.SIGKILL)
+        b.wait()
+        try:
+            rc = a.wait(timeout=c["timeout_s"])
+        except subprocess.TimeoutExpired:
+            rc = None
+        err = a.stderr.read()
+        if rc != 0:
+            raise AssertionError(f"elastic: node A returned {rc}: "
+                                 f"{err[-3000:]} {_worker_logs(out_dir)}")
+        g4gen = g4["generation"]
+        before = [json.load(open(os.path.join(
+            out_dir, f"elastic_g{g4gen}_r{r}.json"))) for r in range(4)]
+        gens = sorted({int(f.split("_g")[1].split("_")[0])
+                       for f in os.listdir(out_dir)
+                       if f.startswith("elastic_g")})
+        gen = gens[-1]
+        after = [json.load(open(os.path.join(
+            out_dir, f"elastic_g{gen}_r{r}.json"))) for r in range(2)]
+        start = after[0]["start"]
+        ref = subprocess.run(
+            launch + ["--nproc_per_node", "2", "--devices", "0,1",
+                      "--max_restart", "0", "--log_dir",
+                      os.path.join(out_dir, "logR"), script, out_dir, ckpt,
+                      f"reference:{start}"],
+            cwd=HERE, env=env, capture_output=True, text=True,
+            timeout=c["timeout_s"])
+        if ref.returncode != 0:
+            raise AssertionError(f"elastic: the reference job returned "
+                                 f"{ref.returncode}: {ref.stderr[-2000:]}"
+                                 f" {_worker_logs(out_dir)}")
+        refs = [json.load(open(os.path.join(out_dir,
+                                            f"reference_g0_r{r}.json")))
+                for r in range(2)]
+        bytes_by_rank = {}
+        step_dir = os.path.join(ckpt, f"step_{start:08d}")
+        for f in sorted(os.listdir(step_dir)):
+            bytes_by_rank[f] = os.path.getsize(os.path.join(step_dir, f))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        store.close()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    # the reshard: what each world-2 rank loaded against what the world-4
+    # job held at that checkpoint, leaf by leaf
+    digest = before[0]["digest"]
+    off_leaves = sorted({k for w in after for k, d in
+                         w["digest_loaded"].items()
+                         if d != digest["leaves"].get(k)}
+                        | (set(digest["leaves"])
+                           - set(after[0]["digest_loaded"])))
+    steps = [str(i) for i in range(start, c["steps"])]
+    got = [after[0]["losses"][s] for s in steps]
+    want = [refs[0]["losses"][s] for s in steps]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    first_at = min(after[0]["step_done_at"].values())
+    w0 = before[0]
+    out = {"wall_s": wall, "generation_before": g4gen,
+           "generation_after": gen,
+           "world_before": w0["world"], "world_after": after[0]["world"],
+           "mesh_after": after[0]["mesh"], "resume_step": start,
+           "kill_to_first_step_s": first_at - killed_at,
+           "losses_before": w0["losses"], "losses_after": got,
+           "losses_reference": want, "loss_rel": rel,
+           "bitwise": got == want,
+           "reshard_digest": {"step": digest["step"],
+                              "leaves": len(digest["leaves"]),
+                              "leaves_off": off_leaves},
+           "watchdog_turn_order": w0.get("watchdog_turn_order"),
+           "watchdog_turns_ms": w0.get("watchdog_turns_ms"),
+           "checkpoint_bytes": bytes_by_rank,
+           "save_ms_by_rank": [w["save_ms"] for w in before],
+           "load_ms_by_rank": [w.get("load_ms") for w in after],
+           "comm_counters_rank0": w0.get("comm"),
+           "nccl_abort": w0.get("nccl_abort"),
+           "watchdog_rank0": w0.get("watchdog"),
+           "cards_after": [w["device"] for w in after]}
+    log(json.dumps({"elastic": out}))
+    if start <= 0 or after[0]["world"] != 2 or gen <= g4gen:
+        raise AssertionError(f"elastic: resumed at {start}, world "
+                             f"{after[0]['world']}, generation {gen}")
+    if start != digest["step"] or off_leaves:
+        raise AssertionError(f"elastic: the reshard of the step-"
+                             f"{digest['step']} checkpoint (resumed at "
+                             f"{start}) differs in {off_leaves}")
+    if not (w0.get("comm") or {}).get("comm/all_reduce_count"):
+        raise AssertionError(f"elastic: the watchdog recorded no "
+                             f"collective: {w0.get('comm')}")
+    if rel > ELASTIC_LOSS_RTOL or not all(np.isfinite(got)):
+        raise AssertionError(f"elastic: losses after the resume {got} "
+                             f"against {want} (rel {rel:.2e})")
     return out
 
 
@@ -7918,7 +8815,8 @@ def main_hybrid():
     """``python3 chip_smoke.py --hybrid``: the build, then phase_hybrid at
     every world of 2 and 4 the host's cards allow (the multi-card run:
     parity at mp 2, mp 2 x sharding 2, the pp and the sep meshes, the eager
-    pipeline engines over NCCL, and the Llama-2 7B rows); fails if the
+    pipeline engines over NCCL, and the Llama-2 7B rows), each followed by
+    phase_launch, and with four cards phase_elastic; fails if the
     pipeline path missed a training kernel on every stage."""
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
@@ -7933,11 +8831,34 @@ def main_hybrid():
         pipeline.update(phase_hybrid(dev, world)["pipeline_counts"])
         # once the ranks have let go of the cards: mp 2, then dp 2 x mp 2
         phase_launch(dev, world, (world // 2, 2))
+    if 4 in worlds:
+        phase_elastic(dev)
     log(json.dumps({"pipeline_launches_every_stage": {
         k: pipeline[k] for k in TRAINING_KERNELS}}))
     if min(pipeline[k] for k in TRAINING_KERNELS) <= 0:
         raise AssertionError(f"the pipeline path missed a kernel: "
                              f"{dict(pipeline)}")
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main_elastic():
+    """``python3 chip_smoke.py --elastic``: the build, the comm watchdog's
+    rows alone (phase_hybrid over WATCHDOG_ROWS) and phase_elastic (four
+    cards: the elastic job that loses a node and re-forms; ``--hybrid``
+    runs both after its own jobs)."""
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.device_count()} x {torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    phase_device_and_build()
+    if torch.cuda.device_count() < 4:
+        raise AssertionError("--elastic needs 4 cards")
+    dev = torch.device("cuda", 0)
+    phase_hybrid(dev, 4, plan=WATCHDOG_ROWS)
+    phase_elastic(dev)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7962,6 +8883,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == ["--hybrid"]:
         return main_hybrid()
+    if sys.argv[1:] == ["--elastic"]:
+        return main_elastic()
     dev = paddle_tpu_torch.resolve_device("cuda")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
@@ -7998,6 +8921,14 @@ def main():
     vision = phase_vision(dev)
     phase_profile(dev, serving, training, packed, kernels, probes, int8,
                   stream, artifact, eager, pretrain, vision)
+    # after the profile phase (a torch.profiler session slows later host
+    # work); the training phase's trainer and the eager optimizer go first
+    _dispatch_turns(eager)
+    for held, keys in ((training, ("trainer", "ids", "labels")),
+                       (eager, ("model", "opt"))):
+        for k in keys:
+            held.pop(k, None)
+    resilience = phase_resilience(dev)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
                "packed_training": packed["counts"],
@@ -8005,7 +8936,8 @@ def main():
                "artifact": artifact["counts"], "eager": eager["counts"],
                "hybrid": hybrid["counts"],
                "pipeline": Counter(hybrid["pipeline_counts"]),
-               "sep": sep["counts"], "auto_parallel": launch["counts"]}
+               "sep": sep["counts"], "auto_parallel": launch["counts"],
+               "resilience": resilience["counts"]}
     by_path.update(hybrid["path_counts"])
     by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
@@ -8028,7 +8960,8 @@ def main():
                                  hybrid["pipeline_per_step"].items()}
                              for k in TRAINING_KERNELS},
                 "sep": sep["per_call"],
-                "auto_parallel": launch["launches_per_step"]})
+                "auto_parallel": launch["launches_per_step"],
+                "resilience": resilience["launches_per_step"]})
     per_step.update(hybrid["path_per_step"])
     per_step.update({kind: r["metrics"]["launches_per_step"]
                      for kind, r in pretrain.items()})

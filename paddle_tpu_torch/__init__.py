@@ -36,8 +36,8 @@ from .core.place import CPUPlace, CUDAPlace, Place, get_device, set_device
 from .core.tensor import Parameter, Tensor
 from .ops import *  # noqa: F401,F403
 from . import (amp, distributed, framework, hapi, incubate, inference, io,
-               jit, metric, models, nn, ops, optimizer, regularizer, utils,
-               vision)
+               jit, metric, models, nn, ops, optimizer, profiler,
+               regularizer, utils, vision)
 from .framework.io import async_save, clear_async_save_task_queue, load, save
 from .framework.random import get_rng_state, seed, set_rng_state
 from .hapi import callbacks

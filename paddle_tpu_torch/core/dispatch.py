@@ -21,7 +21,9 @@ for it.
 
 None of the TPU package's per-signature jit cache, GradNode recording or
 pullback trampolines is needed: torch runs each op eagerly and records its
-backward. The registry's call tally comes along (ops/registry.py).
+backward. The registry's call tally comes along (ops/registry.py), and
+every call counts ``dispatch/calls`` in the metrics registry and, while a
+Profiler collects host spans, opens an ``op::<name>`` RecordEvent.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ from typing import Callable
 
 import torch
 
+from ..profiler import RecordEvent, host_tracing_active
+from ..profiler import metrics as _metrics
 from . import amp_state
 from .tensor import Tensor, dtensor_class
 
@@ -44,6 +48,8 @@ _flags = {"check_nan_inf": False, "check_nan_inf_level": 0}
 op_observers: list = []
 
 _registry_mod = None
+
+_m_calls = _metrics.counter("dispatch/calls")
 
 
 def _reg():
@@ -119,12 +125,19 @@ def _leaves(out):
 def apply(fn: Callable, *args, op_name: str = None,
           differentiable: bool = True, **kwargs):
     """Run ``fn`` (a function of torch tensors) on Tensor arguments and
-    return its outputs as Tensors."""
+    return its outputs as Tensors. Every call counts into the always-on
+    metrics registry and, while a Profiler collects, opens a host span
+    (reference dispatch.py:297-309)."""
     name = op_name or getattr(fn, "__name__", "op")
+    _m_calls.inc()
     _reg().record_call(name)
-    # the dispatch/* metrics counters and the op's RecordEvent span
-    # (dispatch.py:304-309) come with the profiler port (ROADMAP.md,
-    # queue 1, item 6)
+    if host_tracing_active():
+        with RecordEvent("op::" + name):
+            return _apply(fn, args, kwargs, name, differentiable)
+    return _apply(fn, args, kwargs, name, differentiable)
+
+
+def _apply(fn, args, kwargs, name, differentiable):
     cast = amp_state.cast_policy(name) if amp_state._state.enabled else None
     targs = [_unwrap(a, cast) for a in args]
     tkw = {k: _unwrap(v, cast) for k, v in kwargs.items()} if kwargs \

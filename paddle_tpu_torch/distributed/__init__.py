@@ -29,21 +29,24 @@ shard_tensor, reshard, to_static and the Engine) runs over
 paddle_tpu_torch.distributed.launch`` starts one worker a card with the
 environment above, its rendezvous through the store (store.py).
 
-Not ported yet (ROADMAP.md, queue 1): the transport, watchdog, elastic
-re-formation, resilience supervisor and checkpoint tiers (items 6 and 8).
+Training resilience: the eager TCP tensor transport (transport.py), the
+comm watchdog (watchdog.py), the distributed checkpoint with
+reshard-on-load (checkpoint), the elastic manager (elastic.py) and the
+self-healing supervisor with its checkpoint tiers (resilience).
 """
 from __future__ import annotations
 
 import os
 import time
 
-from . import (auto_parallel, collective, env, fleet, meta_parallel,
-               resilience, topology, utils)
+from . import (auto_parallel, checkpoint, collective, elastic, env, fleet,
+               meta_parallel, resilience, topology, utils)
 from .auto_parallel.api import (DistModel, dtensor_from_fn, reshard,
                                 shard_layer, shard_optimizer, shard_tensor,
                                 to_static, unshard_dtensor)
 from .auto_parallel.placement import Partial, Placement, Replicate, Shard
 from .auto_parallel.process_mesh import ProcessMesh
+from .checkpoint import load_state_dict, save_state_dict
 from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
                          all_reduce, all_to_all, all_to_all_single, barrier,
                          batch_isend_irecv, broadcast, broadcast_object_list,
@@ -54,11 +57,19 @@ from .collective import (P2POp, ReduceOp, all_gather, all_gather_object,
 from .env import (ParallelEnv, get_rank, get_world_size, init_parallel_env,
                   is_initialized)
 from .parallel import DataParallel
+from .resilience.recovery import (latest_checkpoint, resume_from_latest,
+                                  save_checkpoint)
 from .topology import (HybridCommunicateGroup, build_mesh,
                        get_hybrid_communicate_group, get_mesh)
+from .watchdog import (comm_task_manager, disable_comm_watchdog,
+                       enable_comm_watchdog)
 
-__all__ = ["auto_parallel", "collective", "env", "fleet", "meta_parallel",
-           "resilience", "topology", "utils", "spawn",
+__all__ = ["auto_parallel", "checkpoint", "collective", "elastic", "env",
+           "fleet", "meta_parallel", "resilience", "topology", "utils",
+           "spawn", "save_state_dict", "load_state_dict",
+           "save_checkpoint", "latest_checkpoint", "resume_from_latest",
+           "comm_task_manager", "enable_comm_watchdog",
+           "disable_comm_watchdog",
            "shard_tensor", "reshard", "shard_layer", "shard_optimizer",
            "to_static", "dtensor_from_fn", "unshard_dtensor", "DistModel",
            "ProcessMesh", "Placement", "Shard", "Replicate", "Partial",

@@ -45,6 +45,15 @@ from .process_mesh import ProcessMesh
 __all__ = ["Engine", "Strategy"]
 
 
+def _all_reduce(t, pg):
+    """A sum over a mesh dimension's process group, through
+    collective.py under that group's own id (comm/* counters; a CommTask
+    under the watchdog)."""
+    from .. import collective
+
+    collective.all_reduce(t, group=collective.group_of(pg))
+
+
 class Strategy:
     """reference: dist.Strategy (auto_parallel/strategy.py). ``amp`` is
     honoured; ``sharding``, ``pipeline`` and ``gradient_merge`` are
@@ -267,8 +276,6 @@ class Engine:
         all-reduce a dimension and bucket (as DTensor's redistribute sums
         them, dimension by dimension); any other difference through
         ``redistribute``."""
-        import torch.distributed as tdist
-
         from ...optimizer.optimizer import _GROUP_ELEMENTS
 
         out, buckets = [], {}
@@ -295,7 +302,7 @@ class Engine:
                     size += out[take[-1]].numel()
                 flat = torch.cat([out[i].reshape(-1) for i in take])
                 for d in dims:
-                    tdist.all_reduce(flat, group=self._dm.get_group(d))
+                    _all_reduce(flat, self._dm.get_group(d))
                 for i, piece in zip(take, flat.split(
                         [out[i].numel() for i in take])):
                     out[i] = piece.view(out[i].shape)
@@ -304,8 +311,6 @@ class Engine:
     def _global_norm(self, local_grads, leaves):
         """sqrt of the sum of squares of every gradient (sharded ones
         summed over the mesh dimensions that shard them)."""
-        import torch.distributed as tdist
-
         by_dims = {}
         for g, leaf in zip(local_grads, leaves):
             dims = tuple(i for i, p in enumerate(leaf.placements)
@@ -315,7 +320,7 @@ class Engine:
         total = torch.zeros((), dtype=torch.float32, device=self._device)
         for dims, sq in by_dims.items():
             for i in dims:
-                tdist.all_reduce(sq, group=self._dm.get_group(i))
+                _all_reduce(sq, self._dm.get_group(i))
             total = total + sq
         return torch.sqrt(total)
 

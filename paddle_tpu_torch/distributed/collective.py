@@ -16,12 +16,16 @@ is not a member of.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional
 
 import torch
 import torch.distributed as tdist
 
+from ..profiler import RecordEvent, host_tracing_active
+from ..profiler import metrics as _metrics
 from . import env as _env
+from .watchdog import comm_task_manager
 
 __all__ = ["ReduceOp", "Group", "Task", "new_group", "get_group",
            "destroy_process_group", "is_initialized", "all_reduce",
@@ -29,12 +33,12 @@ __all__ = ["ReduceOp", "Group", "Task", "new_group", "get_group",
            "all_to_all_single", "broadcast", "broadcast_object_list",
            "reduce", "scatter", "scatter_object_list", "gather", "send",
            "recv", "isend", "irecv", "P2POp", "batch_isend_irecv", "barrier",
-           "wait", "get_world_size", "get_rank", "get_backend", "stream"]
+           "wait", "get_world_size", "get_rank", "get_backend", "stream",
+           "record_collective", "group_of"]
 
-# the comm watchdog's records (reference collective.py:246-341: _CommRecord
-# and _track, the comm/* metrics and the desync watchdog's CommTasks) come
-# with the host infrastructure (ROADMAP.md, queue 1, item 6); each
-# collective below would open its record here
+_m_coll_count = _metrics.counter("comm/collective_count")
+_m_coll_bytes = _metrics.counter("comm/collective_bytes")
+_m_coll_latency = _metrics.histogram("comm/latency_ms")
 
 _all_gather_single = getattr(tdist, "all_gather_single", None) or \
     getattr(tdist, "all_gather_into_tensor")
@@ -90,11 +94,119 @@ class Task:
         self.wait()
 
 
-def _run(work, finish, sync_op):
+def _run(work, finish, sync_op, rec=None, tensor=None):
     task = Task(work, finish)
     if sync_op:
         task.wait()
+    if rec is not None:
+        rec.issued(tensor, None if sync_op else work)
     return task
+
+
+# ---------------------------------------------------------------------------
+# the comm records (reference collective.py:246-341)
+# ---------------------------------------------------------------------------
+
+def _tensor_nbytes(tensor) -> int:
+    if tensor is None:
+        return 0
+    local = getattr(tensor, "to_local", None)
+    t = local() if callable(local) else tensor
+    return t.numel() * t.element_size()
+
+
+class _CommRecord:
+    """Per-collective instrumentation handle, created for EVERY issued
+    collective: folds (count, bytes, host latency) into the always-on
+    metrics registry and the CommTaskManager's cumulative per-group
+    stats, opens a host RecordEvent span when a Profiler is collecting,
+    and wraps the watchdog CommTask when the watchdog is enabled.
+    Latency is issue -> return of the call: the host-side span of the op
+    (a gloo op blocks, so it IS the op; an NCCL op measures the issue,
+    the part Python can stall on). Nothing here synchronises the host:
+    the watchdog watches an NCCL collective through a CUDA event recorded
+    after it, polled by its own thread."""
+
+    __slots__ = ("task", "op", "gid", "nbytes", "t0", "_finished", "_span")
+
+    def __init__(self, task, op, gid, nbytes):
+        self.task = task
+        self.op = op
+        self.gid = gid
+        self.nbytes = nbytes
+        self.t0 = time.monotonic()
+        self._finished = False
+        if host_tracing_active():
+            self._span = RecordEvent("comm::" + op)
+            self._span.__enter__()
+        else:
+            self._span = None
+
+    def _finish(self):
+        if self._finished:
+            return
+        self._finished = True
+        dt_ms = (time.monotonic() - self.t0) * 1e3
+        _m_coll_count.inc()
+        _m_coll_bytes.inc(self.nbytes)
+        _metrics.inc(f"comm/{self.op}_count")
+        if self.nbytes:
+            _metrics.inc(f"comm/{self.op}_bytes", self.nbytes)
+        _m_coll_latency.observe(dt_ms)
+        comm_task_manager.record_stats(self.op, self.gid, self.nbytes,
+                                       dt_ms)
+        if self._span is not None:
+            self._span.end()
+            self._span = None
+
+    def mark_done(self):
+        self._finish()
+        if self.task is not None:
+            self.task.mark_done()
+
+    def attach(self, value):
+        self._finish()
+        if self.task is not None:
+            self.task.attach(value)
+
+    def issued(self, tensor=None, work=None):
+        """The collective was issued: an async one is watched through its
+        Work; a CUDA one through an event recorded on the current stream
+        (which the sync call's wait ordered after the collective); a gloo
+        one has completed."""
+        if self.task is None:
+            self._finish()
+        elif work is not None:
+            self.attach(work)
+        elif tensor is not None and tensor.is_cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+            self.attach(ev)
+        else:
+            self.mark_done()
+
+
+def record_collective(op_name: str, gid: int, ranks, tensor=None) \
+        -> _CommRecord:
+    """Instrument one collective issued on group ``gid`` over global
+    ``ranks`` (always), and register it with the desync watchdog when
+    enabled (reference: CommTaskManager::CommTaskEnqueue,
+    comm_task_manager.h). Call ``issued()`` on the result after the
+    collective."""
+    task = None
+    if comm_task_manager.enabled:
+        shape = dtype = None
+        if tensor is not None:
+            shape, dtype = tuple(tensor.shape), tensor.dtype
+        task = comm_task_manager.start_task(
+            op_name, gid, list(ranks), _env.global_rank(),
+            shape=shape, dtype=dtype)
+    return _CommRecord(task, op_name, gid, _tensor_nbytes(tensor))
+
+
+def _track(op_name, group, tensor=None) -> _CommRecord:
+    g = group or _get_default_group()
+    return record_collective(op_name, g.id, g.ranks, tensor)
 
 
 class Group:
@@ -109,6 +221,9 @@ class Group:
         self.axis_name = axis_name or f"group_{gid}"
         self.name = name or self.axis_name
         self.process_group = pg
+        # the comm watchdog's CommTimeoutError once it aborted the group:
+        # every later collective on it raises that
+        self.aborted: Optional[BaseException] = None
 
     @property
     def rank(self):
@@ -171,6 +286,24 @@ def new_group(ranks=None, backend=None, timeout=None, axis_name=None):
 
 def get_group(gid=0):
     return _get_default_group() if gid == 0 else _groups.get(gid)
+
+
+def group_of(pg) -> Group:
+    """The Group over an existing torch process group (a DeviceMesh
+    dimension's, say), registered under a group id of its own at the first
+    call, so that its collectives go through this module and are recorded
+    under that id. Every member calls it for its groups in the same order,
+    as new_group is called."""
+    if pg is tdist.group.WORLD:
+        return _get_default_group()
+    for g in _groups.values():
+        if g.process_group is pg:
+            return g
+    _group_counter[0] += 1
+    gid = _group_counter[0]
+    g = Group(tdist.get_process_group_ranks(pg), gid, pg=pg)
+    _groups[gid] = g
+    return g
 
 
 def destroy_process_group(group=None):
@@ -241,6 +374,8 @@ def _pg(group, tensors=()):
     if g.process_group is None:
         raise RuntimeError("paddle_tpu_torch.distributed: call "
                            "init_parallel_env() before a collective")
+    if g.aborted is not None:
+        raise g.aborted
     if not g.is_member():
         raise RuntimeError(f"rank {_env.global_rank()} is not in {g}")
     backend = str(g.backend)
@@ -271,9 +406,10 @@ def _set(dst: torch.Tensor, src: torch.Tensor):
 def all_reduce(tensor, op=ReduceOp.SUM, group=None, sync_op=True):
     t = _raw(tensor)
     pg = _pg(group, [t])
+    rec = _track("all_reduce", group, t)
     work = tdist.all_reduce(t, op=_torch_op(op), group=pg,
                             async_op=not sync_op)
-    return _run(work, None, sync_op)
+    return _run(work, None, sync_op, rec, t)
 
 
 def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
@@ -286,6 +422,7 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
     n = g.nranks
     flat = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]) if t.dim()
                        else (n,), dtype=t.dtype, device=t.device)
+    rec = _track("all_gather", g, t)
     work = _all_gather_single(flat, t.contiguous(), group=pg,
                               async_op=not sync_op)
     parts = list(flat.chunk(n, dim=0)) if t.dim() else list(flat.unbind(0))
@@ -294,11 +431,11 @@ def all_gather(tensor_list, tensor, group=None, sync_op=True, axis=0):
         def finish():
             tensor_list.clear()
             tensor_list.extend(_like(tensor, p) for p in parts)
-        return _run(work, finish, sync_op)
+        return _run(work, finish, sync_op, rec, t)
     if not sync_op:
         raise ValueError("all_gather(None, ...) returns its result: "
                          "sync_op=False needs a tensor_list")
-    _run(work, None, True)
+    _run(work, None, True, rec, t)
     out = flat if axis == 0 else torch.cat(parts, dim=axis)
     return _like(tensor, out)
 
@@ -320,9 +457,10 @@ def reduce_scatter(tensor, tensor_or_tensor_list, op=ReduceOp.SUM,
     full = torch.cat([_raw(x) for x in src], dim=0) \
         if isinstance(src, (list, tuple)) else _raw(src)
     pg = _pg(group, [out, full])
+    rec = _track("reduce_scatter", group, full)
     work = _reduce_scatter_single(out, full.contiguous(), op=_torch_op(op),
                                   group=pg, async_op=not sync_op)
-    return _run(work, None, sync_op)
+    return _run(work, None, sync_op, rec, out)
 
 
 def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
@@ -332,32 +470,36 @@ def all_to_all(out_tensor_list, in_tensor_list, group=None, sync_op=True):
     ins = [_raw(x).contiguous() for x in in_tensor_list]
     pg = _pg(group, ins)
     outs = [torch.empty_like(x) for x in ins]
+    rec = _track("all_to_all", group, ins[0] if ins else None)
+    rec.nbytes = sum(_tensor_nbytes(x) for x in ins)
     work = tdist.all_to_all(outs, ins, group=pg, async_op=not sync_op)
 
     def finish():
         out_tensor_list.clear()
         out_tensor_list.extend(_like(in_tensor_list[0], o) for o in outs)
-    return _run(work, finish, sync_op)
+    return _run(work, finish, sync_op, rec, outs[0] if outs else None)
 
 
 def all_to_all_single(out_tensor, in_tensor, out_split_sizes=None,
                       in_split_sizes=None, group=None, sync_op=True):
     out, inp = _raw(out_tensor), _raw(in_tensor)
     pg = _pg(group, [out, inp])
+    rec = _track("all_to_all_single", group, inp)
     work = tdist.all_to_all_single(
         out, inp.contiguous(),
         output_split_sizes=list(out_split_sizes) if out_split_sizes
         else None,
         input_split_sizes=list(in_split_sizes) if in_split_sizes else None,
         group=pg, async_op=not sync_op)
-    return _run(work, None, sync_op)
+    return _run(work, None, sync_op, rec, out)
 
 
 def broadcast(tensor, src=0, group=None, sync_op=True):
     t = _raw(tensor)
     pg = _pg(group, [t])
+    rec = _track("broadcast", group, t)
     work = tdist.broadcast(t, src=src, group=pg, async_op=not sync_op)
-    return _run(work, None, sync_op)
+    return _run(work, None, sync_op, rec, t)
 
 
 def broadcast_object_list(object_list, src=0, group=None):
@@ -367,9 +509,10 @@ def broadcast_object_list(object_list, src=0, group=None):
 def reduce(tensor, dst=0, op=ReduceOp.SUM, group=None, sync_op=True):
     t = _raw(tensor)
     pg = _pg(group, [t])
+    rec = _track("reduce", group, t)
     work = tdist.reduce(t, dst=dst, op=_torch_op(op), group=pg,
                         async_op=not sync_op)
-    return _run(work, None, sync_op)
+    return _run(work, None, sync_op, rec, t)
 
 
 def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
@@ -379,8 +522,9 @@ def scatter(tensor, tensor_list=None, src=0, group=None, sync_op=True):
     ins = [_raw(x).contiguous() for x in tensor_list] \
         if me == src and tensor_list else None
     pg = _pg(group, [t] + (ins or []))
+    rec = _track("scatter", group, t)
     work = tdist.scatter(t, ins, src=src, group=pg, async_op=not sync_op)
-    return _run(work, None, sync_op)
+    return _run(work, None, sync_op, rec, t)
 
 
 def scatter_object_list(out_object_list, in_object_list=None, src=0,
@@ -401,31 +545,40 @@ def gather(tensor, gather_list=None, dst=0, group=None, sync_op=True):
     me = _env.global_rank()
     outs = [torch.empty_like(t) for _ in range(g.nranks)] if me == dst \
         else None
+    rec = _track("gather", g, t)
     work = tdist.gather(t, outs, dst=dst, group=pg, async_op=not sync_op)
 
     def finish():
         if outs is not None and gather_list is not None:
             gather_list.clear()
             gather_list.extend(_like(tensor, o) for o in outs)
-    return _run(work, finish, sync_op)
+    return _run(work, finish, sync_op, rec, t)
 
 
 def send(tensor, dst=0, group=None, sync_op=True):
     t = _raw(tensor).contiguous()
     pg = _pg(group, [t])
+    rec = _track("send", group, t)
     if sync_op:
         tdist.send(t, dst, group=pg)
+        rec.issued(t)
         return Task()
-    return Task(tdist.isend(t, dst, group=pg))
+    work = tdist.isend(t, dst, group=pg)
+    rec.issued(t, work)
+    return Task(work)
 
 
 def recv(tensor, src=0, group=None, sync_op=True):
     t = _raw(tensor)
     pg = _pg(group, [t])
+    rec = _track("recv", group, t)
     if sync_op:
         tdist.recv(t, src, group=pg)
+        rec.issued(t)
         return Task()
-    return Task(tdist.irecv(t, src, group=pg))
+    work = tdist.irecv(t, src, group=pg)
+    rec.issued(t, work)
+    return Task(work)
 
 
 def isend(tensor, dst=0, group=None):
@@ -450,21 +603,28 @@ def batch_isend_irecv(p2p_op_list):
     """Post every send and receive of the list together (torch's
     batch_isend_irecv: one NCCL group call, no order to deadlock on);
     returns a Task each."""
-    ops = []
+    ops, recs = [], []
     for op in p2p_op_list:
         t = _raw(op.tensor)
         fn = tdist.isend if op.op in (isend, send) else tdist.irecv
         ops.append(tdist.P2POp(fn, t, op.peer, group=_pg(op.group, [t])))
-    return [Task(w) for w in tdist.batch_isend_irecv(ops)]
+        recs.append((_track("isend" if fn is tdist.isend else "irecv",
+                            op.group, t), t))
+    works = tdist.batch_isend_irecv(ops)
+    for (rec, t), w in zip(recs, works):
+        rec.issued(t, w)
+    return [Task(w) for w in works]
 
 
 def barrier(group=None):
     g = group or _get_default_group()
     pg = _pg(g)
+    rec = _track("barrier", g)
     if _env.backend() == "nccl":
         tdist.barrier(group=pg, device_ids=[torch.cuda.current_device()])
     else:
         tdist.barrier(group=pg)
+    rec.mark_done()
     return Task()
 
 

@@ -345,6 +345,28 @@ class HybridTrainer:
                     t.copy_(full)
         self.step_count = int(np.asarray(state["step"]))
 
+    def run_elastic(self, batch_fn, num_steps: int, config=None,
+                    **overrides):
+        """Drive this trainer under the self-healing supervisor:
+        `batch_fn(step) -> (input_ids, labels)` must be deterministic in
+        `step` so replay after a rollback/recovery converges. Each step
+        hands the supervisor ``elastic_state()`` (a full host copy: the
+        state a SKIP's ``on_restore`` puts back). Returns the
+        supervisor's (final_state, report)."""
+        from ..resilience.supervisor import SupervisorConfig, run_elastic
+
+        cfg = config or SupervisorConfig.from_env(**overrides)
+
+        def step_fn(state, step, ctx):
+            ids, labels = batch_fn(step)
+            loss = self.step(ids, labels)
+            return self.elastic_state(), float(loss.detach())
+
+        return run_elastic(step_fn, self.elastic_state(), cfg,
+                           num_steps=num_steps,
+                           on_restore=self.load_elastic_state,
+                           start_step=self.step_count)
+
     def lower_text(self, batch_shape):
         raise NotImplementedError(
             "paddle_tpu_torch: lower_text belongs to the compile tier; the "

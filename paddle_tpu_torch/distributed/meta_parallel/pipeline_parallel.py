@@ -44,6 +44,7 @@ sends a value nobody records).
 """
 from __future__ import annotations
 
+import time as _time
 from typing import Callable
 
 import torch
@@ -51,6 +52,7 @@ import torch
 from ...core import autograd
 from ...core.tensor import Tensor
 from ...nn.layer.layers import Layer
+from ...profiler import metrics as _metrics
 from .. import collective
 from ..fleet.layers.mpu.mp_ops import _live
 from . import pipeline_schedules as psched
@@ -280,15 +282,19 @@ class _ChunkExecutor:
                 if _floating(out):
                     recvs.append(("next", None, (tuple(out.shape),
                                                  out.dtype)))
+            t_posted = _time.perf_counter()
             got = p2p.exchange(pending, recvs) if pending or recvs else []
             pending = []
             if kind == "F":
                 if gv == 0:
                     x_in = micros[mi][0]
                 else:
-                    # the TPU package's comm/overlap_ms histogram of each
-                    # hand-off (pipeline_parallel.py:214-218) comes with
-                    # the profiler's metrics (ROADMAP.md, queue 1, item 6)
+                    # comm/overlap_ms of each forward hand-off (reference
+                    # pipeline_parallel.py:214-218): from posting the
+                    # exchange to holding the activation, the part of the
+                    # hand-off this stage waits for
+                    _metrics.observe("comm/overlap_ms",
+                                     (_time.perf_counter() - t_posted) * 1e3)
                     x_in = Tensor._wrap(got[0])
                     if _floating(got[0]) and not forward_only:
                         x_in.stop_gradient = False

@@ -20,7 +20,7 @@ Host-level fault domain extensions:
 - ``FailoverStore`` is the client every resilience layer goes through:
   same set/get/add/wait/barrier surface, but on a dead endpoint it
   rotates to the standby under ``resilience/backoff`` and retries the
-  op.
+  op (``store/failovers`` counts endpoint switches).
 - Generation fences: ``fenced_set`` carries the writer's generation and
   the server refuses writes older than the high-water mark for the
   fence domain (``StaleGenerationError``) — a rank returning from the
@@ -38,6 +38,8 @@ import time
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
+from ..profiler import metrics as _metrics
+from .resilience import faults as _faults
 from .resilience.backoff import delay as _backoff_delay
 from .resilience.errors import StaleGenerationError, StoreTimeoutError
 
@@ -55,10 +57,13 @@ _OP_TAIL = 5
 # replicated like any other key so fences survive a standby takeover
 FENCE_PREFIX = "__fence__/"
 
-# the store/* counters (store.py:57-63: failovers, redials, tailer_drops,
-# replicated_records, replication_naks, standby_takeovers and
-# elastic/fenced_writes) come with the metrics registry (ROADMAP.md,
-# queue 1, item 6); each spot that counts one says so below
+_m_failovers = _metrics.counter("store/failovers")
+_m_redials = _metrics.counter("store/redials")
+_m_tailer_drops = _metrics.counter("store/tailer_drops")
+_m_replicated = _metrics.counter("store/replicated_records")
+_m_repl_naks = _metrics.counter("store/replication_naks")
+_m_takeovers = _metrics.counter("store/standby_takeovers")
+_m_fenced = _metrics.counter("elastic/fenced_writes")
 
 # replication tailers ack within this budget or are declared dead; kept
 # short so a hung standby cannot wedge the primary's write path
@@ -139,16 +144,16 @@ class _StoreServer(threading.Thread):
                               str(seq).encode(), str(crc).encode())
                     (ack,) = _recv_msg(tail)
                     if ack == b"ok":
-                        # store/replicated_records counts here (item 6)
+                        _m_replicated.inc()
                         break
-                    # store/replication_naks counts here (item 6)
+                    _m_repl_naks.inc()
                 else:
                     dead.append(tail)
             except (ConnectionError, OSError):
                 dead.append(tail)
         for tail in dead:
             self._tailers.remove(tail)
-            # store/tailer_drops counts here (item 6)
+            _m_tailer_drops.inc()
             try:
                 tail.close()
             except OSError:
@@ -308,7 +313,7 @@ class TCPStore:
                       domain.encode(), str(int(gen)).encode())
             reply = _recv_msg(self._sock)
         if reply and reply[0] == b"fenced":
-            # elastic/fenced_writes counts here (item 6)
+            _m_fenced.inc()
             raise StaleGenerationError(key, domain, int(gen),
                                        int(reply[1].decode()))
 
@@ -453,7 +458,7 @@ class StandbyStore:
             # the primary (or its whole host) is gone; keep serving the
             # replica so clients can fail over onto this endpoint
             self.primary_alive = False
-            # store/standby_takeovers counts here (item 6)
+            _m_takeovers.inc()
 
     def close(self):
         try:
@@ -530,7 +535,7 @@ class FailoverStore:
                     continue
                 if idx:
                     self._idx = idx
-                    # store/failovers counts here (item 6)
+                    _m_failovers.inc()
                 break
 
     @property
@@ -558,7 +563,9 @@ class FailoverStore:
 
     def _redial(self, failed=None):
         """Rotate through the endpoint list (next first, wrapping) until
-        one accepts."""
+        one accepts, consulting the chaos ``dial`` site like the
+        transport does — a ``partition`` fault makes the dial fail the
+        way a severed network link would."""
         with self._flock:
             if failed is not None and self._store is not failed:
                 # another caller already swapped the client while we
@@ -575,11 +582,20 @@ class FailoverStore:
             last: Optional[BaseException] = None
             for attempt in range(max(n * 2, 2)):
                 idx = (old_idx + 1 + attempt) % n
-                # the chaos "dial" site (store.py:582: delay, kill, drop
-                # or partition this dial) comes with the fault injector
-                # (ROADMAP.md, queue 1, item 8)
+                act = _faults.injector.on_event("dial", self._rank)
+                if act is not None:
+                    if act.kind == "delay":
+                        time.sleep(act.delay_ms / 1e3)
+                    elif act.kind == "kill":
+                        os._exit(act.exit_code)
+                    elif act.kind in ("drop", "partition"):
+                        last = OSError(
+                            f"fault injection: {act.kind} at store dial")
+                        time.sleep(_backoff_delay(attempt, base=0.05,
+                                                  cap=0.5))
+                        continue
                 host, port = self._endpoints[idx]
-                # store/redials counts here (item 6)
+                _m_redials.inc()
                 try:
                     self._store = TCPStore(
                         host, port, is_master=False,
@@ -592,7 +608,7 @@ class FailoverStore:
                     continue
                 if idx != old_idx:
                     self._idx = idx
-                    # store/failovers counts here (item 6)
+                    _m_failovers.inc()
                 return
             raise ConnectionError(
                 f"store failover exhausted: no endpoint of "

@@ -25,27 +25,35 @@ cache-owned KV pages (and their scales, for an int8 engine) go to a
 the JSON manifest last by tmp + rename: a directory without its manifest
 is torn, which restore ignores and the sweep deletes. The on-disk format is
 the reference's, so a snapshot written by the TPU package's engine
-restores here. Not ported yet (ROADMAP.md): the metrics registry and the
-``cache_save`` chaos site; weight versions keep the reference's default
-version 0.
+restores here; weight versions keep the reference's default version 0.
+A snapshot consults the ``cache_save`` chaos site between the page data
+and the manifest (a ``kill`` there fells the engine and leaves the torn
+directory a real mid-save death leaves), and the cache writes the
+reference's ``serving/cache_snapshots``, ``serving/cache_restore_ms`` and
+``serving/prefix_hits_restored`` series.
 """
 from __future__ import annotations
 
 import hashlib
-import json
 import os
 import re
 import shutil
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..profiler import metrics as _metrics
+
 __all__ = ["PrefixCache", "save_snapshot", "restore_snapshot",
            "sweep_snapshots", "latest_snapshot", "CACHE_DIR_RE"]
 
+_m_hits_restored = _metrics.counter("serving/prefix_hits_restored")
+_m_restore_ms = _metrics.histogram("serving/cache_restore_ms")
+_m_snapshots = _metrics.counter("serving/cache_snapshots")
+
 CACHE_DIR_RE = re.compile(r"^cache_(\d+)$")
-MANIFEST_JSON = "MANIFEST.json"
 
 
 class _Node:
@@ -145,6 +153,10 @@ class PrefixCache:
             node.refs += 1
             self._tick += 1
             node.lru = self._tick
+            if node.restored:
+                # this block's prefill was saved by a previous engine
+                # incarnation: the restart paid no re-prefill for it
+                _m_hits_restored.inc()
             held.append(k)
             pages.append(node.page)
         if held:
@@ -256,47 +268,8 @@ class PrefixCache:
 
 # ---------------------------------------------------------------------------
 # snapshot persistence: cache_<seq>/pages.npz + MANIFEST.json, the manifest
-# last and atomic (the port's copy of resilience/recovery.py's helpers)
+# last and atomic (resilience/recovery.py's helpers)
 # ---------------------------------------------------------------------------
-
-def _publish_manifest(path: str, payload: Dict) -> str:
-    """Write ``payload`` as MANIFEST.json in ``path`` by tmp + rename: its
-    presence marks the snapshot complete."""
-    tmp = os.path.join(path, MANIFEST_JSON + ".tmp")
-    with open(tmp, "w") as f:
-        json.dump(payload, f)
-        f.flush()
-        os.fsync(f.fileno())
-    final = os.path.join(path, MANIFEST_JSON)
-    os.replace(tmp, final)
-    return final
-
-
-def _read_manifest(path: str) -> Optional[Dict]:
-    try:
-        with open(os.path.join(path, MANIFEST_JSON)) as f:
-            return json.load(f)
-    except (OSError, ValueError):
-        return None
-
-
-def _complete_dirs(root: str) -> List[Tuple[int, str]]:
-    """(seq, path) of every complete snapshot under ``root``, ascending."""
-    out = []
-    try:
-        names = os.listdir(root)
-    except OSError:
-        return []
-    for name in names:
-        m = CACHE_DIR_RE.match(name)
-        if not m:
-            continue
-        path = os.path.join(root, name)
-        if os.path.isfile(os.path.join(path, MANIFEST_JSON)):
-            out.append((int(m.group(1)), path))
-    out.sort()
-    return out
-
 
 def _topo_nodes(cache: PrefixCache):
     """Trie nodes parent before child, so any prefix of the order is a
@@ -330,25 +303,19 @@ def _savable(t: torch.Tensor) -> np.ndarray:
 def sweep_snapshots(root: str, skip: Optional[str] = None) -> List[str]:
     """Delete torn ``cache_<seq>`` dirs (no manifest) under ``root``;
     returns the removed paths."""
-    removed = []
-    try:
-        names = os.listdir(root)
-    except OSError:
-        return removed
-    complete = {p for _, p in _complete_dirs(root)}
-    for name in names:
-        cand = os.path.join(root, name)
-        if CACHE_DIR_RE.match(name) and os.path.isdir(cand) \
-                and cand not in complete and cand != skip:
-            shutil.rmtree(cand, ignore_errors=True)
-            removed.append(cand)
-    return removed
+    from ..distributed.resilience import recovery as _rec
+
+    return _rec.sweep_torn_dirs(root, CACHE_DIR_RE,
+                                metric="serving/cache_snapshots_swept",
+                                skip=skip)
 
 
 def latest_snapshot(root: str) -> Optional[Tuple[int, str]]:
     """(seq, path) of the newest COMPLETE snapshot under ``root``, or
     None."""
-    found = _complete_dirs(root)
+    from ..distributed.resilience import recovery as _rec
+
+    found = _rec.complete_dirs(root, CACHE_DIR_RE)
     return found[-1] if found else None
 
 
@@ -359,6 +326,8 @@ def save_snapshot(engine, root: str,
     ``root``: page data first, the manifest last. With ``keep``, prunes
     complete snapshots beyond the newest ``keep``. Returns the snapshot
     path, or None when the cache is empty or absent."""
+    from ..distributed.resilience import recovery as _rec
+
     cache = engine._prefix_cache
     if cache is None:
         return None
@@ -366,7 +335,7 @@ def save_snapshot(engine, root: str,
     if not order:
         return None
     os.makedirs(root, exist_ok=True)
-    existing = _complete_dirs(root)
+    existing = _rec.complete_dirs(root, CACHE_DIR_RE)
     seq = existing[-1][0] + 1 if existing else 0
     path = os.path.join(root, f"cache_{seq:08d}")
     os.makedirs(path, exist_ok=True)
@@ -381,8 +350,25 @@ def save_snapshot(engine, root: str,
         slabs["vs"] = _savable(engine._vs[:, pages])
     np.savez(os.path.join(path, "pages.npz"), **slabs)
 
+    # chaos site: a kill here is a death AFTER the page data landed but
+    # BEFORE the manifest — exactly the torn snapshot the sweep exists
+    # for. The engine (not the process) dies, per the serving-site
+    # contract in resilience/faults.py.
+    from ..distributed.resilience import faults as _faults
+    from ..distributed.resilience.errors import EngineDeadError
+
+    act = _faults.injector.on_event("cache_save",
+                                    getattr(engine, "fault_rank", 0))
+    if act is not None:
+        if act.kind == "kill":
+            engine.dead = True
+            raise EngineDeadError(getattr(engine, "name", "engine"),
+                                  "cache_save")
+        if act.kind == "delay":
+            time.sleep(act.delay_ms / 1e3)
+
     key_index = {k: i for i, (k, _) in enumerate(order)}
-    _publish_manifest(path, {
+    _rec.publish_manifest(path, {
         "kind": "prefix_cache",
         "seq": seq,
         "block_size": int(cache.block_size),
@@ -396,10 +382,12 @@ def save_snapshot(engine, root: str,
                    "wv": node.wv}
                   for k, node in order],
     })
+    _m_snapshots.inc()
     if keep is not None and keep > 0:
-        for _, old in _complete_dirs(root)[:-keep]:
+        for _, old in _rec.complete_dirs(root, CACHE_DIR_RE)[:-keep]:
             if old != path:
                 shutil.rmtree(old, ignore_errors=True)
+                _metrics.inc("serving/cache_snapshots_pruned")
     return path
 
 
@@ -414,13 +402,16 @@ def restore_snapshot(engine, root: str, sweep: bool = True) -> int:
     cache = getattr(engine, "_prefix_cache", None)
     if cache is None or not root:
         return 0
+    t0 = time.perf_counter()
     if sweep:
         sweep_snapshots(root)
     found = latest_snapshot(root)
     if found is None:
         return 0
+    from ..distributed.resilience import recovery as _rec
+
     _, path = found
-    man = _read_manifest(path)
+    man = _rec.read_manifest(path)
     if man is None or man.get("kind") != "prefix_cache":
         return 0
     quant = engine._ks is not None
@@ -473,4 +464,5 @@ def restore_snapshot(engine, root: str, sweep: bool = True) -> int:
         cache._ns_pages[node.ns] = cache._ns_pages.get(node.ns, 0) + 1
         if parent is not None and parent in cache._nodes:
             cache._nodes[parent].children += 1
+    _m_restore_ms.observe((time.perf_counter() - t0) * 1e3)
     return len(alloc)

@@ -49,9 +49,15 @@ past it the request is evicted before the next step or window, its pages
 freed, and ``requeue_hook`` told. ``PagedServingConfig(backend=)`` is the
 engine's placement handle.
 
+The engine writes the reference's ``serving/*`` series into the metrics
+registry (``profiler.metrics``: TTFT, TPOT, steps, tokens, requests,
+preemptions, shed load, deadline evictions, the prefix cache's reuse, the
+speculative counters, batch occupancy, KV utilization and the live weight
+version), and ``stage_weight_set`` consults the ``publish`` chaos site.
+
 Not ported yet (ROADMAP.md): the weight publisher's transport and fleet
-tier, chaos fault sites (``publish`` among them), metrics and tracing, and
-the StableHLO artifact of the decode step (``lower_fused_decode``).
+tier, the other serving chaos sites and request tracing, and the
+StableHLO artifact of the decode step (``lower_fused_decode``).
 """
 from __future__ import annotations
 
@@ -70,6 +76,7 @@ from ..nn.modules import TorchEmbedding, TorchLinear, TorchRMSNorm
 from ..ops.kernels import (add_launch_counts, launch_counts,
                            resolve_device)
 from ..ops.kernels.rope_append import _rope
+from ..profiler import metrics as _metrics
 from .prefix_cache import PrefixCache, restore_snapshot, save_snapshot
 from .weight_stream import STREAM_KINDS, WeightStreamer
 
@@ -644,12 +651,52 @@ def _serving_copy(model, cfg, device, weight_stream=None):
     return shared[1:]
 
 
+class _EngineMetrics:
+    """Handle bundle for the serving/* series one engine writes
+    (reference serving.py:48-92): TTFT from request submit to its first
+    sampled token, TPOT from decode_run windows (window wall / steps),
+    plus the scheduler gauges the capacity story needs."""
+
+    __slots__ = ("ttft", "tpot", "steps", "tokens", "requests",
+                 "preempt", "occupancy", "kv_util", "deadline", "shed",
+                 "prefix_rate", "prefix_pages", "spec_steps",
+                 "spec_drafted", "spec_accepted", "spec_accept_rate",
+                 "spec_tokens_per_step", "weight_version", "weight_swaps",
+                 "weight_rollbacks")
+
+    def __init__(self, reg):
+        self.ttft = reg.histogram("serving/ttft_ms")
+        self.tpot = reg.histogram("serving/tpot_ms")
+        self.steps = reg.counter("serving/steps")
+        self.tokens = reg.counter("serving/tokens_generated")
+        self.requests = reg.counter("serving/requests")
+        self.preempt = reg.counter("serving/preemptions")
+        self.occupancy = reg.gauge("serving/batch_occupancy")
+        self.kv_util = reg.gauge("serving/kv_cache_utilization")
+        self.deadline = reg.counter("serving/deadline_evictions")
+        self.shed = reg.counter("serving/load_shed")
+        self.prefix_rate = reg.gauge("serving/prefix_hit_rate")
+        self.prefix_pages = reg.counter("serving/prefix_pages_reused")
+        self.spec_steps = reg.counter("serving/spec_steps")
+        self.spec_drafted = reg.counter("serving/spec_drafted_tokens")
+        self.spec_accepted = reg.counter("serving/spec_accepted_tokens")
+        self.spec_accept_rate = reg.gauge("serving/spec_accept_rate")
+        self.spec_tokens_per_step = reg.gauge(
+            "serving/spec_tokens_per_step")
+        # live weight publishing: the version this engine currently
+        # serves, atomic swaps taken, and rollbacks to the retained
+        # previous buffer
+        self.weight_version = reg.gauge("serving/weight_version")
+        self.weight_swaps = reg.counter("serving/weight_swaps")
+        self.weight_rollbacks = reg.counter("serving/weight_rollbacks")
+
+
 class _Request:
     __slots__ = ("rid", "prompt", "generated", "max_new", "pages",
                  "cached", "done", "sampling", "eos_token_id", "submit_t",
                  "deadline_t", "timed_out", "requeues", "shared_keys",
                  "prefix_registered", "tenant", "spec_observed",
-                 "weight_version")
+                 "weight_version", "first_tok_t")
 
     def __init__(self, rid, prompt, max_new, sampling, eos_token_id,
                  tenant=None, deadline_s=None):
@@ -663,6 +710,7 @@ class _Request:
         self.sampling = sampling or GREEDY
         self.eos_token_id = eos_token_id
         self.submit_t = time.perf_counter()
+        self.first_tok_t = None
         self.deadline_t = None if deadline_s is None \
             else self.submit_t + float(deadline_s)
         self.timed_out = False
@@ -921,6 +969,10 @@ class ServingEngine:
         # set_drafter: while a drafter is set, _step runs pure decode-tip
         # batches through _spec_step
         self._drafter = None
+        self._m = _EngineMetrics(_metrics.registry())
+        self.dead = False
+        # the rank the chaos injector sees for this engine's fault sites
+        self.fault_rank = 0
         self._spec_k = 0
         self._spec_steps = 0
         self._spec_drafted_total = 0
@@ -1090,9 +1142,31 @@ class ServingEngine:
                     version, self.name,
                     f"tensor {i}: got {a.dtype}{tuple(a.shape)}, "
                     f"expected {ref.dtype}{tuple(ref.shape)}")
-        # the reference consults its `publish` chaos site here (kill, drop,
-        # corrupt or delay the transfer; serving.py:1139-1157): it waits
-        # for the port of the chaos injector (ROADMAP.md, queue 1)
+        # chaos site "publish" (reference serving.py:1134-1152): kill
+        # fells this engine mid-stage (the active version keeps serving),
+        # drop makes the transfer vanish, corrupt flips a staged byte the
+        # CRC check below must catch, delay stalls the rollout
+        from ..distributed.resilience import faults as _faults
+        from ..distributed.resilience.errors import (EngineDeadError,
+                                                     PeerUnreachableError)
+
+        _faults.maybe_arm_from_env()
+        act = _faults.injector.on_event("publish", self.fault_rank)
+        if act is not None:
+            if act.kind == "kill":
+                self.dead = True
+                raise EngineDeadError(self.name, "publish")
+            if act.kind == "delay":
+                time.sleep(act.delay_ms / 1e3)
+            elif act.kind == "drop":
+                raise PeerUnreachableError(self.fault_rank, self.name, 1)
+            elif act.kind == "corrupt":
+                big = max(range(len(host)), key=lambda i: host[i].numel())
+                flat = host[big].contiguous().view(-1).view(torch.uint8)
+                flat = flat.clone()
+                flat[flat.numel() // 2] ^= 0xFF
+                host[big] = flat.view(host[big].dtype).view(
+                    host[big].shape)
         if crcs is not None:
             if len(crcs) != len(host):
                 raise WeightTransferError(
@@ -1136,8 +1210,8 @@ class ServingEngine:
         self._prev_wv = old
         self._active_wv = version
         self._gc_weight_sets()
-        # the reference's serving/weight_swaps and weight_version gauges
-        # wait for the metrics registry's port (ROADMAP.md, queue 1)
+        self._m.weight_swaps.inc()
+        self._m.weight_version.set(version)
         return old
 
     def discard_staged(self, version=None):
@@ -1178,6 +1252,8 @@ class ServingEngine:
         self._weight_sets.pop(bad, None)
         self._staged_weights.pop(bad, None)
         self._drop_version(bad)
+        self._m.weight_rollbacks.inc()
+        self._m.weight_version.set(prev)
         return prev
 
     def _gc_weight_sets(self):
@@ -1253,6 +1329,7 @@ class ServingEngine:
             raise ValueError("prompt + max_new_tokens exceeds max_seq")
         if self.cfg.max_queue is not None \
                 and len(self.pending()) >= self.cfg.max_queue:
+            self._m.shed.inc()
             raise EngineOverloadedError(
                 f"engine saturated: {len(self.pending())} live requests "
                 f">= max_queue={self.cfg.max_queue}; shed this request "
@@ -1265,6 +1342,7 @@ class ServingEngine:
         req.weight_version = self._active_wv
         self._requests[rid] = req
         self._try_prefix_match(req)
+        self._m.requests.inc()
         return rid
 
     def set_drafter(self, drafter, k=None):
@@ -1329,6 +1407,8 @@ class ServingEngine:
             req.pages = list(pages)
             req.shared_keys = keys
             req.cached = n_tok
+            self._m.prefix_pages.inc(len(pages))
+        self._m.prefix_rate.set(cache.hit_rate())
 
     def _maybe_register_prefix(self, req):
         """Once a request's prompt is fully prefilled, publish its full
@@ -1377,9 +1457,7 @@ class ServingEngine:
                 r.timed_out = True
                 r.done = True
                 self._release(r)
-                # the reference counts serving/deadline_evictions here: it
-                # waits for the metrics registry's port (ROADMAP.md, queue
-                # 1, item 6)
+                self._m.deadline.inc()
                 if self.requeue_hook is not None:
                     self.requeue_hook(self._requeue_info(r))
 
@@ -1523,9 +1601,12 @@ class ServingEngine:
                 # a sweep (a matched prefix makes it a holder again)
                 self._try_prefix_match(victim)
             preempted.add(victim.rid)
+            self._m.preempt.inc()
             rows = self._schedule()
         if not rows:
             return []
+        self._m.steps.inc()
+        self._update_pool_gauges(len(rows))
         # a pure decode-tip batch runs as one draft + verify step
         if self._drafter is not None and all(
                 chunk == 1 and r.cached == r.length - 1
@@ -1587,6 +1668,7 @@ class ServingEngine:
         sampled = sampled.cpu().numpy()                       # host sync
 
         produced = []
+        now = time.perf_counter()
         for i, (r, chunk) in enumerate(rows):
             r.cached += chunk
             self._maybe_register_prefix(r)
@@ -1595,12 +1677,25 @@ class ServingEngine:
             nxt = int(sampled[i])
             r.generated.append(nxt)
             produced.append((r.rid, nxt))
+            self._note_first_token(r, now)
             if len(r.generated) >= r.max_new \
                     or (r.eos_token_id is not None
                         and nxt == r.eos_token_id):
                 r.done = True
                 self._release(r)
+        self._m.tokens.inc(len(produced))
         return produced
+
+    def _note_first_token(self, req, now):
+        if req.first_tok_t is None:
+            req.first_tok_t = now
+            self._m.ttft.observe((now - req.submit_t) * 1e3)
+
+    def _update_pool_gauges(self, n_rows):
+        cfg = self.cfg
+        self._m.occupancy.set(n_rows / max(cfg.max_batch, 1))
+        live = cfg.num_blocks - 1 - len(self._free_pages)  # page 0 = trash
+        self._m.kv_util.set(live / max(cfg.num_blocks - 1, 1))
 
     def _sampling_tensors(self, temps, topks, topps):
         return [torch.from_numpy(a).to(self.device)
@@ -1677,6 +1772,9 @@ class ServingEngine:
         for r in rows:
             self._ensure_pages(r, r.cached + n)
             self._maybe_register_prefix(r)
+        self._update_pool_gauges(B)
+        self._m.steps.inc(n)
+        t_start = time.perf_counter()
         # the row count is bucketed to a power of two (the reference's
         # executable-reuse rule); the bucket's spare slots are padding
         # routed to the trash row like any other, and so is an artifact's
@@ -1713,6 +1811,8 @@ class ServingEngine:
             win.stage(tokens, enc, dec, this, cu, bt, temps, topks, topps,
                       salts)
             fetched = win.run(n, graph)                       # host sync
+        now = time.perf_counter()
+        self._m.tpot.observe((now - t_start) / n * 1e3)
         produced = []
         for j in range(n):
             for i, r in enumerate(rows):
@@ -1722,11 +1822,13 @@ class ServingEngine:
                 r.generated.append(nxt)
                 r.cached += 1
                 produced.append((r.rid, nxt))
+                self._note_first_token(r, now)
                 if len(r.generated) >= r.max_new \
                         or (r.eos_token_id is not None
                             and nxt == r.eos_token_id):
                     r.done = True
                     self._release(r)
+        self._m.tokens.inc(len(produced))
         return produced
 
     # -- speculative decode (draft k, verify in one paged step) ----------
@@ -1830,6 +1932,8 @@ class ServingEngine:
                 emitted.append(int(sampled[p0 + j]))
             self._spec_drafted_total += len(drafts)
             self._spec_accepted_total += len(emitted) - 1
+            self._m.spec_drafted.inc(len(drafts))
+            self._m.spec_accepted.inc(len(emitted) - 1)
             for t in emitted:
                 r.generated.append(t)
                 produced.append((r.rid, t))
@@ -1852,6 +1956,13 @@ class ServingEngine:
         self._spec_steps += 1
         self._spec_emitted_total += len(produced)
         self._spec_rows_total += len(plans)
+        self._m.spec_steps.inc()
+        self._m.tokens.inc(len(produced))
+        if self._spec_drafted_total:
+            self._m.spec_accept_rate.set(
+                self._spec_accepted_total / self._spec_drafted_total)
+        if plans:
+            self._m.spec_tokens_per_step.set(len(produced) / len(plans))
         return produced
 
     def run_to_completion(self, max_steps=1000):

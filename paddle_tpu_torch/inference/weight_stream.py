@@ -31,6 +31,7 @@ import torch
 
 from ..ops.kernels.weight_dequant import (INT4_GROUP, dequantize,
                                           dequantize_int4, weight_dequant)
+from ..profiler import metrics as _metrics
 
 __all__ = ["STREAM_KINDS", "quantize_per_channel", "dequantize",
            "INT4_GROUP", "quantize_int4_grouped", "dequantize_int4",
@@ -39,6 +40,8 @@ __all__ = ["STREAM_KINDS", "quantize_per_channel", "dequantize",
 # the decoder Linear stacks streamed a layer (PagedCausalLM attribute names;
 # the architecture has no biases)
 STREAM_KINDS = ("qkv", "proj", "gate_up", "down")
+
+_m_prefetch = _metrics.histogram("weights/stream_prefetch_ms")
 
 # a segment's offset in a workspace slot is a multiple of this many bytes,
 # the caching allocator's alignment: cuBLAS picks its kernel by the
@@ -232,8 +235,8 @@ def measure_stream_win(stream_step, base_step, repeats: int = 3,
     times of two warmed decode-step thunks (prefetched stream against the
     baseline), each call followed by ``sync(result)`` (default: a device
     synchronise). Returns ``(win_ms, t_stream_s, t_base_s)``; the win is
-    the signed delta, negative when prefetch lost. (The reference also
-    records the win in its metrics registry, which is not ported.)"""
+    the signed delta, negative when prefetch lost; the win (floored at
+    0) goes into ``weights/stream_prefetch_ms``."""
     sync = sync or _device_sync
 
     def best(fn):
@@ -249,4 +252,5 @@ def measure_stream_win(stream_step, base_step, repeats: int = 3,
     t_stream = best(stream_step)
     t_base = best(base_step)
     win_ms = (t_base - t_stream) * 1e3
+    _m_prefetch.observe(max(win_ms, 0.0))
     return win_ms, t_stream, t_base

@@ -313,6 +313,13 @@ def _check_engine_steps(world):
                         1e-9 if sk == "moment1" else 1e-12)
                 np.testing.assert_allclose(g, a, rtol=0, atol=atol,
                                            err_msg=f"{name}.{sk}")
+    # the gradients' sums were recorded under the mesh dimensions' own
+    # group ids: at least one a step over each rank's dp group
+    for rank, got in enumerate(world["got"]):
+        sums = {tuple(ranks): ops.get("all_reduce", 0)
+                for gid, (ranks, ops) in got["comm_groups"].items()
+                if gid != 0}
+        assert sums.get((rank % 2, rank % 2 + 2), 0) >= 3, sums
     # the completion: annotated FFN weights sharded on mp, the rest
     # replicated
     pl = world["got"][0]["placements"]

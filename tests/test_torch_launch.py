@@ -11,9 +11,12 @@ all-reduce, in another order). A worker that fails once is restarted
 and the launcher returns 0; with the budget spent it returns the
 worker's code. ``parse_args`` keeps the reference's options and defaults,
 but for ``--nproc_per_node`` (one worker a card: the visible cards) and
-``--devices`` (each worker's card). The elastic and supervisor flags
-raise naming ROADMAP.md. ``--standby`` serves the store's hot replica and
-tells every worker of it.
+``--devices`` (each worker's card). ``--ckpt_dir`` and ``--snapshot_every``
+reach the workers' environment, and an elastic job (``--nnodes 1:2``,
+two controllers of one gloo worker each) re-forms at one node after the
+other node's processes are killed, its worker resuming from the last
+checkpoint. ``--standby`` serves the store's hot replica and tells every
+worker of it.
 """
 import json
 import os
@@ -139,16 +142,123 @@ def test_parse_args_defaults_match_the_reference():
     assert got.devices == "2,3"
 
 
-@pytest.mark.parametrize("flags,which", [
-    (["--nnodes", "1:2"], "--nnodes lo:hi"),
-    (["--ckpt_dir", "/tmp/ck"], "--ckpt_dir"),
-    (["--snapshot_every", "5"], "--snapshot_every")])
-def test_launch_elastic_and_supervisor_flags_raise(flags, which):
-    args = tlaunch.parse_args(flags + ["--nproc_per_node", "1", "x.py"])
-    with pytest.raises(NotImplementedError, match="queue 1, item 8"):
-        tlaunch.Controller(args)
-    with pytest.raises(NotImplementedError, match=which.split()[0]):
-        tlaunch.Controller(args)
+ELASTIC_WORKER = """
+import json, os, time
+import torch
+torch.set_num_threads(1)
+import paddle_tpu_torch.distributed as dist
+from paddle_tpu_torch.distributed.resilience.recovery import (
+    resume_from_latest, save_checkpoint)
+
+out, root = os.environ["OUT_DIR"], os.environ["PT_CKPT_ROOT"]
+dist.init_parallel_env()
+rank, world = dist.get_rank(), dist.get_world_size()
+gen = int(os.environ["PADDLE_ELASTIC_GENERATION"])
+state = {"w": torch.zeros(4)}
+start = resume_from_latest(state, root) or 0
+for step in range(start, 8):
+    t = torch.ones(4)
+    dist.all_reduce(t)
+    state["w"] += t / world          # one a step, at any world
+    save_checkpoint(state, root, step + 1, keep=2)
+    time.sleep(0.1)
+with open(os.path.join(out, f"g{gen}r{rank}.json"), "w") as f:
+    json.dump({"world": world, "start": start, "w": state["w"].tolist(),
+               "snapshot_every": os.environ.get("PT_SNAPSHOT_EVERY"),
+               "rejoin": os.environ.get("PT_SUPERVISOR_REJOIN")}, f)
+dist.destroy_process_group()
+"""
+
+
+def _elastic_job(tmp_path):
+    """Two elastic controllers (``--nnodes 1:2``) of one worker each on a
+    store this test serves; node B's process group is killed once a
+    checkpoint exists, and node A re-forms at world 1 and resumes."""
+    import signal
+    import time
+
+    from paddle_tpu_torch.distributed.resilience.recovery import \
+        latest_checkpoint
+    from paddle_tpu_torch.distributed.store import TCPStore
+
+    script = _script(tmp_path, ELASTIC_WORKER)
+    store = TCPStore("127.0.0.1", 0, is_master=True)
+    ckpt = str(tmp_path / "ckpt")
+
+    def node(name):
+        cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+               "--nnodes", "1:2", "--master", f"127.0.0.1:{store.port}",
+               "--nproc_per_node", "1", "--host", "127.0.0.1",
+               "--elastic_ttl", "1.5", "--elastic_timeout", "20",
+               "--ckpt_dir", ckpt, "--snapshot_every", "3",
+               "--log_dir", str(tmp_path / f"log{name}"), script]
+        return subprocess.Popen(cmd, env=_env(tmp_path), cwd=str(ROOT),
+                                start_new_session=True,
+                                stdout=subprocess.DEVNULL,
+                                stderr=subprocess.PIPE)
+
+    t0 = time.monotonic()
+    a, b = node("A"), node("B")
+    try:
+        while True:
+            found = latest_checkpoint(ckpt)
+            if found is not None and found[0] >= 2:
+                break
+            assert time.monotonic() - t0 < 60, "no checkpoint in 60 s"
+            time.sleep(0.05)
+        os.killpg(b.pid, signal.SIGKILL)
+        rc = a.wait(timeout=60)
+        err = a.stderr.read().decode()
+        return rc, err, time.monotonic() - t0
+    finally:
+        for p in (a, b):
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        store.close()
+
+
+@pytest.mark.parametrize("flag", ["--nnodes", "--ckpt_dir",
+                                  "--snapshot_every"])
+def test_launch_elastic_and_supervisor_flags(tmp_path, flag):
+    """--ckpt_dir and --snapshot_every reach the worker's environment as
+    PT_CKPT_ROOT and PT_SNAPSHOT_EVERY (and the restart budget as
+    PT_SUPERVISOR_MAX_RESTARTS, a re-formed pod's workers as rejoiners);
+    --nnodes 1:2 re-forms a 2-node job at 1 node after a node dies, and
+    its worker resumes from the checkpoint at a step > 0."""
+    if flag != "--nnodes":
+        args = tlaunch.parse_args(["--nnodes", "1", "--max_restart", "4",
+                                   "--ckpt_dir", str(tmp_path / "ck"),
+                                   "--snapshot_every", "8",
+                                   "--nproc_per_node", "1", "x.py"])
+        c = tlaunch.Controller(args)
+        pod = tlaunch.Pod(0, ["127.0.0.1:1234"], c.cards)
+        c.store = type("S", (), {"port": 0})()
+        env = c._worker_env(pod, 0)
+        want = {"--ckpt_dir": ("PT_CKPT_ROOT", str(tmp_path / "ck")),
+                "--snapshot_every": ("PT_SNAPSHOT_EVERY", "8")}[flag]
+        assert env[want[0]] == want[1]
+        assert env["PT_SUPERVISOR_MAX_RESTARTS"] == "4"
+        assert env["PADDLE_ELASTIC_GENERATION"] == "0"
+        assert "PT_SUPERVISOR_REJOIN" not in env
+        c.generation = 2
+        env = c._worker_env(pod, 0)
+        assert env["PT_SUPERVISOR_REJOIN"] == "1"
+        assert env["PADDLE_ELASTIC_GENERATION"] == "2"
+        return
+    rc, err, seconds = _elastic_job(tmp_path)
+    assert rc == 0, err[-2000:]
+    assert "re-forming pod" in err or "elastic re-formation" in err, err
+    first = [json.loads((tmp_path / f"g0r{r}.json").read_text())
+             for r in range(2) if (tmp_path / f"g0r{r}.json").exists()]
+    assert first == []                     # generation 0 never finished
+    done = sorted(tmp_path.glob("g*r0.json"))
+    assert len(done) == 1 and done[0].name != "g0r0.json"
+    got = json.loads(done[0].read_text())
+    assert got["world"] == 1 and got["start"] >= 2
+    assert got["w"] == [8.0] * 4           # resumed, not restarted
+    assert got["snapshot_every"] == "3" and got["rejoin"] == "1"
+    assert seconds < 30, seconds
 
 
 def test_launch_devices_name_the_workers_cards():

@@ -1,5 +1,6 @@
 """The port stands alone: paddle_tpu_torch and its scripts (chip_smoke.py,
-tools/torch_*.py) import neither jax nor paddle_tpu, and its entry points
+tools/torch_*.py) import neither jax nor paddle_tpu (nor ml_dtypes, which
+the card's machine lacks), and its entry points
 default to CUDA and raise where there is none instead of running on the
 CPU quietly."""
 import ast
@@ -19,7 +20,7 @@ from paddle_tpu_torch.ops.kernels import resolve_device
 
 torch.set_num_threads(2)
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 
 def _port_files():
@@ -83,8 +84,19 @@ def test_import_leaves_jax_unloaded():
             "import paddle_tpu_torch.hapi.model, paddle_tpu_torch.io; "
             "import paddle_tpu_torch.metric, paddle_tpu_torch.framework.io; "
             "import paddle_tpu_torch.optimizer.lr; "
+            "import paddle_tpu_torch.profiler; "
+            "import paddle_tpu_torch.amp.debugging; "
+            "import paddle_tpu_torch.profiler.tracing; "
+            "import paddle_tpu_torch.distributed.transport; "
+            "import paddle_tpu_torch.distributed.watchdog; "
+            "import paddle_tpu_torch.distributed.checkpoint; "
+            "import paddle_tpu_torch.distributed.elastic; "
+            "import paddle_tpu_torch.distributed.resilience.faults; "
+            "import paddle_tpu_torch.distributed.resilience.guards; "
+            "import paddle_tpu_torch.distributed.resilience.recovery; "
+            "import paddle_tpu_torch.distributed.resilience.supervisor; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'paddle_tpu')))")
+            "('jax', 'jaxlib', 'paddle_tpu', 'ml_dtypes')))")
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT),
                          env=env, capture_output=True, text=True,

@@ -1422,6 +1422,15 @@ def auto_parallel(out_dir, cfg_dict, params, batches, lr, attn):
                      for i in range(3)]
     res["params"], res["moments"] = _ap_state(engine)
     res["step_count"] = engine.optimizer._step_count
+    # the collectives recorded so far, by group id (the Engine's sums go
+    # through collective.py under each mesh dimension's own group)
+    from paddle_tpu_torch.distributed import collective
+    from paddle_tpu_torch.distributed.watchdog import comm_task_manager
+
+    res["comm_groups"] = {
+        gid: (collective.get_group(gid).ranks,
+              {op: st["count"] for op, st in ops.items()})
+        for gid, ops in comm_task_manager.group_stats().items()}
     # evaluate / predict, and to_static's DistModel in eval and train mode
     res["eval"] = engine.evaluate([batch(3)])["loss"]
     res["predict"] = engine.predict([(batch(3)[0],)])[0]
@@ -1538,4 +1547,51 @@ def auto_parallel(out_dir, cfg_dict, params, batches, lr, attn):
     p = 0.0
     res["attn_nodrop"] = run(False)[0]
     _dump(out_dir, rank, res)
+    dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# distributed checkpoint (tests/test_torch_checkpoint.py)
+# ---------------------------------------------------------------------------
+
+def checkpoint_reshard(out_dir, arrays):
+    """Save DTensors of ``arrays`` (a dict of numpy arrays: "w" f32 [8, 6]
+    on Shard(0), "b" bf16-valued [4, 10] on Shard(1), "r" replicated) plus
+    a plain tensor and a numpy array with save_state_dict at world 2, then
+    load the checkpoint back into DTensors of other placements (reshard on
+    load) and record every full value."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.distributed.checkpoint import (load_state_dict,
+                                                         save_state_dict)
+
+    dist, rank = _start()
+    mesh = dist.ProcessMesh([0, 1], dim_names=["x"])
+
+    def sharded(a, placement, dtype=None):
+        t = paddle.to_tensor(a)
+        if dtype is not None:
+            t = t.astype(dtype)
+        return dist.shard_tensor(t, mesh, [placement])
+
+    state = {"w": sharded(arrays["w"], dist.Shard(0)),
+             "b": sharded(arrays["b"], dist.Shard(1), "bfloat16"),
+             "r": sharded(arrays["r"], dist.Replicate()),
+             "plain": torch.from_numpy(arrays["plain"]),
+             "np": arrays["np"]}
+    path = os.path.join(out_dir, "ckpt")
+    save_state_dict(state, path)
+    zeros = {k: np.zeros_like(arrays[k]) for k in ("w", "b", "r")}
+    target = {"w": sharded(zeros["w"], dist.Shard(1)),
+              "b": sharded(zeros["b"], dist.Replicate(), "bfloat16"),
+              "r": sharded(zeros["r"], dist.Shard(0)),
+              "plain": torch.zeros(arrays["plain"].shape),
+              "np": np.zeros(arrays["np"].shape)}
+    load_state_dict(target, path)
+    local_rows = target["r"]._value.to_local().shape[0]
+    _dump(out_dir, rank, {
+        "w": target["w"].numpy(), "b": target["b"].astype(
+            "float32").numpy(), "b_dtype": str(target["b"].dtype),
+        "r": target["r"].numpy(), "r_local_rows": local_rows,
+        "plain": target["plain"].numpy(), "np": target["np"].numpy(),
+        "files": sorted(os.listdir(path))})
     dist.destroy_process_group()
