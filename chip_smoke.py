@@ -290,6 +290,26 @@ Phases, each of which fails the run with a non-zero exit:
      before it) are the "resilience" path of the kernels line. Before it,
      one greedy eager generate timed in turns with and without the
      funnel's dispatch/calls counter;
+  6j. the fleet, after 6i (phase_fleet), llama_1b at full width through
+     the fleet tier's entry points: a FleetGateway over a ReplicaRouter of
+     2 replicas (SLOTracker, Timeline, ScaleAdvisor attached; tenant A's 8
+     interactive requests against tenant B's burst of 24 batch requests,
+     a third through its bucket: every admitted request finishes, each A
+     request's first token at most one step after A alone's; every step
+     held to its kernel counts, the run's launches the "fleet" path of the
+     kernels line), a PrefillWorker -> DecodeWorker pair (f32 streams
+     equal to the single engine's; bf16 equal tokens counted; windows
+     captured before the migration replay after it over pools written in
+     place), kill@decode under a FleetSupervisor (f32 streams equal to an
+     uninterrupted run's), a live WeightPublisher rollout (streams keep
+     their version; version 1's probe_logits equal a fresh engine's bit
+     for bit), an AutoScaler up by one replica caught up to version 1 and
+     down again after a drain, and 2 replica children on the card (one
+     SIGKILLed, found dead from its heartbeats, its requests requeued, it
+     restarted). Prints each part's figures (tokens/s, TTFT per class,
+     throttled, shed and rerouted counts, migrate ms and MB, drain and
+     restart ms, rollout s and bytes, spawn-to-hello, detect and restart
+     s, the memory a replica holds and the card's used memory);
   7. profile, last: each kernel's device time and the device time of a
      fresh-prefill step, a decode window (16 replays of its graph, after
      an unprofiled window that captured it) of the bf16, the int8 and each
@@ -368,7 +388,8 @@ PATHS = {"serving": SERVING_KERNELS, "int8_serving": INT8_SERVING_KERNELS,
          "training": TRAINING_KERNELS, "packed_training": PACKED_KERNELS,
          "weight_stream": STREAM_KERNELS, "artifact": ARTIFACT_KERNELS,
          "eager": TRAINING_KERNELS, "hybrid": TRAINING_KERNELS,
-         "pipeline": TRAINING_KERNELS, "resilience": TRAINING_KERNELS}
+         "pipeline": TRAINING_KERNELS, "resilience": TRAINING_KERNELS,
+         "fleet": SERVING_KERNELS}
 # the models' attention at head dim 64 (GPT-2 small and BERT-base: 12 heads
 # of 64), dropout 0.1 inside the flash kernels (their general
 # instantiations): the shapes a pretraining step gives them
@@ -6706,7 +6727,686 @@ def _dispatch_turns(eager, rounds=4, tokens=4):
 
 
 # ---------------------------------------------------------------------------
-# 6j (--hybrid, four cards). elastic re-formation through the launcher
+# 6j. the fleet: gateway, router, disaggregation, supervisor, publisher,
+# autoscaler and process-isolated replicas over llama_1b
+# ---------------------------------------------------------------------------
+
+# the fleet phase's traffic: tenant A's interactive requests (prompts 32-128
+# tokens) and tenant B's burst of batch requests, whose bucket lets part of
+# it through; the disaggregated pair's 8 prompts fit one fresh-prefill step
+# of the token budget (256)
+FLEET = dict(a_requests=8, b_burst=24, b_bucket=8, max_new=48,
+             disagg_lens=(32, 17, 48, 25, 40, 21, 36, 30))
+
+
+def _fleet_config(**over):
+    """The fleet's model: llama_1b at full width (a rehearsal on the CPU
+    swaps in a small one)."""
+    from paddle_tpu_torch.inference import PagedServingConfig
+
+    return PagedServingConfig.llama_1b(**over)
+
+
+def _cfg_kwargs(cfg):
+    """A PagedServingConfig as the keyword arguments that rebuild it (a
+    replica child's spec)."""
+    keys = ("vocab_size", "hidden_size", "num_layers", "num_heads",
+            "ffn_size", "block_size", "num_blocks", "max_batch",
+            "max_blocks_per_seq", "token_budget", "num_kv_heads", "dtype",
+            "cache_quant", "max_queue", "prefix_cache")
+    return {k: getattr(cfg, k) for k in keys}
+
+
+def _step_kind(eng):
+    """What the engine's next step() runs: "fresh" (every row at position
+    0: the varlen route), "decode" (every row at its decode tip) or
+    "mixed"; None when it schedules nothing. _schedule has no side
+    effect."""
+    rows = eng._schedule()
+    if not rows:
+        return None
+    if all(r.cached == 0 for r, _ in rows):
+        return "fresh"
+    if all(c == 1 and r.cached == r.length - 1 for r, c in rows):
+        return "decode"
+    return "mixed"
+
+
+class _StepCounts:
+    """Wraps engines' step() to keep the launch counts each step made, by
+    the step's kind; ``check`` holds each kind to its per-step counts."""
+
+    def __init__(self):
+        self.by_kind = {}
+
+    def wrap(self, eng):
+        from paddle_tpu_torch import launch_counts
+
+        step = eng.step
+
+        def counted():
+            kind = _step_kind(eng)
+            before = launch_counts()
+            out = step()
+            if kind is not None:
+                made = {k: v - before[k] for k, v in launch_counts().items()
+                        if v != before[k]}
+                self.by_kind.setdefault(kind, []).append(made)
+            return out
+        eng.step = counted
+        return eng
+
+    def check(self, L, what):
+        want = {"fresh": {"rms_norm": 2 * L + 1, "varlen_attention_fwd": L,
+                          "rope_append": L},
+                "decode": {"rms_norm": 2 * L + 1, "paged_attention": L,
+                           "rope_append": L},
+                "mixed": {"rms_norm": 2 * L + 1, "paged_attention": L,
+                          "rope_append": L}}
+        for kind, steps in self.by_kind.items():
+            for made in steps:
+                if made != want[kind]:
+                    raise AssertionError(f"{what}: a {kind} step launched "
+                                         f"{made}, not {want[kind]}")
+        return {k: len(v) for k, v in self.by_kind.items()}
+
+
+def _fleet_router(model, cfg, dev, n, seed0, **replica_kw):
+    from paddle_tpu_torch.inference import Replica, ReplicaRouter, \
+        ServingEngine
+
+    engs = [ServingEngine.from_model(model, cfg, seed=seed0 + i, device=dev)
+            for i in range(n)]
+    for i, e in enumerate(engs):
+        e.fault_rank = i
+    return ReplicaRouter([Replica(e, name=f"r{i}", **replica_kw)
+                          for i, e in enumerate(engs)])
+
+
+def _counter(name):
+    from paddle_tpu_torch.profiler import metrics
+
+    return metrics.registry().counter(name).value
+
+
+def _fleet_gateway_run(dev, model, cfg, with_burst, counts=None):
+    """Part 1: a FleetGateway over a ReplicaRouter of 2 in-process
+    replicas (max_queue = max_batch), with an SLOTracker, a Timeline and a
+    ScaleAdvisor on one step clock. Tenant A (weight 10) sends its
+    interactive requests two a step; tenant B's batch burst (when
+    ``with_burst``) arrives at once before them, its bucket letting
+    FLEET["b_bucket"] through. Returns the router, the gateway's figures
+    and each A request's first-token step."""
+    from paddle_tpu_torch.distributed.resilience.errors import \
+        GatewayRejectedError
+    from paddle_tpu_torch.inference import gateway as G
+    from paddle_tpu_torch.profiler import (ScaleAdvisor, SLOObjective,
+                                           SLOTracker, Timeline)
+    from paddle_tpu_torch.profiler import metrics as M
+
+    f = FLEET
+    router = _fleet_router(model, cfg, dev, 2, 40)
+    if counts is not None:
+        for rep in router.replicas:
+            counts.wrap(rep.engine)
+    clock = [0.0]
+    tick = lambda: clock[0]                                  # noqa: E731
+    classes = {"interactive": G.SLOClassConfig(deadline_s=None, priority=0,
+                                               protected=True),
+               "batch": G.SLOClassConfig(deadline_s=None, priority=1,
+                                         deferrable=True),
+               "best_effort": G.SLOClassConfig(deadline_s=None, priority=2,
+                                               sheddable=True)}
+    gw = G.FleetGateway(router, G.GatewayConfig(
+        classes=classes,
+        tenants={"A": G.TenantConfig(rate=1e3, burst=1e3, weight=10.0),
+                 "B": G.TenantConfig(rate=0.1, burst=f["b_bucket"])},
+        brownout=G.BrownoutConfig(enter_load=9.0)), clock=tick)
+    tracker = SLOTracker(class_objectives={
+        "interactive": SLOObjective(0.99), "batch": SLOObjective(0.9)},
+        clock=tick, fast_window_s=10, slow_window_s=100).attach(gw)
+    tl = Timeline(registry=M.registry(), clock=tick)
+    advisor = ScaleAdvisor(tl, tracker=tracker, window_s=10.0)
+    c0 = {k: _counter(k) for k in ("gateway/throttled", "gateway/shed",
+                                   "serving/reroutes", "gateway/admitted")}
+    rng = np.random.RandomState(11)
+    a_lens = rng.randint(32, 129, size=f["a_requests"])
+    throttled = []
+    b_tickets = []
+    if with_burst:
+        for i in range(f["b_burst"]):
+            try:
+                b_tickets.append(gw.submit(
+                    list(rng.randint(1, cfg.vocab_size, 16)),
+                    max_new_tokens=f["max_new"], tenant="B", slo="batch"))
+            except GatewayRejectedError as e:
+                if e.reason != "tenant_rate":
+                    raise
+                throttled.append(i)
+    a_tickets, first = [], {}
+    t0 = time.perf_counter()
+    for step in range(10 ** 4):
+        if len(a_tickets) < f["a_requests"]:
+            for n in a_lens[len(a_tickets):len(a_tickets) + 2]:
+                a_tickets.append(gw.submit(
+                    list(rng.randint(1, cfg.vocab_size, int(n))),
+                    max_new_tokens=f["max_new"], tenant="A",
+                    slo="interactive"))
+        clock[0] += 1.0
+        for t, toks in gw.step().items():
+            if toks and t not in first:
+                first[t] = step
+        tl.sample()
+        tracker.evaluate()
+        if len(a_tickets) == f["a_requests"] and not gw.queued() \
+                and not router._live_pending():
+            break
+    wall = time.perf_counter() - t0
+    res = gw.results()
+    admitted = a_tickets + b_tickets
+    bad = [t for t in admitted if len(res.get(t, ())) != f["max_new"]]
+    if bad:
+        raise AssertionError(f"fleet gateway: admitted tickets {bad} did "
+                             f"not finish")
+    ttft = {cls: [gw.ttft(t) * 1e3 for t in ts]
+            for cls, ts in (("interactive", a_tickets),
+                            ("batch", b_tickets)) if ts}
+    out = {"router": router, "gateway": gw, "wall_s": wall,
+           "first_step": [first[t] for t in a_tickets],
+           "tokens": sum(len(res[t]) for t in admitted),
+           "throttled": len(throttled),
+           "counters": {k: _counter(k) - v for k, v in c0.items()},
+           "ttft_ms": {cls: {"p50": float(np.percentile(v, 50)),
+                             "p99": float(np.percentile(v, 99))}
+                       for cls, v in ttft.items()},
+           "attainment": {c: tracker.attainment(slo=c)
+                          for c in ("interactive", "batch")},
+           "advice": advisor.recommend().to_dict()}
+    return out
+
+
+def _disagg_run(dev, model, cfg, sampling, what):
+    """Part 2: the single engine's streams, then a PrefillWorker ->
+    DecodeWorker pair over a LoopbackTransport: one fresh-prefill step of
+    the 8 prompts on each side, then decode windows of 16. The decode
+    engine first serves 8 requests of its own through the same windows
+    (capturing their graphs), so the migrated requests replay graphs
+    captured before their pages arrived; the pools must keep their
+    storage. Returns the equal-token count, the streams and the migration
+    figures."""
+    from paddle_tpu_torch.inference import (DecodeWorker,
+                                            LoopbackTransport,
+                                            PrefillWorker, ServingEngine)
+    from paddle_tpu_torch.inference import disagg
+
+    f = FLEET
+    rng = np.random.RandomState(12)
+    prompts = _prompts(rng, f["disagg_lens"], cfg.vocab_size)
+    warm = _prompts(rng, f["disagg_lens"], cfg.vocab_size)
+
+    def drive(eng):
+        while eng.pending():
+            if not eng.decode_run(16):
+                eng.step()
+
+    single = ServingEngine.from_model(model, cfg, seed=5, device=dev)
+    rids = [single.add_request(p, max_new_tokens=f["max_new"],
+                               sampling=sampling[i])
+            for i, p in enumerate(prompts)]
+    single.step()
+    drive(single)
+    want = [single._requests[r].generated for r in rids]
+    dec = ServingEngine.from_model(model, cfg, seed=77, device=dev)
+    for i, p in enumerate(warm):
+        dec.add_request(p, max_new_tokens=f["max_new"], sampling=sampling[i])
+    dec.step()
+    drive(dec)
+    graphs = {k: w.graph for k, w in dec._window_fns.items()}
+    ptrs = [t.data_ptr() for t in (dec._kc, dec._vc)]
+    tp = LoopbackTransport()
+    pw = PrefillWorker(ServingEngine.from_model(model, cfg, seed=5,
+                                                device=dev), tp, 1)
+    dw = DecodeWorker(dec, tp, 0)
+    for i, p in enumerate(prompts):
+        pw.submit(p, max_new_tokens=f["max_new"], sampling=sampling[i])
+    page_mb = 2 * dec._kc[:, 0].numel() * dec._kc.element_size() / 1e6
+    timed = {"migrate_request": [], "receive_request": []}
+    mb = []
+    originals = {k: getattr(disagg, k) for k in timed}
+
+    def timer(name):
+        def fn(engine, *a, **k):
+            if name == "migrate_request":
+                mb.append(page_mb * len(engine._requests[a[0]].pages))
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = originals[name](engine, *a, **k)
+            torch.cuda.synchronize()
+            timed[name].append((time.perf_counter() - t) * 1e3)
+            return out
+        return fn
+    try:
+        for k in timed:
+            setattr(disagg, k, timer(k))
+        moved = pw.pump()                      # one fresh-prefill step
+        local = dw.accept(len(moved))
+    finally:
+        for k, fn in originals.items():
+            setattr(disagg, k, fn)
+    got_map = dw.run(window=16)
+    got = [got_map[r] for r in local]
+    if [t.data_ptr() for t in (dec._kc, dec._vc)] != ptrs:
+        raise AssertionError(f"{what}: receive_request rebound the pools")
+    replayed = {k: w.graph for k, w in dec._window_fns.items()
+                if k in graphs and w.graph is graphs[k]}
+    if not replayed:
+        raise AssertionError(f"{what}: the migrated requests took none of "
+                             f"the windows captured before them")
+    equal = sum(a == b for s, r in zip(got, want) for a, b in zip(s, r))
+    # a replayed window's launches: the decode step's counts
+    L = cfg.num_layers
+    for w in dec._window_fns.values():
+        made = {k: v for k, v in w.graph_launches.items() if v}
+        if made != {"rms_norm": 2 * L + 1, "paged_attention": L,
+                    "rope_append": L}:
+            raise AssertionError(f"{what}: a replayed decode step launches "
+                                 f"{made}")
+    if len(moved) != len(prompts):
+        raise AssertionError(f"{what}: {len(moved)} of {len(prompts)} "
+                             f"requests migrated")
+    return {"equal_tokens": equal, "tokens": sum(map(len, want)),
+            "streams_equal": got == want,
+            "migrate_ms": timed["migrate_request"],
+            "receive_ms": timed["receive_request"],
+            "mb_per_request": mb,
+            "windows_replayed_after_migration": len(replayed)}
+
+
+def _supervised_run(dev, model, cfg, sampling, kill):
+    """Part 3: 2 replicas under a FleetSupervisor, 6 requests, then 2 long
+    prompts placed one a replica; with ``kill`` the port's injector arms
+    kill@decode on replica 1 right after, so its next step dies with one
+    request mid-prefill (requeued) and the rest at their decode tip
+    (migrated). Returns the streams, the drain and restart ms and the
+    supervisor's record."""
+    from paddle_tpu_torch.distributed.resilience import faults
+    from paddle_tpu_torch.inference import (FleetSupervisor,
+                                            FleetSupervisorConfig,
+                                            ServingEngine)
+
+    router = _fleet_router(model, cfg, dev, 2, 20, restore_after=2)
+    sup = FleetSupervisor(
+        router, lambda idx: ServingEngine.from_model(model, cfg,
+                                                     seed=20 + idx,
+                                                     device=dev),
+        FleetSupervisorConfig(backoff_base_s=0.0))
+    timing = {}
+    for name in ("drain", "restart"):
+        fn = getattr(sup, name)
+
+        def timed(*a, _fn=fn, _name=name, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = _fn(*a, **k)
+            torch.cuda.synchronize()
+            timing[_name] = (time.perf_counter() - t) * 1e3
+            return out
+        setattr(sup, name, timed)
+    rng = np.random.RandomState(13)
+    c0 = {k: _counter(k) for k in ("serving/drains", "serving/drain_requeues",
+                                   "serving/replica_restored")}
+    hs = [router.submit(p, max_new_tokens=FLEET["max_new"],
+                        sampling=sampling[i])
+          for i, p in enumerate(_prompts(rng, (64, 96, 40, 120, 72, 50),
+                                         cfg.vocab_size))]
+    for _ in range(4):
+        router.step_all()
+    hs += [router.submit(p, max_new_tokens=FLEET["max_new"],
+                         sampling=sampling[6 + i])
+           for i, p in enumerate(_prompts(rng, (140, 130), cfg.vocab_size))]
+    if kill:
+        faults.arm("kill@decode#1:rank=1")
+    try:
+        res = router.run_to_completion(max_steps=10 ** 4)
+    finally:
+        faults.disarm()
+    for _ in range(4):
+        router.step_all()              # the half-open probes
+    return {"streams": [res[h] for h in hs], "timing": timing,
+            "restarts": list(sup.restarts),
+            "drained": sorted(sup.drained_handles),
+            "healthy": [r.healthy() for r in router.replicas],
+            "counters": {k: _counter(k) - v for k, v in c0.items()}}
+
+
+def phase_fleet(dev, serving):
+    """6j. The fleet serving tier at llama_1b full width (16 layers, hidden
+    2048; bf16 unless stated), through its entry points:
+    (1) a FleetGateway over a ReplicaRouter of 2 in-process replicas, an
+        SLOTracker, a Timeline and a ScaleAdvisor attached: tenant A's 8
+        interactive requests and tenant B's burst of 24 batch requests (a
+        third let through its bucket); every admitted request finishes
+        and each A request's first token comes at most one step after
+        that of A alone (run first, on its own fleet). The kernel counts
+        are set to 0 just before this run and read just after (the
+        "fleet" path of the kernels line), and every step of its replicas
+        is held to its counts: RMSNorm 2L + 1, varlen L and rope_append L
+        a fresh-prefill step, RMSNorm 2L + 1, paged L and rope_append L a
+        decode step;
+    (2) a PrefillWorker -> DecodeWorker pair over a LoopbackTransport, 8
+        requests, in f32 (streams equal to the single engine's, greedy and
+        sampled, token for token; TF32 is off) and bf16 (the equal tokens
+        counted); the decode engine's windows were captured before the
+        pages arrived and replay after, its pools written in place, and
+        its replayed decode steps are held to the decode step's counts;
+    (3) f32: kill@decode on one of 2 supervised replicas mid-generation:
+        the drain migrates the decode-tip requests and requeues the
+        mid-prefill one, the replica restarts and rejoins through its
+        probes; every stream equals an uninterrupted run's;
+    (4) WeightPublisher stages version 1 (re-drawn weights) into both
+        replicas of (1) with requests in flight, canary then rollout then
+        commit; each stream keeps the version it was admitted under, and
+        version 1's probe_logits equal a fresh engine's over those
+        weights bit for bit;
+    (5) an AutoScaler scales the fleet up by one InProcessReplicaFactory
+        replica, caught up to version 1 before it joins, then (after (6))
+        down again, the retiring replica drained first: no request lost;
+    (6) SubprocessReplicaFactory spawns 2 replica children on the card
+        (while (5)'s 3 in-process replicas live), 8 requests run through a
+        router over them; one child is SIGKILLed, found dead from its
+        missed heartbeats, its requests requeued onto the other, and it
+        is restarted; all 8 finish, and each child launched the kernels.
+    Returns the fleet path's counts and counts a step."""
+    from paddle_tpu_torch import launch_counts, reset_launch_counts
+    from paddle_tpu_torch.distributed.resilience import faults
+    from paddle_tpu_torch.inference import (AutoScaler, AutoScalerConfig,
+                                            FleetSupervisor,
+                                            FleetSupervisorConfig,
+                                            InProcessReplicaFactory,
+                                            PagedCausalLM, RemoteReplica,
+                                            ReplicaRouter, SamplingParams,
+                                            ServingEngine,
+                                            SubprocessReplicaFactory,
+                                            WeightPublisher)
+    from paddle_tpu_torch.profiler import ScaleAdvisor, Timeline
+    from paddle_tpu_torch.profiler import metrics as M
+
+    t_phase = time.perf_counter()
+    f = FLEET
+    cfg = _fleet_config()
+    # the gateway's fleet: engines that hold max_batch live requests, so
+    # the gateway, not an engine's queue, keeps what does not fit
+    gcfg = _fleet_config(max_queue=cfg.max_batch)
+    L = cfg.num_layers
+    model = serving["model"]                   # llama_1b bf16, seed 1234
+    sampling = [None, SamplingParams(0.8, 50, 0.9), None,
+                SamplingParams(1.0, 0, 0.95), SamplingParams(0.7, 20, 1.0),
+                None, SamplingParams(0.9, 40, 0.8), None]
+    figures = {}
+
+    # (1) the gateway over a router: A alone, then the measured run
+    alone = _fleet_gateway_run(dev, model, gcfg, with_burst=False)
+    counts = _StepCounts()
+    before_mem = torch.cuda.memory_allocated(dev)
+    reset_launch_counts()
+    run = _fleet_gateway_run(dev, model, gcfg, with_burst=True,
+                             counts=counts)
+    path_counts = dict(launch_counts())
+    kinds = counts.check(L, "fleet gateway")
+    late = [(a, b) for a, b in zip(alone["first_step"], run["first_step"])
+            if b > a + 1]
+    if late:
+        raise AssertionError(f"tenant B's burst starved tenant A: first-"
+                             f"token steps alone {alone['first_step']}, "
+                             f"with the burst {run['first_step']}")
+    if not 0 < run["throttled"] < f["b_burst"]:
+        raise AssertionError(f"B's bucket throttled {run['throttled']} of "
+                             f"{f['b_burst']}")
+    for k in SERVING_KERNELS:
+        if path_counts[k] <= 0:
+            raise AssertionError(f"the fleet path launched no {k}")
+    per_step = {k: {"fresh_prefill_step": counts.by_kind["fresh"][0].get(k,
+                                                                         0),
+                    "decode_step": counts.by_kind["decode"][0].get(k, 0)}
+                for k in SERVING_KERNELS}
+    router = run["router"]
+    replica_gb = (torch.cuda.memory_allocated(dev) - before_mem) / 2 / 1e9
+    figures["gateway"] = {
+        "fleet_tokens_per_s": run["tokens"] / run["wall_s"],
+        "tokens": run["tokens"], "wall_s": run["wall_s"],
+        "ttft_ms": run["ttft_ms"],
+        "first_token_step_A_alone": alone["first_step"],
+        "first_token_step_A_with_burst": run["first_step"],
+        "throttled": run["throttled"],
+        "shed": run["counters"]["gateway/shed"],
+        "rerouted": run["counters"]["serving/reroutes"],
+        "admitted": run["counters"]["gateway/admitted"],
+        "slo_attainment": run["attainment"], "advice": run["advice"],
+        "steps_checked": kinds, "replica_gb_held": replica_gb}
+    log(f"fleet (1) gateway: {json.dumps(figures['gateway'])}")
+    del alone
+
+    # (2) disaggregation, f32 then bf16
+    f32_cfg = _fleet_config(dtype="float32")
+    f32_model = PagedCausalLM(f32_cfg, device=dev, seed=99)
+    d32 = _disagg_run(dev, f32_model, f32_cfg, sampling, "f32 disagg")
+    if not d32["streams_equal"]:
+        raise AssertionError(f"f32 disaggregated streams differ from the "
+                             f"single engine's: {d32['equal_tokens']} of "
+                             f"{d32['tokens']} tokens equal")
+    d16 = _disagg_run(dev, model, cfg, sampling, "bf16 disagg")
+    figures["disagg"] = {"f32": d32, "bf16": d16}
+    log(f"fleet (2) disaggregation: {json.dumps(figures['disagg'])}")
+
+    # (3) the supervisor, f32: an uninterrupted run, then kill@decode
+    clean = _supervised_run(dev, f32_model, f32_cfg, sampling, kill=False)
+    killed = _supervised_run(dev, f32_model, f32_cfg, sampling, kill=True)
+    if killed["streams"] != clean["streams"]:
+        eq = sum(a == b for s, r in zip(killed["streams"], clean["streams"])
+                 for a, b in zip(s, r))
+        raise AssertionError(f"f32 streams through kill@decode differ from "
+                             f"the uninterrupted run: {eq} tokens equal")
+    if killed["restarts"] != [0, 1] or not all(killed["healthy"]) \
+            or killed["counters"]["serving/drains"] < 1 \
+            or killed["counters"]["serving/drain_requeues"] < 1 \
+            or killed["counters"]["serving/replica_restored"] < 1:
+        raise AssertionError(f"fleet supervisor: {killed}")
+    figures["supervisor"] = {
+        "kill_to_drained_ms": killed["timing"]["drain"],
+        "restart_ms": killed["timing"]["restart"],
+        "migrated": killed["counters"]["serving/drains"],
+        "requeued": killed["counters"]["serving/drain_requeues"],
+        "drained_handles": killed["drained"],
+        "streams_equal_uninterrupted": True}
+    log(f"fleet (3) supervisor: {json.dumps(figures['supervisor'])}")
+    del f32_model, clean, killed, d32, d16
+
+    # (4) live weight publish into (1)'s fleet with requests in flight
+    sup = FleetSupervisor(router, lambda idx: ServingEngine.from_model(
+        model, gcfg, seed=40 + idx, device=dev),
+        FleetSupervisorConfig(backoff_base_s=0.0))
+    pub = WeightPublisher(router, model, supervisor=sup)
+    v1_model = PagedCausalLM(cfg, device=dev, seed=4321)
+    v1 = {k: p.detach() for k, p in v1_model.named_parameters()}
+    rng = np.random.RandomState(14)
+    old = [router.submit(p, max_new_tokens=f["max_new"]) for p in
+           _prompts(rng, (64, 100, 33, 80), cfg.vocab_size)]
+    for _ in range(3):
+        router.step_all()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = pub.publish(params=v1)
+    torch.cuda.synchronize()
+    rollout_s = time.perf_counter() - t
+    new = [router.submit(p, max_new_tokens=f["max_new"]) for p in
+           _prompts(rng, (48, 90), cfg.vocab_size)]
+    res = router.run_to_completion(max_steps=10 ** 4)
+    pinned = {}
+    for hs, v in ((old, 0), (new, 1)):
+        for h in hs:
+            idx, rid = router._handles[h]
+            got = router.replicas[idx].engine._requests[rid].weight_version
+            pinned[h] = got
+            if got != v or len(res[h]) != f["max_new"]:
+                raise AssertionError(f"publish: handle {h} ran under "
+                                     f"version {got}, not {v}")
+    fresh = ServingEngine.from_model(v1_model, cfg, seed=0, device=dev)
+    probe = list(range(1, 33))
+    for r in router.replicas:
+        if not np.array_equal(r.engine.probe_logits(probe),
+                              fresh.probe_logits(probe)):
+            raise AssertionError("version 1's probe_logits differ from a "
+                                 "fresh engine's over its weights")
+    if rep.committed != ["r0", "r1"] or rep.missed:
+        raise AssertionError(f"publish report {rep}")
+    figures["publish"] = {"rollout_s": rollout_s,
+                          "bytes": rep.bytes_shipped,
+                          "canary": rep.canary,
+                          "publish_s": rep.publish_s,
+                          "pinned_versions": sorted(pinned.values())}
+    log(f"fleet (4) weight publish: {json.dumps(figures['publish'])}")
+    del fresh
+
+    # (5a) the autoscaler: up by one, caught up to version 1 first
+    clock = [0.0]
+    tick = lambda: clock[0]                                  # noqa: E731
+    reg = M.MetricsRegistry()
+    tl = Timeline(registry=reg, clock=tick)
+    advisor = ScaleAdvisor(tl, window_s=10.0, min_windows=1,
+                           high_load=0.5, low_load=0.3)
+    factory = InProcessReplicaFactory(model, gcfg, seed_base=60,
+                                      device=dev)
+    sc = AutoScaler(router, sup, advisor, factory,
+                    AutoScalerConfig(min_replicas=2, max_replicas=3,
+                                     scale_up_after=2, scale_down_after=2,
+                                     cooldown_evals=1),
+                    publisher=pub, clock=tick)
+    load = reg.gauge("gateway/load_score")
+
+    def evaluate(value):
+        load.set(value)
+        clock[0] += 5.0
+        tl.sample()
+        return sc.evaluate()
+
+    recs = [evaluate(0.9) for _ in range(2)]
+    if recs[-1]["action"] != "scale_up" or router.fleet_size() != 3 \
+            or router.replicas[2].engine.active_weight_version != 1:
+        raise AssertionError(f"autoscaler scale-up: {recs}")
+
+    # (6) two replica children on the card beside the 3 in-process ones
+    kids = SubprocessReplicaFactory(
+        _cfg_kwargs(cfg), model_seed=1234, seed_base=200, device=dev.type,
+        pid_dir=tempfile.mkdtemp(prefix="pt_replicas_"),
+        spawn_timeout=300, rpc_timeout=300)
+    try:
+        spawn_s = []
+        reps = []
+        for slot in range(2):
+            t = time.perf_counter()
+            reps.append(kids.build(slot))
+            spawn_s.append(time.perf_counter() - t)
+        free, total = torch.cuda.mem_get_info(dev)
+        card_gb = (total - free) / 1e9
+        krouter = ReplicaRouter(reps)
+        ksup = FleetSupervisor(krouter, kids.make_engine_factory(),
+                               FleetSupervisorConfig(backoff_base_s=0.0))
+        stamps = {}
+        for name in ("drain", "restart"):
+            fn = getattr(ksup, name)
+
+            def stamped(idx, *a, _fn=fn, _name=name, **k):
+                stamps[_name + "_t0"] = time.perf_counter()
+                out = _fn(idx, *a, **k)
+                stamps[_name + "_s"] = time.perf_counter() \
+                    - stamps[_name + "_t0"]
+                return out
+            setattr(ksup, name, stamped)
+        rng = np.random.RandomState(15)
+        hs = [krouter.submit(p, max_new_tokens=f["max_new"],
+                             sampling=sampling[i])
+              for i, p in enumerate(_prompts(rng, (64, 100, 33, 80, 48, 90,
+                                                   120, 40),
+                                             cfg.vocab_size))]
+        for _ in range(6):
+            krouter.step_all()
+        victim = krouter.replicas[1].engine
+        survivor = krouter.replicas[0].engine
+        max_age = 0.0
+        faults.arm(f"sigkill@replica#1:rank={victim.child_rank}")
+        t_kill = time.perf_counter()
+        try:
+            while krouter._live_pending() or ksup.restarts[1] == 0:
+                if not krouter.step_all():
+                    time.sleep(0.005)
+                survivor.poll_heartbeats()
+                max_age = max(max_age, survivor.beat_age())
+                if time.perf_counter() - t_kill > 240:
+                    raise AssertionError("the subprocess fleet did not "
+                                         "recover within 240 s")
+        finally:
+            faults.disarm()
+        detect_s = stamps["drain_t0"] - t_kill
+        res = krouter.run_to_completion(max_steps=10 ** 4)
+        lost = [h for h in hs if len(res[h]) != f["max_new"]]
+        if victim.death is None \
+                or victim.death["reason"] != "missed_heartbeats" \
+                or victim.death["exit_class"] != "killed" or lost \
+                or survivor.dead:
+            raise AssertionError(f"subprocess fleet: death {victim.death}, "
+                                 f"lost {lost}")
+        # the survivor served fresh-prefill and decode steps on the card;
+        # the restarted child has run its warm-up probe
+        child_counts = [e.launch_counts()
+                        for e in (survivor, krouter.replicas[1].engine)]
+        if any(child_counts[0][k] <= 0 for k in SERVING_KERNELS) \
+                or child_counts[1]["rms_norm"] <= 0:
+            raise AssertionError(f"a child ran without the kernels: "
+                                 f"{child_counts}")
+        figures["children"] = {
+            "spawn_to_hello_s": spawn_s,
+            "warm_s": [r.engine.hello.get("warm_s") for r in reps],
+            "detect_dead_s": detect_s,
+            "heartbeat_budget_s": victim.beat_budget(),
+            "drain_s": stamps["drain_s"], "restart_s": stamps["restart_s"],
+            "survivor_max_beat_age_s": max_age,
+            "card_used_gb_3_inprocess_2_children": card_gb,
+            "child_launches": child_counts}
+        log(f"fleet (6) subprocess replicas: "
+            f"{json.dumps(figures['children'])}")
+    finally:
+        kids.close()
+    if kids.children:
+        raise AssertionError("replica children outlived the factory")
+
+    # (5b) down by one with requests in flight: the retiring replica drains
+    rng = np.random.RandomState(16)
+    hs = [router.submit(p, max_new_tokens=f["max_new"]) for p in
+          _prompts(rng, (64, 100, 33, 80, 48, 90), cfg.vocab_size)]
+    for _ in range(3):
+        router.step_all()
+    recs = []
+    while len(recs) < 8 and not any(r["action"] == "scale_down"
+                                    for r in recs):
+        recs.append(evaluate(0.0))
+    res = router.run_to_completion(max_steps=10 ** 4)
+    downs = [r for r in recs if r["action"] == "scale_down"]
+    lost = [h for h in hs if len(res[h]) != f["max_new"]]
+    if not downs or router.fleet_size() != 2 or lost:
+        raise AssertionError(f"autoscaler scale-down: {recs}, lost {lost}")
+    figures["autoscaler"] = {"history": sc.history,
+                             "drained_on_retire": downs[0].get("drained")}
+    log(f"fleet (5) autoscaler: {json.dumps(figures['autoscaler'])}")
+    figures["phase_s"] = time.perf_counter() - t_phase
+    log(f"fleet phase {figures['phase_s']:.1f} s; launches {path_counts}; "
+        f"a step {per_step}")
+    return {"counts": Counter(path_counts), "per_step": per_step,
+            "figures": figures}
+
+
+# ---------------------------------------------------------------------------
+# --elastic (four cards; also the end of --hybrid). elastic re-formation
+# through the launcher
 # ---------------------------------------------------------------------------
 
 # BERT-base by dist.to_static (phase 6g's row: BertConfig(), bf16 AMP,
@@ -8929,6 +9629,7 @@ def main():
         for k in keys:
             held.pop(k, None)
     resilience = phase_resilience(dev)
+    fleet = phase_fleet(dev, serving)
     by_path = {"serving": serving["counts"], "int8_serving": int8["counts"],
                "training": training["counts"],
                "packed_training": packed["counts"],
@@ -8937,7 +9638,7 @@ def main():
                "hybrid": hybrid["counts"],
                "pipeline": Counter(hybrid["pipeline_counts"]),
                "sep": sep["counts"], "auto_parallel": launch["counts"],
-               "resilience": resilience["counts"]}
+               "resilience": resilience["counts"], "fleet": fleet["counts"]}
     by_path.update(hybrid["path_counts"])
     by_path.update({kind: r["counts"] for kind, r in pretrain.items()})
     per_step = {p: {k: {"fresh_prefill_step": n,
@@ -8961,7 +9662,8 @@ def main():
                              for k in TRAINING_KERNELS},
                 "sep": sep["per_call"],
                 "auto_parallel": launch["launches_per_step"],
-                "resilience": resilience["launches_per_step"]})
+                "resilience": resilience["launches_per_step"],
+                "fleet": fleet["per_step"]})
     per_step.update(hybrid["path_per_step"])
     per_step.update({kind: r["metrics"]["launches_per_step"]
                      for kind, r in pretrain.items()})

@@ -390,3 +390,42 @@ __all__ += ["EngineOverloadedError", "PagedCausalLM", "PagedServingConfig",
             "sampling_salt", "save_paged_model", "resolve_backend_device",
             "PrefixCache", "Drafter", "NGramDrafter", "DraftModelDrafter",
             "WeightStreamer", "measure_stream_win", "build_weight_set"]
+
+# the fleet serving tier, loaded at first use (inference/__init__.py:
+# 350-390 of the reference): disaggregation, the router, the supervisor,
+# the publisher, the gateway, the autoscaler and process-isolated replicas
+_FLEET_EXPORTS = {
+    "PrefillWorker": "disagg", "DecodeWorker": "disagg",
+    "migrate_request": "disagg", "receive_request": "disagg",
+    "Replica": "router", "ReplicaRouter": "router",
+    "FleetSupervisor": "fleet_supervisor",
+    "FleetSupervisorConfig": "fleet_supervisor",
+    "LoopbackTransport": "fleet_supervisor",
+    "AutoScaler": "autoscaler", "AutoScalerConfig": "autoscaler",
+    "ReplicaFactory": "autoscaler",
+    "InProcessReplicaFactory": "autoscaler",
+    "WeightPublisher": "weight_publish",
+    "PublishPolicy": "weight_publish",
+    "PublishReport": "weight_publish",
+    "send_weight_set": "weight_publish",
+    "receive_weight_set": "weight_publish",
+    "FleetGateway": "gateway", "GatewayConfig": "gateway",
+    "SLOClassConfig": "gateway", "TenantConfig": "gateway",
+    "BrownoutConfig": "gateway", "BrownoutController": "gateway",
+    "TokenBucket": "gateway", "RetryBudget": "gateway",
+    "RemoteEngine": "remote_replica", "RemoteReplica": "remote_replica",
+    "SubprocessReplicaFactory": "remote_replica",
+}
+
+
+def __getattr__(name):
+    mod = _FLEET_EXPORTS.get(name)
+    if mod is None:
+        raise AttributeError(
+            f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module("." + mod, __name__), name)
+
+
+__all__ += sorted(_FLEET_EXPORTS)

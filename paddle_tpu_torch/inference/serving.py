@@ -53,11 +53,20 @@ The engine writes the reference's ``serving/*`` series into the metrics
 registry (``profiler.metrics``: TTFT, TPOT, steps, tokens, requests,
 preemptions, shed load, deadline evictions, the prefix cache's reuse, the
 speculative counters, batch occupancy, KV utilization and the live weight
-version), and ``stage_weight_set`` consults the ``publish`` chaos site.
+version), into a replica's child registry after ``set_metrics_namespace``.
 
-Not ported yet (ROADMAP.md): the weight publisher's transport and fleet
-tier, the other serving chaos sites and request tracing, and the
-StableHLO artifact of the decode step (``lower_fused_decode``).
+The fleet tier's hooks (inference/router.py, disagg.py,
+fleet_supervisor.py, gateway.py): each request records its lifecycle spans
+(``serving::admit``, ``serving::queue``, ``serving::prefill``,
+``serving::decode``) under one trace that travels with it; a request keeps
+its origin sampling identity (``salt_rid``, ``salt_seed``) across a
+migration or requeue, so its stream is the one its first engine would have
+sampled; a step consults the ``prefill`` and ``decode`` chaos sites before
+it takes a page (``kill`` fells the engine: ``dead`` set, EngineDeadError
+from then on), and ``stage_weight_set`` the ``publish`` site.
+
+Not ported (ROADMAP.md): the StableHLO artifact of the decode step
+(``lower_fused_decode``).
 """
 from __future__ import annotations
 
@@ -77,6 +86,7 @@ from ..ops.kernels import (add_launch_counts, launch_counts,
                            resolve_device)
 from ..ops.kernels.rope_append import _rope
 from ..profiler import metrics as _metrics
+from ..profiler import tracing as _tracing
 from .prefix_cache import PrefixCache, restore_snapshot, save_snapshot
 from .weight_stream import STREAM_KINDS, WeightStreamer
 
@@ -696,7 +706,8 @@ class _Request:
                  "cached", "done", "sampling", "eos_token_id", "submit_t",
                  "deadline_t", "timed_out", "requeues", "shared_keys",
                  "prefix_registered", "tenant", "spec_observed",
-                 "weight_version", "first_tok_t")
+                 "weight_version", "first_tok_t", "salt_rid", "salt_seed",
+                 "trace", "sched_t0")
 
     def __init__(self, rid, prompt, max_new, sampling, eos_token_id,
                  tenant=None, deadline_s=None):
@@ -714,6 +725,16 @@ class _Request:
         self.deadline_t = None if deadline_s is None \
             else self.submit_t + float(deadline_s)
         self.timed_out = False
+        # sampling identity (reference serving.py:575-579): a request
+        # moved between engines (migrated, requeued, drained) keeps its
+        # ORIGIN (seed, rid), so its stream is the single-engine one
+        self.salt_rid = rid
+        self.salt_seed = None      # None: the engine's own seed
+        # the admission span's context: every later lifecycle span parents
+        # to it, and it travels in hand-offs, so a moved request's spans
+        # share one trace id
+        self.trace = None
+        self.sched_t0 = None       # when a step first scheduled this row
         # how many times a router already retried this request elsewhere
         # (its cap is the router's)
         self.requeues = 0
@@ -969,7 +990,13 @@ class ServingEngine:
         # set_drafter: while a drafter is set, _step runs pure decode-tip
         # batches through _spec_step
         self._drafter = None
+        # serving/* handles; set_metrics_namespace rebinds them to a
+        # replica's child registry
+        self.metrics_namespace = None
         self._m = _EngineMetrics(_metrics.registry())
+        # liveness: a kill at a serving chaos site fells this engine; every
+        # call into a dead engine raises EngineDeadError until a
+        # supervisor replaces it
         self.dead = False
         # the rank the chaos injector sees for this engine's fault sites
         self.fault_rank = 0
@@ -988,6 +1015,9 @@ class ServingEngine:
         # (a router retries them elsewhere): it gets _requeue_info's dict
         # and must not raise, or the step sweeping it fails
         self.requeue_hook = None
+        from ..distributed.resilience import faults as _faults
+
+        _faults.maybe_arm_from_env()
         if self._prefix_cache is not None and cfg.prefix_snapshot_root:
             restore_snapshot(self, cfg.prefix_snapshot_root)
         if path_prefix is not None:
@@ -1130,6 +1160,7 @@ class ServingEngine:
         from ..distributed.resilience.errors import WeightTransferError
         from .weight_publish import crc32, host_tensor
 
+        self._check_alive()
         cur = self._params
         host = [host_tensor(a) for a in arrays]
         if len(host) != len(cur):
@@ -1194,6 +1225,7 @@ class ServingEngine:
         version."""
         from ..distributed.resilience.errors import PublishRejectedError
 
+        self._check_alive()
         if version <= self._active_wv:
             raise PublishRejectedError(
                 "stale_version", version, fence_version=self._active_wv)
@@ -1232,6 +1264,7 @@ class ServingEngine:
         and their graphs go. Returns the version rolled back to."""
         from ..distributed.resilience.errors import PublishRejectedError
 
+        self._check_alive()
         if self._prev_wv is None or self._prev_wv not in self._weight_sets:
             raise PublishRejectedError(
                 "no_previous", self._active_wv,
@@ -1277,6 +1310,7 @@ class ServingEngine:
         touching a live page, the scheduler or any request: one packed row
         through the fresh-prefill route, its KV written to the trash page
         0. Returns a float32 numpy vector of vocabulary logits."""
+        self._check_alive()
         if self._model is None:
             raise ValueError("probe_logits needs a from_model engine: the "
                              "exported serving artifact has no "
@@ -1320,7 +1354,8 @@ class ServingEngine:
         ``timed_out`` set, ``requeue_hook`` told). ``tenant`` scopes its
         prefix-cache reads and writes to that tenant's namespace. Raises
         EngineOverloadedError when cfg.max_queue live requests already
-        exist."""
+        exist, EngineDeadError when the engine is dead."""
+        self._check_alive()
         if len(prompt_tokens) == 0:
             raise ValueError("prompt must contain at least one token "
                              "(an empty row would read another request's "
@@ -1342,8 +1377,23 @@ class ServingEngine:
         req.weight_version = self._active_wv
         self._requests[rid] = req
         self._try_prefix_match(req)
+        # the root (or ambient-parented) span of the request's trace; the
+        # request keeps its context for every later lifecycle span
+        req.trace = _tracing.record_span(
+            "serving::admit", req.submit_t, time.perf_counter(),
+            args={"rid": rid, "engine": self.name})
         self._m.requests.inc()
         return rid
+
+    def set_metrics_namespace(self, namespace):
+        """Bind this engine's serving/* writes to the named child registry
+        of the global one (a replica's own series, rolled up into the
+        global ones), or back to the global registry for None."""
+        self.metrics_namespace = namespace
+        reg = _metrics.registry() if namespace is None \
+            else _metrics.child(namespace)
+        self._m = _EngineMetrics(reg)
+        return self._m
 
     def set_drafter(self, drafter, k=None):
         """Attach a speculative drafter (inference/speculative.py;
@@ -1465,23 +1515,58 @@ class ServingEngine:
     def _requeue_info(r):
         """What a router needs to retry an evicted request elsewhere
         (serving.py:985-1001): the prompt, the progress, the budget and
-        sampling, and the stream's identity: its salts' (rid, seed), the
-        seed None for this engine's own (no request migrates between
-        engines until the fleet tier is ported). ``trace`` stays None
-        until tracing is ported."""
+        sampling, the stream's sampling identity (``salt_rid``,
+        ``salt_seed``; a seed of None means the evicting engine's own),
+        its pinned weight version and its trace context."""
         return {"rid": r.rid, "prompt": list(r.prompt),
                 "generated": list(r.generated), "max_new": r.max_new,
                 "sampling": r.sampling, "eos_token_id": r.eos_token_id,
                 "timed_out": True, "requeues": r.requeues,
-                "tenant": r.tenant, "salt_rid": r.rid, "salt_seed": None,
-                "weight_version": r.weight_version, "trace": None}
+                "tenant": r.tenant, "salt_rid": r.salt_rid,
+                "salt_seed": r.salt_seed,
+                "weight_version": r.weight_version,
+                "trace": r.trace.to_dict() if r.trace is not None
+                else None}
 
     def timed_out_requests(self):
         """rids evicted by the deadline sweep (a front-end's 504)."""
         return [r.rid for r in self._requests.values() if r.timed_out]
 
+    # -- liveness and chaos sites -----------------------------------------
+    def _check_alive(self):
+        # getattr: argument checks stay usable on an engine built without
+        # __init__
+        if getattr(self, "dead", False):
+            from ..distributed.resilience.errors import EngineDeadError
+
+            raise EngineDeadError(self.name)
+
+    def _fault_event(self, site):
+        """Consult the chaos injector at a serving site (serving.py:
+        1012-1028): ``kill`` fells THIS engine (``dead`` and
+        EngineDeadError: a replica's death, in-process), ``delay``
+        sleeps; the frame kinds mean nothing here."""
+        from ..distributed.resilience import faults as _faults
+
+        act = _faults.injector.on_event(site, self.fault_rank)
+        if act is None:
+            return
+        if act.kind == "kill":
+            self.dead = True
+            from ..distributed.resilience.errors import EngineDeadError
+
+            raise EngineDeadError(self.name, site)
+        if act.kind == "delay":
+            time.sleep(act.delay_ms / 1e3)
+
     def _salt(self, r, n_generated):
-        return sampling_salt(self.seed, r.rid, n_generated)
+        """The salt of a request's token ``n_generated`` under its ORIGIN
+        identity: a request moved here from another engine keeps that
+        engine's (seed, rid), so it samples the stream it would have
+        sampled there. The decode windows advance these salts on the
+        device from the first step's."""
+        seed = self.seed if r.salt_seed is None else r.salt_seed
+        return sampling_salt(seed, r.salt_rid, n_generated)
 
     def _take_free_page(self):
         """Pop one free page, reclaiming a zero-ref prefix-cache page when
@@ -1579,6 +1664,7 @@ class ServingEngine:
         step once, sample one token for each request at its sequence tip.
         Returns the produced (rid, token) pairs."""
         cfg = self.cfg
+        self._check_alive()
         self._evict_expired()
         rows = self._schedule()
         preempted = set()
@@ -1605,8 +1691,26 @@ class ServingEngine:
             rows = self._schedule()
         if not rows:
             return []
+        # chaos sites, consulted before any page allocation or cache write
+        # (serving.py:1456-1463): a kill here leaves every scheduled request
+        # as it was before the step (a decode row still at its tip), so a
+        # supervisor can migrate it whole
+        if any(r.cached < len(r.prompt) for r, _ in rows):
+            self._fault_event("prefill")
+        if any(r.cached >= len(r.prompt) for r, _ in rows):
+            self._fault_event("decode")
         self._m.steps.inc()
         self._update_pool_gauges(len(rows))
+        # a request's first scheduling ends its queue span
+        now_sched = time.perf_counter()
+        for r, _chunk in rows:
+            if r.sched_t0 is None:
+                r.sched_t0 = now_sched
+                if r.trace is not None:
+                    _tracing.record_span(
+                        "serving::queue", r.submit_t, now_sched,
+                        parent=r.trace,
+                        args={"rid": r.rid, "engine": self.name})
         # a pure decode-tip batch runs as one draft + verify step
         if self._drafter is not None and all(
                 chunk == 1 and r.cached == r.length - 1
@@ -1683,6 +1787,7 @@ class ServingEngine:
                         and nxt == r.eos_token_id):
                 r.done = True
                 self._release(r)
+                self._trace_done(r, now)
         self._m.tokens.inc(len(produced))
         return produced
 
@@ -1690,6 +1795,23 @@ class ServingEngine:
         if req.first_tok_t is None:
             req.first_tok_t = now
             self._m.ttft.observe((now - req.submit_t) * 1e3)
+            if req.trace is not None:
+                begin = req.sched_t0 if req.sched_t0 is not None \
+                    else req.submit_t
+                _tracing.record_span(
+                    "serving::prefill", begin, now, parent=req.trace,
+                    args={"rid": req.rid, "engine": self.name})
+
+    def _trace_done(self, req, now):
+        """Close the request's decode span (first token to completion)."""
+        if req.trace is None:
+            return
+        begin = req.first_tok_t if req.first_tok_t is not None \
+            else req.submit_t
+        _tracing.record_span(
+            "serving::decode", begin, now, parent=req.trace,
+            args={"rid": req.rid, "engine": self.name,
+                  "tokens": len(req.generated)})
 
     def _update_pool_gauges(self, n_rows):
         cfg = self.cfg
@@ -1742,6 +1864,7 @@ class ServingEngine:
 
     def _decode_window_run(self, n_steps, graph):
         cfg = self.cfg
+        self._check_alive()
         self._evict_expired()
         rows = [r for r in self.pending() if r.length - r.cached == 1]
         if rows:
@@ -1752,6 +1875,9 @@ class ServingEngine:
                     if r.weight_version == wv][:cfg.max_batch]
         if not rows:
             return []
+        # the step's pre-write contract: every selected row is at its
+        # decode tip when a kill fires here, so it can migrate
+        self._fault_event("decode")
         n = min([n_steps] + [r.max_new - len(r.generated) for r in rows])
         # clamp the window to what the page pool can hold (free pages and
         # the zero-ref cache pages _take_free_page may evict); callers fall
@@ -1828,6 +1954,7 @@ class ServingEngine:
                             and nxt == r.eos_token_id):
                     r.done = True
                     self._release(r)
+                    self._trace_done(r, now)
         self._m.tokens.inc(len(produced))
         return produced
 
@@ -1948,6 +2075,7 @@ class ServingEngine:
             self._maybe_register_prefix(r)
             if r.done:
                 self._release(r)
+                self._trace_done(r, time.perf_counter())
             else:
                 keep = math.ceil(r.cached / cfg.block_size)
                 if len(r.pages) > keep:

@@ -22,7 +22,8 @@ from . import metrics
 __all__ = ["Profiler", "ProfilerTarget", "ProfilerState", "RecordEvent",
            "make_scheduler", "export_chrome_tracing", "export_protobuf",
            "load_profiler_result", "SummaryView", "metrics",
-           "host_tracing_active", "tracing", "digest", "TraceContext"]
+           "host_tracing_active", "tracing", "digest", "aggregate",
+           "timeline", "slo", "headroom", "TraceContext"]
 
 
 class ProfilerTarget(enum.Enum):
@@ -300,10 +301,20 @@ class Profiler:
         return msg
 
 
-# tracing layers TraceContext propagation on RecordEvent (above); digest
-# is the mergeable quantile sketch the registry's histograms use. The
-# reference's serving modules (aggregate, timeline, slo, headroom) are not
-# part of this package yet.
+# fleet observability plane, imported last: tracing layers TraceContext
+# propagation on RecordEvent (above), aggregate ships registry snapshots
+# across processes, digest is the mergeable quantile sketch both use; the
+# serving plane: timeline (the time dimension over the registry), slo
+# (objectives, attainment and burn alerts over the gateway's outcomes),
+# headroom (the autoscaler's advisory interface)
 from . import digest           # noqa: E402
 from . import tracing          # noqa: E402
+from . import aggregate        # noqa: E402
+from . import timeline         # noqa: E402
+from . import slo              # noqa: E402
+from . import headroom         # noqa: E402
 from .tracing import TraceContext  # noqa: E402
+from .aggregate import FleetAggregator  # noqa: E402
+from .timeline import Timeline, load_spill  # noqa: E402
+from .slo import SLOAlert, SLOObjective, SLOTracker  # noqa: E402
+from .headroom import ScaleAdvice, ScaleAdvisor  # noqa: E402

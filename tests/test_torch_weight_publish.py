@@ -365,3 +365,147 @@ def test_streamed_engine_versions(model):
     codes = eng._views[1].stream._q[("qkv", 0)]
     assert codes is eng._weight_sets[1][len(eng._names)]
     assert codes.dtype == torch.int8
+
+
+# -- the transport and the rollout controller (weight_publish.py:154-695) --
+
+def test_weight_set_over_loopback_is_crc_checked(model):
+    from paddle_tpu_torch.inference.fleet_supervisor import LoopbackTransport
+    from paddle_tpu_torch.inference.weight_publish import (
+        receive_weight_set, send_weight_set)
+
+    for ws in (None, "int8"):
+        eng = _engine(model, seed=2, ws=ws)
+        arrays, crcs = build_weight_set(model, _perturbed(model), eng.cfg,
+                                        weight_stream=ws)
+        tp = LoopbackTransport()
+        n = send_weight_set(tp, 0, 1, arrays, crcs)
+        assert n == sum(a.numel() * a.element_size() for a in arrays)
+        assert receive_weight_set(eng, tp, 0) == 1
+        for got, want in zip(eng._staged_weights[1], arrays):
+            assert torch.equal(got, want)
+        # one byte torn between the builder and the engine: refused, the
+        # engine serving as before with nothing staged
+        eng.discard_staged()
+        tp = LoopbackTransport()
+        send_weight_set(tp, 0, 2, arrays, crcs)
+        frames = tp._q["publish"]
+        big = max(range(1, len(frames)), key=lambda i: frames[i].size)
+        frames[big] = frames[big].copy()
+        frames[big][frames[big].size // 3] ^= 0x40
+        with pytest.raises(WeightTransferError, match="CRC"):
+            receive_weight_set(eng, tp, 0)
+        assert eng._staged_weights == {} and eng.active_weight_version == 0
+
+
+def _port_fleet(model, n=3):
+    from paddle_tpu_torch.inference.fleet_supervisor import (
+        FleetSupervisor, FleetSupervisorConfig)
+    from paddle_tpu_torch.inference.router import Replica, ReplicaRouter
+
+    engs = [_engine(model, seed=50 + i) for i in range(n)]
+    for i, e in enumerate(engs):
+        e.fault_rank = i
+    router = ReplicaRouter([Replica(e, name=f"r{i}", restore_after=1)
+                            for i, e in enumerate(engs)])
+    sup = FleetSupervisor(router, lambda idx: _engine(model, seed=50 + idx),
+                          FleetSupervisorConfig(backoff_base_s=0.0))
+    return router, sup
+
+
+def test_publisher_canary_rollout_rollback_and_catch_up(model):
+    from paddle_tpu_torch.distributed.resilience import faults
+    from paddle_tpu_torch.inference.weight_publish import WeightPublisher
+
+    router, sup = _port_fleet(model)
+    pub = WeightPublisher(router, model, supervisor=sup)
+    assert sup.weight_catchup == pub.catch_up
+    prompts = [[3, 4, 5, 6, 7], [9, 8, 7], [1, 2, 3, 4, 5, 6, 7, 8, 9]]
+    before = [router.submit(p, max_new_tokens=6, sampling=SP)
+              for p in prompts]
+    router.step_all()
+    new = _perturbed(model)
+    # a replica felled mid-stage misses the rollout, the rest commit
+    faults.arm("kill@publish:rank=2")
+    try:
+        rep = pub.publish(params=new)
+    finally:
+        faults.disarm()
+    assert rep.version == 1 and rep.canary == "r0"
+    assert rep.committed == ["r0", "r1"] and rep.missed == ["r2"]
+    assert rep.bytes_shipped > 0
+    after = [router.submit(p, max_new_tokens=6, sampling=SP)
+             for p in prompts]
+    sup.pump()                                  # restart + catch-up
+    assert [r.engine.active_weight_version for r in router.replicas] == \
+        [1, 1, 1]
+    res = router.run_to_completion()
+    # each stream runs under the version it was admitted under
+    for handles, params in ((before, None), (after, new)):
+        for h in handles:
+            idx, rid = router._handles[h]
+            r = router.replicas[idx].engine._requests[rid]
+            seed = router.replicas[idx].engine.seed if r.salt_seed is None \
+                else r.salt_seed
+            assert res[h] == _regen(model, r.prompt, r.salt_rid, seed, 6,
+                                    params=params)
+    # rollback: the whole fleet back on version 0
+    assert pub.rollback() == 0
+    assert [r.engine.active_weight_version for r in router.replicas] == \
+        [0, 0, 0]
+    # a poisoned candidate never commits anywhere
+    bad = dict(new)
+    bad["head.weight"] = bad["head.weight"].copy()
+    bad["head.weight"][0, :3] = np.nan
+    with pytest.raises(PublishRejectedError, match="canary_nonfinite"):
+        pub.publish(params=bad)
+    assert all(r.engine.active_weight_version == 0
+               and r.engine._staged_weights == {}
+               for r in router.replicas)
+
+
+def test_version_one_logits_equal_the_reference_engine():
+    from paddle_tpu.inference import fleet_supervisor as JFS
+    from paddle_tpu.inference import router as JR
+    from paddle_tpu_torch.inference.weight_publish import WeightPublisher
+
+    paddle.seed(23)
+    jcfg = JS.PagedServingConfig(**BASE)
+    jm = JS.PagedCausalLM(jcfg)
+    jm.eval()
+    named = {k: np.asarray(v) for k, v in current_params(jm).items()}
+    tm = TS.PagedCausalLM(TS.PagedServingConfig(**BASE),
+                          device="cpu").load_paddle_tpu_params(named)
+    rng = np.random.RandomState(4)
+    v1 = {k: (v + rng.normal(0, 0.05 * (np.std(v) + 1e-6), v.shape)
+              ).astype(np.float32) for k, v in named.items()}
+    jr = JR.ReplicaRouter([JS.ServingEngine.from_model(jm, jcfg, seed=s)
+                           for s in (1, 2)])
+    JP.WeightPublisher(jr, jm).publish(params=v1)
+    tr, _ = _port_fleet(tm, n=2)
+    rep = WeightPublisher(tr, tm).publish(params=v1)
+    assert rep.committed == ["r0", "r1"]
+    for prompt in ([3, 4, 5], [7, 1, 9, 2, 8, 6, 5]):
+        want = jr.replicas[0].engine.probe_logits(prompt)
+        for r in tr.replicas:
+            got = r.engine.probe_logits(prompt)
+            assert r.engine.active_weight_version == 1
+            np.testing.assert_allclose(got, want, rtol=1e-5,
+                                       atol=1e-5 * np.abs(want).max())
+    # and bit for bit against a port engine built on the version-1 weights
+    fresh = TS.ServingEngine.from_model(
+        _model_with(v1), TS.PagedServingConfig(**BASE), device="cpu")
+    np.testing.assert_array_equal(
+        fresh.probe_logits([3, 4, 5]), tr.replicas[0].engine.probe_logits(
+            [3, 4, 5]))
+
+
+@pytest.mark.parametrize("name", ["PublishPolicy", "PublishReport",
+                                  "WeightPublisher", "build_weight_set",
+                                  "send_weight_set", "receive_weight_set",
+                                  "PUBLISH_CHANNEL"])
+def test_publisher_surface_matches_reference(name):
+    from paddle_tpu_torch.inference import weight_publish as TP
+
+    assert name in JP.__all__ and name in TP.__all__
+    assert hasattr(TP, name)
